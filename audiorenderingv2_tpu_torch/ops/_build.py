@@ -1,0 +1,110 @@
+"""Build the port's CUDA kernels with ``nvcc`` and load them with ``ctypes``.
+
+Every ``csrc/*.cu`` file of this package is compiled, in one ``nvcc`` call,
+into one shared library with a plain C interface. The build happens at first
+use, into ``audiorenderingv2_tpu_torch/_build/<hash>/``, keyed by a hash of
+the sources and the flags, so a checkout with nothing built builds itself and
+an unchanged tree reuses its library.
+
+Flags: ``sm_90a`` (Hopper), ``-O3`` and ``-fmad=false``. The last keeps
+``nvcc`` from contracting a multiply and an add into one FMA: the plain
+PyTorch versions round every multiply and add on its own, and at 100
+bounces one changed ulp moves whole deposits between bins. No
+``--use_fast_math``: divisions and square roots stay IEEE-rounded.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+_PKG = Path(__file__).resolve().parent.parent
+CSRC = _PKG / "csrc"
+BUILD_ROOT = _PKG / "_build"
+LIB_NAME = "libar2kernels.so"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
+              "-std=c++17", "-shared", "-Xcompiler", "-fPIC", "-fmad=false",
+              "-Xptxas", "-v")
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_LL = ctypes.c_longlong
+# C signatures of csrc/*.cu; every function returns a cudaError_t.
+_SIGNATURES = {
+    # state, n, ncols, tris, n_tris, scal, n_bands, layout_bands, budget,
+    # max_bounces, stream
+    "ar2_trace_round": (_P, _LL, _I, _P, _I, _P, _I, _I, _I, _I, _P),
+    # bins, weights, n_events, n_bins, n_bands, out, stream
+    "ar2_histogram": (_P, _P, _LL, _I, _I, _P, _P),
+}
+
+
+def _nvcc() -> str:
+    path = shutil.which("nvcc")
+    if path is None and os.path.exists("/usr/local/cuda/bin/nvcc"):
+        path = "/usr/local/cuda/bin/nvcc"
+    if path is None:
+        raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA "
+                           "toolkit (set PATH to include its bin/)")
+    return path
+
+
+def sources() -> list[Path]:
+    return sorted(CSRC.glob("*.cu"))
+
+
+def build_dir() -> Path:
+    """Directory of the library for the current sources and flags."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return BUILD_ROOT / h.hexdigest()[:16]
+
+
+def build() -> Path:
+    """Compile the library if it is not built yet; return its path. The
+    compiler's output (registers, shared memory, spills per kernel) is kept
+    beside it in ``build.log``."""
+    out_dir = build_dir()
+    lib = out_dir / LIB_NAME
+    if lib.exists():
+        return lib
+    out_dir.mkdir(parents=True, exist_ok=True)
+    tmp = out_dir / f"{LIB_NAME}.{os.getpid()}.tmp"
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources())]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    log = (f"$ {' '.join(cmd)}\n{proc.stdout}{proc.stderr}"
+           f"# {time.perf_counter() - t0:.2f} s, exit {proc.returncode}\n")
+    (out_dir / "build.log").write_text(log)
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"nvcc failed:\n{log}")
+    os.replace(tmp, lib)  # atomic: a concurrent loader never sees half a file
+    return lib
+
+
+@functools.cache
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built on first call."""
+    lib = ctypes.CDLL(str(build()))
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    lib.ar2_error_string.argtypes = (_I,)
+    lib.ar2_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def check(err: int, name: str) -> None:
+    """Raise when a C entry point reports a CUDA error."""
+    if err != 0:
+        msg = library().ar2_error_string(err).decode()
+        raise RuntimeError(f"{name}: CUDA error {err} ({msg})")

@@ -1,0 +1,85 @@
+"""FFT convolution (auralization) on ``torch.fft``.
+
+The counterpart of ``audiorenderingv2_tpu/ops/convolve.py``. These are
+plain tensor operations, as in the JAX package, where ``jnp.fft`` computes
+them outside any Pallas kernel:
+
+* ``convolve_file``: the reference's overlap-add. The signal is cut into
+  1 s segments, each zero-padded to ir_length and circularly convolved with
+  the IR at FFT size ir_length (so each segment aliases its last second
+  exactly as the reference does), then overlap-added. The net scale is x2:
+  the reference's unnormalised cuFFT round trip scales by ir_length and it
+  divides by ir_length/2. Only whole seconds are processed; the output has
+  the input's length.
+* ``convolve_live``: one circular convolution at ir_length, same x2 scale.
+* ``interleave_stereo``: LRLR interleave.
+"""
+from __future__ import annotations
+
+import torch
+
+
+def _ola_segments(samples: torch.Tensor, sample_rate: int,
+                  ir_length: int) -> torch.Tensor:
+    """Cut the signal into zero-padded 1 s segments [S, ir_length]."""
+    n_seconds = samples.shape[0] // sample_rate
+    segs = samples[:n_seconds * sample_rate].reshape(n_seconds, sample_rate)
+    return torch.nn.functional.pad(segs, (0, ir_length - sample_rate))
+
+
+def convolve_file(samples: torch.Tensor, ir: torch.Tensor,
+                  sample_rate: int) -> torch.Tensor:
+    """Overlap-add convolution of ``samples`` [L] with one IR [ir_length];
+    returns f32 [L]."""
+    return convolve_file_stereo(samples, ir[None, :], sample_rate)[0]
+
+
+def convolve_file_stereo(samples: torch.Tensor, ir_stereo: torch.Tensor,
+                         sample_rate: int) -> torch.Tensor:
+    """Both ears at once: ``ir_stereo`` [2, ir_length] (any leading count
+    C works) -> f32 [C, L] on the IR's device."""
+    samples = torch.as_tensor(samples, dtype=torch.float32,
+                              device=ir_stereo.device)
+    ir_stereo = ir_stereo.to(torch.float32)
+    length = samples.shape[0]
+    n_ch, ir_length = ir_stereo.shape
+    if ir_length % sample_rate != 0:
+        raise ValueError("ir_length must be a multiple of sample_rate")
+    k = ir_length // sample_rate
+    segs = _ola_segments(samples, sample_rate, ir_length)
+    n_seconds = segs.shape[0]
+    spec = torch.fft.rfft(segs, dim=-1)[None] \
+        * torch.fft.rfft(ir_stereo, dim=-1)[:, None, :]
+    y = torch.fft.irfft(spec, n=ir_length, dim=-1)   # [C, S, ir_length]
+    # Overlap-add: segment s starts at s*sample_rate and spans k seconds.
+    yk = y.reshape(n_ch, n_seconds, k, sample_rate)
+    total = torch.zeros((n_ch, n_seconds + k - 1, sample_rate),
+                        dtype=torch.float32, device=y.device)
+    for m in range(k):
+        total[:, m:m + n_seconds] += yk[:, :, m, :]
+    out = total.reshape(n_ch, -1)
+    if out.shape[1] >= length:
+        out = out[:, :length]
+    else:
+        out = torch.nn.functional.pad(out, (0, length - out.shape[1]))
+    return out * 2.0
+
+
+def convolve_live(block: torch.Tensor, ir_stereo: torch.Tensor,
+                  double_precision: bool = False) -> torch.Tensor:
+    """Live-input block convolution: ``block`` [ir_length] (the input
+    frames zero-padded to ir_length) against ``ir_stereo`` [2, ir_length];
+    returns f32 [2, ir_length]. ``double_precision`` runs the FFT in
+    float64, as the reference's live path does."""
+    dtype = torch.float64 if double_precision else torch.float32
+    block = torch.as_tensor(block, device=ir_stereo.device).to(dtype)
+    ir_stereo = ir_stereo.to(dtype)
+    ir_length = block.shape[0]
+    spec = torch.fft.rfft(block)[None, :] * torch.fft.rfft(ir_stereo, dim=-1)
+    out = torch.fft.irfft(spec, n=ir_length, dim=-1) * 2.0
+    return out.to(torch.float32)
+
+
+def interleave_stereo(left: torch.Tensor, right: torch.Tensor) -> torch.Tensor:
+    """[n], [n] -> [2n] interleaved LRLR."""
+    return torch.stack([left, right], dim=-1).reshape(-1)

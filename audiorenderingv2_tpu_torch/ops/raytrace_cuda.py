@@ -1,0 +1,416 @@
+"""K1, the bounce round, and the loop of rounds around it.
+
+The counterpart of ``audiorenderingv2_tpu/ops/raytrace_pallas.py`` together
+with the rows part of ``raytrace_pallas_v2.py``:
+
+* ``pack_tris_rows``: the triangle rows the kernel reads (``pack_tris_v2``
+  with ``layout="rows"``, trimmed at the last valid triangle);
+* ``init_state``: the ray state, as ``[ncols, N]`` columns (structure of
+  arrays: ray ``i`` of column ``c`` is ``state[c, i]``), with the column
+  indices of the JAX package;
+* ``trace_round``: K1. It launches ``csrc/trace_round.cu`` for a CUDA
+  tensor, which replaces the TPU kernel
+  ``raytrace_pallas_v2.py:_trace_round_kernel_v2`` (rows branch, launched by
+  ``trace_round_v2``, :799), and runs the plain version,
+  ``trace_round_plain``, for a CPU tensor. The TPU kernel steps 128-ray
+  tiles in lockstep; the CUDA kernel gives each ray a thread that keeps its
+  state in registers for the whole round and leaves when the ray is done.
+  What bounds it on the card is FP32 throughput in the intersection loop and
+  warp divergence, which the partition between rounds limits; triangle
+  rows sit in shared memory. More in the source's header;
+* ``trace_events``: the loop of rounds, with per-round bounce budgets and an
+  alive-first partition of the ray state between rounds.
+
+Results do not depend on the schedule: every ray is independent, so round
+budgets and the partition change only the speed. The budgets must still
+sum to at least ``max_bounces``, or deep paths would be cut short.
+"""
+from __future__ import annotations
+
+import math
+from typing import TYPE_CHECKING
+
+import torch
+
+from .. import constants
+from ..core.params import TraceParams
+from . import _build
+
+if TYPE_CHECKING:
+    from ..core.tracer import SceneArrays
+
+# Kernel launches since import (or since a caller reset it to 0).
+launches = 0
+
+_LANES = 128      # rays are padded to a multiple of this
+_TRI_BLOCK = 16   # triangle rows are trimmed to whole blocks of this
+_MAX_BANDS = 8
+_NR = 24          # floats per triangle row: 16 fixed + up to 8 bands
+
+# Triangle-row columns (raytrace_pallas_v2.py:60-63).
+(_R_PNX, _R_PNY, _R_PNZ, _R_PD,
+ _R_AUX, _R_AUY, _R_AUZ, _R_AUO,
+ _R_AVX, _R_AVY, _R_AVZ, _R_AVO,
+ _R_NX, _R_NY, _R_NZ, _R_VAL, _R_ABS) = range(17)
+
+# Scalar slots (raytrace_pallas.py:61-63).
+_NSCAL = 16
+(_S_EMX, _S_EMY, _S_EMZ, _S_RCX, _S_RCY, _S_RCZ,
+ _S_SINY, _S_COSY, _S_E0, _S_ETHR, _S_DTHR, _S_BINRATE,
+ _S_R2, _S_BUDGET, _S_PAD14, _S_PAD15) = range(_NSCAL)
+
+# Ray-state columns (raytrace_pallas.py:72-75). RAYID rides along
+# untouched; LTRI = 1 + id of the triangle bounced off in the current round
+# (0 = none); RECVD = bounce depth at which the receiver was entered.
+(_C_PX, _C_PY, _C_PZ, _C_VX, _C_VY, _C_VZ,
+ _C_DIST, _C_EN, _C_DEPTH, _C_DONE,
+ _C_EVB, _C_EVW, _C_EVE, _C_RAYID, _C_LTRI, _C_RECVD) = range(16)
+
+
+def layout_bands(n_bands: int) -> int:
+    """Band capacity of the state layout (1, 4 or 8)."""
+    if not 1 <= n_bands <= _MAX_BANDS:
+        raise ValueError(f"the trace kernel supports 1 to {_MAX_BANDS} "
+                         f"bands, got {n_bands}")
+    return 1 if n_bands == 1 else (4 if n_bands <= 4 else 8)
+
+
+def state_ncols(n_bands: int) -> int:
+    """16 columns for one band; banded layouts add the extra energy and
+    event-weight columns, rounded up to a multiple of 8."""
+    lb = layout_bands(n_bands)
+    return 16 + (-(-(2 * (lb - 1)) // 8)) * 8
+
+
+def band_cols(n_bands: int) -> tuple[list[int], list[int]]:
+    """State columns of the per-band energies and event weights: band 0 in
+    EN/EVW, band b >= 1 at 16 + b - 1 and 16 + (layout_bands - 1) + b - 1."""
+    lb = layout_bands(n_bands)
+    en = [_C_EN] + [16 + b - 1 for b in range(1, n_bands)]
+    evw = [_C_EVW] + [16 + (lb - 1) + b - 1 for b in range(1, n_bands)]
+    return en, evw
+
+
+def pack_tris_rows(sc: SceneArrays, n_bands: int = 1) -> torch.Tensor:
+    """Triangle rows f32 [T_trim, 24]: plane (n, d), barycentric (a_u,
+    u_off, a_v, v_off), unit normal, valid flag, then one absorption column
+    per band. Trimmed to whole 16-row blocks past the LAST valid triangle:
+    valid = 0 also marks interior degenerate faces, so a trim at the valid
+    count would drop real tail triangles."""
+    if n_bands > _MAX_BANDS:
+        raise ValueError(f"the trace kernel supports at most {_MAX_BANDS} "
+                         f"bands")
+    t = sc.plane_n.shape[0]
+    absorb = sc.absorption
+    if absorb.dim() == 1:
+        absorb = absorb[:, None]
+    if absorb.shape[1] not in (1, n_bands) and n_bands > absorb.shape[1]:
+        raise ValueError(f"scene has {absorb.shape[1]} absorption bands "
+                         f"but params ask for {n_bands}; only 1-band "
+                         f"scenes broadcast")
+    ab_cols = [absorb[:, min(b, absorb.shape[1] - 1)] for b in range(n_bands)]
+    zeros = torch.zeros(t, dtype=torch.float32, device=sc.plane_n.device)
+    rows = torch.stack([
+        sc.plane_n[:, 0], sc.plane_n[:, 1], sc.plane_n[:, 2], sc.plane_d,
+        sc.bary_u[:, 0], sc.bary_u[:, 1], sc.bary_u[:, 2], sc.u_off,
+        sc.bary_v[:, 0], sc.bary_v[:, 1], sc.bary_v[:, 2], sc.v_off,
+        sc.normal[:, 0], sc.normal[:, 1], sc.normal[:, 2], sc.valid,
+        *ab_cols, *[zeros] * (_NR - 16 - n_bands),
+    ], dim=1).to(torch.float32)
+    valid_idx = torch.nonzero(sc.valid > 0)
+    n_valid = int(valid_idx.max()) + 1 if valid_idx.numel() else 0
+    keep = max(1, -(-n_valid // _TRI_BLOCK)) * _TRI_BLOCK
+    if keep < rows.shape[0]:
+        rows = rows[:keep]
+    if rows.shape[0] % _TRI_BLOCK:
+        raise ValueError(f"{rows.shape[0]} triangle rows are not a multiple "
+                         f"of {_TRI_BLOCK}")
+    return rows.contiguous()
+
+
+def scalars(emitter: torch.Tensor, receiver_pos: torch.Tensor, yaw_deg,
+            e0: float, params: TraceParams) -> torch.Tensor:
+    """The f32 [16] scalar row both versions of K1 read."""
+    dev = emitter.device
+    yaw_rad = torch.deg2rad(torch.as_tensor(yaw_deg, dtype=torch.float32,
+                                            device=dev))
+    vals = torch.zeros(_NSCAL, dtype=torch.float32, device=dev)
+    vals[_S_EMX:_S_EMZ + 1] = emitter
+    vals[_S_RCX:_S_RCZ + 1] = receiver_pos
+    vals[_S_SINY] = torch.sin(yaw_rad)
+    vals[_S_COSY] = torch.cos(yaw_rad)
+    vals[_S_E0] = e0
+    vals[_S_ETHR] = params.energy_threshold
+    vals[_S_DTHR] = params.distance_threshold
+    vals[_S_BINRATE] = params.sample_rate / constants.SPEED_OF_SOUND
+    vals[_S_R2] = constants.RECEIVER_RADIUS ** 2
+    return vals
+
+
+def init_state(directions: torch.Tensor, emitter: torch.Tensor, e0: float,
+               n_pad: int, n_bands: int = 1) -> torch.Tensor:
+    """The initial ray state f32 [ncols, n_pad]. Padding rays start done
+    with zero energy."""
+    n = directions.shape[0]
+    state = torch.zeros((state_ncols(n_bands), n_pad), dtype=torch.float32,
+                        device=directions.device)
+    state[_C_PX:_C_PZ + 1] = emitter[:, None]
+    state[_C_VX:_C_VZ + 1, :n] = directions.T
+    for c in band_cols(n_bands)[0]:
+        state[c, :n] = e0
+    state[_C_DONE, n:] = 1.0
+    return state
+
+
+def _round_schedule(max_bounces: int, first: int = 6,
+                    growth: int = 2) -> list[int]:
+    """Geometric per-round bounce budgets summing to >= max_bounces; the
+    last round absorbs a sub-geometric remainder (100 -> [6, 12, 24, 58])."""
+    budgets = []
+    total = 0
+    b = first
+    while total < max_bounces:
+        remaining = max_bounces - total
+        b = remaining if remaining <= b + b // 2 else min(b, remaining)
+        budgets.append(b)
+        total += b
+        b *= growth
+    return budgets
+
+
+def _partition_alive_first(state: torch.Tensor) -> torch.Tensor:
+    """Stable alive-first reorder of the ray columns: two cumsums give each
+    ray its slot, a scatter inverts that into a permutation, and one
+    ``index_select`` applies it."""
+    n = state.shape[1]
+    alive = (state[_C_DONE] == 0.0).to(torch.int64)
+    ca = torch.cumsum(alive, 0)
+    cd = torch.cumsum(1 - alive, 0)
+    dest = torch.where(alive > 0, ca - 1, ca[-1] + cd - 1)
+    perm = torch.empty_like(dest).scatter_(
+        0, dest, torch.arange(n, device=state.device))
+    return state.index_select(1, perm)
+
+
+# ----------------------------------------------------------------- K1, plain
+
+def _nearest_hit(px, py, pz, vx, vy, vz, tris: torch.Tensor,
+                 chunk: int = 64):
+    """Nearest valid triangle hit per ray: (t [k], index [k]); t = inf on a
+    miss. Triangles are taken in chunks with a strict running minimum, so
+    ties go to the lowest index, as in the TPU kernel."""
+    k = px.shape[0]
+    best_t = torch.full((k,), math.inf, dtype=torch.float32,
+                        device=px.device)
+    best_i = torch.zeros((k,), dtype=torch.int64, device=px.device)
+    px, py, pz, vx, vy, vz = (a[None, :] for a in (px, py, pz, vx, vy, vz))
+    for c0 in range(0, tris.shape[0], chunk):
+        r = tris[c0:c0 + chunk]
+        cr = lambda j: r[:, j:j + 1]  # noqa: E731  [c, 1]
+        nd = vx * cr(_R_PNX) + vy * cr(_R_PNY) + vz * cr(_R_PNZ)
+        no = px * cr(_R_PNX) + py * cr(_R_PNY) + pz * cr(_R_PNZ) + cr(_R_PD)
+        safe = torch.abs(nd) > 1e-12
+        t = -no / torch.where(safe, nd, 1.0)
+        ou = px * cr(_R_AUX) + py * cr(_R_AUY) + pz * cr(_R_AUZ) + cr(_R_AUO)
+        du = vx * cr(_R_AUX) + vy * cr(_R_AUY) + vz * cr(_R_AUZ)
+        u = ou + t * du
+        ov = px * cr(_R_AVX) + py * cr(_R_AVY) + pz * cr(_R_AVZ) + cr(_R_AVO)
+        dv = vx * cr(_R_AVX) + vy * cr(_R_AVY) + vz * cr(_R_AVZ)
+        v = ov + t * dv
+        ok = (safe & (t > constants.T_MIN)
+              & (u >= -1e-7) & (v >= -1e-7) & (u + v <= 1.0 + 1e-7)
+              & (cr(_R_VAL) > 0))
+        ct, ci = torch.where(ok, t, math.inf).min(dim=0)
+        better = ct < best_t
+        best_t = torch.where(better, ct, best_t)
+        best_i = torch.where(better, ci + c0, best_i)
+    return best_t, best_i
+
+
+def _bounce(s: torch.Tensor, tris: torch.Tensor, scal: torch.Tensor,
+            en_cols: list[int], evw_cols: list[int], max_bounces: int):
+    """One bounce of the rays in ``s`` [ncols, k], in place."""
+    inf = math.inf
+    px, py, pz, vx, vy, vz = (s[c] for c in range(_C_PX, _C_VZ + 1))
+    dist, depth, done = s[_C_DIST], s[_C_DEPTH], s[_C_DONE]
+    energy = [s[c] for c in en_cols]
+    e_max = energy[0]
+    for e in energy[1:]:
+        e_max = torch.maximum(e_max, e)
+    can_continue = ((dist < scal[_S_DTHR]) & (e_max > scal[_S_ETHR])
+                    & (depth < float(max_bounces)))
+    alive = (done == 0.0) & can_continue
+
+    best_t, best_i = _nearest_hit(px, py, pz, vx, vy, vz, tris)
+
+    # receiver sphere, tested before the surface
+    ocx = px - scal[_S_RCX]
+    ocy = py - scal[_S_RCY]
+    ocz = pz - scal[_S_RCZ]
+    b = ocx * vx + ocy * vy + ocz * vz
+    cc = ocx * ocx + ocy * ocy + ocz * ocz - scal[_S_R2]
+    disc = b * b - cc
+    sph_hit = disc > 0.0
+    sq = torch.sqrt(torch.where(sph_hit, disc, 0.0))
+    t1 = -b - sq
+    t2 = -b + sq
+    t_sph = torch.where(sph_hit & (t1 > constants.T_MIN), t1,
+                        torch.where(sph_hit & (t2 > constants.T_MIN), t2,
+                                    inf))
+    chord = t2 - t1  # also from inside the sphere
+    receiver = alive & (t_sph < best_t)
+    surface = alive & ~receiver & (best_t < inf)
+    miss = alive & ~receiver & ~surface
+
+    t_sph_safe = torch.where(t_sph < inf, t_sph, 0.0)
+    dist_r = dist + t_sph_safe
+    hx = px + t_sph_safe * vx - scal[_S_RCX]
+    hz = pz + t_sph_safe * vz - scal[_S_RCZ]
+    local_z = -scal[_S_SINY] * hx + scal[_S_COSY] * hz
+    ear = (local_z >= 0.0).to(torch.float32)
+    ev_bin = torch.where(receiver, dist_r * scal[_S_BINRATE], s[_C_EVB])
+    ev_w = [torch.where(receiver, e * chord, s[c])
+            for e, c in zip(energy, evw_cols)]
+    ev_ear = torch.where(receiver, ear, s[_C_EVE])
+
+    # surface bounce: reflect, absorb, offset
+    t_hit = torch.where(best_t < inf, best_t, 0.0)
+    row = tris[best_i]  # [k, 24]
+    bnx, bny, bnz = row[:, _R_NX], row[:, _R_NY], row[:, _R_NZ]
+    dn = vx * bnx + vy * bny + vz * bnz
+    rx = vx - 2.0 * dn * bnx
+    ry = vy - 2.0 * dn * bny
+    rz = vz - 2.0 * dn * bnz
+    eps = constants.BOUNCE_EPSILON
+    new = {
+        _C_PX: torch.where(surface, px + t_hit * vx + eps * rx, px),
+        _C_PY: torch.where(surface, py + t_hit * vy + eps * ry, py),
+        _C_PZ: torch.where(surface, pz + t_hit * vz + eps * rz, pz),
+        _C_VX: torch.where(surface, rx, vx),
+        _C_VY: torch.where(surface, ry, vy),
+        _C_VZ: torch.where(surface, rz, vz),
+        _C_DIST: torch.where(surface, dist + t_hit, dist),
+        _C_EVB: ev_bin,
+        _C_EVE: ev_ear,
+        _C_LTRI: torch.where(surface, best_i.to(torch.float32) + 1.0,
+                             s[_C_LTRI]),
+        # depth before the increment: receiver rays are not surface rays
+        _C_RECVD: torch.where(receiver, depth, s[_C_RECVD]),
+        _C_DEPTH: torch.where(surface, depth + 1.0, depth),
+        _C_DONE: torch.maximum(
+            done, (receiver | miss | ~can_continue).to(torch.float32)),
+    }
+    for band, (ec, wc) in enumerate(zip(en_cols, evw_cols)):
+        new[ec] = torch.where(surface,
+                              energy[band] * (1.0 - row[:, _R_ABS + band]),
+                              energy[band])
+        new[wc] = ev_w[band]
+    for c, val in new.items():
+        s[c] = val
+
+
+def trace_round_plain(state: torch.Tensor, tris: torch.Tensor,
+                      scal: torch.Tensor, params: TraceParams,
+                      round_budget: int) -> torch.Tensor:
+    """Plain PyTorch version of K1: advance every ray by up to
+    ``round_budget`` bounces, in place. Each bounce gathers the rays that
+    are not done yet, steps them, and scatters them back; done rays are
+    untouched, as in the kernel."""
+    en_cols, evw_cols = band_cols(params.n_bands)
+    state[_C_LTRI] = 0.0
+    for _ in range(round_budget):
+        idx = torch.nonzero(state[_C_DONE] == 0.0).squeeze(1)
+        if idx.numel() == 0:
+            break
+        s = state[:, idx]
+        _bounce(s, tris, scal, en_cols, evw_cols, params.max_bounces)
+        state[:, idx] = s
+    return state
+
+
+def _check_round(state, tris, scal, n_bands, round_budget) -> None:
+    for name, x in (("state", state), ("tris", tris), ("scal", scal)):
+        if x.dtype != torch.float32 or not x.is_contiguous():
+            raise ValueError(f"{name} must be contiguous float32, got "
+                             f"{x.dtype}")
+        if x.device != state.device:
+            raise ValueError(f"{name} on {x.device}, state on "
+                             f"{state.device}")
+    if state.dim() != 2 or state.shape[0] != state_ncols(n_bands):
+        raise ValueError(f"state must be [{state_ncols(n_bands)}, N] for "
+                         f"{n_bands} band(s), got {tuple(state.shape)}")
+    if tris.dim() != 2 or tris.shape[1] != _NR:
+        raise ValueError(f"tris must be [T, {_NR}], got {tuple(tris.shape)}")
+    if scal.shape != (_NSCAL,):
+        raise ValueError(f"scal must be [{_NSCAL}], got {tuple(scal.shape)}")
+    if int(round_budget) < 1:
+        raise ValueError(f"round budget must be >= 1, got {round_budget}")
+
+
+def trace_round(state: torch.Tensor, tris: torch.Tensor, scal: torch.Tensor,
+                params: TraceParams, round_budget: int) -> torch.Tensor:
+    """K1: advance every ray of ``state`` [ncols, N] by up to
+    ``round_budget`` bounces, in place; returns ``state``. A CUDA tensor
+    goes to the kernel, a CPU tensor to :func:`trace_round_plain`."""
+    global launches
+    _check_round(state, tris, scal, params.n_bands, round_budget)
+    if state.device.type == "cpu":
+        return trace_round_plain(state, tris, scal, params,
+                                 int(round_budget))
+    if state.device.type != "cuda":
+        raise ValueError(f"no trace kernel for device {state.device}")
+    lib = _build.library()
+    stream = torch.cuda.current_stream(state.device).cuda_stream
+    err = lib.ar2_trace_round(
+        state.data_ptr(), state.shape[1], state.shape[0], tris.data_ptr(),
+        tris.shape[0], scal.data_ptr(), params.n_bands,
+        layout_bands(params.n_bands), int(round_budget),
+        params.max_bounces, stream)
+    launches += 1
+    _build.check(err, "ar2_trace_round")
+    return state
+
+
+# ------------------------------------------------------- the loop of rounds
+
+def trace_events(tris: torch.Tensor, directions: torch.Tensor,
+                 emitter: torch.Tensor, receiver_pos: torch.Tensor,
+                 receiver_yaw_deg, params: TraceParams,
+                 n_total_rays: int | None = None, compact: bool = True,
+                 round_budgets: tuple | None = None):
+    """Trace ``directions`` [N, 3] in bounce rounds.
+
+    ``tris``: rows from :func:`pack_tris_rows`. ``n_total_rays``: the ray
+    count that normalises the per-ray energy when this call traces a share
+    of a larger launch. ``round_budgets``: explicit per-round budgets (they
+    must sum to at least ``max_bounces``); by default a geometric schedule.
+    ``compact``: partition the state alive-first between rounds.
+
+    Returns the event slots (ev_bin_f f32 [n_pad], ev_w f32 [n_pad,
+    n_bands], ev_ear int32 [n_pad]); padding rays carry zero weight.
+    """
+    n = directions.shape[0]
+    n_real = n_total_rays if n_total_rays is not None else n
+    n_pad = -(-n // _LANES) * _LANES
+    if round_budgets is not None:
+        if sum(round_budgets) < params.max_bounces:
+            raise ValueError(
+                f"round_budgets {round_budgets} sum to "
+                f"{sum(round_budgets)} < max_bounces {params.max_bounces}; "
+                f"deep paths would be truncated")
+        budgets = list(round_budgets)
+    elif not compact:
+        budgets = [params.max_bounces]
+    else:
+        budgets = _round_schedule(params.max_bounces)
+
+    e0 = params.base_power / (n_real * constants.SPHERE_VOLUME)
+    scal = scalars(emitter, receiver_pos, receiver_yaw_deg, e0, params)
+    state = init_state(directions, emitter, e0, n_pad, params.n_bands)
+    for k, budget in enumerate(budgets):
+        state = trace_round(state, tris, scal, params, budget)
+        if compact and k + 1 < len(budgets):
+            state = _partition_alive_first(state)
+    evw_cols = band_cols(params.n_bands)[1]
+    return (state[_C_EVB].contiguous(), state[evw_cols].T.contiguous(),
+            state[_C_EVE].to(torch.int32))

@@ -1,0 +1,203 @@
+"""AudioRenderer: the render/convolve facade.
+
+The counterpart of ``audiorenderingv2_tpu/renderer.py``. It owns the scene
+tensors on one device (built once per scene: the receiver is an analytic
+sphere, so pose changes never touch geometry), the trace parameters, an
+explicit ``torch.Generator`` for the ray directions, and the last IR, kept
+on the device for the convolutions.
+
+Not ported yet (ROADMAP.md): banded scenes, whose per-band IRs need the
+filterbank (Queue 1 item 5b); the live-input convolution of the streaming
+layer (item 10).
+"""
+from __future__ import annotations
+
+import dataclasses
+import os
+import threading
+
+import numpy as np
+import torch
+
+from . import constants, tuned
+from .core.params import TraceParams
+from .core.tracer import TracerOptions, render_ir, scene_to_arrays
+from .ops import convolve
+from .ops.raytrace_cuda import pack_tris_rows
+from .scene import Scene
+
+
+class AudioRenderer:
+    """Renders binaural impulse responses and convolves audio with them.
+
+    Args:
+      scene: host-side Scene (absorptions already resolved).
+      ir_seconds: IR length in seconds.
+      sample_rate: audio sample rate; the IR bin rate equals it.
+      n_rays: rays per render.
+      base_power, energy_threshold, max_bounces, hrtf_absorption_rate,
+      is_mono: pathtracer parameters (config.json).
+      opts: tracer options; None = ``tuned.auto_options`` for the scene.
+      seed: seed of the direction generator; renders draw from it in turn,
+        so the sequence of IRs is reproducible.
+      device: where the scene, the trace and the IR live. A CUDA device
+        runs the kernels, the CPU their plain versions.
+    """
+
+    def __init__(
+        self,
+        scene: Scene,
+        ir_seconds: int,
+        sample_rate: int,
+        n_rays: int,
+        *,
+        base_power: float = 100.0,
+        energy_threshold: float = 0.0,
+        max_bounces: int = 10,
+        hrtf_absorption_rate: float = constants.DEFAULT_HRTF_ABSORPTION,
+        is_mono: bool = False,
+        opts: TracerOptions | None = None,
+        seed: int = 0,
+        device: torch.device | str = "cuda",
+    ):
+        if scene.absorption.ndim == 2 and scene.absorption.shape[1] > 1:
+            raise NotImplementedError(
+                "banded absorption (per-band IRs and the filterbank) is not "
+                "ported yet: ROADMAP.md Queue 1 item 5b")
+        self.device = torch.device(device)
+        self.n_rays = int(n_rays)
+        self._auto_opts = opts is None
+        if opts is None:
+            opts = tuned.auto_options(scene.n_triangles, int(max_bounces))
+        self.opts = opts
+        self.scene = scene
+        self.sc = scene_to_arrays(scene, device=self.device)
+        self.params = TraceParams(
+            sample_rate=int(sample_rate),
+            ir_length=int(ir_seconds) * int(sample_rate),
+            base_power=float(base_power),
+            energy_threshold=float(energy_threshold),
+            max_bounces=int(max_bounces),
+            hrtf_absorption_rate=float(hrtf_absorption_rate),
+            is_mono=bool(is_mono),
+        )
+        # K1's triangle rows, packed once: the trim at the last valid
+        # triangle reads it back to the host.
+        self.rows = pack_tris_rows(self.sc, self.params.n_bands)
+        self.emitter_pos = np.zeros(3, np.float32)
+        self.receiver_pos = np.zeros(3, np.float32)
+        self.receiver_yaw_deg = 0.0
+        self.generator = torch.Generator(device=self.device)
+        self.generator.manual_seed(int(seed))
+        self._ir_dev: torch.Tensor | None = None
+        self._ir: np.ndarray | None = None
+        # One-shot debug dumps (config write_first_* keys).
+        self.write_ir_to_file_flag = False
+        self.write_output_to_file_flag = False
+        self.dump_dir = "."
+        # Serialises full_render_cycle against concurrent audio pulls.
+        self.lock = threading.RLock()
+
+    # ------------------------------------------------------------- setters
+    def set_emitter_pos(self, pos) -> None:
+        self.emitter_pos = np.asarray(pos, np.float32)
+
+    def set_receiver(self, pos, yaw_deg: float) -> None:
+        self.receiver_pos = np.asarray(pos, np.float32)
+        self.receiver_yaw_deg = float(yaw_deg)
+
+    def set_thresholds(self, energy_threshold: float, max_bounces: int) -> None:
+        self.params = dataclasses.replace(
+            self.params, energy_threshold=float(energy_threshold),
+            max_bounces=int(max_bounces))
+        if self._auto_opts:
+            # Auto options carry round budgets scaled to max_bounces; rescale
+            # them so a deeper limit never trips the budget-sum guard.
+            self.opts = tuned.auto_options(self.scene.n_triangles,
+                                           int(max_bounces))
+
+    def set_base_power(self, base_power: float) -> None:
+        self.params = dataclasses.replace(self.params,
+                                          base_power=float(base_power))
+
+    def set_hrtf_absorption_rate(self, rate: float) -> None:
+        self.params = dataclasses.replace(self.params,
+                                          hrtf_absorption_rate=float(rate))
+
+    def set_mono_output(self, is_mono: bool) -> None:
+        self.params = dataclasses.replace(self.params, is_mono=bool(is_mono))
+
+    # ------------------------------------------------------------- render
+    def render(self, generator: torch.Generator | None = None) -> np.ndarray:
+        """Trace a fresh IR from the renderer's generator (or ``generator``)
+        and return it as float32 [2, ir_length] (left, right). The IR also
+        stays on the device (``ir_device``) for the convolutions."""
+        if generator is None:
+            generator = self.generator
+        ir = render_ir(self.sc, generator, self.n_rays,
+                       self.emitter_pos, self.receiver_pos,
+                       self.receiver_yaw_deg, self.params, self.opts,
+                       rows=self.rows)
+        if self.params.is_mono:
+            # addIRs fold: both ears carry the sum (kernels.cu:519-536).
+            ir = ir.sum(dim=0, keepdim=True).expand_as(ir).contiguous()
+        self._ir_dev = ir
+        self._ir = ir.cpu().numpy()
+        if self.write_ir_to_file_flag:
+            self.dump_ir()
+            self.write_ir_to_file_flag = False  # one-shot, like the reference
+        return self._ir
+
+    @property
+    def ir(self) -> np.ndarray | None:
+        """Last rendered IR on the host, [2, ir_length]."""
+        return self._ir
+
+    @property
+    def ir_device(self) -> torch.Tensor | None:
+        """Last rendered IR on the renderer's device, [2, ir_length]."""
+        return self._ir_dev
+
+    def dump_ir(self, prefix: str = "output_ir") -> tuple[str, str]:
+        """Write the current IR as one-value-per-line text files."""
+        if self._ir is None:
+            raise RuntimeError("render() an IR first")
+        paths = []
+        for name, channel in (("left", self._ir[0]), ("right", self._ir[1])):
+            path = os.path.join(self.dump_dir, f"{prefix}_{name}.txt")
+            np.savetxt(path, channel, fmt="%.9g")
+            paths.append(path)
+        return tuple(paths)
+
+    # --------------------------------------------------------- convolution
+    def convolve_audio_file_device(self, samples) -> torch.Tensor:
+        """Convolve a full signal with the current IR on the device; returns
+        the f32 [2, L] tensor there, with no host copy and no dump."""
+        if self._ir_dev is None:
+            raise RuntimeError("render() an IR first")
+        return convolve.convolve_file_stereo(samples, self._ir_dev,
+                                             self.params.sample_rate)
+
+    def convolve_audio_file(self, samples: np.ndarray) -> np.ndarray:
+        """Convolve a full signal with the current IR: overlap-add per 1 s
+        segment, output truncated to the input length. Returns float32
+        [2, L] on the host."""
+        out = self.convolve_audio_file_device(
+            np.asarray(samples, np.float32)).cpu().numpy()
+        if self.write_output_to_file_flag:
+            for name, channel in (("left", out[0]), ("right", out[1])):
+                np.savetxt(os.path.join(self.dump_dir,
+                                        f"output_convolute_{name}.txt"),
+                           channel, fmt="%.9g")
+            self.write_output_to_file_flag = False
+        return out
+
+    # ---------------------------------------------------------- full cycle
+    def full_render_cycle(self, receiver_pos, receiver_yaw_deg: float,
+                          samples: np.ndarray) -> np.ndarray:
+        """Move the listener, re-render, convolve; returns the stereo
+        output [2, L]."""
+        with self.lock:
+            self.set_receiver(receiver_pos, receiver_yaw_deg)
+            self.render()
+            return self.convolve_audio_file(samples)

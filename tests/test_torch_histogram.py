@@ -1,0 +1,122 @@
+"""K3's plain version and the events-to-IR step against the JAX package."""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import audiorenderingv2_tpu as ar
+from audiorenderingv2_tpu.core import binning as j_binning
+from audiorenderingv2_tpu.core import tracer as j_tracer
+from audiorenderingv2_tpu.ops import histogram_pallas
+from audiorenderingv2_tpu_torch import convert
+from audiorenderingv2_tpu_torch.core import binning as t_binning
+from audiorenderingv2_tpu_torch.core import tracer as t_tracer
+from audiorenderingv2_tpu_torch.ops import histogram_cuda
+
+torch.set_num_threads(1)
+
+
+def _events(e, n_bins, n_bands, seed, scale=1e-3):
+    """Bins with ~10% below 0 or past n_bins (to be dropped)."""
+    rng = np.random.default_rng(seed)
+    bins = rng.integers(-n_bins // 20, n_bins + n_bins // 20,
+                        size=e).astype(np.int32)
+    w = (rng.random((e, n_bands)) * scale).astype(np.float32)
+    return bins, w
+
+
+def _sort_path_atol(w):
+    """The JAX sort path reads each bin as the difference of two f32 prefix
+    sums, so its error is a few ulp of the running total, not of the bin:
+    4 ulp of the largest band total."""
+    return 4 * np.finfo(np.float32).eps * float(w.sum(axis=0).max())
+
+
+@pytest.mark.parametrize("n_bands", [1, 3])
+def test_plain_matches_pallas_and_sort_path(n_bands):
+    """Against float64, the Pallas kernel (interpret mode) and the JAX sort
+    path. Direct f32 sums in another order agree to rtol 1e-5 (a few ulp
+    over the ~3 deposits per bin here); the sort path to its own bound."""
+    n_bins = 2000
+    bins, w = _events(5000, n_bins, n_bands, seed=n_bands)
+    got = histogram_cuda.histogram_sum_banded(
+        torch.from_numpy(bins), torch.from_numpy(w), n_bins).numpy()
+    pallas = np.asarray(histogram_pallas.histogram_sum_banded_pallas(
+        jnp.asarray(bins), jnp.asarray(w), n_bins, True))
+    sort = np.asarray(j_binning.histogram_sum_banded(
+        jnp.asarray(bins), jnp.asarray(w), n_bins, use_pallas=False))
+    keep = (bins >= 0) & (bins < n_bins)
+    ref = np.zeros((n_bins, n_bands))
+    np.add.at(ref, bins[keep], w[keep].astype(np.float64))
+    assert got.shape == (n_bins, n_bands) and got.dtype == np.float32
+    for other in (pallas, ref):
+        np.testing.assert_allclose(got, other, rtol=1e-5, atol=1e-12)
+    np.testing.assert_allclose(got, sort, rtol=1e-5,
+                               atol=_sort_path_atol(w[keep]))
+    assert (~keep).sum() > 100  # the drop path was exercised
+
+
+def test_no_swamping_at_a_million_tiny_events():
+    """1M deposits of ~1e-9 over a 2 s stereo IR, against float64: direct
+    accumulation keeps every deposit (the JAX sort path's f32 cumsum lost
+    75% of occupied bins at this scale)."""
+    n_bins = 64000
+    rng = np.random.default_rng(9)
+    bins = rng.integers(0, n_bins, size=1_000_000).astype(np.int32)
+    w = (rng.random((1_000_000, 1)) * 2e-9).astype(np.float32)
+    got = t_binning.histogram_sum_banded(
+        torch.from_numpy(bins), torch.from_numpy(w), n_bins).numpy()[:, 0]
+    ref = np.bincount(bins, weights=w[:, 0].astype(np.float64),
+                      minlength=n_bins)
+    occ = ref > 0
+    rel = np.abs(got[occ] - ref[occ]) / ref[occ]
+    assert np.median(rel) < 1e-6 and rel.max() < 1e-5
+    assert np.count_nonzero(got) == np.count_nonzero(ref)
+
+
+def _random_events(n, nb, n_bands, seed):
+    rng = np.random.default_rng(seed)
+    bin_f = rng.uniform(-5, nb + 20, size=n).astype(np.float32)
+    w = (rng.random((n, n_bands)) * 1e-4).astype(np.float32)
+    w[rng.random(n) < 0.3] = 0.0  # inactive slots
+    ear = rng.integers(0, 2, size=n).astype(np.int32)
+    return bin_f, w, ear
+
+
+@pytest.mark.parametrize("mode", ["stereo", "mono", "soft", "banded"])
+def test_histogram_from_events_matches(mode):
+    """Hard binning with the cross-ear shift, mono (the flat-bins path),
+    soft binning, and three bands, against the JAX function on its CPU
+    histogram (the sort path, hence its tolerance)."""
+    nb = 3000
+    n_bands = 3 if mode == "banded" else 1
+    params = ar.TraceParams(sample_rate=8000, ir_length=nb,
+                            hrtf_absorption_rate=0.8,
+                            is_mono=(mode == "mono"), n_bands=n_bands)
+    bin_f, w, ear = _random_events(6000, nb, n_bands, seed=len(mode))
+    soft = mode == "soft"
+    ref = np.asarray(j_tracer._histogram_from_events(
+        jnp.asarray(bin_f), jnp.asarray(w), jnp.asarray(ear), params, soft,
+        use_pallas_hist=False))
+    got = t_tracer._histogram_from_events(
+        torch.from_numpy(bin_f), torch.from_numpy(w), torch.from_numpy(ear),
+        convert.trace_params_from_jax(params), soft).numpy()
+    assert got.shape == ref.shape
+    # soft binning and the cross-ear slot at most double the summed weight
+    np.testing.assert_allclose(got, ref, rtol=1e-5,
+                               atol=2 * _sort_path_atol(w))
+    # the last cross_ear_delay bins carry the overflow fallback
+    assert params.cross_ear_delay > 0 and ref.sum() > 0
+
+
+def test_histogram_wrapper_checks():
+    bins = torch.zeros(4, dtype=torch.int32)
+    w = torch.ones(4, 1)
+    with pytest.raises(TypeError):
+        histogram_cuda.histogram_sum_banded(bins.long(), w, 8)
+    with pytest.raises(ValueError, match="bins \\[E\\]"):
+        histogram_cuda.histogram_sum_banded(bins, w[:3], 8)
+    with pytest.raises(ValueError, match="no histogram kernel"):
+        histogram_cuda.histogram_sum_banded(bins.to("meta"), w.to("meta"), 8)
+    with pytest.raises(ValueError, match="weight rows"):
+        t_binning.histogram_sum_banded(bins, w[:3], 8)

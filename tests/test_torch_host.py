@@ -1,0 +1,293 @@
+"""The PyTorch port's host layer against the JAX package: the copied numpy
+modules, the scene tensors, the packed triangle rows and the converters."""
+import dataclasses
+import json
+import os
+import subprocess
+import sys
+import textwrap
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+import audiorenderingv2_tpu as ar
+from audiorenderingv2_tpu import config as j_config
+from audiorenderingv2_tpu import scene as j_scene
+from audiorenderingv2_tpu import testing as jt
+from audiorenderingv2_tpu.io import obj as j_obj
+from audiorenderingv2_tpu.io import wav as j_wav
+from audiorenderingv2_tpu.ops import raytrace_pallas_v2 as rp2
+from audiorenderingv2_tpu_torch import config as t_config
+from audiorenderingv2_tpu_torch import convert
+from audiorenderingv2_tpu_torch import scene as t_scene
+from audiorenderingv2_tpu_torch import testing as tt
+from audiorenderingv2_tpu_torch.core import tracer as t_tracer
+from audiorenderingv2_tpu_torch.io import obj as t_obj
+from audiorenderingv2_tpu_torch.io import wav as t_wav
+from audiorenderingv2_tpu_torch.ops import raytrace_cuda as rc
+
+torch.set_num_threads(1)
+
+REPO = Path(__file__).resolve().parent.parent
+COPIES = ["constants.py", "config.py", "scene.py", "io/obj.py", "io/wav.py"]
+
+
+def _np(sc):
+    """JAX SceneArrays -> dict of numpy arrays (what convert.py takes)."""
+    return {k: None if v is None else np.asarray(v)
+            for k, v in sc._asdict().items()}
+
+
+def _degenerate_scene():
+    """Box room with a degenerate sliver injected mid-array (the trim case
+    of test_pallas.py::test_interior_degenerate_triangle_keeps_tail_geometry)."""
+    v, t = jt.box_room((4.0, 3.0, 5.0))
+    v = np.concatenate([v, np.zeros((3, 3), np.float32)])
+    n = v.shape[0]
+    t = np.concatenate([t[:6], [[n - 3, n - 2, n - 1]], t[6:]]).astype(
+        np.int32)
+    return v, t
+
+
+SCENES = {
+    "box": lambda: jt.box_room((12.0, 8.0, 10.0)),
+    "ico": lambda: jt.icosphere(radius=6.0, subdivisions=2),
+    "degenerate": _degenerate_scene,
+}
+
+
+def test_port_imports_without_jax():
+    """Every module of the port imports with JAX made unimportable, and
+    nothing pulls in the JAX package."""
+    code = textwrap.dedent("""
+        import importlib, pkgutil, sys
+        sys.modules["jax"] = None
+        import audiorenderingv2_tpu_torch as pkg
+        for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
+            importlib.import_module(m.name)
+        bad = [m for m, mod in sys.modules.items() if mod is not None and (
+               m == "audiorenderingv2_tpu"
+               or m.startswith("audiorenderingv2_tpu.")
+               or m.startswith("jax"))]
+        assert not bad, bad
+        print("ok")
+    """)
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    proc = subprocess.run([sys.executable, "-c", code], env=env, cwd=REPO,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "ok"
+
+
+@pytest.mark.parametrize("rel", COPIES)
+def test_copied_module_source_equals_original(rel):
+    """The copies differ from their originals only by the one-line note
+    that opens the module docstring."""
+    port = (REPO / "audiorenderingv2_tpu_torch" / rel).read_text()
+    orig = (REPO / "audiorenderingv2_tpu" / rel).read_text()
+    note, rest = port.split("\n\n", 1)
+    assert note.startswith('"""[Copy of audiorenderingv2_tpu/' + rel)
+    assert '"""' + rest == orig
+
+
+def test_config_parse_matches():
+    data = {
+        "renderer_parameters": {"ir_length_in_seconds": 2,
+                                "initial_volume": 0.5},
+        "scene_parameters": {"mono": True, "audio_file_path": "a.wav",
+                             "scene_file_path": "room.obj",
+                             "initial_receiver_pos": {"x": 1, "y": 2,
+                                                      "z": 3}},
+        "pathtracer_parameters": {
+            "rays": {"x": 10, "y": 20, "z": 30}, "ray_max_bounces": 40,
+            "base_power": 3.62, "hrtf_absorption_rate": 0.8,
+            "materials": [{"name": "walls", "mat_absorption": 0.3},
+                          {"name": "rug", "mat_absorption":
+                           [0.1, 0.2, 0.3, 0.4]}]},
+    }
+    a = j_config.parse_config(json.loads(json.dumps(data)))
+    b = t_config.parse_config(json.loads(json.dumps(data)))
+    assert dataclasses.asdict(a) == dataclasses.asdict(b)
+    assert (a.pathtracer.n_rays, a.pathtracer.n_bands) == \
+        (b.pathtracer.n_rays, b.pathtracer.n_bands)
+    bad = {"pathtracer_parameters": {"rays": "many"}}
+    for mod in (j_config, t_config):
+        with pytest.raises(ValueError):
+            mod.parse_config(bad)
+
+
+def _assert_scene_equal(a, b):
+    for f in dataclasses.fields(a):
+        x, y = getattr(a, f.name), getattr(b, f.name)
+        if isinstance(x, np.ndarray):
+            np.testing.assert_array_equal(x, y, err_msg=f.name)
+        else:
+            assert x == y, f.name
+
+
+@pytest.mark.parametrize("name", sorted(SCENES))
+def test_build_scene_matches(name):
+    v, t = SCENES[name]()
+    mesh_j = jt.mesh_from_arrays(v, t)
+    mesh_t = t_obj.MeshData(vertices=mesh_j.vertices,
+                            triangles=mesh_j.triangles,
+                            tri_material=mesh_j.tri_material,
+                            material_names=[])
+    absorb = np.linspace(0.1, 0.6, t.shape[0]).astype(np.float32)
+    _assert_scene_equal(j_scene.build_scene(mesh_j, absorb),
+                        t_scene.build_scene(mesh_t, absorb))
+
+
+def test_obj_mtl_and_wav_match(tmp_path):
+    obj = tt.write_box_obj(tmp_path / "room.obj", material="walls")
+    with open(obj, "a") as f:  # a second material and a quad face
+        f.write("usemtl rug\nv 0 -4.4 0\nv 1 -4.4 0\nv 1 -4.4 1\n"
+                "v 0 -4.4 1\nf 9 10 11 12\n")
+    mats_j = [j_config.MaterialSpec("walls", 0.3),
+              j_config.MaterialSpec("rug", 0.7)]
+    mats_t = [t_config.MaterialSpec("walls", 0.3),
+              t_config.MaterialSpec("rug", 0.7)]
+    mj, mt = j_obj.load_obj(obj), t_obj.load_obj(obj)
+    np.testing.assert_array_equal(mj.vertices, mt.vertices)
+    np.testing.assert_array_equal(mj.triangles, mt.triangles)
+    np.testing.assert_array_equal(mj.tri_material, mt.tri_material)
+    assert mj.material_names == mt.material_names == ["walls", "rug"]
+    _assert_scene_equal(j_scene.load_scene(obj, mats_j),
+                        t_scene.load_scene(obj, mats_t))
+
+    rng = np.random.default_rng(3)
+    x = rng.uniform(-0.9, 0.9, size=(2, 1000)).astype(np.float32)
+    j_wav.write_wav(tmp_path / "j.wav", x, 16000)
+    t_wav.write_wav(tmp_path / "t.wav", x, 16000)
+    assert (tmp_path / "j.wav").read_bytes() == \
+        (tmp_path / "t.wav").read_bytes()
+    a = j_wav.read_wav(tmp_path / "t.wav")
+    b = t_wav.read_wav(tmp_path / "j.wav")
+    assert a.sample_rate == b.sample_rate == 16000
+    np.testing.assert_array_equal(a.samples, b.samples)
+    np.testing.assert_array_equal(j_wav.normalize_minus_one_to_one(x[0]),
+                                  t_wav.normalize_minus_one_to_one(x[0]))
+
+
+@pytest.mark.parametrize("tri_chunk", [128, 2048])
+@pytest.mark.parametrize("name", sorted(SCENES))
+def test_scene_to_arrays_matches(name, tri_chunk):
+    """Equal to the JAX arrays; u_off/v_off within 1 ulp: the port sums the
+    three products in index order, the JAX package through an einsum whose
+    order XLA picks."""
+    v, t = SCENES[name]()
+    scene = jt.scene_from_arrays(v, t, 0.3)
+    a = _np(ar.scene_to_arrays(scene, tri_chunk))
+    b = t_tracer.scene_to_arrays(scene, tri_chunk)
+    for f in t_tracer.SceneArrays._fields:
+        x, y = a[f], getattr(b, f).numpy()
+        assert x.shape == y.shape and y.dtype == np.float32, f
+        if f in ("u_off", "v_off"):
+            np.testing.assert_array_max_ulp(x, y, maxulp=1)
+        else:
+            np.testing.assert_array_equal(x, y, err_msg=f)
+
+
+@pytest.mark.parametrize("n_bands", [1, 3])
+@pytest.mark.parametrize("name", sorted(SCENES))
+def test_pack_tris_rows_matches(name, n_bands):
+    """pack_tris_rows == pack_tris_v2(layout="rows"), trim included."""
+    v, t = SCENES[name]()
+    absorb = np.linspace(0.1, 0.6, t.shape[0] * n_bands).astype(
+        np.float32).reshape(t.shape[0], n_bands)
+    scene = jt.scene_from_arrays(v, t, absorb if n_bands > 1 else 0.3)
+    sc = ar.scene_to_arrays(scene, 128)
+    rows_j, _, _ = rp2.pack_tris_v2(sc, n_bands, layout="rows")
+    rows_t = rc.pack_tris_rows(convert.scene_arrays_from_jax(_np(sc)),
+                               n_bands)
+    np.testing.assert_array_equal(np.asarray(rows_j), rows_t.numpy())
+    if name == "degenerate":
+        valid = np.asarray(sc.valid)
+        assert valid[6] == 0.0 and valid[12] == 1.0
+        assert rows_t.shape[0] >= 13  # every real triangle survives
+
+
+def test_convert_round_trip():
+    v, t = jt.box_room((5.0, 4.0, 3.0))
+    sc = ar.scene_to_arrays(jt.scene_from_arrays(v, t, 0.25), 128)
+    arrays = _np(sc)
+    back = convert.scene_arrays_to_numpy(convert.scene_arrays_from_jax(arrays))
+    assert set(back) == set(t_tracer.SceneArrays._fields)
+    for k, x in back.items():
+        np.testing.assert_array_equal(arrays[k], x)
+    params = ar.TraceParams(sample_rate=8000, ir_length=16000,
+                            base_power=2.0, energy_threshold=1e-9,
+                            max_bounces=7, hrtf_absorption_rate=0.7,
+                            is_mono=True, n_bands=3)
+    p = convert.trace_params_from_jax(params)
+    assert dataclasses.asdict(p) == dataclasses.asdict(params)
+    assert (p.distance_threshold, p.cross_ear_delay) == \
+        (params.distance_threshold, params.cross_ear_delay)
+    with pytest.raises(NotImplementedError):
+        convert.scene_arrays_from_jax(
+            dict(arrays, cluster_boxes=np.zeros((1, 8), np.float32)))
+
+
+def test_tracer_options_from_jax():
+    """Result options and round budgets carry over; TPU tuning is dropped."""
+    j = ar.TracerOptions(soft_binning=True, pallas_compact=False,
+                         pallas_round_budgets=(2, 3, 5),
+                         pallas_precision="high", pallas_layout="group",
+                         rays_per_tile=512, pallas_unroll=4,
+                         pallas_partition_mode="sort",
+                         pallas_dynamic_grid=True)
+    assert convert.tracer_options_from_jax(j) == t_tracer.TracerOptions(
+        soft_binning=True, compact=False, round_budgets=(2, 3, 5))
+    assert convert.tracer_options_from_jax(ar.TracerOptions()) == \
+        t_tracer.TracerOptions()
+
+
+def test_renderer_packs_rows_once():
+    """The renderer keeps the scene's rows, equal to a fresh pack, and a
+    render with them equals trace_ir packing its own."""
+    from audiorenderingv2_tpu_torch import renderer as t_renderer
+    from audiorenderingv2_tpu_torch.core import sampling
+
+    v, t = jt.box_room((6.0, 4.0, 5.0))
+    r = t_renderer.AudioRenderer(tt.scene_from_arrays(v, t, 0.3), 1, 8000,
+                                 2048, max_bounces=12, device="cpu")
+    r.set_receiver((1.0, 0.5, 1.0), 20.0)
+    assert torch.equal(r.rows, rc.pack_tris_rows(r.sc))
+    g = torch.Generator().manual_seed(4)
+    d = sampling.sample_directions(2048, g, "cpu")
+    args = (d, r.emitter_pos, r.receiver_pos, r.receiver_yaw_deg, r.params,
+            r.opts)
+    torch.testing.assert_close(t_tracer.trace_ir(r.sc, *args, rows=r.rows),
+                               t_tracer.trace_ir(r.sc, *args),
+                               rtol=0.0, atol=0.0)
+
+
+@pytest.mark.parametrize("exact", [True, False])
+def test_assert_ir_close_matches_reference_bar(exact):
+    """The port's copy of assert_ir_close accepts and rejects what the JAX
+    package's accepts and rejects."""
+    rng = np.random.default_rng(5)
+    a = rng.uniform(0, 1e-3, size=(2, 500)).astype(np.float32)
+    close = a * (1 + 1e-5)
+    moved = a.copy()
+    moved[0, :50] = np.roll(moved[0, :50], 7)
+    for b in (close, moved, a * 1.01):
+        verdicts = []
+        for fn in (jt.assert_ir_close, tt.assert_ir_close):
+            try:
+                fn(a, b, exact=exact)
+                verdicts.append(True)
+            except AssertionError:
+                verdicts.append(False)
+        assert verdicts[0] == verdicts[1]
+
+
+def test_box_room_matches_reference():
+    for size in [(14.0, 9.0, 11.0), (3.0, 4.0, 5.0)]:
+        for x, y in zip(jt.box_room(size), tt.box_room(size)):
+            np.testing.assert_array_equal(x, y)
+    v, t = jt.box_room()
+    _assert_scene_equal(jt.scene_from_arrays(v, t, 0.3),
+                        tt.scene_from_arrays(v, t, 0.3))
