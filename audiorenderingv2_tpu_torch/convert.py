@@ -19,20 +19,17 @@ from .core.tracer import SceneArrays, TracerOptions
 def scene_arrays_from_jax(np_arrays: dict,
                           device: torch.device | str = "cpu") -> SceneArrays:
     """The port's SceneArrays from the JAX package's, given as numpy arrays
-    keyed by field name. Cluster boxes (the K2 path, not ported yet) must
-    be absent or None."""
-    if np_arrays.get("cluster_boxes") is not None:
-        raise NotImplementedError("clustered scenes (K2) are not ported yet: "
-                                  "ROADMAP.md Queue 2")
+    keyed by field name; ``cluster_boxes`` may be absent or None."""
     return SceneArrays(**{
-        f: torch.tensor(np.asarray(np_arrays[f]), dtype=torch.float32,
-                           device=device)
+        f: None if np_arrays.get(f) is None else torch.tensor(
+            np.asarray(np_arrays[f]), dtype=torch.float32, device=device)
         for f in SceneArrays._fields})
 
 
 def scene_arrays_to_numpy(sc: SceneArrays) -> dict:
     """The port's SceneArrays as a dict of numpy arrays (the inverse)."""
-    return {f: getattr(sc, f).cpu().numpy() for f in SceneArrays._fields}
+    return {f: None if getattr(sc, f) is None else getattr(sc, f).cpu().numpy()
+            for f in SceneArrays._fields}
 
 
 def trace_params_from_jax(params) -> TraceParams:

@@ -2,11 +2,14 @@
 
 The counterpart of ``audiorenderingv2_tpu/core/tracer.py`` on the export
 path. ``trace_ir`` packs the triangle rows, runs the bounce rounds of
-``ops/raytrace_cuda.py`` (K1) and sums the events into the binaural IR
-through ``core/binning.py`` (K3). The tensors' device picks the route: a
-CUDA tensor launches the kernels, a CPU tensor runs their plain versions.
-The same code path serves every scene size (the JAX package's Morton-cluster
-schedule, K2, is not ported yet; see ROADMAP.md).
+``ops/raytrace_cuda.py`` and sums the events into the binaural IR through
+``core/binning.py`` (K3). A scene without cluster boxes takes the rows
+route (K1 over every triangle, several bounces per round); a scene with
+them, Morton-sorted by ``accel.prepare_scene``, the clustered route (one
+bounce per round: the per-tile schedule, then K2 over each tile's candidate
+clusters, then a coherent sort of the rays). The tensors' device picks the
+kernels: a CUDA tensor launches them, a CPU tensor runs their plain
+versions.
 
 Geometry stays elementwise: no dot product here is a matmul or an einsum,
 which on the card could run in TF32 and lose the bits that decide whether a
@@ -28,7 +31,9 @@ class SceneArrays(NamedTuple):
     """Scene tensors, float32, triangle count T padded like the JAX package
     pads it (to 128, then to the triangle chunk).
 
-    ``u_off``/``v_off`` fold the -v0 term of the barycentric map."""
+    ``u_off``/``v_off`` fold the -v0 term of the barycentric map.
+    ``cluster_boxes``: None, or the [C, 8] boxes of a Morton-sorted scene
+    (lo xyz, hi xyz, valid flag, 0), one per ``T // C`` triangles."""
 
     plane_n: torch.Tensor     # [T, 3]
     plane_d: torch.Tensor     # [T]
@@ -39,6 +44,7 @@ class SceneArrays(NamedTuple):
     normal: torch.Tensor      # [T, 3] unit geometric normal
     absorption: torch.Tensor  # [T] or [T, n_bands]
     valid: torch.Tensor       # [T] 1.0 real / 0.0 padding or degenerate
+    cluster_boxes: torch.Tensor | None = None  # [C, 8]
 
     @property
     def device(self) -> torch.device:
@@ -66,10 +72,12 @@ class TracerOptions:
 
 def scene_to_arrays(scene, tri_chunk: int = 2048,
                     absorption: np.ndarray | None = None,
-                    device: torch.device | str = "cpu") -> SceneArrays:
+                    device: torch.device | str = "cpu",
+                    clusters=None) -> SceneArrays:
     """Pack a host Scene into f32 tensors on ``device``, padded to a whole
     number of triangle chunks. ``absorption`` may override the scene's
-    per-triangle absorption."""
+    per-triangle absorption. ``clusters``: the ``accel.ClusterData`` of a
+    scene from ``accel.prepare_scene``; it adds the cluster boxes."""
     t = scene.v0.shape[0]
     t_pad = ((t + 127) // 128) * 128
     tc = min(tri_chunk, t_pad)
@@ -89,11 +97,25 @@ def scene_to_arrays(scene, tri_chunk: int = 2048,
     u_off = -(v0[:, 0] * bu[:, 0] + v0[:, 1] * bu[:, 1] + v0[:, 2] * bu[:, 2])
     v_off = -(v0[:, 0] * bv[:, 0] + v0[:, 1] * bv[:, 1] + v0[:, 2] * bv[:, 2])
     absorb = scene.absorption if absorption is None else absorption
+    boxes = None
+    if clusters is not None:
+        # One box per cluster of the padded triangles; an empty or padding
+        # cluster keeps flag 0 and a zeroed box, since an inverted box would
+        # pass a min/max slab test (audiorenderingv2_tpu/core/tracer.py:194).
+        n_clus = t_pad // clusters.cluster_size
+        b = np.zeros((n_clus, 8), np.float32)
+        m = min(clusters.n_clusters, n_clus)
+        for j, col in enumerate((clusters.lo_x, clusters.lo_y, clusters.lo_z,
+                                 clusters.hi_x, clusters.hi_y, clusters.hi_z)):
+            b[:m, j] = col[:m]
+        b[:m, 6] = np.isfinite(clusters.lo_x[:m]).astype(np.float32)
+        b = np.nan_to_num(b, posinf=0.0, neginf=0.0)
+        boxes = torch.from_numpy(b).to(device)
     return SceneArrays(
         plane_n=pad(scene.plane_n), plane_d=pad(scene.plane_d),
         bary_u=pad(scene.bary_u), bary_v=pad(scene.bary_v),
         u_off=pad(u_off), v_off=pad(v_off), normal=pad(scene.normal),
-        absorption=pad(absorb), valid=pad(scene.valid))
+        absorption=pad(absorb), valid=pad(scene.valid), cluster_boxes=boxes)
 
 
 def _slot_bins(bin_f: torch.Tensor, active: torch.Tensor, n_bins: int,
@@ -194,24 +216,29 @@ def trace_ir(sc: SceneArrays, directions: torch.Tensor, emitter,
              receiver_pos, receiver_yaw_deg: float, params: TraceParams,
              opts: TracerOptions = TracerOptions(),
              n_total_rays: int | None = None,
-             rows: torch.Tensor | None = None) -> torch.Tensor:
+             rows: torch.Tensor | None = None,
+             boxes: torch.Tensor | None = None) -> torch.Tensor:
     """Trace ``directions`` [N, 3] and return the stereo IR histogram on
     the scene's device: f32 [2, ir_length], or [2, n_bands, ir_length]
     when ``params.n_bands > 1``. Mono folding is the renderer's job.
 
-    ``rows``: the scene's triangle rows from ``pack_tris_rows(sc,
-    params.n_bands)``, packed once per scene by a caller that renders it
-    many times; None packs them here."""
+    ``rows``, ``boxes``: the scene's packed triangle rows and cluster boxes
+    from ``raytrace_cuda.pack_scene(sc, params.n_bands)``, packed once per
+    scene by a caller that renders it many times; None packs them here.
+    The clustered route runs when the scene has cluster boxes."""
     from ..ops import raytrace_cuda
 
     dev = sc.device
     if rows is None:
-        rows = raytrace_cuda.pack_tris_rows(sc, params.n_bands)
+        rows, boxes = raytrace_cuda.pack_scene(sc, params.n_bands)
+    elif (boxes is None) != (sc.cluster_boxes is None):
+        raise ValueError("a clustered scene needs its packed boxes, and an "
+                         "unclustered one none")
     ev_bin_f, ev_w, ev_ear = raytrace_cuda.trace_events(
         rows, directions.to(device=dev, dtype=torch.float32).contiguous(),
         _as_vec(emitter, dev), _as_vec(receiver_pos, dev),
         float(receiver_yaw_deg), params, n_total_rays=n_total_rays,
-        compact=opts.compact, round_budgets=opts.round_budgets)
+        compact=opts.compact, round_budgets=opts.round_budgets, boxes=boxes)
     return _histogram_from_events(ev_bin_f, ev_w, ev_ear, params,
                                   opts.soft_binning)
 
@@ -220,11 +247,12 @@ def render_ir(sc: SceneArrays, generator: torch.Generator, n_rays: int,
               emitter, receiver_pos, receiver_yaw_deg: float,
               params: TraceParams, opts: TracerOptions = TracerOptions(),
               n_total_rays: int | None = None,
-              rows: torch.Tensor | None = None) -> torch.Tensor:
+              rows: torch.Tensor | None = None,
+              boxes: torch.Tensor | None = None) -> torch.Tensor:
     """Sample ``n_rays`` directions from ``generator`` on the scene's
-    device and trace them (``rows`` as in :func:`trace_ir`)."""
+    device and trace them (``rows``, ``boxes`` as in :func:`trace_ir`)."""
     from . import sampling
 
     dirs = sampling.sample_directions(n_rays, generator, sc.device)
     return trace_ir(sc, dirs, emitter, receiver_pos, receiver_yaw_deg,
-                    params, opts, n_total_rays, rows)
+                    params, opts, n_total_rays, rows, boxes)

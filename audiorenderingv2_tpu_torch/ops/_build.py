@@ -1,10 +1,12 @@
 """Build the port's CUDA kernels with ``nvcc`` and load them with ``ctypes``.
 
-Every ``csrc/*.cu`` file of this package is compiled, in one ``nvcc`` call,
-into one shared library with a plain C interface. The build happens at first
+Every ``csrc/*.cu`` file of this package is compiled to an object by its
+own ``nvcc`` process, all started together, and the objects are linked into
+one shared library with a plain C interface. The build happens at first
 use, into ``audiorenderingv2_tpu_torch/_build/<hash>/``, keyed by a hash of
-the sources and the flags, so a checkout with nothing built builds itself and
-an unchanged tree reuses its library.
+the sources, the headers they share (``csrc/*.cuh``) and the flags, so a
+checkout with nothing built builds itself and an unchanged tree reuses its
+library.
 
 Flags: ``sm_90a`` (Hopper), ``-O3`` and ``-fmad=false``. The last keeps
 ``nvcc`` from contracting a multiply and an add into one FMA: the plain
@@ -27,9 +29,9 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG / "_build"
 LIB_NAME = "libar2kernels.so"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
-              "-std=c++17", "-shared", "-Xcompiler", "-fPIC", "-fmad=false",
-              "-Xptxas", "-v")
+ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*ARCH, "-O3", "-std=c++17", "-Xcompiler", "-fPIC",
+              "-fmad=false", "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -41,6 +43,11 @@ _SIGNATURES = {
     "ar2_trace_round": (_P, _LL, _I, _P, _I, _P, _I, _I, _I, _I, _P),
     # bins, weights, n_events, n_bins, n_bands, out, stream
     "ar2_histogram": (_P, _P, _LL, _I, _I, _P, _P),
+    # state, n, boxes, n_clusters, sched, width, stream
+    "ar2_tile_schedule": (_P, _LL, _P, _I, _P, _I, _P),
+    # state, n, ncols, rows, cluster_size, sched, width, scal, n_bands,
+    # layout_bands, max_bounces, stream
+    "ar2_trace_sched": (_P, _LL, _I, _P, _I, _P, _I, _P, _I, _I, _I, _P),
 }
 
 
@@ -59,12 +66,28 @@ def sources() -> list[Path]:
 
 
 def build_dir() -> Path:
-    """Directory of the library for the current sources and flags."""
+    """Directory of the library for the current sources, headers and
+    flags."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources():
+    for src in sorted([*sources(), *CSRC.glob("*.cuh")]):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_ROOT / h.hexdigest()[:16]
+
+
+def _run_all(cmds: list[list[str]]) -> tuple[str, bool]:
+    """Run the commands side by side; return their log and whether all
+    succeeded."""
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for cmd in cmds]
+    log, ok = "", True
+    for cmd, proc in zip(cmds, procs):
+        out = proc.communicate()[0]
+        log += f"$ {' '.join(cmd)}\n{out}# exit {proc.returncode}\n"
+        ok = ok and proc.returncode == 0
+    return log + f"# {time.perf_counter() - t0:.2f} s\n", ok
 
 
 def build() -> Path:
@@ -76,14 +99,19 @@ def build() -> Path:
     if lib.exists():
         return lib
     out_dir.mkdir(parents=True, exist_ok=True)
-    tmp = out_dir / f"{LIB_NAME}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources())]
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    log = (f"$ {' '.join(cmd)}\n{proc.stdout}{proc.stderr}"
-           f"# {time.perf_counter() - t0:.2f} s, exit {proc.returncode}\n")
+    tag = os.getpid()
+    objs = [out_dir / f"{src.stem}.{tag}.o" for src in sources()]
+    log, ok = _run_all([[_nvcc(), *NVCC_FLAGS, "-c", "-o", str(obj),
+                         str(src)] for src, obj in zip(sources(), objs)])
+    tmp = out_dir / f"{LIB_NAME}.{tag}.tmp"
+    if ok:
+        link_log, ok = _run_all([[_nvcc(), *ARCH, "-shared", "-o", str(tmp),
+                                  *map(str, objs)]])
+        log += link_log
     (out_dir / "build.log").write_text(log)
-    if proc.returncode != 0:
+    for obj in objs:
+        obj.unlink(missing_ok=True)
+    if not ok:
         tmp.unlink(missing_ok=True)
         raise RuntimeError(f"nvcc failed:\n{log}")
     os.replace(tmp, lib)  # atomic: a concurrent loader never sees half a file

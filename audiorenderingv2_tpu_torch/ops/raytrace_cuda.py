@@ -1,10 +1,12 @@
 """K1, the bounce round, and the loop of rounds around it.
 
 The counterpart of ``audiorenderingv2_tpu/ops/raytrace_pallas.py`` together
-with the rows part of ``raytrace_pallas_v2.py``:
+with the packing of ``raytrace_pallas_v2.py``:
 
-* ``pack_tris_rows``: the triangle rows the kernel reads (``pack_tris_v2``
-  with ``layout="rows"``, trimmed at the last valid triangle);
+* ``pack_tris_rows``: the triangle rows K1 reads (``pack_tris_v2`` with
+  ``layout="rows"``, trimmed at the last valid triangle);
+  ``pack_tris_clusters``: the rows and boxes of a clustered scene (its
+  cluster branch, trimmed to whole clusters); ``pack_scene`` picks one;
 * ``init_state``: the ray state, as ``[ncols, N]`` columns (structure of
   arrays: ray ``i`` of column ``c`` is ``state[c, i]``), with the column
   indices of the JAX package;
@@ -18,12 +20,16 @@ with the rows part of ``raytrace_pallas_v2.py``:
   What bounds it on the card is FP32 throughput in the intersection loop and
   warp divergence, which the partition between rounds limits; triangle
   rows sit in shared memory. More in the source's header;
-* ``trace_events``: the loop of rounds, with per-round bounce budgets and an
-  alive-first partition of the ray state between rounds.
+* ``trace_events``: the loop of rounds. Unclustered: per-round bounce
+  budgets and an alive-first partition of the ray state between rounds.
+  Clustered: one bounce per round, the per-tile schedule and K2
+  (``ops/schedule_cuda.py``), then a stable sort of the rays by dir72
+  coherence keys (``_compaction_keys``), so that the 128 rays of a tile
+  share directions and cells and reach few clusters.
 
 Results do not depend on the schedule: every ray is independent, so round
-budgets and the partition change only the speed. The budgets must still
-sum to at least ``max_bounces``, or deep paths would be cut short.
+budgets, the partition and the sort change only the speed. The budgets must
+still sum to at least ``max_bounces``, or deep paths would be cut short.
 """
 from __future__ import annotations
 
@@ -91,12 +97,10 @@ def band_cols(n_bands: int) -> tuple[list[int], list[int]]:
     return en, evw
 
 
-def pack_tris_rows(sc: SceneArrays, n_bands: int = 1) -> torch.Tensor:
-    """Triangle rows f32 [T_trim, 24]: plane (n, d), barycentric (a_u,
+def _stack_rows(sc: SceneArrays, n_bands: int) -> torch.Tensor:
+    """Untrimmed triangle rows f32 [T, 24]: plane (n, d), barycentric (a_u,
     u_off, a_v, v_off), unit normal, valid flag, then one absorption column
-    per band. Trimmed to whole 16-row blocks past the LAST valid triangle:
-    valid = 0 also marks interior degenerate faces, so a trim at the valid
-    count would drop real tail triangles."""
+    per band."""
     if n_bands > _MAX_BANDS:
         raise ValueError(f"the trace kernel supports at most {_MAX_BANDS} "
                          f"bands")
@@ -110,22 +114,63 @@ def pack_tris_rows(sc: SceneArrays, n_bands: int = 1) -> torch.Tensor:
                          f"scenes broadcast")
     ab_cols = [absorb[:, min(b, absorb.shape[1] - 1)] for b in range(n_bands)]
     zeros = torch.zeros(t, dtype=torch.float32, device=sc.plane_n.device)
-    rows = torch.stack([
+    return torch.stack([
         sc.plane_n[:, 0], sc.plane_n[:, 1], sc.plane_n[:, 2], sc.plane_d,
         sc.bary_u[:, 0], sc.bary_u[:, 1], sc.bary_u[:, 2], sc.u_off,
         sc.bary_v[:, 0], sc.bary_v[:, 1], sc.bary_v[:, 2], sc.v_off,
         sc.normal[:, 0], sc.normal[:, 1], sc.normal[:, 2], sc.valid,
         *ab_cols, *[zeros] * (_NR - 16 - n_bands),
     ], dim=1).to(torch.float32)
+
+
+def _n_valid(sc: SceneArrays) -> int:
+    """1 + index of the LAST valid triangle (0 if none): valid = 0 also
+    marks interior degenerate faces, so a trim at the valid count would drop
+    real tail triangles. Reads the flags back to the host."""
     valid_idx = torch.nonzero(sc.valid > 0)
-    n_valid = int(valid_idx.max()) + 1 if valid_idx.numel() else 0
-    keep = max(1, -(-n_valid // _TRI_BLOCK)) * _TRI_BLOCK
+    return int(valid_idx.max()) + 1 if valid_idx.numel() else 0
+
+
+def pack_tris_rows(sc: SceneArrays, n_bands: int = 1) -> torch.Tensor:
+    """Triangle rows f32 [T_trim, 24] (see ``_stack_rows``), trimmed to
+    whole 16-row blocks past the last valid triangle."""
+    rows = _stack_rows(sc, n_bands)
+    keep = max(1, -(-_n_valid(sc) // _TRI_BLOCK)) * _TRI_BLOCK
     if keep < rows.shape[0]:
         rows = rows[:keep]
     if rows.shape[0] % _TRI_BLOCK:
         raise ValueError(f"{rows.shape[0]} triangle rows are not a multiple "
                          f"of {_TRI_BLOCK}")
     return rows.contiguous()
+
+
+def pack_tris_clusters(sc: SceneArrays, n_bands: int = 1
+                       ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Rows f32 [C_trim * cs, 24] and boxes f32 [C_trim, 8] of a clustered
+    scene, cs = T // C triangles per cluster. Trimmed to whole clusters past
+    the last valid triangle, the boxes with them. Raises when cs does not
+    divide T or is not a multiple of 16."""
+    boxes = sc.cluster_boxes
+    t, c = sc.plane_n.shape[0], boxes.shape[0]
+    cs = t // c
+    if cs * c != t or cs % _TRI_BLOCK:
+        raise ValueError(f"clustered scene: {t} triangles over {c} clusters "
+                         f"needs a cluster size that is a multiple of "
+                         f"{_TRI_BLOCK}")
+    rows = _stack_rows(sc, n_bands)
+    keep = max(1, -(-_n_valid(sc) // cs))
+    if keep < c:
+        rows, boxes = rows[:keep * cs], boxes[:keep]
+    return rows.contiguous(), boxes.to(torch.float32).contiguous()
+
+
+def pack_scene(sc: SceneArrays, n_bands: int = 1
+               ) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """(rows, boxes) for :func:`trace_events`: the clustered packing when
+    the scene has cluster boxes, else K1's rows and None."""
+    if sc.cluster_boxes is not None:
+        return pack_tris_clusters(sc, n_bands)
+    return pack_tris_rows(sc, n_bands), None
 
 
 def scalars(emitter: torch.Tensor, receiver_pos: torch.Tensor, yaw_deg,
@@ -192,6 +237,64 @@ def _partition_alive_first(state: torch.Tensor) -> torch.Tensor:
     return state.index_select(1, perm)
 
 
+# Coherence keys of the clustered route (raytrace_pallas.py:270-351, the
+# JAX package's dir72 layout at its tuned cell_bits = 5).
+CELL_BITS = 5
+
+
+def _morton_interleave(cell: torch.Tensor, bits: int) -> torch.Tensor:
+    """Interleave int32 per-axis cell coordinates [3, N] into Morton codes
+    (3 * bits bits)."""
+    code = torch.zeros_like(cell[0])
+    for b in range(bits):
+        for ax in range(3):
+            code = code | (((cell[ax] >> b) & 1) << (3 * b + ax))
+    return code
+
+
+def _dominant_axis(av: torch.Tensor) -> torch.Tensor:
+    """Index (0, 1, 2) of the largest of av [3, N], ties to the lower."""
+    return torch.where((av[0] >= av[1]) & (av[0] >= av[2]), 0,
+                       torch.where(av[1] >= av[2], 1, 2))
+
+
+def _compaction_keys(state: torch.Tensor,
+                     cell_bits: int = CELL_BITS) -> torch.Tensor:
+    """int32 sort keys [N], direction-major: the done flag, then 72
+    direction bins (octant x dominant axis x second axis), then the Morton
+    code of the ray's cell in a 2^cell_bits grid over the bounding box of
+    ALL rays' positions, done ones included."""
+    res = 1 << cell_bits
+    if 2 * 72 * res ** 3 > 1 << 31:
+        raise ValueError(f"cell_bits={cell_bits} with dir72 keys overflows "
+                         f"int32; use cell_bits <= 7")
+    done = state[_C_DONE].to(torch.int32)
+    p = state[_C_PX:_C_PZ + 1]
+    v = state[_C_VX:_C_VZ + 1]
+    pmin = p.amin(dim=1, keepdim=True)
+    pmax = p.amax(dim=1, keepdim=True)
+    scale = torch.tensor(res - 0.001, dtype=torch.float32, device=p.device)
+    cell = torch.clamp(((p - pmin) / torch.clamp(pmax - pmin, min=1e-6)
+                        * scale).to(torch.int32), 0, res - 1)
+    octant = ((v[0] > 0).to(torch.int32) * 4 + (v[1] > 0).to(torch.int32) * 2
+              + (v[2] > 0).to(torch.int32))
+    av = torch.abs(v)
+    a0 = _dominant_axis(av)
+    axis = torch.arange(3, device=v.device)[:, None]
+    a1 = _dominant_axis(torch.where(axis == a0[None], -math.inf, av))
+    dirbin = (octant * 9 + a0 * 3 + a1).to(torch.int32)
+    return (done * (72 * res ** 3) + dirbin * res ** 3
+            + _morton_interleave(cell, cell_bits))
+
+
+def _sort_state_by_keys(state: torch.Tensor,
+                        keys: torch.Tensor) -> torch.Tensor:
+    """Stable sort of the ray columns by ``keys``: the permutation from one
+    key sort, applied by one ``index_select``."""
+    perm = torch.sort(keys, stable=True).indices
+    return state.index_select(1, perm)
+
+
 # ----------------------------------------------------------------- K1, plain
 
 def _nearest_hit(px, py, pz, vx, vy, vz, tris: torch.Tensor,
@@ -228,8 +331,11 @@ def _nearest_hit(px, py, pz, vx, vy, vz, tris: torch.Tensor,
 
 
 def _bounce(s: torch.Tensor, tris: torch.Tensor, scal: torch.Tensor,
-            en_cols: list[int], evw_cols: list[int], max_bounces: int):
-    """One bounce of the rays in ``s`` [ncols, k], in place."""
+            en_cols: list[int], evw_cols: list[int], max_bounces: int,
+            best: tuple | None = None):
+    """One bounce of the rays in ``s`` [ncols, k], in place. ``best``: the
+    nearest hits (t [k], row index [k]) when the caller found them over a
+    subset of ``tris``; None searches every row."""
     inf = math.inf
     px, py, pz, vx, vy, vz = (s[c] for c in range(_C_PX, _C_VZ + 1))
     dist, depth, done = s[_C_DIST], s[_C_DEPTH], s[_C_DONE]
@@ -241,7 +347,9 @@ def _bounce(s: torch.Tensor, tris: torch.Tensor, scal: torch.Tensor,
                     & (depth < float(max_bounces)))
     alive = (done == 0.0) & can_continue
 
-    best_t, best_i = _nearest_hit(px, py, pz, vx, vy, vz, tris)
+    if best is None:
+        best = _nearest_hit(px, py, pz, vx, vy, vz, tris)
+    best_t, best_i = best
 
     # receiver sphere, tested before the surface
     ocx = px - scal[_S_RCX]
@@ -377,14 +485,19 @@ def trace_events(tris: torch.Tensor, directions: torch.Tensor,
                  emitter: torch.Tensor, receiver_pos: torch.Tensor,
                  receiver_yaw_deg, params: TraceParams,
                  n_total_rays: int | None = None, compact: bool = True,
-                 round_budgets: tuple | None = None):
+                 round_budgets: tuple | None = None,
+                 boxes: torch.Tensor | None = None):
     """Trace ``directions`` [N, 3] in bounce rounds.
 
-    ``tris``: rows from :func:`pack_tris_rows`. ``n_total_rays``: the ray
-    count that normalises the per-ray energy when this call traces a share
-    of a larger launch. ``round_budgets``: explicit per-round budgets (they
-    must sum to at least ``max_bounces``); by default a geometric schedule.
-    ``compact``: partition the state alive-first between rounds.
+    ``tris``, ``boxes``: from :func:`pack_scene`; with ``boxes`` the
+    clustered route runs. ``n_total_rays``: the ray count that normalises
+    the per-ray energy when this call traces a share of a larger launch.
+    ``round_budgets``: explicit per-round budgets (they must sum to at
+    least ``max_bounces``); by default a geometric schedule, or one bounce
+    per round on the clustered route, which takes no other budget (its
+    schedule is computed from the positions before the bounce).
+    ``compact``: reorder the state between rounds (alive-first partition,
+    or the coherent sort on the clustered route).
 
     Returns the event slots (ev_bin_f f32 [n_pad], ev_w f32 [n_pad,
     n_bands], ev_ear int32 [n_pad]); padding rays carry zero weight.
@@ -401,16 +514,32 @@ def trace_events(tris: torch.Tensor, directions: torch.Tensor,
         budgets = list(round_budgets)
     elif not compact:
         budgets = [params.max_bounces]
+    elif boxes is not None:
+        budgets = [1] * params.max_bounces
     else:
         budgets = _round_schedule(params.max_bounces)
+    if boxes is not None and any(b != 1 for b in budgets):
+        raise ValueError(f"the clustered route takes one bounce per round, "
+                         f"got budgets {budgets}: positions move after a "
+                         f"bounce, staling the schedule")
+
+    from . import schedule_cuda  # it builds on this module
 
     e0 = params.base_power / (n_real * constants.SPHERE_VOLUME)
     scal = scalars(emitter, receiver_pos, receiver_yaw_deg, e0, params)
     state = init_state(directions, emitter, e0, n_pad, params.n_bands)
     for k, budget in enumerate(budgets):
-        state = trace_round(state, tris, scal, params, budget)
-        if compact and k + 1 < len(budgets):
-            state = _partition_alive_first(state)
+        last = k + 1 == len(budgets)
+        if boxes is None:
+            state = trace_round(state, tris, scal, params, budget)
+            if compact and not last:
+                state = _partition_alive_first(state)
+        else:
+            sched = schedule_cuda.tile_schedule(state, boxes)
+            state = schedule_cuda.trace_round_sched(state, tris, boxes, sched,
+                                                    scal, params)
+            if compact and not last:
+                state = _sort_state_by_keys(state, _compaction_keys(state))
     evw_cols = band_cols(params.n_bands)[1]
     return (state[_C_EVB].contiguous(), state[evw_cols].T.contiguous(),
             state[_C_EVE].to(torch.int32))

@@ -1,0 +1,229 @@
+"""The clustered route's kernels: the per-tile schedule and K2.
+
+A tile is 128 consecutive rays of the state's ray order (the grouping of the
+JAX package's ``to_tiles``). Each round of the clustered route runs:
+
+* ``tile_schedule``: for every tile, the clusters that some ray of the tile
+  that is not done can reach, by an exact slab test of each ray against each
+  cluster box. The counterpart of
+  ``audiorenderingv2_tpu/ops/raytrace_pallas_v2.py:tile_schedule`` in exact
+  mode, which is plain XLA there. Its kernel is ``csrc/tile_schedule.cu``
+  (one block per tile; bounded by FP32 slab math, n_rays x C tests a round).
+  Rows are int32 [n_tiles, S], S = ceil((C + 1) / 8) * 8: slot 0 holds the
+  count, then the reachable ids in ascending order, then zeros. (The JAX
+  rows carry the unreachable ids after the count instead of zeros; nothing
+  reads those slots.)
+* ``trace_round_sched``: K2, one bounce of every ray over the candidate
+  clusters of its tile, then K1's receiver test and bounce tail. Its kernel
+  is ``csrc/trace_sched.cu``, which replaces the schedule branch of the TPU
+  kernel ``raytrace_pallas_v2.py:_trace_round_kernel_v2`` (``use_sched``,
+  launched by ``trace_round_v2``, :799). Bounded by the reads of the
+  candidate clusters' rows (from L2) and FP32 intersection.
+
+Each wrapper checks its inputs, launches its kernel for a CUDA tensor and
+runs the plain PyTorch version for a CPU tensor; it never falls back from
+one to the other. ``tile_schedule_launches`` and
+``trace_round_sched_launches`` count kernel launches.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from ..core.params import TraceParams
+from . import _build
+from . import raytrace_cuda as rc
+
+# Kernel launches since import (or since a caller reset them to 0).
+tile_schedule_launches = 0
+trace_round_sched_launches = 0
+
+_TILE = 128
+_EPS_DIR = 1e-20  # direction components closer to 0 count as +-1e-20
+
+
+def schedule_width(n_clusters: int) -> int:
+    """Slots per schedule row: the count and C ids, rounded up to 8."""
+    return -(-(n_clusters + 1) // 8) * 8
+
+
+def _contiguous_on(ref: torch.Tensor, **tensors) -> None:
+    """Raise unless every tensor is contiguous and on ``ref``'s device."""
+    for name, x in tensors.items():
+        if x.device != ref.device:
+            raise ValueError(f"{name} on {x.device}, state on {ref.device}")
+        if not x.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+
+
+def _check_schedule_inputs(state: torch.Tensor,
+                           boxes: torch.Tensor) -> None:
+    if state.dtype != torch.float32 or boxes.dtype != torch.float32:
+        raise ValueError(f"state and boxes must be float32, got "
+                         f"{state.dtype} and {boxes.dtype}")
+    if state.dim() != 2 or state.shape[0] < 16 or state.shape[1] % _TILE:
+        raise ValueError(f"state must be [ncols, N] with N a multiple of "
+                         f"{_TILE}, got {tuple(state.shape)}")
+    if boxes.dim() != 2 or boxes.shape[1] != 8 or boxes.shape[0] < 1:
+        raise ValueError(f"boxes must be [C, 8], got {tuple(boxes.shape)}")
+    _contiguous_on(state, state=state, boxes=boxes)
+
+
+# ------------------------------------------------------ the schedule, plain
+
+def tile_schedule_plain(state: torch.Tensor, boxes: torch.Tensor,
+                        chunk: int = 64) -> torch.Tensor:
+    """Plain PyTorch version of the schedule, ``chunk`` tiles at a time so
+    that the [3, chunk, C, 128] slab intermediates stay bounded (the JAX
+    package maps over 64-tile chunks the same way)."""
+    n_tiles = state.shape[1] // _TILE
+    c = boxes.shape[0]
+    dev = state.device
+    out = torch.zeros((n_tiles, schedule_width(c)), dtype=torch.int32,
+                      device=dev)
+    lo = boxes[:, 0:3].T[:, None, :, None]                  # [3, 1, C, 1]
+    hi = boxes[:, 3:6].T[:, None, :, None]
+    box_ok = (boxes[:, 6] > 0.0)[None, :, None]             # [1, C, 1]
+    ids = torch.arange(c, device=dev)
+    for t0 in range(0, n_tiles, chunk):
+        k = min(chunk, n_tiles - t0)
+        st = state[:, t0 * _TILE:(t0 + k) * _TILE].reshape(-1, k, _TILE)
+        p = st[rc._C_PX:rc._C_PZ + 1, :, None, :]           # [3, k, 1, 128]
+        v = st[rc._C_VX:rc._C_VZ + 1, :, None, :]
+        inv = 1.0 / torch.where(torch.abs(v) > _EPS_DIR, v,
+                                torch.where(v >= 0, _EPS_DIR, -_EPS_DIR))
+        t1 = (lo - p) * inv                                 # [3, k, C, 128]
+        t2 = (hi - p) * inv
+        tn = torch.minimum(t1, t2).amax(dim=0)              # [k, C, 128]
+        tf = torch.maximum(t1, t2).amin(dim=0)
+        entry = torch.clamp(tn, min=0.0)
+        ok = ((tf >= entry) & box_ok
+              & (st[rc._C_DONE][:, None, :] == 0.0))
+        reach = ok.any(dim=2)                               # [k, C]
+        # Reachable ids ascending, then C for the rest, which become 0.
+        listed = torch.sort(torch.where(reach, ids, c), dim=1).values
+        out[t0:t0 + k, 0] = reach.sum(dim=1).to(torch.int32)
+        out[t0:t0 + k, 1:c + 1] = torch.where(listed < c, listed, 0).to(
+            torch.int32)
+    return out
+
+
+def tile_schedule(state: torch.Tensor, boxes: torch.Tensor) -> torch.Tensor:
+    """The schedule of ``state`` [ncols, N] against ``boxes`` [C, 8]:
+    int32 [N / 128, S] on the state's device. A CUDA tensor goes to
+    ``csrc/tile_schedule.cu``, a CPU tensor to :func:`tile_schedule_plain`.
+    """
+    global tile_schedule_launches
+    _check_schedule_inputs(state, boxes)
+    if state.device.type == "cpu":
+        return tile_schedule_plain(state, boxes)
+    if state.device.type != "cuda":
+        raise ValueError(f"no schedule kernel for device {state.device}")
+    lib = _build.library()
+    n_tiles = state.shape[1] // _TILE
+    width = schedule_width(boxes.shape[0])
+    out = torch.empty((n_tiles, width), dtype=torch.int32,
+                      device=state.device)
+    stream = torch.cuda.current_stream(state.device).cuda_stream
+    err = lib.ar2_tile_schedule(state.data_ptr(), state.shape[1],
+                                boxes.data_ptr(), boxes.shape[0],
+                                out.data_ptr(), width, stream)
+    tile_schedule_launches += 1
+    _build.check(err, "ar2_tile_schedule")
+    return out
+
+
+# ------------------------------------------------------------- K2, plain
+
+def _members(sched: torch.Tensor, n_clusters: int) -> torch.Tensor:
+    """bool [n_tiles, C]: cluster c is on tile i's list."""
+    slot = torch.arange(sched.shape[1] - 1, device=sched.device)
+    ids = torch.where(slot[None, :] < sched[:, :1], sched[:, 1:],
+                      n_clusters).long()
+    member = torch.zeros((sched.shape[0], n_clusters + 1), dtype=torch.bool,
+                         device=sched.device)
+    return member.scatter_(1, ids, True)[:, :n_clusters]
+
+
+def trace_round_sched_plain(state: torch.Tensor, rows: torch.Tensor,
+                            boxes: torch.Tensor, sched: torch.Tensor,
+                            scal: torch.Tensor,
+                            params: TraceParams) -> torch.Tensor:
+    """Plain PyTorch version of K2: one bounce of every ray that is not
+    done, in place. Clusters are taken in ascending id order, each over the
+    rays whose tile lists it, with a strict running minimum (ties to the
+    lower row, as in the kernel); then K1's receiver test and bounce tail."""
+    en_cols, evw_cols = rc.band_cols(params.n_bands)
+    state[rc._C_LTRI] = 0.0
+    idx = torch.nonzero(state[rc._C_DONE] == 0.0).squeeze(1)
+    if idx.numel() == 0:
+        return state
+    s = state[:, idx]
+    ray = [s[col] for col in range(rc._C_PX, rc._C_VZ + 1)]
+    n_clusters = boxes.shape[0]
+    cs = rows.shape[0] // n_clusters
+    member = _members(sched, n_clusters)
+    tile = idx // _TILE
+    best_t = torch.full((idx.numel(),), math.inf, dtype=torch.float32,
+                        device=state.device)
+    best_i = torch.zeros((idx.numel(),), dtype=torch.int64,
+                         device=state.device)
+    for c in range(n_clusters):
+        sel = torch.nonzero(member[tile, c]).squeeze(1)
+        if sel.numel() == 0:
+            continue
+        t, i = rc._nearest_hit(*(x[sel] for x in ray),
+                               rows[c * cs:(c + 1) * cs])
+        bt, bi = best_t[sel], best_i[sel]
+        better = t < bt
+        best_t[sel] = torch.where(better, t, bt)
+        best_i[sel] = torch.where(better, i + c * cs, bi)
+    rc._bounce(s, rows, scal, en_cols, evw_cols, params.max_bounces,
+               best=(best_t, best_i))
+    state[:, idx] = s
+    return state
+
+
+def _check_k2_inputs(state, rows, boxes, sched, scal, n_bands) -> None:
+    rc._check_round(state, rows, scal, n_bands, 1)
+    _check_schedule_inputs(state, boxes)
+    n_clusters = boxes.shape[0]
+    cs = rows.shape[0] // n_clusters
+    if cs * n_clusters != rows.shape[0] or cs % rc._TRI_BLOCK:
+        raise ValueError(f"{rows.shape[0]} rows over {n_clusters} clusters "
+                         f"need a cluster size that is a multiple of "
+                         f"{rc._TRI_BLOCK}")
+    want = (state.shape[1] // _TILE, schedule_width(n_clusters))
+    if sched.dtype != torch.int32 or tuple(sched.shape) != want:
+        raise ValueError(f"sched must be int32 {list(want)}, got "
+                         f"{sched.dtype} {list(sched.shape)}")
+    _contiguous_on(state, sched=sched)
+
+
+def trace_round_sched(state: torch.Tensor, rows: torch.Tensor,
+                      boxes: torch.Tensor, sched: torch.Tensor,
+                      scal: torch.Tensor,
+                      params: TraceParams) -> torch.Tensor:
+    """K2: one bounce of ``state`` [ncols, N] over each tile's candidate
+    clusters (``sched`` from :func:`tile_schedule`; ``rows``, ``boxes``
+    from ``raytrace_cuda.pack_tris_clusters``), in place; returns
+    ``state``. A CUDA tensor goes to ``csrc/trace_sched.cu``, a CPU tensor
+    to :func:`trace_round_sched_plain`."""
+    global trace_round_sched_launches
+    _check_k2_inputs(state, rows, boxes, sched, scal, params.n_bands)
+    if state.device.type == "cpu":
+        return trace_round_sched_plain(state, rows, boxes, sched, scal,
+                                       params)
+    if state.device.type != "cuda":
+        raise ValueError(f"no trace kernel for device {state.device}")
+    lib = _build.library()
+    stream = torch.cuda.current_stream(state.device).cuda_stream
+    err = lib.ar2_trace_sched(
+        state.data_ptr(), state.shape[1], state.shape[0], rows.data_ptr(),
+        rows.shape[0] // boxes.shape[0], sched.data_ptr(), sched.shape[1],
+        scal.data_ptr(), params.n_bands, rc.layout_bands(params.n_bands),
+        params.max_bounces, stream)
+    trace_round_sched_launches += 1
+    _build.check(err, "ar2_trace_sched")
+    return state

@@ -19,11 +19,11 @@ import threading
 import numpy as np
 import torch
 
-from . import constants, tuned
+from . import accel, constants, tuned
 from .core.params import TraceParams
 from .core.tracer import TracerOptions, render_ir, scene_to_arrays
 from .ops import convolve
-from .ops.raytrace_cuda import pack_tris_rows
+from .ops.raytrace_cuda import pack_scene
 from .scene import Scene
 
 
@@ -37,7 +37,10 @@ class AudioRenderer:
       n_rays: rays per render.
       base_power, energy_threshold, max_bounces, hrtf_absorption_rate,
       is_mono: pathtracer parameters (config.json).
-      opts: tracer options; None = ``tuned.auto_options`` for the scene.
+      opts: tracer options; None = ``tuned.auto_options`` for the scene,
+        which also Morton-sorts a scene of 512 triangles and up into
+        clusters (``accel.prepare_scene``), so that it takes the clustered
+        route. Explicit ``opts`` keep the scene as it is, on the rows route.
       seed: seed of the direction generator; renders draw from it in turn,
         so the sequence of IRs is reproducible.
       device: where the scene, the trace and the IR live. A CUDA device
@@ -67,11 +70,17 @@ class AudioRenderer:
         self.device = torch.device(device)
         self.n_rays = int(n_rays)
         self._auto_opts = opts is None
+        clusters = None
         if opts is None:
-            opts = tuned.auto_options(scene.n_triangles, int(max_bounces))
+            opts, cluster_size = tuned.auto_options(scene.n_triangles,
+                                                    int(max_bounces))
+            if cluster_size is not None:
+                scene, clusters = accel.prepare_scene(
+                    scene, cluster_size=cluster_size)
         self.opts = opts
         self.scene = scene
-        self.sc = scene_to_arrays(scene, device=self.device)
+        self.sc = scene_to_arrays(scene, tri_chunk=128, device=self.device,
+                                  clusters=clusters)
         self.params = TraceParams(
             sample_rate=int(sample_rate),
             ir_length=int(ir_seconds) * int(sample_rate),
@@ -81,9 +90,9 @@ class AudioRenderer:
             hrtf_absorption_rate=float(hrtf_absorption_rate),
             is_mono=bool(is_mono),
         )
-        # K1's triangle rows, packed once: the trim at the last valid
-        # triangle reads it back to the host.
-        self.rows = pack_tris_rows(self.sc, self.params.n_bands)
+        # Triangle rows (and cluster boxes), packed once: the trim at the
+        # last valid triangle reads it back to the host.
+        self.rows, self.boxes = pack_scene(self.sc, self.params.n_bands)
         self.emitter_pos = np.zeros(3, np.float32)
         self.receiver_pos = np.zeros(3, np.float32)
         self.receiver_yaw_deg = 0.0
@@ -113,8 +122,8 @@ class AudioRenderer:
         if self._auto_opts:
             # Auto options carry round budgets scaled to max_bounces; rescale
             # them so a deeper limit never trips the budget-sum guard.
-            self.opts = tuned.auto_options(self.scene.n_triangles,
-                                           int(max_bounces))
+            self.opts, _ = tuned.auto_options(self.scene.n_triangles,
+                                              int(max_bounces))
 
     def set_base_power(self, base_power: float) -> None:
         self.params = dataclasses.replace(self.params,
@@ -137,7 +146,7 @@ class AudioRenderer:
         ir = render_ir(self.sc, generator, self.n_rays,
                        self.emitter_pos, self.receiver_pos,
                        self.receiver_yaw_deg, self.params, self.opts,
-                       rows=self.rows)
+                       rows=self.rows, boxes=self.boxes)
         if self.params.is_mono:
             # addIRs fold: both ears carry the sum (kernels.cu:519-536).
             ir = ir.sum(dim=0, keepdim=True).expand_as(ir).contiguous()

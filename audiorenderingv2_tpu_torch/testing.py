@@ -1,9 +1,10 @@
 """Test helpers of the port: procedural rooms and the IR comparison bar.
 
-``box_room`` and ``scene_from_arrays`` build the same scenes as the JAX
-package's ``testing`` module; ``assert_ir_close`` is its comparison bar.
-They live here so that ``chip_smoke.py`` and the card-side checks need
-nothing of the JAX package.
+``box_room``, ``icosphere`` and ``scene_from_arrays`` build the same scenes
+as the JAX package's ``testing`` module, and ``office_scene`` the large
+scene of ``benchmarks/large_scene.py``; ``assert_ir_close`` is its
+comparison bar. They live here so that ``chip_smoke.py`` and the card-side
+checks need nothing of the JAX package.
 """
 from __future__ import annotations
 
@@ -66,6 +67,81 @@ def box_room(size=(10.0, 10.0, 10.0), center=(0.0, 0.0, 0.0)):
     return verts, tris
 
 
+def icosphere(radius=1.0, center=(0.0, 0.0, 0.0), subdivisions=2):
+    """Subdivided icosahedron. Returns (vertices, triangles)."""
+    phi = (1.0 + np.sqrt(5.0)) / 2.0
+    verts = np.array([
+        [-1, phi, 0], [1, phi, 0], [-1, -phi, 0], [1, -phi, 0],
+        [0, -1, phi], [0, 1, phi], [0, -1, -phi], [0, 1, -phi],
+        [phi, 0, -1], [phi, 0, 1], [-phi, 0, -1], [-phi, 0, 1],
+    ], np.float64)
+    verts /= np.linalg.norm(verts, axis=1, keepdims=True)
+    faces = [
+        (0, 11, 5), (0, 5, 1), (0, 1, 7), (0, 7, 10), (0, 10, 11),
+        (1, 5, 9), (5, 11, 4), (11, 10, 2), (10, 7, 6), (7, 1, 8),
+        (3, 9, 4), (3, 4, 2), (3, 2, 6), (3, 6, 8), (3, 8, 9),
+        (4, 9, 5), (2, 4, 11), (6, 2, 10), (8, 6, 7), (9, 8, 1),
+    ]
+    verts = [tuple(v) for v in verts]
+    cache: dict = {}
+
+    def midpoint(i, j):
+        key = (min(i, j), max(i, j))
+        if key not in cache:
+            m = np.add(verts[i], verts[j]) / 2.0
+            m /= np.linalg.norm(m)
+            cache[key] = len(verts)
+            verts.append(tuple(m))
+        return cache[key]
+
+    for _ in range(subdivisions):
+        new_faces = []
+        for a, b, c in faces:
+            ab, bc, ca = midpoint(a, b), midpoint(b, c), midpoint(c, a)
+            new_faces += [(a, ab, ca), (b, bc, ab), (c, ca, bc), (ab, bc, ca)]
+        faces = new_faces
+
+    v = np.asarray(verts, np.float32) * radius + np.asarray(center, np.float32)
+    return v, np.asarray(faces, np.int32)
+
+
+def office_mesh(n_tris_target: int):
+    """The office of ``benchmarks/large_scene.py``: a 40 x 12 x 40 m box
+    room and a grid of radius-0.9 icospheres (320 triangles each) at seeded
+    heights, about ``n_tris_target`` triangles in all. Returns (vertices,
+    triangles)."""
+    room = (40.0, 12.0, 40.0)
+    bv, bt = box_room(room)
+    verts = [bv]
+    tris = [bt]
+    base = len(bv)
+    rng = np.random.default_rng(7)
+    k = max(1, (n_tris_target - len(bt)) // 320)
+    side = int(np.ceil(np.sqrt(k)))
+    i = 0
+    for gx in range(side):
+        for gz in range(side):
+            if i >= k:
+                break
+            cx = -room[0] / 2 + (gx + 0.5) * room[0] / side
+            cz = -room[2] / 2 + (gz + 0.5) * room[2] / side
+            cy = rng.uniform(-room[1] / 2 + 1.5, room[1] / 2 - 1.5)
+            sv, st = icosphere(radius=0.9, center=(cx, cy, cz),
+                               subdivisions=2)
+            verts.append(sv)
+            tris.append(st + base)
+            base += len(sv)
+            i += 1
+    return np.vstack(verts), np.vstack(tris)
+
+
+def office_scene(n_tris_target: int) -> Scene:
+    """``office_mesh`` as a Scene with absorption 0.3 everywhere
+    (``benchmarks/large_scene.py:office_scene``)."""
+    v, t = office_mesh(n_tris_target)
+    return scene_from_arrays(v, t, np.full(len(t), 0.3, np.float32))
+
+
 def scene_from_arrays(vertices, triangles, absorption) -> Scene:
     """A Scene with a uniform or per-triangle absorption."""
     vertices = np.asarray(vertices, np.float32).reshape(-1, 3)
@@ -79,17 +155,21 @@ def scene_from_arrays(vertices, triangles, absorption) -> Scene:
     return build_scene(mesh, absorption)
 
 
-def write_box_obj(path, size=(14.0, 9.0, 11.0), material: str = "walls"):
-    """Write ``box_room(size)`` as ``path`` (.obj) plus a sibling .mtl that
+def write_obj(path, vertices, triangles, material: str = "walls"):
+    """Write a triangle mesh as ``path`` (.obj) plus a sibling .mtl that
     names one material. Returns the .obj path."""
     from pathlib import Path
 
     path = Path(path)
-    verts, tris = box_room(size)
     mtl = path.with_suffix(".mtl")
     mtl.write_text(f"newmtl {material}\nKd 0.8 0.8 0.8\n")
     lines = [f"mtllib {mtl.name}", f"usemtl {material}"]
-    lines += [f"v {x:.6f} {y:.6f} {z:.6f}" for x, y, z in verts]
-    lines += [f"f {a + 1} {b + 1} {c + 1}" for a, b, c in tris]
+    lines += [f"v {x:.6f} {y:.6f} {z:.6f}" for x, y, z in vertices]
+    lines += [f"f {a + 1} {b + 1} {c + 1}" for a, b, c in triangles]
     path.write_text("\n".join(lines) + "\n")
     return path
+
+
+def write_box_obj(path, size=(14.0, 9.0, 11.0), material: str = "walls"):
+    """Write ``box_room(size)`` with :func:`write_obj`."""
+    return write_obj(path, *box_room(size), material=material)

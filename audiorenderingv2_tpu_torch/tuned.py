@@ -1,21 +1,24 @@
 """Tracer options for a scene: one source of truth for the renderer.
 
-The counterpart of ``audiorenderingv2_tpu/tuned.py:auto_options``. On the
-card the trace runs the K1 kernel, on the CPU its plain version: the device
-of the scene's tensors picks that, not these options. Every scene size takes
-the rows kernel for now. The JAX package sends scenes of 512 triangles and
-up through Morton clusters and per-round candidate lists (its K2 kernel);
-that path is ROADMAP work (Queue 2, K2). Culling changes only the speed:
-the physics is the same over all triangles.
+The counterpart of ``audiorenderingv2_tpu/tuned.py:auto_options``. It splits
+scenes as the JAX package does: below ``CLUSTER_THRESHOLD`` triangles the
+trace runs K1 over every triangle row in rounds of several bounces; at and
+above it the scene is Morton-sorted into clusters of ``CLUSTER_SIZE``
+triangles and traced one bounce per round through the per-tile schedule and
+K2. Culling changes only the speed: the physics is the same over all
+triangles. The device of the scene's tensors picks the kernels (CUDA) or
+their plain versions (CPU), not these options.
 
-The round split (8, 24, 68) at 100 bounces is the JAX package's setting,
-kept so that both packages run the same schedule; it has not been tuned on
-the GPU yet.
+The constants (threshold 512, cluster size 32, the round split (8, 24, 68)
+at 100 bounces) are the JAX package's, measured on a TPU and kept so that
+both packages run the same path; none has been tuned on the H100 yet.
 """
 from __future__ import annotations
 
 from .core.tracer import TracerOptions
 
+CLUSTER_THRESHOLD = 512
+CLUSTER_SIZE = 32
 SMALL_BUDGET_FRACS = (0.08, 0.24)
 
 
@@ -31,8 +34,14 @@ def round_budgets_for(max_bounces: int) -> tuple | None:
     return (r1, r2, mb - r1 - r2)
 
 
-def auto_options(n_triangles: int, max_bounces: int) -> TracerOptions:
+def auto_options(n_triangles: int, max_bounces: int
+                 ) -> tuple[TracerOptions, int | None]:
     """Options for a scene of ``n_triangles`` traced to ``max_bounces``.
-    The triangle count does not change them yet (see the module doc)."""
-    del n_triangles  # one path for every scene size until K2 is ported
-    return TracerOptions(round_budgets=round_budgets_for(max_bounces))
+
+    Returns ``(opts, cluster_size)``: ``cluster_size`` is None for a scene
+    that stays unclustered (the rows route, with the 3-round split), else
+    the size to pass to ``accel.prepare_scene`` (the clustered route, one
+    bounce per round)."""
+    if int(n_triangles) >= CLUSTER_THRESHOLD:
+        return TracerOptions(), CLUSTER_SIZE
+    return TracerOptions(round_budgets=round_budgets_for(max_bounces)), None

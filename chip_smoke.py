@@ -19,12 +19,26 @@ Phases, in order; any failure raises and the script exits non-zero:
 5. the export path as a user runs it (config.json -> load_context ->
    export_audio) at 1M rays, 100 bounces, a 2 s IR at 16 kHz, with both
    kernels' launch counts read around it; its IR is checked against the CPU
-   plain path on 64k shared directions; render and convolve times.
+   plain path on 64k shared directions; render and convolve times;
+6. the clustered route's kernels on the office scene of
+   benchmarks/large_scene.py (19,852 triangles, 621 clusters of 32, 32
+   bounces): K1's multi-chunk branch (39 chunks of 512 rows) against its
+   plain version after an 8-bounce round at 64k rays; the schedule kernel
+   against its plain version at 1M rays, integer for integer, on the state
+   after one bounce; K2 against its plain version over two clustered
+   rounds (schedule, K2, coherent sort) at 1M rays, the chains run apart,
+   every column after each round; the clustered IR against K1's over all
+   rows on 64k shared directions; times of both kernels and their plain
+   versions, and of the sort;
+7. the office export as a user runs it (config.json -> load_context ->
+   export_audio, 1M rays, 32 bounces) with the launch counts read around
+   it: the schedule kernel and K2 run, K1 does not; render times, median of
+   3, of the clustered route and of K1 over all rows on the same scene.
 
 Then one JSON line per the kernels (name, route, source, the TPU kernel it
-replaces, launches in phase 5, max abs error, ms, plain ms) and, last, the
-result line. With no CUDA device the script exits non-zero and prints no
-result.
+replaces, launches in the export of phase 5 or, for the clustered route's
+kernels, of phase 7, max abs error, ms, plain ms) and, last, the result
+line. With no CUDA device the script exits non-zero and prints no result.
 """
 from __future__ import annotations
 
@@ -47,6 +61,10 @@ ROOM = (14.0, 9.0, 11.0)      # the bench's procedural box, centred at 0
 EMITTER = (0.0, 0.0, 0.0)
 RECEIVER = (2.5, 1.5, 2.0)    # inside the room
 ABSORPTION = 0.3
+# The JAX package's large-scene workload (benchmarks/large_scene.py:61-82).
+OFFICE_TRIS = 20000
+OFFICE_BOUNCES = 32
+OFFICE_RECEIVER = (6.0, 1.0, -8.0)
 
 
 def log(msg: str) -> None:
@@ -74,6 +92,16 @@ def median_ms(fn, reps: int, setup=lambda: ()) -> float:
 def unit_dirs(n: int, seed: int) -> np.ndarray:
     d = np.random.default_rng(seed).normal(size=(n, 3))
     return (d / np.linalg.norm(d, axis=1, keepdims=True)).astype(np.float32)
+
+
+def assert_columns_close(kern: torch.Tensor, plain: torch.Tensor,
+                         what: str) -> None:
+    """Every state column of ``kern`` within rtol 1e-5 of ``plain`` (atol
+    1e-5 of the column's scale)."""
+    for c in range(kern.shape[0]):
+        scale = float(plain[c].abs().max()) or 1.0
+        assert torch.allclose(kern[c], plain[c], rtol=1e-5,
+                              atol=1e-5 * scale), f"{what}, column {c} differs"
 
 
 def phase_device() -> str:
@@ -182,10 +210,7 @@ def phase_trace() -> dict:
     torch.cuda.synchronize()
     assert torch.isfinite(kern).all()
     err = float((kern - plain).abs().max())
-    for c in range(kern.shape[0]):
-        scale = float(plain[c].abs().max()) or 1.0
-        assert torch.allclose(kern[c], plain[c], rtol=1e-5,
-                              atol=1e-5 * scale), f"K1 column {c} differs"
+    assert_columns_close(kern, plain, "K1")
     n_eq = int((kern == plain).all(dim=0).sum())
     log(f"K1 8-bounce round, 65536 rays: every column within rtol 1e-5; "
         f"max abs err {err:.3e}; {n_eq} of {kern.shape[1]} rays "
@@ -221,7 +246,7 @@ def phase_trace() -> dict:
     # chain and the plain chain run apart. Every column must agree after
     # each of the first two rounds; after the last, the IR.
     state, scal = start_state(N_RAYS)
-    budgets = tuned.auto_options(rows.shape[0], MAX_BOUNCES).round_budgets
+    budgets = tuned.round_budgets_for(MAX_BOUNCES)
     kern, plain = state.clone(), state.clone()
     err = 0.0
     for k, budget in enumerate(budgets):
@@ -236,11 +261,8 @@ def phase_trace() -> dict:
         alive = int((kern[rc._C_DONE] == 0.0).sum())
         if k + 1 < len(budgets):
             err = max(err, float((kern - plain).abs().max()))
-            for c in range(kern.shape[0]):
-                scale = float(plain[c].abs().max()) or 1.0
-                assert torch.allclose(kern[c], plain[c], rtol=1e-5,
-                                      atol=1e-5 * scale), \
-                    f"K1 round {k + 1} (budget {budget}), column {c} differs"
+            assert_columns_close(kern, plain,
+                                 f"K1 round {k + 1} (budget {budget})")
             verdict = "every column within rtol 1e-5"
         else:
             ir_k, ir_p = ir_of(kern), ir_of(plain)
@@ -265,11 +287,12 @@ def phase_trace() -> dict:
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
 
 
-def _write_inputs(tmp: Path) -> Path:
-    from audiorenderingv2_tpu_torch import testing
+def _write_inputs(tmp: Path, scene_file: str = "room.obj",
+                  receiver=RECEIVER, max_bounces: int = MAX_BOUNCES) -> Path:
+    """The dry signal and config.json in ``tmp`` for the scene file that
+    the caller wrote there."""
     from audiorenderingv2_tpu_torch.io import wav
 
-    testing.write_box_obj(tmp / "room.obj", ROOM, material="walls")
     rng = np.random.default_rng(7)
     t = np.arange(5 * SR) / SR
     dry = 0.3 * np.sin(2 * np.pi * (200 + 300 * t) * t)
@@ -279,12 +302,12 @@ def _write_inputs(tmp: Path) -> Path:
         "renderer_parameters": {"ir_length_in_seconds": IR_SECONDS},
         "scene_parameters": {
             "mono": False, "audio_file_path": "dry.wav",
-            "scene_file_path": "room.obj",
+            "scene_file_path": scene_file,
             "initial_emitter_pos": dict(zip("xyz", EMITTER)),
-            "initial_receiver_pos": dict(zip("xyz", RECEIVER))},
+            "initial_receiver_pos": dict(zip("xyz", receiver))},
         "pathtracer_parameters": {
             "base_power": 3.62, "rays": {"x": 100, "y": 100, "z": 100},
-            "ray_energy_threshold": 0.0, "ray_max_bounces": MAX_BOUNCES,
+            "ray_energy_threshold": 0.0, "ray_max_bounces": max_bounces,
             "hrtf_absorption_rate": 0.9,
             "materials": [{"name": "walls", "mat_absorption": ABSORPTION}]},
     }
@@ -301,6 +324,7 @@ def phase_export() -> dict:
     from audiorenderingv2_tpu_torch.ops import raytrace_cuda as rc
 
     with tempfile.TemporaryDirectory() as tmp:
+        testing.write_box_obj(Path(tmp) / "room.obj", ROOM, material="walls")
         cfg = _write_inputs(Path(tmp))
         out_path = Path(tmp) / "export.wav"
         rc.launches = 0
@@ -352,6 +376,213 @@ def phase_export() -> dict:
     return launches
 
 
+def _office_params():
+    from audiorenderingv2_tpu_torch.core.params import TraceParams
+
+    return TraceParams(sample_rate=SR, ir_length=IR_SECONDS * SR,
+                       base_power=3.62, max_bounces=OFFICE_BOUNCES,
+                       hrtf_absorption_rate=0.9)
+
+
+def phase_cluster_kernels(n_rays: int = N_RAYS) -> dict:
+    """K1's multi-chunk branch, the schedule kernel and K2 against their
+    plain versions on the office scene, and the clustered IR against K1's;
+    returns the JSON entries' numbers of the two new kernels."""
+    from audiorenderingv2_tpu_torch import accel, constants, testing, tuned
+    from audiorenderingv2_tpu_torch.core import tracer
+    from audiorenderingv2_tpu_torch.ops import raytrace_cuda as rc
+    from audiorenderingv2_tpu_torch.ops import schedule_cuda as sc
+
+    dev = torch.device("cuda")
+    params = _office_params()
+    emitter = torch.tensor(EMITTER, device=dev)
+    receiver = torch.tensor(OFFICE_RECEIVER, device=dev)
+    scene = testing.office_scene(OFFICE_TRIS)
+
+    def start_state(n, seed):
+        e0 = params.base_power / (n * constants.SPHERE_VOLUME)
+        d = torch.from_numpy(unit_dirs(n, seed)).to(dev)
+        return (rc.init_state(d, emitter, e0, -(-n // 128) * 128),
+                rc.scalars(emitter, receiver, 0.0, e0, params))
+
+    # K1 over every row of the unsorted scene: its multi-chunk branch.
+    flat = tracer.scene_to_arrays(scene, 128, device=dev)
+    rows_flat = rc.pack_tris_rows(flat)
+    state, scal = start_state(65536, 12)
+    kern = rc.trace_round(state.clone(), rows_flat, scal, params, 8)
+    plain = rc.trace_round_plain(state.clone(), rows_flat, scal, params, 8)
+    torch.cuda.synchronize()
+    assert torch.isfinite(kern).all(), "K1 multi-chunk not finite"
+    assert_columns_close(kern, plain, "K1 multi-chunk round")
+    n_eq = int((kern == plain).all(dim=0).sum())
+    k1_ms = median_ms(lambda s: rc.trace_round(s, rows_flat, scal, params,
+                                               8), 3,
+                      setup=lambda: (state.clone(),))
+    log(f"K1 multi-chunk, office scene ({scene.n_triangles} triangles, "
+        f"{rows_flat.shape[0]} rows = {-(-rows_flat.shape[0] // 512)} "
+        f"chunks of 512), 8-bounce round, 65536 rays: every column within "
+        f"rtol 1e-5; max abs err {float((kern - plain).abs().max()):.3e}; "
+        f"{n_eq} of {kern.shape[1]} rays bit-identical; kernel "
+        f"{k1_ms:.3f} ms")
+
+    sorted_scene, clusters = accel.prepare_scene(scene, cluster_size=32)
+    scc = tracer.scene_to_arrays(sorted_scene, 128, device=dev,
+                                 clusters=clusters)
+    rows, boxes = rc.pack_tris_clusters(scc)
+    log(f"office clustered: {rows.shape[0]} rows, {boxes.shape[0]} "
+        f"clusters of {rows.shape[0] // boxes.shape[0]}, schedule width "
+        f"{sc.schedule_width(boxes.shape[0])}")
+
+    # The schedule kernel on the state after one bounce (some rays done).
+    state, scal = start_state(n_rays, 13)
+    st1 = sc.trace_round_sched(state.clone(), rows, boxes,
+                               sc.tile_schedule(state, boxes), scal, params)
+    st1 = rc._sort_state_by_keys(st1, rc._compaction_keys(st1))
+    sched_k = sc.tile_schedule(st1, boxes)
+    sched_p = sc.tile_schedule_plain(st1, boxes)
+    torch.cuda.synchronize()
+    assert torch.equal(sched_k, sched_p), "schedule kernel rows differ"
+    counts = sched_k[:, 0].double()
+    n_done = int((st1[rc._C_DONE] != 0).sum())
+    live = counts > 0
+    sched_ms = median_ms(lambda: sc.tile_schedule(st1, boxes), 10)
+    sched_plain_ms = median_ms(lambda: sc.tile_schedule_plain(st1, boxes),
+                               2)
+    sort_ms = median_ms(
+        lambda: rc._sort_state_by_keys(st1, rc._compaction_keys(st1)), 10)
+    log(f"schedule after one bounce and the sort, {st1.shape[1]} rays "
+        f"({n_done} done), {sched_k.shape[0]} tiles: kernel rows equal the "
+        f"plain rows; candidates per live tile mean "
+        f"{float(counts[live].mean()):.2f}, max {int(counts.max())}; "
+        f"triangle tests per ray {float(counts[live].mean()) * 32:.1f}; "
+        f"kernel {sched_ms:.3f} ms, plain {sched_plain_ms:.3f} ms; keys + "
+        f"sort + gather {sort_ms:.3f} ms")
+
+    # K2 and its plain version, two clustered rounds, the chains apart.
+    kern, plain = state.clone(), state.clone()
+    k2_err = 0.0
+    for k in range(2):
+        sk = sc.tile_schedule(kern, boxes)
+        sp = sc.tile_schedule_plain(plain, boxes)
+        kern = sc.trace_round_sched(kern, rows, boxes, sk, scal, params)
+        plain = sc.trace_round_sched_plain(plain, rows, boxes, sp, scal,
+                                           params)
+        torch.cuda.synchronize()
+        assert torch.isfinite(kern).all(), f"K2 round {k + 1} not finite"
+        assert_columns_close(kern, plain, f"K2 round {k + 1}")
+        k2_err = max(k2_err, float((kern - plain).abs().max()))
+        n_eq = int((kern == plain).all(dim=0).sum())
+        perm_k = torch.sort(rc._compaction_keys(kern), stable=True).indices
+        perm_p = torch.sort(rc._compaction_keys(plain), stable=True).indices
+        same = torch.equal(perm_k, perm_p)
+        # Both chains take the plain chain's order, so that the columns of
+        # the next round compare ray for ray.
+        kern = kern.index_select(1, perm_p)
+        plain = plain.index_select(1, perm_p)
+        log(f"K2 round {k + 1}, {kern.shape[1]} rays: every column within "
+            f"rtol 1e-5; {n_eq} rays bit-identical; "
+            f"{int((kern[rc._C_DONE] == 0).sum())} alive after; the chains' "
+            f"sort orders {'agree' if same else 'DIFFER'}")
+    k2_ms = median_ms(lambda s: sc.trace_round_sched(s, rows, boxes, sched_k,
+                                                     scal, params), 5,
+                      setup=lambda: (st1.clone(),))
+    k2_plain_ms = median_ms(
+        lambda s: sc.trace_round_sched_plain(s, rows, boxes, sched_k, scal,
+                                             params), 2,
+        setup=lambda: (st1.clone(),))
+    log(f"K2 one round on the state after one bounce, {st1.shape[1]} rays: "
+        f"kernel {k2_ms:.3f} ms, plain {k2_plain_ms:.3f} ms; max abs err "
+        f"over the two rounds {k2_err:.3e}")
+
+    # The clustered IR against K1 over every row, 64k shared directions.
+    d = torch.from_numpy(unit_dirs(65536, 14)).to(dev)
+    args = (EMITTER, OFFICE_RECEIVER, 0.0, params)
+    ir_c = tracer.trace_ir(scc, d, *args).cpu().numpy()
+    ir_r = tracer.trace_ir(flat, d, *args, tracer.TracerOptions(
+        round_budgets=tuned.round_budgets_for(OFFICE_BOUNCES))).cpu().numpy()
+    testing.assert_ir_close(ir_c, ir_r, exact=False)
+    log(f"office IR, 65536 shared directions, {OFFICE_BOUNCES} bounces: the "
+        f"clustered route passes assert_ir_close(exact=False) against K1 "
+        f"over every row; energy {float(ir_c.sum()):.6e} / "
+        f"{float(ir_r.sum()):.6e}; relative L1 "
+        f"{float(np.abs(ir_c - ir_r).sum() / np.abs(ir_r).sum()):.3e}")
+    return {
+        "trace_round_sched": {"max_abs_err": k2_err, "ms": k2_ms,
+                              "plain_ms": k2_plain_ms},
+        "tile_schedule": {
+            "max_abs_err": float((sched_k - sched_p).abs().max()),
+            "ms": sched_ms, "plain_ms": sched_plain_ms},
+    }
+
+
+def phase_office_export() -> dict:
+    """The office export on the clustered route, and render times of both
+    routes on the same scene; returns the clustered export's launches."""
+    from audiorenderingv2_tpu_torch import context, testing, tuned
+    from audiorenderingv2_tpu_torch.core.tracer import TracerOptions
+    from audiorenderingv2_tpu_torch.io import wav
+    from audiorenderingv2_tpu_torch.ops import histogram_cuda as hc
+    from audiorenderingv2_tpu_torch.ops import raytrace_cuda as rc
+    from audiorenderingv2_tpu_torch.ops import schedule_cuda as sc
+    from audiorenderingv2_tpu_torch.renderer import AudioRenderer
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        testing.write_obj(Path(tmp) / "office.obj",
+                          *testing.office_mesh(OFFICE_TRIS))
+        cfg = _write_inputs(Path(tmp), "office.obj", OFFICE_RECEIVER,
+                            OFFICE_BOUNCES)
+        rc.launches = hc.launches = 0
+        sc.tile_schedule_launches = sc.trace_round_sched_launches = 0
+        ctx = context.load_context(cfg, device="cuda")
+        context.export_audio(ctx, Path(tmp) / "office.wav")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        r = ctx.renderer
+        r_clusters = None if r.boxes is None else r.boxes.shape[0]
+        launches = {"trace_round": rc.launches, "histogram": hc.launches,
+                    "tile_schedule": sc.tile_schedule_launches,
+                    "trace_round_sched": sc.trace_round_sched_launches}
+        log(f"office export: {wall:.2f} s wall (obj written and loaded, "
+            f"scene sorted and clustered, first call); {r_clusters} "
+            f"clusters; launches {launches}")
+        assert launches["trace_round"] == 0, launches
+        assert launches["tile_schedule"] == OFFICE_BOUNCES, launches
+        assert launches["trace_round_sched"] == OFFICE_BOUNCES, launches
+        assert launches["histogram"] > 0, launches
+        assert r.boxes is not None
+        audio = wav.read_wav(Path(tmp) / "office.wav")
+        assert audio.n_channels == 2 and audio.sample_rate == SR
+        assert np.isfinite(audio.samples).all()
+        peaks = np.abs(audio.samples).max(axis=1)
+        assert np.all(np.abs(peaks - 1.0) < 1e-3), peaks
+        ir = r.ir
+        assert ir.shape == (2, IR_SECONDS * SR) and np.isfinite(ir).all()
+        nz = (ir > 0).sum(axis=1)
+        assert np.all(nz >= 200), nz
+        log(f"office export: WAV stereo {SR} Hz, peaks {peaks.tolist()}; IR "
+            f"nonzero bins per ear {nz.tolist()}, energy "
+            f"{ir.sum(axis=1).tolist()}")
+
+        rows_r = AudioRenderer(
+            ctx.scene, IR_SECONDS, SR, r.n_rays, base_power=3.62,
+            max_bounces=OFFICE_BOUNCES, hrtf_absorption_rate=0.9,
+            opts=TracerOptions(
+                round_budgets=tuned.round_budgets_for(OFFICE_BOUNCES)),
+            device="cuda")
+        rows_r.set_emitter_pos(r.emitter_pos)
+        rows_r.set_receiver(r.receiver_pos, r.receiver_yaw_deg)
+        assert rows_r.boxes is None
+        clustered_ms = median_ms(r.render, 3)
+        rows_ms = median_ms(rows_r.render, 3)
+        log(f"office render ({r.n_rays} rays, {OFFICE_BOUNCES} bounces, "
+            f"{IR_SECONDS} s IR at {SR} Hz), median of 3: clustered "
+            f"{clustered_ms:.3f} ms, K1 over all {rows_r.rows.shape[0]} rows "
+            f"{rows_ms:.3f} ms; rows / clustered "
+            f"{rows_ms / clustered_ms:.2f}")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; the port's "
@@ -368,6 +599,8 @@ def main() -> int:
     k3 = phase_histogram()
     k1 = phase_trace()
     launches = phase_export()
+    cluster = phase_cluster_kernels()
+    office = phase_office_export()
     kernels = [
         {"name": "trace_round", "route": "cuda",
          "source": "audiorenderingv2_tpu_torch/csrc/trace_round.cu",
@@ -377,6 +610,15 @@ def main() -> int:
          "source": "audiorenderingv2_tpu_torch/csrc/histogram.cu",
          "replaces": "audiorenderingv2_tpu/ops/histogram_pallas.py:59",
          "launches": launches["histogram"], **k3},
+        {"name": "trace_round_sched", "route": "cuda",
+         "source": "audiorenderingv2_tpu_torch/csrc/trace_sched.cu",
+         "replaces": "audiorenderingv2_tpu/ops/raytrace_pallas_v2.py:501",
+         "launches": office["trace_round_sched"],
+         **cluster["trace_round_sched"]},
+        {"name": "tile_schedule", "route": "cuda",
+         "source": "audiorenderingv2_tpu_torch/csrc/tile_schedule.cu",
+         "replaces": "audiorenderingv2_tpu/ops/raytrace_pallas_v2.py:1103",
+         "launches": office["tile_schedule"], **cluster["tile_schedule"]},
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -31,7 +31,8 @@ from audiorenderingv2_tpu_torch.ops import raytrace_cuda as rc
 torch.set_num_threads(1)
 
 REPO = Path(__file__).resolve().parent.parent
-COPIES = ["constants.py", "config.py", "scene.py", "io/obj.py", "io/wav.py"]
+COPIES = ["constants.py", "config.py", "scene.py", "io/obj.py", "io/wav.py",
+          "accel.py"]
 
 
 def _np(sc):
@@ -181,7 +182,8 @@ def test_scene_to_arrays_matches(name, tri_chunk):
     scene = jt.scene_from_arrays(v, t, 0.3)
     a = _np(ar.scene_to_arrays(scene, tri_chunk))
     b = t_tracer.scene_to_arrays(scene, tri_chunk)
-    for f in t_tracer.SceneArrays._fields:
+    assert a["cluster_boxes"] is None and b.cluster_boxes is None
+    for f in t_tracer.SceneArrays._fields[:-1]:
         x, y = a[f], getattr(b, f).numpy()
         assert x.shape == y.shape and y.dtype == np.float32, f
         if f in ("u_off", "v_off"):
@@ -225,9 +227,13 @@ def test_convert_round_trip():
     assert dataclasses.asdict(p) == dataclasses.asdict(params)
     assert (p.distance_threshold, p.cross_ear_delay) == \
         (params.distance_threshold, params.cross_ear_delay)
-    with pytest.raises(NotImplementedError):
-        convert.scene_arrays_from_jax(
-            dict(arrays, cluster_boxes=np.zeros((1, 8), np.float32)))
+    assert back["cluster_boxes"] is None
+    boxes = np.arange(16, dtype=np.float32).reshape(2, 8)
+    clustered = convert.scene_arrays_from_jax(dict(arrays,
+                                                   cluster_boxes=boxes))
+    np.testing.assert_array_equal(clustered.cluster_boxes.numpy(), boxes)
+    np.testing.assert_array_equal(
+        convert.scene_arrays_to_numpy(clustered)["cluster_boxes"], boxes)
 
 
 def test_tracer_options_from_jax():
@@ -291,3 +297,32 @@ def test_box_room_matches_reference():
     v, t = jt.box_room()
     _assert_scene_equal(jt.scene_from_arrays(v, t, 0.3),
                         tt.scene_from_arrays(v, t, 0.3))
+
+
+@pytest.mark.parametrize("subdivisions", [0, 2, 3])
+def test_icosphere_matches_reference(subdivisions):
+    kw = dict(radius=2.5, center=(1.0, -0.5, 3.0), subdivisions=subdivisions)
+    for x, y in zip(jt.icosphere(**kw), tt.icosphere(**kw)):
+        np.testing.assert_array_equal(x, y)
+
+
+@pytest.mark.parametrize("target", [700, 2000])
+def test_office_scene_matches_benchmark(target):
+    """The port's office equals benchmarks/large_scene.office_scene bit for
+    bit, the scene the JAX package's large-scene workload renders."""
+    from benchmarks import large_scene
+
+    _assert_scene_equal(large_scene.office_scene(target),
+                        tt.office_scene(target))
+
+
+def test_write_obj_round_trips(tmp_path):
+    """An office written by write_obj loads back with the same faces and
+    its one material, vertices to the 6 decimals written."""
+    v, t = tt.office_mesh(700)
+    path = tt.write_obj(tmp_path / "office.obj", v, t, material="walls")
+    mesh = t_obj.load_obj(path)
+    np.testing.assert_array_equal(mesh.triangles, t)
+    np.testing.assert_allclose(mesh.vertices, v, atol=1e-6)
+    assert mesh.material_names == ["walls"]
+    assert np.all(mesh.tri_material == 0)
