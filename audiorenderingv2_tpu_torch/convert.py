@@ -45,7 +45,8 @@ def tracer_options_from_jax(opts) -> TracerOptions:
     tuned the TPU kernels (``pallas_precision``, ``pallas_layout``,
     ``rays_per_tile``, ``pallas_unroll``, ...) are dropped. The Pallas
     round budgets carry over whatever the JAX backend, as the port has one
-    path."""
+    path; ``pallas_native_rng`` becomes ``native_rng``."""
     return TracerOptions(soft_binning=bool(opts.soft_binning),
                          compact=bool(opts.pallas_compact),
-                         round_budgets=opts.pallas_round_budgets)
+                         round_budgets=opts.pallas_round_budgets,
+                         native_rng=bool(opts.pallas_native_rng))

@@ -23,3 +23,20 @@ def sample_directions(n: int, generator: torch.Generator,
     sin_phi = torch.sqrt(torch.clamp(1.0 - cos_phi * cos_phi, min=0.0))
     return torch.stack([sin_phi * torch.cos(theta),
                         sin_phi * torch.sin(theta), cos_phi], dim=-1)
+
+
+def pose_generator(seed: int, index: int,
+                   device: torch.device | str) -> torch.Generator:
+    """The generator of pose (or pair) ``index`` under ``seed``, on
+    ``device``: the counterpart of ``jax.random.fold_in(key, index)``. The
+    two integers are mixed with the splitmix64 finaliser into one 63-bit
+    seed, so the fused pose batch, a per-pair loop and a single render of
+    one pair all draw the same directions for it."""
+    mask = (1 << 64) - 1
+    z = (int(seed) * 0x9E3779B97F4A7C15 + int(index) + 1) & mask
+    z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & mask
+    z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & mask
+    z ^= z >> 31
+    gen = torch.Generator(device=device)
+    gen.manual_seed(z >> 1)
+    return gen

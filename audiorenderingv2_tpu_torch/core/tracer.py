@@ -7,8 +7,11 @@ path. ``trace_ir`` packs the triangle rows, runs the bounce rounds of
 route (K1 over every triangle, several bounces per round); a scene with
 them, Morton-sorted by ``accel.prepare_scene``, the clustered route (one
 bounce per round: the per-tile schedule, then K2 over each tile's candidate
-clusters, then a coherent sort of the rays). The tensors' device picks the
-kernels: a CUDA tensor launches them, a CPU tensor runs their plain
+clusters, then a coherent sort of the rays). ``render_ir_pose_batch``
+renders P poses in one launch per round (``trace_events_pose_batch``) and
+one posed histogram; ``render_ir`` with ``opts.native_rng`` generates its
+directions inside K4 instead of sampling them. The tensors' device picks
+the kernels: a CUDA tensor launches them, a CPU tensor runs their plain
 versions.
 
 Geometry stays elementwise: no dot product here is a matmul or an einsum,
@@ -59,7 +62,10 @@ class TracerOptions:
     ``compact``: partition the ray state alive-first between bounce rounds
     (the JAX package's ``pallas_compact``). ``round_budgets``: explicit
     per-round bounce budgets (its ``pallas_round_budgets``); None = the
-    default geometric schedule.
+    default geometric schedule. ``native_rng``: ``render_ir`` generates the
+    directions inside the state-initialising kernel, K4 (the JAX package's
+    ``pallas_native_rng``), so no [N, 3] array is made; the stream differs
+    from ``sample_directions``', so the two renders agree statistically.
 
     The JAX package's options that only tuned its TPU kernels have no field
     here; ``convert.tracer_options_from_jax`` drops them.
@@ -68,6 +74,7 @@ class TracerOptions:
     soft_binning: bool = False
     compact: bool = True
     round_budgets: tuple | None = None
+    native_rng: bool = False
 
 
 def scene_to_arrays(scene, tri_chunk: int = 2048,
@@ -118,29 +125,23 @@ def scene_to_arrays(scene, tri_chunk: int = 2048,
         absorption=pad(absorb), valid=pad(scene.valid), cluster_boxes=boxes)
 
 
-def _slot_bins(bin_f: torch.Tensor, active: torch.Tensor, n_bins: int,
-               soft: bool):
-    """Per-event deposit slots: (bins int32 [E, S], fracs f32 [E, S])."""
-    if soft:
-        b0 = torch.floor(bin_f)
-        frac = bin_f - b0
-        b0i = b0.to(torch.int32)
-        bins = torch.stack([torch.where(active, b0i, n_bins),
-                            torch.where(active, b0i + 1, n_bins)], dim=-1)
-        fracs = torch.stack([1.0 - frac, frac], dim=-1)
-    else:
-        b = torch.round(bin_f).to(torch.int32)  # half to even, as jnp.round
-        bins = torch.where(active, b, n_bins)[..., None]
-        fracs = torch.ones_like(bin_f)[..., None]
+def _soft_slots(bin_f: torch.Tensor, active: torch.Tensor, n_bins: int):
+    """Linear-interpolated deposit slots of each event: (bins int32 [E, 2],
+    fracs f32 [E, 2]); an inactive event gets bin ``n_bins``."""
+    b0 = torch.floor(bin_f)
+    frac = bin_f - b0
+    b0i = b0.to(torch.int32)
+    bins = torch.stack([torch.where(active, b0i, n_bins),
+                        torch.where(active, b0i + 1, n_bins)], dim=-1)
+    fracs = torch.stack([1.0 - frac, frac], dim=-1)
     return bins.to(torch.int32), fracs
 
 
-def _events_to_flat_bins(ev_bin_f, ev_w, ev_ear, params: TraceParams,
-                         soft: bool):
-    """Expand per-ray events into (flat_bin int32 [E*S], weight [E*S,
-    n_bands]). Left ear at [0, n_bins), right at [n_bins, 2*n_bins); an
-    out-of-range deposit gets 2*n_bins and is dropped. The cross-ear
-    deposit lands +cross_ear_delay samples later, scaled by
+def _soft_flat_bins(ev_bin_f, ev_w, ev_ear, params: TraceParams):
+    """Expand per-ray events into soft deposits (flat_bin int32 [E*S],
+    weight [E*S, n_bands]). Left ear at [0, n_bins), right at [n_bins,
+    2*n_bins); an out-of-range deposit gets 2*n_bins and is dropped. The
+    cross-ear deposit lands +cross_ear_delay samples later, scaled by
     (1 - hrtf_absorption_rate), and falls back to the same bin when the
     delayed bin overflows (devicePrograms.cu:124-168)."""
     nb = params.ir_length
@@ -151,22 +152,14 @@ def _events_to_flat_bins(ev_bin_f, ev_w, ev_ear, params: TraceParams,
         flat = torch.where(in_range, ear[:, None] * nb + bins, 2 * nb)
         return flat, fracs[:, :, None] * band_w[:, None, :]
 
-    slots = [flatten(*_slot_bins(ev_bin_f, active, nb, soft), ev_w, ev_ear)]
+    slots = [flatten(*_soft_slots(ev_bin_f, active, nb), ev_w, ev_ear)]
     if not params.is_mono:
         delay = params.cross_ear_delay
-        cross_w = ev_w * (1.0 - params.hrtf_absorption_rate)
-        other = 1 - ev_ear
-        if soft:
-            over = torch.round(ev_bin_f) + delay >= nb
-            cross_src = torch.where(over, ev_bin_f, ev_bin_f + delay)
-            slots.append(flatten(*_slot_bins(cross_src, active, nb, soft),
-                                 cross_w, other))
-        else:
-            base = torch.round(ev_bin_f).to(torch.int32)
-            cb = torch.where(base + delay < nb, base + delay, base)
-            cb = torch.where((base >= 0) & (base < nb) & active, cb, nb)
-            fr = torch.ones_like(ev_bin_f)[..., None]
-            slots.append(flatten(cb[:, None], fr, cross_w, other))
+        over = torch.round(ev_bin_f) + delay >= nb
+        cross_src = torch.where(over, ev_bin_f, ev_bin_f + delay)
+        slots.append(flatten(*_soft_slots(cross_src, active, nb),
+                             ev_w * (1.0 - params.hrtf_absorption_rate),
+                             1 - ev_ear))
     flat = torch.cat([s[0] for s in slots], dim=1).reshape(-1)
     ws = torch.cat([s[1] for s in slots], dim=1)
     return flat.to(torch.int32), ws.reshape(-1, params.n_bands)
@@ -175,41 +168,83 @@ def _events_to_flat_bins(ev_bin_f, ev_w, ev_ear, params: TraceParams,
 def _histogram_from_events(ev_bin_f, ev_w, ev_ear, params: TraceParams,
                            soft: bool) -> torch.Tensor:
     """Events -> stereo IR: [2, ir_length] for one band, [2, n_bands,
-    ir_length] otherwise.
-
-    Hard binning sums only the same-ear deposits and derives the
-    cross-ear ones from the finished histogram by a shift: cross[j] =
-    (1 - hrtf) * (same[j - delay] + same[j] for the last ``delay`` bins,
-    the reference's overflow fallback)."""
+    ir_length] otherwise. Hard binning is the posed histogram of one pose;
+    soft binning expands every event into its deposit slots, the cross-ear
+    ones included."""
+    if not soft:
+        return _histogram_from_events_posed(ev_bin_f[None], ev_w[None],
+                                            ev_ear[None], params)[0]
     nb = params.ir_length
-    dev = ev_bin_f.device
-    if not soft and not params.is_mono:
-        active = torch.any(ev_w != 0.0, dim=-1)
-        b = torch.round(ev_bin_f).to(torch.int32)
-        flat = torch.where(active & (b >= 0) & (b < nb),
-                           ev_ear.to(torch.int32) * nb + b, 2 * nb)
-        hist = binning.histogram_sum_banded(flat, ev_w, 2 * nb)
-        hist = hist.reshape(2, nb, params.n_bands)
-        scale = 1.0 - params.hrtf_absorption_rate
-        delay = params.cross_ear_delay
-        j = torch.arange(nb, device=dev)
-        shifted = torch.roll(hist, delay, dims=1)
-        mask = (j >= delay)[None, :, None]
-        tail = (j >= nb - delay)[None, :, None]
-        cross = scale * (torch.where(mask, shifted, 0.0)
-                         + torch.where(tail, hist, 0.0))
-        hist = hist + cross.flip(0)  # each ear receives the OTHER ear's
-    else:
-        flat, ws = _events_to_flat_bins(ev_bin_f, ev_w, ev_ear, params, soft)
-        hist = binning.histogram_sum_banded(flat, ws, 2 * nb)
-        hist = hist.reshape(2, nb, params.n_bands)
+    flat, ws = _soft_flat_bins(ev_bin_f, ev_w, ev_ear, params)
+    hist = binning.histogram_sum_banded(flat, ws, 2 * nb)
+    hist = hist.reshape(2, nb, params.n_bands)
     if params.n_bands == 1:
         return hist[:, :, 0]
     return hist.permute(0, 2, 1)
 
 
+def _histogram_from_events_posed(ev_bin_f, ev_w, ev_ear,
+                                 params: TraceParams) -> torch.Tensor:
+    """Pose-batched events (ev_bin_f [P, E], ev_w [P, E, n_bands], ev_ear
+    [P, E]) -> IRs [P, 2, ir_length], or [P, 2, n_bands, ir_length].
+
+    One flat histogram per chunk of poses (flat bin = (pose * 2 + ear) *
+    ir_length + bin), so P histograms cost one K3 launch per chunk. A chunk
+    holds as many poses as keep its flat bins inside int32. Hard binning
+    only. Only the same-ear deposits are summed; the cross-ear ones follow
+    from the finished histogram by a shift over the pose axis: cross[j] =
+    (1 - hrtf) * (same[j - delay] + same[j] for the last ``delay`` bins,
+    the reference's overflow fallback, devicePrograms.cu:124-168)."""
+    nb = params.ir_length
+    dev = ev_bin_f.device
+    p = ev_bin_f.shape[0]
+    pose_chunk = max(1, (2**31 - 1) // (2 * nb) - 1)
+    outs = []
+    for start in range(0, p, pose_chunk):
+        pb = ev_bin_f[start:start + pose_chunk]
+        pw = ev_w[start:start + pose_chunk]
+        pe = ev_ear[start:start + pose_chunk].to(torch.int32)
+        pc = pb.shape[0]
+        active = torch.any(pw != 0.0, dim=-1)
+        b = torch.round(pb).to(torch.int32)
+        pose = torch.arange(pc, dtype=torch.int32, device=dev)[:, None]
+        flat = torch.where(active & (b >= 0) & (b < nb),
+                           (pose * 2 + pe) * nb + b, pc * 2 * nb)
+        hist = binning.histogram_sum_banded(
+            flat.reshape(-1), pw.reshape(-1, params.n_bands), pc * 2 * nb)
+        hist = hist.reshape(pc, 2, nb, params.n_bands)
+        if not params.is_mono:
+            scale = 1.0 - params.hrtf_absorption_rate
+            delay = params.cross_ear_delay
+            j = torch.arange(nb, device=dev)
+            shifted = torch.roll(hist, delay, dims=2)
+            mask = (j >= delay)[None, None, :, None]
+            tail = (j >= nb - delay)[None, None, :, None]
+            cross = scale * (torch.where(mask, shifted, 0.0)
+                             + torch.where(tail, hist, 0.0))
+            hist = hist + cross.flip(1)  # each ear receives the OTHER ear's
+        outs.append(hist)
+    hist = outs[0] if len(outs) == 1 else torch.cat(outs, dim=0)
+    if params.n_bands == 1:
+        return hist[:, :, :, 0]
+    return hist.permute(0, 1, 3, 2)
+
+
 def _as_vec(x, device) -> torch.Tensor:
     return torch.as_tensor(x, dtype=torch.float32, device=device)
+
+
+def packed_scene(sc: SceneArrays, params: TraceParams, rows, boxes):
+    """The scene's packed rows and boxes: the caller's, checked, or a fresh
+    pack."""
+    from ..ops import raytrace_cuda
+
+    if rows is None:
+        return raytrace_cuda.pack_scene(sc, params.n_bands)
+    if (boxes is None) != (sc.cluster_boxes is None):
+        raise ValueError("a clustered scene needs its packed boxes, and an "
+                         "unclustered one none")
+    return rows, boxes
 
 
 def trace_ir(sc: SceneArrays, directions: torch.Tensor, emitter,
@@ -229,11 +264,7 @@ def trace_ir(sc: SceneArrays, directions: torch.Tensor, emitter,
     from ..ops import raytrace_cuda
 
     dev = sc.device
-    if rows is None:
-        rows, boxes = raytrace_cuda.pack_scene(sc, params.n_bands)
-    elif (boxes is None) != (sc.cluster_boxes is None):
-        raise ValueError("a clustered scene needs its packed boxes, and an "
-                         "unclustered one none")
+    rows, boxes = packed_scene(sc, params, rows, boxes)
     ev_bin_f, ev_w, ev_ear = raytrace_cuda.trace_events(
         rows, directions.to(device=dev, dtype=torch.float32).contiguous(),
         _as_vec(emitter, dev), _as_vec(receiver_pos, dev),
@@ -250,9 +281,63 @@ def render_ir(sc: SceneArrays, generator: torch.Generator, n_rays: int,
               rows: torch.Tensor | None = None,
               boxes: torch.Tensor | None = None) -> torch.Tensor:
     """Sample ``n_rays`` directions from ``generator`` on the scene's
-    device and trace them (``rows``, ``boxes`` as in :func:`trace_ir`)."""
+    device and trace them (``rows``, ``boxes`` as in :func:`trace_ir`).
+
+    With ``opts.native_rng`` the generator gives only a seed (an integer
+    below 2^23, which survives its f32 scalar slot exactly) and K4
+    generates the directions while it initialises the state."""
+    from ..ops import raytrace_cuda
     from . import sampling
 
-    dirs = sampling.sample_directions(n_rays, generator, sc.device)
+    dev = sc.device
+    if opts.native_rng:
+        rows, boxes = packed_scene(sc, params, rows, boxes)
+        seed = torch.randint(0, 2**23, (), generator=generator, device=dev)
+        ev_bin_f, ev_w, ev_ear = raytrace_cuda.trace_events(
+            rows, None, _as_vec(emitter, dev), _as_vec(receiver_pos, dev),
+            float(receiver_yaw_deg), params, n_total_rays=n_total_rays,
+            compact=opts.compact, round_budgets=opts.round_budgets,
+            boxes=boxes, n_rays=n_rays, native_rng_seed=seed)
+        return _histogram_from_events(ev_bin_f, ev_w, ev_ear, params,
+                                      opts.soft_binning)
+    dirs = sampling.sample_directions(n_rays, generator, dev)
     return trace_ir(sc, dirs, emitter, receiver_pos, receiver_yaw_deg,
                     params, opts, n_total_rays, rows, boxes)
+
+
+def render_ir_pose_batch(sc: SceneArrays, seed: int, n_rays: int, emitters,
+                         receivers, receiver_yaws_deg, params: TraceParams,
+                         opts: TracerOptions = TracerOptions(),
+                         pose_indices=None,
+                         rows: torch.Tensor | None = None,
+                         boxes: torch.Tensor | None = None) -> torch.Tensor:
+    """Render P poses in one launch per round (the multi-pose fast path).
+
+    ``emitters``, ``receivers`` [P, 3], ``receiver_yaws_deg`` [P]. Pose
+    ``i`` draws its ``n_rays`` directions from
+    ``sampling.pose_generator(seed, pose_indices[i], device)`` (default
+    ``i``), the stream a single :func:`render_ir` of that pose sees from the
+    same generator. Hard binning only: ``opts.soft_binning`` raises. Returns [P, 2, ir_length] on the scene's
+    device, or [P, 2, n_bands, ir_length]."""
+    from ..ops import raytrace_cuda
+    from . import sampling
+
+    if opts.soft_binning:
+        raise ValueError("render_ir_pose_batch is a forward-rendering path "
+                         "(hard binning); use render_ir per pose for "
+                         "soft_binning gradients")
+    dev = sc.device
+    emitters = _as_vec(emitters, dev).reshape(-1, 3)
+    if pose_indices is None:
+        pose_indices = range(emitters.shape[0])
+    directions = torch.stack([
+        sampling.sample_directions(
+            n_rays, sampling.pose_generator(seed, int(i), dev), dev)
+        for i in pose_indices])
+    rows, boxes = packed_scene(sc, params, rows, boxes)
+    ev_bin_f, ev_w, ev_ear = raytrace_cuda.trace_events_pose_batch(
+        rows, directions.to(device=dev, dtype=torch.float32).contiguous(),
+        emitters, _as_vec(receivers, dev).reshape(-1, 3),
+        _as_vec(receiver_yaws_deg, dev).reshape(-1), params,
+        compact=opts.compact, round_budgets=opts.round_budgets, boxes=boxes)
+    return _histogram_from_events_posed(ev_bin_f, ev_w, ev_ear, params)

@@ -21,6 +21,7 @@ namespace ar2 {
 
 constexpr int kThreads = 128;  // rays per block; a tile of the clustered route
 constexpr int kNR = 24;        // floats per triangle row
+constexpr int kNScal = 16;     // floats per scalar row (one row per pose)
 constexpr float kTMin = 1e-4f;
 constexpr float kBaryEps = 1e-7f;
 constexpr float kSafeDen = 1e-12f;
@@ -58,7 +59,7 @@ __device__ __forceinline__ void load_rows(float* dst, const float* src,
   for (int k = threadIdx.x; k < n_floats; k += blockDim.x) dst[k] = src[k];
 }
 
-// The scalar row, read once per thread.
+// One pose's scalar row, read once per thread.
 struct Scalars {
   float rcx, rcy, rcz, siny, cosy, ethr, dthr, binrate, r2;
   __device__ explicit Scalars(const float* s)

@@ -20,6 +20,14 @@
 // a scene that fits one chunk is loaded once per block and each thread then
 // runs free of barriers. A larger scene runs block-synchronously: all
 // threads of a block step through the chunks of every bounce together.
+//
+// Poses (K1-pose: the same TPU kernel launched with `tiles_per_pose`,
+// raytrace_pallas_v2.py:887-904, where tile i reads scalar row
+// i // tiles_per_pose). `scal` is [P, 16] and the state is pose-major: rays
+// [p * rays_per_pose, (p + 1) * rays_per_pose) belong to pose p.
+// rays_per_pose is a multiple of the block size whenever P > 1, so a block
+// never spans two poses and takes its scalar row from its first ray. One
+// pose with rays_per_pose = n is the single-pose launch, unchanged.
 
 #include "trace_common.cuh"
 
@@ -33,8 +41,8 @@ template <int LB>
 __global__ void __launch_bounds__(kThreads)
 trace_round_kernel(float* __restrict__ st, long long n,
                    const float* __restrict__ tris, int n_tris,
-                   const float* __restrict__ scal, int n_bands, int budget,
-                   int max_bounces) {
+                   const float* __restrict__ scal, long long rays_per_pose,
+                   int n_bands, int budget, int max_bounces) {
   extern __shared__ float s_rows[];
   const long long ray = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   const bool have_ray = ray < n;
@@ -43,7 +51,8 @@ trace_round_kernel(float* __restrict__ st, long long n,
     load_rows(s_rows, tris, n_tris * kNR);
     __syncthreads();
   }
-  const Scalars sc(scal);
+  const long long pose = ((long long)blockIdx.x * blockDim.x) / rays_per_pose;
+  const Scalars sc(scal + pose * kNScal);
   const float fmax_b = (float)max_bounces;
   Ray<LB> r;
   r.load(st, n, ray, have_ray, n_bands);
@@ -75,15 +84,16 @@ trace_round_kernel(float* __restrict__ st, long long n,
 
 template <int LB>
 int launch(float* state, long long n, int ncols, const float* tris,
-           int n_tris, const float* scal, int n_bands, int budget,
-           int max_bounces, cudaStream_t stream) {
+           int n_tris, const float* scal, long long rays_per_pose,
+           int n_bands, int budget, int max_bounces, cudaStream_t stream) {
   if (ncols != state_ncols<LB>() || n_bands > LB)
     return (int)cudaErrorInvalidValue;
   const long long blocks = (n + kThreads - 1) / kThreads;
   const size_t smem =
       sizeof(float) * kNR * (size_t)(n_tris < kChunk ? n_tris : kChunk);
   trace_round_kernel<LB><<<(unsigned)blocks, kThreads, smem, stream>>>(
-      state, n, tris, n_tris, scal, n_bands, budget, max_bounces);
+      state, n, tris, n_tris, scal, rays_per_pose, n_bands, budget,
+      max_bounces);
   return (int)cudaGetLastError();
 }
 
@@ -91,22 +101,25 @@ int launch(float* state, long long n, int ncols, const float* tris,
 
 extern "C" int ar2_trace_round(float* state, long long n, int ncols,
                                const float* tris, int n_tris,
-                               const float* scal, int n_bands,
+                               const float* scal, int n_poses,
+                               long long rays_per_pose, int n_bands,
                                int layout_bands, int budget, int max_bounces,
                                void* stream) {
-  if (n <= 0 || n_tris < 0 || n_bands < 1 || budget < 1)
+  if (n <= 0 || n_tris < 0 || n_bands < 1 || budget < 1 || n_poses < 1 ||
+      rays_per_pose * n_poses != n ||
+      (n_poses > 1 && rays_per_pose % kThreads))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   switch (layout_bands) {
     case 1:
-      return launch<1>(state, n, ncols, tris, n_tris, scal, n_bands, budget,
-                       max_bounces, s);
+      return launch<1>(state, n, ncols, tris, n_tris, scal, rays_per_pose,
+                       n_bands, budget, max_bounces, s);
     case 4:
-      return launch<4>(state, n, ncols, tris, n_tris, scal, n_bands, budget,
-                       max_bounces, s);
+      return launch<4>(state, n, ncols, tris, n_tris, scal, rays_per_pose,
+                       n_bands, budget, max_bounces, s);
     case 8:
-      return launch<8>(state, n, ncols, tris, n_tris, scal, n_bands, budget,
-                       max_bounces, s);
+      return launch<8>(state, n, ncols, tris, n_tris, scal, rays_per_pose,
+                       n_bands, budget, max_bounces, s);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -20,6 +20,11 @@
 // keeps a tile's rays close in position and direction, so its list stays
 // short. Done rays reach every barrier: there is no early return before
 // the loop, and a tile with count 0 still runs the receiver test.
+//
+// Poses (the TPU kernel with `tiles_per_pose`, raytrace_pallas_v2.py:
+// 887-904): `scal` is [P, 16], the state pose-major, and tile i reads scalar
+// row i // tiles_per_pose. The schedule is per tile and reads positions
+// only, so it is the same for any P. One pose is the single-pose launch.
 
 #include "trace_common.cuh"
 
@@ -32,12 +37,12 @@ __global__ void __launch_bounds__(kThreads)
 trace_sched_kernel(float* __restrict__ st, long long n,
                    const float* __restrict__ rows, int cs,
                    const int* __restrict__ sched, int width,
-                   const float* __restrict__ scal, int n_bands,
-                   int max_bounces) {
+                   const float* __restrict__ scal, int tiles_per_pose,
+                   int n_bands, int max_bounces) {
   extern __shared__ float s_rows[];
   const long long ray = (long long)blockIdx.x * kThreads + threadIdx.x;
   const bool have_ray = ray < n;
-  const Scalars sc(scal);
+  const Scalars sc(scal + (long long)(blockIdx.x / tiles_per_pose) * kNScal);
   Ray<LB> r;
   r.load(st, n, ray, have_ray, n_bands);
   const bool running = have_ray && r.done == 0.f;
@@ -61,15 +66,17 @@ trace_sched_kernel(float* __restrict__ st, long long n,
 
 template <int LB>
 int launch(float* state, long long n, int ncols, const float* rows, int cs,
-           const int* sched, int width, const float* scal, int n_bands,
-           int max_bounces, cudaStream_t stream) {
+           const int* sched, int width, const float* scal,
+           int tiles_per_pose, int n_bands, int max_bounces,
+           cudaStream_t stream) {
   if (ncols != state_ncols<LB>() || n_bands > LB)
     return (int)cudaErrorInvalidValue;
   const size_t smem = sizeof(float) * kNR * (size_t)cs;
   if (smem > 48 * 1024) return (int)cudaErrorInvalidValue;
   const long long blocks = n / kThreads;
   trace_sched_kernel<LB><<<(unsigned)blocks, kThreads, smem, stream>>>(
-      state, n, rows, cs, sched, width, scal, n_bands, max_bounces);
+      state, n, rows, cs, sched, width, scal, tiles_per_pose, n_bands,
+      max_bounces);
   return (int)cudaGetLastError();
 }
 
@@ -77,22 +84,25 @@ int launch(float* state, long long n, int ncols, const float* rows, int cs,
 
 extern "C" int ar2_trace_sched(float* state, long long n, int ncols,
                                const float* rows, int cs, const int* sched,
-                               int width, const float* scal, int n_bands,
+                               int width, const float* scal, int n_poses,
+                               long long rays_per_pose, int n_bands,
                                int layout_bands, int max_bounces,
                                void* stream) {
-  if (n <= 0 || n % kThreads || cs < 1 || width < 1 || n_bands < 1)
+  if (n <= 0 || n % kThreads || cs < 1 || width < 1 || n_bands < 1 ||
+      n_poses < 1 || rays_per_pose * n_poses != n || rays_per_pose % kThreads)
     return (int)cudaErrorInvalidValue;
+  const int tiles_per_pose = (int)(rays_per_pose / kThreads);
   cudaStream_t s = (cudaStream_t)stream;
   switch (layout_bands) {
     case 1:
       return launch<1>(state, n, ncols, rows, cs, sched, width, scal,
-                       n_bands, max_bounces, s);
+                       tiles_per_pose, n_bands, max_bounces, s);
     case 4:
       return launch<4>(state, n, ncols, rows, cs, sched, width, scal,
-                       n_bands, max_bounces, s);
+                       tiles_per_pose, n_bands, max_bounces, s);
     case 8:
       return launch<8>(state, n, ncols, rows, cs, sched, width, scal,
-                       n_bands, max_bounces, s);
+                       tiles_per_pose, n_bands, max_bounces, s);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -38,16 +38,20 @@ _I = ctypes.c_int
 _LL = ctypes.c_longlong
 # C signatures of csrc/*.cu; every function returns a cudaError_t.
 _SIGNATURES = {
-    # state, n, ncols, tris, n_tris, scal, n_bands, layout_bands, budget,
-    # max_bounces, stream
-    "ar2_trace_round": (_P, _LL, _I, _P, _I, _P, _I, _I, _I, _I, _P),
+    # state, n, ncols, tris, n_tris, scal, n_poses, rays_per_pose, n_bands,
+    # layout_bands, budget, max_bounces, stream
+    "ar2_trace_round": (_P, _LL, _I, _P, _I, _P, _I, _LL, _I, _I, _I, _I,
+                        _P),
     # bins, weights, n_events, n_bins, n_bands, out, stream
     "ar2_histogram": (_P, _P, _LL, _I, _I, _P, _P),
     # state, n, boxes, n_clusters, sched, width, stream
     "ar2_tile_schedule": (_P, _LL, _P, _I, _P, _I, _P),
-    # state, n, ncols, rows, cluster_size, sched, width, scal, n_bands,
-    # layout_bands, max_bounces, stream
-    "ar2_trace_sched": (_P, _LL, _I, _P, _I, _P, _I, _P, _I, _I, _I, _P),
+    # state, n, ncols, rows, cluster_size, sched, width, scal, n_poses,
+    # rays_per_pose, n_bands, layout_bands, max_bounces, stream
+    "ar2_trace_sched": (_P, _LL, _I, _P, _I, _P, _I, _P, _I, _LL, _I, _I, _I,
+                        _P),
+    # state, n_pad, ncols, n_real, scal, n_bands, layout_bands, stream
+    "ar2_init_state": (_P, _LL, _I, _LL, _P, _I, _I, _P),
 }
 
 

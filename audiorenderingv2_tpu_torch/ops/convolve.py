@@ -11,20 +11,14 @@ them outside any Pallas kernel:
   the reference's unnormalised cuFFT round trip scales by ir_length and it
   divides by ir_length/2. Only whole seconds are processed; the output has
   the input's length.
+* ``convolve_file_multi``: the same for a batch of signals, each with its
+  own IRs (the filterbank's bands, the listeners of ``multi.mix_sources``).
 * ``convolve_live``: one circular convolution at ir_length, same x2 scale.
 * ``interleave_stereo``: LRLR interleave.
 """
 from __future__ import annotations
 
 import torch
-
-
-def _ola_segments(samples: torch.Tensor, sample_rate: int,
-                  ir_length: int) -> torch.Tensor:
-    """Cut the signal into zero-padded 1 s segments [S, ir_length]."""
-    n_seconds = samples.shape[0] // sample_rate
-    segs = samples[:n_seconds * sample_rate].reshape(n_seconds, sample_rate)
-    return torch.nn.functional.pad(segs, (0, ir_length - sample_rate))
 
 
 def convolve_file(samples: torch.Tensor, ir: torch.Tensor,
@@ -40,28 +34,42 @@ def convolve_file_stereo(samples: torch.Tensor, ir_stereo: torch.Tensor,
     C works) -> f32 [C, L] on the IR's device."""
     samples = torch.as_tensor(samples, dtype=torch.float32,
                               device=ir_stereo.device)
-    ir_stereo = ir_stereo.to(torch.float32)
-    length = samples.shape[0]
-    n_ch, ir_length = ir_stereo.shape
+    return convolve_file_multi(samples[None], ir_stereo[None],
+                               sample_rate)[0]
+
+
+def convolve_file_multi(samples: torch.Tensor, irs: torch.Tensor,
+                        sample_rate: int) -> torch.Tensor:
+    """G signals, each against its own C IRs, in one batched FFT:
+    ``samples`` [G, L], ``irs`` [G, C, ir_length] -> f32 [G, C, L] on the
+    IRs' device. The batch axis stands where the JAX package maps
+    ``convolve_file_stereo`` over bands or listeners."""
+    samples = torch.as_tensor(samples, dtype=torch.float32,
+                              device=irs.device)
+    irs = irs.to(torch.float32)
+    n_sig, length = samples.shape
+    n_ch, ir_length = irs.shape[1:]
     if ir_length % sample_rate != 0:
         raise ValueError("ir_length must be a multiple of sample_rate")
     k = ir_length // sample_rate
-    segs = _ola_segments(samples, sample_rate, ir_length)
-    n_seconds = segs.shape[0]
-    spec = torch.fft.rfft(segs, dim=-1)[None] \
-        * torch.fft.rfft(ir_stereo, dim=-1)[:, None, :]
-    y = torch.fft.irfft(spec, n=ir_length, dim=-1)   # [C, S, ir_length]
+    n_seconds = length // sample_rate
+    segs = samples[:, :n_seconds * sample_rate].reshape(
+        n_sig, n_seconds, sample_rate)
+    segs = torch.nn.functional.pad(segs, (0, ir_length - sample_rate))
+    spec = torch.fft.rfft(segs, dim=-1)[:, None] \
+        * torch.fft.rfft(irs, dim=-1)[:, :, None, :]
+    y = torch.fft.irfft(spec, n=ir_length, dim=-1)  # [G, C, S, ir_length]
     # Overlap-add: segment s starts at s*sample_rate and spans k seconds.
-    yk = y.reshape(n_ch, n_seconds, k, sample_rate)
-    total = torch.zeros((n_ch, n_seconds + k - 1, sample_rate),
+    yk = y.reshape(n_sig, n_ch, n_seconds, k, sample_rate)
+    total = torch.zeros((n_sig, n_ch, n_seconds + k - 1, sample_rate),
                         dtype=torch.float32, device=y.device)
     for m in range(k):
-        total[:, m:m + n_seconds] += yk[:, :, m, :]
-    out = total.reshape(n_ch, -1)
-    if out.shape[1] >= length:
-        out = out[:, :length]
+        total[:, :, m:m + n_seconds] += yk[:, :, :, m, :]
+    out = total.reshape(n_sig, n_ch, -1)
+    if out.shape[2] >= length:
+        out = out[:, :, :length]
     else:
-        out = torch.nn.functional.pad(out, (0, length - out.shape[1]))
+        out = torch.nn.functional.pad(out, (0, length - out.shape[2]))
     return out * 2.0
 
 

@@ -25,7 +25,21 @@ with the packing of ``raytrace_pallas_v2.py``:
   Clustered: one bounce per round, the per-tile schedule and K2
   (``ops/schedule_cuda.py``), then a stable sort of the rays by dir72
   coherence keys (``_compaction_keys``), so that the 128 rays of a tile
-  share directions and cells and reach few clusters.
+  share directions and cells and reach few clusters;
+* ``trace_events_pose_batch``: P poses in one launch per round (K1-pose,
+  the TPU kernel's ``tiles_per_pose`` index map,
+  ``raytrace_pallas_v2.py:887-904``, driven by
+  ``raytrace_pallas.py:trace_events_pose_batch``). The state is pose-major,
+  ``[ncols, P * n_pad]``; ``scal`` has one row per pose and each ray reads
+  the row of its pose. The kernels are K1 and K2 themselves: one body, so
+  the posed and the single-pose forms cannot drift apart. Between rounds
+  the reorder runs per pose, so rays never move between poses;
+* ``init_state_native``: K4, the initial state with directions generated in
+  the kernel (``csrc/init_state.cu``, which replaces
+  ``raytrace_pallas_v2.py:_init_state_kernel_v2``, launched by
+  ``init_state_tiles``, :279), from a Philox4x32-10 stream keyed by (seed,
+  global ray index); ``init_state_native_plain`` reproduces its integer
+  words exactly. Bounded by the one write of the state.
 
 Results do not depend on the schedule: every ray is independent, so round
 budgets, the partition and the sort change only the speed. The budgets must
@@ -45,8 +59,11 @@ from . import _build
 if TYPE_CHECKING:
     from ..core.tracer import SceneArrays
 
-# Kernel launches since import (or since a caller reset it to 0).
+# Kernel launches since import (or since a caller reset them to 0): K1 with
+# one scalar row, K1 with a row per pose (``scal`` [P, 16]), and K4.
 launches = 0
+posed_launches = 0
+init_launches = 0
 
 _LANES = 128      # rays are padded to a multiple of this
 _TRI_BLOCK = 16   # triangle rows are trimmed to whole blocks of this
@@ -175,35 +192,138 @@ def pack_scene(sc: SceneArrays, n_bands: int = 1
 
 def scalars(emitter: torch.Tensor, receiver_pos: torch.Tensor, yaw_deg,
             e0: float, params: TraceParams) -> torch.Tensor:
-    """The f32 [16] scalar row both versions of K1 read."""
+    """The f32 [16] scalar row both versions of K1 read, or [P, 16], one
+    row per pose, for ``emitter`` and ``receiver_pos`` [P, 3] and
+    ``yaw_deg`` [P]."""
     dev = emitter.device
     yaw_rad = torch.deg2rad(torch.as_tensor(yaw_deg, dtype=torch.float32,
                                             device=dev))
-    vals = torch.zeros(_NSCAL, dtype=torch.float32, device=dev)
-    vals[_S_EMX:_S_EMZ + 1] = emitter
-    vals[_S_RCX:_S_RCZ + 1] = receiver_pos
-    vals[_S_SINY] = torch.sin(yaw_rad)
-    vals[_S_COSY] = torch.cos(yaw_rad)
-    vals[_S_E0] = e0
-    vals[_S_ETHR] = params.energy_threshold
-    vals[_S_DTHR] = params.distance_threshold
-    vals[_S_BINRATE] = params.sample_rate / constants.SPEED_OF_SOUND
-    vals[_S_R2] = constants.RECEIVER_RADIUS ** 2
+    vals = torch.zeros(emitter.shape[:-1] + (_NSCAL,), dtype=torch.float32,
+                       device=dev)
+    vals[..., _S_EMX:_S_EMZ + 1] = emitter
+    vals[..., _S_RCX:_S_RCZ + 1] = receiver_pos
+    vals[..., _S_SINY] = torch.sin(yaw_rad)
+    vals[..., _S_COSY] = torch.cos(yaw_rad)
+    vals[..., _S_E0] = e0
+    vals[..., _S_ETHR] = params.energy_threshold
+    vals[..., _S_DTHR] = params.distance_threshold
+    vals[..., _S_BINRATE] = params.sample_rate / constants.SPEED_OF_SOUND
+    vals[..., _S_R2] = constants.RECEIVER_RADIUS ** 2
     return vals
 
 
 def init_state(directions: torch.Tensor, emitter: torch.Tensor, e0: float,
                n_pad: int, n_bands: int = 1) -> torch.Tensor:
-    """The initial ray state f32 [ncols, n_pad]. Padding rays start done
-    with zero energy."""
-    n = directions.shape[0]
-    state = torch.zeros((state_ncols(n_bands), n_pad), dtype=torch.float32,
-                        device=directions.device)
-    state[_C_PX:_C_PZ + 1] = emitter[:, None]
-    state[_C_VX:_C_VZ + 1, :n] = directions.T
+    """The initial ray state f32 [ncols, n_pad] for ``directions`` [N, 3],
+    or [ncols, P * n_pad], pose-major, for ``directions`` [P, N, 3] and
+    ``emitter`` [P, 3]. Padding rays start done with zero energy."""
+    lead, n = directions.shape[:-2], directions.shape[-2]
+    state = torch.zeros((state_ncols(n_bands),) + lead + (n_pad,),
+                        dtype=torch.float32, device=directions.device)
+    state[_C_PX:_C_PZ + 1] = emitter.movedim(-1, 0)[..., None]
+    state[_C_VX:_C_VZ + 1, ..., :n] = directions.movedim(-1, 0)
     for c in band_cols(n_bands)[0]:
-        state[c, :n] = e0
-    state[_C_DONE, n:] = 1.0
+        state[c, ..., :n] = e0
+    state[_C_DONE, ..., n:] = 1.0
+    return state.reshape(state.shape[0], -1)
+
+
+# ------------------------------------------------------------- K4, plain
+
+_PHILOX_M0, _PHILOX_M1 = 0xD2511F53, 0xCD9E8D57
+_PHILOX_W0, _PHILOX_W1 = 0x9E3779B9, 0xBB67AE85
+_MASK32 = 0xFFFFFFFF
+
+
+def _mulhilo32(m: int, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(high, low) 32-bit words of m * x for a 32-bit constant ``m`` and
+    int64 ``x`` holding 32-bit values. The 64-bit product would overflow
+    int64, so ``x`` is taken in 16-bit halves for the high word."""
+    lo16 = m * (x & 0xFFFF)
+    hi = (m * (x >> 16) + (lo16 >> 16)) >> 16
+    return hi, (m * x) & _MASK32  # int64 products wrap; the low word holds
+
+
+def philox4x32_10(counter: tuple, key: tuple) -> tuple:
+    """Philox4x32-10 (Salmon et al., SC'11) in int64 tensor arithmetic:
+    four counter words and two key words, each an int64 tensor (or int)
+    holding a 32-bit value, to four output words."""
+    c0, c1, c2, c3 = (torch.as_tensor(c, dtype=torch.int64) for c in counter)
+    k0, k1 = (torch.as_tensor(k, dtype=torch.int64) for k in key)
+    for _ in range(10):
+        hi0, lo0 = _mulhilo32(_PHILOX_M0, c0)
+        hi1, lo1 = _mulhilo32(_PHILOX_M1, c2)
+        c0, c1, c2, c3 = hi1 ^ c1 ^ k0, lo1, hi0 ^ c3 ^ k1, lo0
+        k0 = (k0 + _PHILOX_W0) & _MASK32
+        k1 = (k1 + _PHILOX_W1) & _MASK32
+    return c0, c1, c2, c3
+
+
+def native_words(seed: torch.Tensor, n_pad: int) -> torch.Tensor:
+    """The two 32-bit words K4 draws for each ray, int64 [2, n_pad] on the
+    seed's device: words 0 and 1 of Philox4x32-10 at counter (ray index
+    low word, high word, 0, 0) and key (seed, 0)."""
+    ray = torch.arange(n_pad, dtype=torch.int64, device=seed.device)
+    w0, w1, _, _ = philox4x32_10((ray & _MASK32, ray >> 32, 0, 0),
+                                 (seed.to(torch.int64) & _MASK32, 0))
+    return torch.stack([w0, w1])
+
+
+def init_state_native_plain(scal: torch.Tensor, n_pad: int, n_real: int,
+                            n_bands: int = 1) -> torch.Tensor:
+    """Plain PyTorch version of K4: the initial state f32 [ncols, n_pad]
+    with directions from the Philox stream of :func:`native_words`. The
+    emitter, e0 and the seed are read from ``scal`` [16] (the seed from
+    slot 14). Every column is written: RAYID = the ray index, RECVD = -1,
+    padding rays done with zero energy but a direction like any other."""
+    dev = scal.device
+    words = native_words(scal[_S_PAD14].to(torch.int64), n_pad)
+    u = (words >> 8).to(torch.float32) * (1.0 / (1 << 24))
+    theta = 2.0 * math.pi * u[0]
+    cos_phi = 2.0 * u[1] - 1.0
+    sin_phi = torch.sqrt(torch.clamp(1.0 - cos_phi * cos_phi, min=0.0))
+    real = torch.arange(n_pad, device=dev) < n_real
+    state = torch.zeros((state_ncols(n_bands), n_pad), dtype=torch.float32,
+                        device=dev)
+    state[_C_PX:_C_PZ + 1] = scal[_S_EMX:_S_EMZ + 1, None]
+    state[_C_VX] = sin_phi * torch.cos(theta)
+    state[_C_VY] = sin_phi * torch.sin(theta)
+    state[_C_VZ] = cos_phi
+    for c in band_cols(n_bands)[0]:
+        state[c] = torch.where(real, scal[_S_E0], 0.0)
+    state[_C_DONE] = (~real).to(torch.float32)
+    state[_C_RAYID] = torch.arange(n_pad, device=dev).to(torch.float32)
+    state[_C_RECVD] = -1.0
+    return state
+
+
+def init_state_native(scal: torch.Tensor, n_pad: int, n_real: int,
+                      n_bands: int = 1) -> torch.Tensor:
+    """K4: the initial ray state f32 [ncols, n_pad] on ``scal``'s device,
+    directions generated per ray from the seed in ``scal[14]`` (an integer
+    below 2^23, exact in f32). A CUDA tensor goes to ``csrc/init_state.cu``,
+    a CPU tensor to :func:`init_state_native_plain`."""
+    global init_launches
+    if scal.dtype != torch.float32 or scal.shape != (_NSCAL,) \
+            or not scal.is_contiguous():
+        raise ValueError(f"scal must be contiguous float32 [{_NSCAL}], got "
+                         f"{scal.dtype} {tuple(scal.shape)}")
+    if not 0 <= n_real <= n_pad or n_pad < 1:
+        raise ValueError(f"need 0 <= n_real <= n_pad and n_pad >= 1, got "
+                         f"n_real={n_real}, n_pad={n_pad}")
+    if scal.device.type == "cpu":
+        return init_state_native_plain(scal, n_pad, n_real, n_bands)
+    if scal.device.type != "cuda":
+        raise ValueError(f"no init kernel for device {scal.device}")
+    lib = _build.library()
+    state = torch.empty((state_ncols(n_bands), n_pad), dtype=torch.float32,
+                        device=scal.device)
+    stream = torch.cuda.current_stream(scal.device).cuda_stream
+    err = lib.ar2_init_state(state.data_ptr(), n_pad, state.shape[0], n_real,
+                             scal.data_ptr(), n_bands, layout_bands(n_bands),
+                             stream)
+    init_launches += 1
+    _build.check(err, "ar2_init_state")
     return state
 
 
@@ -223,17 +343,26 @@ def _round_schedule(max_bounces: int, first: int = 6,
     return budgets
 
 
-def _partition_alive_first(state: torch.Tensor) -> torch.Tensor:
-    """Stable alive-first reorder of the ray columns: two cumsums give each
-    ray its slot, a scatter inverts that into a permutation, and one
-    ``index_select`` applies it."""
+def _partition_alive_first(state: torch.Tensor,
+                           n_poses: int = 1) -> torch.Tensor:
+    """Stable alive-first reorder of the ray columns, within each of the
+    ``n_poses`` equal segments of the ray axis. One cumsum over the whole
+    ray axis, rebased at each pose's first ray, counts the alive rays up to
+    each ray of its pose (the dead ones follow from the ray's position);
+    that gives each ray its slot, a scatter inverts the slots into a
+    permutation, and one ``index_select`` applies it."""
     n = state.shape[1]
+    dev = state.device
     alive = (state[_C_DONE] == 0.0).to(torch.int64)
-    ca = torch.cumsum(alive, 0)
-    cd = torch.cumsum(1 - alive, 0)
-    dest = torch.where(alive > 0, ca - 1, ca[-1] + cd - 1)
-    perm = torch.empty_like(dest).scatter_(
-        0, dest, torch.arange(n, device=state.device))
+    ca = torch.cumsum(alive, 0).view(n_poses, -1)
+    alive = alive.view(n_poses, -1)
+    ca = ca - (ca[:, :1] - alive[:, :1])          # restart at every pose
+    within = torch.arange(alive.shape[1], device=dev)[None, :]
+    cd = within + 1 - ca                          # dead rays up to here
+    dest = torch.where(alive > 0, ca - 1, ca[:, -1:] + cd - 1)
+    first = torch.arange(n_poses, device=dev)[:, None] * alive.shape[1]
+    perm = torch.empty(n, dtype=torch.int64, device=dev).scatter_(
+        0, (dest + first).reshape(-1), torch.arange(n, device=dev))
     return state.index_select(1, perm)
 
 
@@ -258,24 +387,25 @@ def _dominant_axis(av: torch.Tensor) -> torch.Tensor:
                        torch.where(av[1] >= av[2], 1, 2))
 
 
-def _compaction_keys(state: torch.Tensor,
-                     cell_bits: int = CELL_BITS) -> torch.Tensor:
+def _compaction_keys(state: torch.Tensor, cell_bits: int = CELL_BITS,
+                     n_poses: int = 1) -> torch.Tensor:
     """int32 sort keys [N], direction-major: the done flag, then 72
     direction bins (octant x dominant axis x second axis), then the Morton
     code of the ray's cell in a 2^cell_bits grid over the bounding box of
-    ALL rays' positions, done ones included."""
+    ALL ray positions of the ray's pose, done ones included (``n_poses``
+    equal segments of the ray axis, each with its own grid)."""
     res = 1 << cell_bits
     if 2 * 72 * res ** 3 > 1 << 31:
         raise ValueError(f"cell_bits={cell_bits} with dir72 keys overflows "
                          f"int32; use cell_bits <= 7")
     done = state[_C_DONE].to(torch.int32)
-    p = state[_C_PX:_C_PZ + 1]
+    p = state[_C_PX:_C_PZ + 1].view(3, n_poses, -1)
     v = state[_C_VX:_C_VZ + 1]
-    pmin = p.amin(dim=1, keepdim=True)
-    pmax = p.amax(dim=1, keepdim=True)
+    pmin = p.amin(dim=2, keepdim=True)
+    pmax = p.amax(dim=2, keepdim=True)
     scale = torch.tensor(res - 0.001, dtype=torch.float32, device=p.device)
     cell = torch.clamp(((p - pmin) / torch.clamp(pmax - pmin, min=1e-6)
-                        * scale).to(torch.int32), 0, res - 1)
+                        * scale).to(torch.int32), 0, res - 1).view(3, -1)
     octant = ((v[0] > 0).to(torch.int32) * 4 + (v[1] > 0).to(torch.int32) * 2
               + (v[2] > 0).to(torch.int32))
     av = torch.abs(v)
@@ -287,12 +417,15 @@ def _compaction_keys(state: torch.Tensor,
             + _morton_interleave(cell, cell_bits))
 
 
-def _sort_state_by_keys(state: torch.Tensor,
-                        keys: torch.Tensor) -> torch.Tensor:
-    """Stable sort of the ray columns by ``keys``: the permutation from one
-    key sort, applied by one ``index_select``."""
-    perm = torch.sort(keys, stable=True).indices
-    return state.index_select(1, perm)
+def _sort_state_by_keys(state: torch.Tensor, keys: torch.Tensor,
+                        n_poses: int = 1) -> torch.Tensor:
+    """Stable sort of the ray columns by ``keys`` within each of the
+    ``n_poses`` segments: the permutation from one key sort along the ray
+    axis of a [P, n_pad] view, applied by one ``index_select``."""
+    perm = torch.sort(keys.view(n_poses, -1), dim=1, stable=True).indices
+    first = torch.arange(n_poses, device=keys.device)[:, None] \
+        * perm.shape[1]
+    return state.index_select(1, (perm + first).reshape(-1))
 
 
 # ----------------------------------------------------------------- K1, plain
@@ -333,10 +466,12 @@ def _nearest_hit(px, py, pz, vx, vy, vz, tris: torch.Tensor,
 def _bounce(s: torch.Tensor, tris: torch.Tensor, scal: torch.Tensor,
             en_cols: list[int], evw_cols: list[int], max_bounces: int,
             best: tuple | None = None):
-    """One bounce of the rays in ``s`` [ncols, k], in place. ``best``: the
-    nearest hits (t [k], row index [k]) when the caller found them over a
-    subset of ``tris``; None searches every row."""
+    """One bounce of the rays in ``s`` [ncols, k], in place. ``scal``: the
+    scalar row [16] all rays share, or one row per ray [k, 16] (each ray's
+    pose's). ``best``: the nearest hits (t [k], row index [k]) when the
+    caller found them over a subset of ``tris``; None searches every row."""
     inf = math.inf
+    scal = scal.movedim(-1, 0)  # slot j of every row: scal[j], [] or [k]
     px, py, pz, vx, vy, vz = (s[c] for c in range(_C_PX, _C_VZ + 1))
     dist, depth, done = s[_C_DIST], s[_C_DEPTH], s[_C_DONE]
     energy = [s[c] for c in en_cols]
@@ -417,13 +552,24 @@ def _bounce(s: torch.Tensor, tris: torch.Tensor, scal: torch.Tensor,
         s[c] = val
 
 
+def pose_rows(scal: torch.Tensor, ray_idx: torch.Tensor,
+              rays_per_pose: int | None) -> torch.Tensor:
+    """The scalar rows the rays ``ray_idx`` read: ``scal`` itself when it is
+    one row [16], else row ``ray // rays_per_pose`` of [P, 16] per ray."""
+    if scal.dim() == 1:
+        return scal
+    return scal[ray_idx // rays_per_pose]
+
+
 def trace_round_plain(state: torch.Tensor, tris: torch.Tensor,
                       scal: torch.Tensor, params: TraceParams,
-                      round_budget: int) -> torch.Tensor:
+                      round_budget: int,
+                      rays_per_pose: int | None = None) -> torch.Tensor:
     """Plain PyTorch version of K1: advance every ray by up to
     ``round_budget`` bounces, in place. Each bounce gathers the rays that
     are not done yet, steps them, and scatters them back; done rays are
-    untouched, as in the kernel."""
+    untouched, as in the kernel. With ``scal`` [P, 16], ray ``i`` reads row
+    ``i // rays_per_pose``."""
     en_cols, evw_cols = band_cols(params.n_bands)
     state[_C_LTRI] = 0.0
     for _ in range(round_budget):
@@ -431,9 +577,32 @@ def trace_round_plain(state: torch.Tensor, tris: torch.Tensor,
         if idx.numel() == 0:
             break
         s = state[:, idx]
-        _bounce(s, tris, scal, en_cols, evw_cols, params.max_bounces)
+        _bounce(s, tris, pose_rows(scal, idx, rays_per_pose), en_cols,
+                evw_cols, params.max_bounces)
         state[:, idx] = s
     return state
+
+
+def check_poses(state: torch.Tensor, scal: torch.Tensor,
+                rays_per_pose: int | None) -> tuple[int, int]:
+    """(n_poses, rays_per_pose) of a launch, checked: ``scal`` is [16] (one
+    pose over the whole state) or [P, 16] with ``rays_per_pose`` rays each,
+    P * rays_per_pose = N, and rays_per_pose a multiple of 128 when P > 1,
+    so that a 128-ray block never spans two poses."""
+    n = state.shape[1]
+    if scal.dim() not in (1, 2) or scal.shape[-1] != _NSCAL:
+        raise ValueError(f"scal must be [{_NSCAL}] or [P, {_NSCAL}], got "
+                         f"{tuple(scal.shape)}")
+    n_poses = 1 if scal.dim() == 1 else scal.shape[0]
+    if rays_per_pose is None:
+        rays_per_pose = n // max(n_poses, 1)
+    if n_poses < 1 or n_poses * rays_per_pose != n:
+        raise ValueError(f"{n_poses} pose(s) of {rays_per_pose} rays do not "
+                         f"make the state's {n} rays")
+    if n_poses > 1 and rays_per_pose % _LANES:
+        raise ValueError(f"rays_per_pose must be a multiple of {_LANES}, "
+                         f"got {rays_per_pose}")
+    return n_poses, int(rays_per_pose)
 
 
 def _check_round(state, tris, scal, n_bands, round_budget) -> None:
@@ -449,44 +618,100 @@ def _check_round(state, tris, scal, n_bands, round_budget) -> None:
                          f"{n_bands} band(s), got {tuple(state.shape)}")
     if tris.dim() != 2 or tris.shape[1] != _NR:
         raise ValueError(f"tris must be [T, {_NR}], got {tuple(tris.shape)}")
-    if scal.shape != (_NSCAL,):
-        raise ValueError(f"scal must be [{_NSCAL}], got {tuple(scal.shape)}")
     if int(round_budget) < 1:
         raise ValueError(f"round budget must be >= 1, got {round_budget}")
 
 
 def trace_round(state: torch.Tensor, tris: torch.Tensor, scal: torch.Tensor,
-                params: TraceParams, round_budget: int) -> torch.Tensor:
+                params: TraceParams, round_budget: int,
+                rays_per_pose: int | None = None) -> torch.Tensor:
     """K1: advance every ray of ``state`` [ncols, N] by up to
-    ``round_budget`` bounces, in place; returns ``state``. A CUDA tensor
-    goes to the kernel, a CPU tensor to :func:`trace_round_plain`."""
-    global launches
+    ``round_budget`` bounces, in place; returns ``state``. ``scal`` is one
+    scalar row [16], or [P, 16] for a pose-major state of P poses with
+    ``rays_per_pose`` rays each (K1-pose). A CUDA tensor goes to the
+    kernel, a CPU tensor to :func:`trace_round_plain`."""
+    global launches, posed_launches
     _check_round(state, tris, scal, params.n_bands, round_budget)
+    n_poses, rays_per_pose = check_poses(state, scal, rays_per_pose)
     if state.device.type == "cpu":
         return trace_round_plain(state, tris, scal, params,
-                                 int(round_budget))
+                                 int(round_budget), rays_per_pose)
     if state.device.type != "cuda":
         raise ValueError(f"no trace kernel for device {state.device}")
     lib = _build.library()
     stream = torch.cuda.current_stream(state.device).cuda_stream
     err = lib.ar2_trace_round(
         state.data_ptr(), state.shape[1], state.shape[0], tris.data_ptr(),
-        tris.shape[0], scal.data_ptr(), params.n_bands,
-        layout_bands(params.n_bands), int(round_budget),
+        tris.shape[0], scal.data_ptr(), n_poses, rays_per_pose,
+        params.n_bands, layout_bands(params.n_bands), int(round_budget),
         params.max_bounces, stream)
-    launches += 1
+    if scal.dim() == 2:
+        posed_launches += 1
+    else:
+        launches += 1
     _build.check(err, "ar2_trace_round")
     return state
 
 
 # ------------------------------------------------------- the loop of rounds
 
-def trace_events(tris: torch.Tensor, directions: torch.Tensor,
+def _budgets(params: TraceParams, round_budgets: tuple | None,
+             compact: bool, clustered: bool) -> list[int]:
+    """The per-round bounce budgets of a trace, checked."""
+    if round_budgets is not None:
+        if sum(round_budgets) < params.max_bounces:
+            raise ValueError(
+                f"round_budgets {round_budgets} sum to "
+                f"{sum(round_budgets)} < max_bounces {params.max_bounces}; "
+                f"deep paths would be truncated")
+        budgets = list(round_budgets)
+    elif not compact:
+        budgets = [params.max_bounces]
+    elif clustered:
+        budgets = [1] * params.max_bounces
+    else:
+        budgets = _round_schedule(params.max_bounces)
+    if clustered and any(b != 1 for b in budgets):
+        raise ValueError(f"the clustered route takes one bounce per round, "
+                         f"got budgets {budgets}: positions move after a "
+                         f"bounce, staling the schedule")
+    return budgets
+
+
+def _run_rounds(state: torch.Tensor, tris: torch.Tensor,
+                boxes: torch.Tensor | None, scal: torch.Tensor,
+                params: TraceParams, budgets: list[int], compact: bool,
+                n_poses: int = 1) -> torch.Tensor:
+    """The loop of rounds over ``state`` [ncols, n_poses * n_pad] with the
+    reorder between rounds kept inside each pose's segment."""
+    from . import schedule_cuda  # it builds on this module
+
+    rays_per_pose = state.shape[1] // n_poses
+    for k, budget in enumerate(budgets):
+        last = k + 1 == len(budgets)
+        if boxes is None:
+            state = trace_round(state, tris, scal, params, budget,
+                                rays_per_pose)
+            if compact and not last:
+                state = _partition_alive_first(state, n_poses)
+        else:
+            sched = schedule_cuda.tile_schedule(state, boxes)
+            state = schedule_cuda.trace_round_sched(
+                state, tris, boxes, sched, scal, params, rays_per_pose)
+            if compact and not last:
+                state = _sort_state_by_keys(
+                    state, _compaction_keys(state, n_poses=n_poses), n_poses)
+    return state
+
+
+def trace_events(tris: torch.Tensor, directions: torch.Tensor | None,
                  emitter: torch.Tensor, receiver_pos: torch.Tensor,
                  receiver_yaw_deg, params: TraceParams,
                  n_total_rays: int | None = None, compact: bool = True,
                  round_budgets: tuple | None = None,
-                 boxes: torch.Tensor | None = None):
+                 boxes: torch.Tensor | None = None,
+                 n_rays: int | None = None,
+                 native_rng_seed: torch.Tensor | None = None):
     """Trace ``directions`` [N, 3] in bounce rounds.
 
     ``tris``, ``boxes``: from :func:`pack_scene`; with ``boxes`` the
@@ -497,49 +722,66 @@ def trace_events(tris: torch.Tensor, directions: torch.Tensor,
     per round on the clustered route, which takes no other budget (its
     schedule is computed from the positions before the bounce).
     ``compact``: reorder the state between rounds (alive-first partition,
-    or the coherent sort on the clustered route).
+    or the coherent sort on the clustered route). With ``directions`` None,
+    K4 generates ``n_rays`` directions in its kernel from
+    ``native_rng_seed``, a 0-dim integer tensor below 2^23 on the device.
 
     Returns the event slots (ev_bin_f f32 [n_pad], ev_w f32 [n_pad,
     n_bands], ev_ear int32 [n_pad]); padding rays carry zero weight.
     """
-    n = directions.shape[0]
+    n = directions.shape[0] if directions is not None else int(n_rays)
     n_real = n_total_rays if n_total_rays is not None else n
     n_pad = -(-n // _LANES) * _LANES
-    if round_budgets is not None:
-        if sum(round_budgets) < params.max_bounces:
-            raise ValueError(
-                f"round_budgets {round_budgets} sum to "
-                f"{sum(round_budgets)} < max_bounces {params.max_bounces}; "
-                f"deep paths would be truncated")
-        budgets = list(round_budgets)
-    elif not compact:
-        budgets = [params.max_bounces]
-    elif boxes is not None:
-        budgets = [1] * params.max_bounces
-    else:
-        budgets = _round_schedule(params.max_bounces)
-    if boxes is not None and any(b != 1 for b in budgets):
-        raise ValueError(f"the clustered route takes one bounce per round, "
-                         f"got budgets {budgets}: positions move after a "
-                         f"bounce, staling the schedule")
-
-    from . import schedule_cuda  # it builds on this module
-
+    budgets = _budgets(params, round_budgets, compact, boxes is not None)
     e0 = params.base_power / (n_real * constants.SPHERE_VOLUME)
     scal = scalars(emitter, receiver_pos, receiver_yaw_deg, e0, params)
-    state = init_state(directions, emitter, e0, n_pad, params.n_bands)
-    for k, budget in enumerate(budgets):
-        last = k + 1 == len(budgets)
-        if boxes is None:
-            state = trace_round(state, tris, scal, params, budget)
-            if compact and not last:
-                state = _partition_alive_first(state)
-        else:
-            sched = schedule_cuda.tile_schedule(state, boxes)
-            state = schedule_cuda.trace_round_sched(state, tris, boxes, sched,
-                                                    scal, params)
-            if compact and not last:
-                state = _sort_state_by_keys(state, _compaction_keys(state))
+    if directions is None:
+        seeded = scal.clone()
+        seeded[_S_PAD14] = native_rng_seed.to(torch.float32)
+        state = init_state_native(seeded, n_pad, n, params.n_bands)
+    else:
+        state = init_state(directions, emitter, e0, n_pad, params.n_bands)
+    state = _run_rounds(state, tris, boxes, scal, params, budgets, compact)
     evw_cols = band_cols(params.n_bands)[1]
     return (state[_C_EVB].contiguous(), state[evw_cols].T.contiguous(),
+            state[_C_EVE].to(torch.int32))
+
+
+def trace_events_pose_batch(tris: torch.Tensor, directions: torch.Tensor,
+                            emitters: torch.Tensor, receivers: torch.Tensor,
+                            receiver_yaws_deg: torch.Tensor,
+                            params: TraceParams,
+                            n_total_rays_per_pose: int | None = None,
+                            compact: bool = True,
+                            round_budgets: tuple | None = None,
+                            boxes: torch.Tensor | None = None):
+    """Trace P poses in one kernel launch per round.
+
+    ``directions`` [P, N, 3], ``emitters`` and ``receivers`` [P, 3],
+    ``receiver_yaws_deg`` [P]; ``tris``, ``boxes``, ``compact`` and
+    ``round_budgets`` as in :func:`trace_events`, with the same errors. The
+    ray state is pose-major, [ncols, P * n_pad]: each 128-ray tile belongs
+    to one pose and the kernels read that pose's scalar row. Between rounds
+    the alive-first partition, or on the clustered route the coherent sort
+    (its cell grid spanning that pose's ray positions), runs within each
+    pose's segment. ``n_total_rays_per_pose`` normalises the per-ray energy
+    (default N). Pose ``p``'s events equal a :func:`trace_events` of its
+    directions bit for bit.
+
+    Returns (ev_bin_f f32 [P, n_pad], ev_w f32 [P, n_pad, n_bands], ev_ear
+    int32 [P, n_pad]).
+    """
+    p, n = directions.shape[0], directions.shape[1]
+    n_real = n_total_rays_per_pose if n_total_rays_per_pose is not None else n
+    n_pad = -(-n // _LANES) * _LANES
+    budgets = _budgets(params, round_budgets, compact, boxes is not None)
+    e0 = params.base_power / (n_real * constants.SPHERE_VOLUME)
+    scal = scalars(emitters, receivers, receiver_yaws_deg, e0, params)
+    state = init_state(directions, emitters, e0, n_pad, params.n_bands)
+    state = _run_rounds(state, tris, boxes, scal, params, budgets, compact,
+                        n_poses=p)
+    state = state.view(-1, p, n_pad)
+    evw_cols = band_cols(params.n_bands)[1]
+    return (state[_C_EVB].contiguous(),
+            state[evw_cols].permute(1, 2, 0).contiguous(),
             state[_C_EVE].to(torch.int32))

@@ -18,12 +18,17 @@ JAX package's ``to_tiles``). Each round of the clustered route runs:
   is ``csrc/trace_sched.cu``, which replaces the schedule branch of the TPU
   kernel ``raytrace_pallas_v2.py:_trace_round_kernel_v2`` (``use_sched``,
   launched by ``trace_round_v2``, :799). Bounded by the reads of the
-  candidate clusters' rows (from L2) and FP32 intersection.
+  candidate clusters' rows (from L2) and FP32 intersection. With ``scal``
+  [P, 16] it is the posed form: tile ``i`` of a pose-major state reads the
+  scalar row of pose ``i // tiles_per_pose``
+  (``raytrace_pallas_v2.py:887-904``); the schedule is per tile and reads
+  positions only, so it is the same for any number of poses.
 
 Each wrapper checks its inputs, launches its kernel for a CUDA tensor and
 runs the plain PyTorch version for a CPU tensor; it never falls back from
-one to the other. ``tile_schedule_launches`` and
-``trace_round_sched_launches`` count kernel launches.
+one to the other. ``tile_schedule_launches``,
+``trace_round_sched_launches`` (one scalar row) and
+``trace_round_sched_posed_launches`` (a row per pose) count kernel launches.
 """
 from __future__ import annotations
 
@@ -38,6 +43,7 @@ from . import raytrace_cuda as rc
 # Kernel launches since import (or since a caller reset them to 0).
 tile_schedule_launches = 0
 trace_round_sched_launches = 0
+trace_round_sched_posed_launches = 0
 
 _TILE = 128
 _EPS_DIR = 1e-20  # direction components closer to 0 count as +-1e-20
@@ -148,12 +154,14 @@ def _members(sched: torch.Tensor, n_clusters: int) -> torch.Tensor:
 
 def trace_round_sched_plain(state: torch.Tensor, rows: torch.Tensor,
                             boxes: torch.Tensor, sched: torch.Tensor,
-                            scal: torch.Tensor,
-                            params: TraceParams) -> torch.Tensor:
+                            scal: torch.Tensor, params: TraceParams,
+                            rays_per_pose: int | None = None
+                            ) -> torch.Tensor:
     """Plain PyTorch version of K2: one bounce of every ray that is not
     done, in place. Clusters are taken in ascending id order, each over the
     rays whose tile lists it, with a strict running minimum (ties to the
-    lower row, as in the kernel); then K1's receiver test and bounce tail."""
+    lower row, as in the kernel); then K1's receiver test and bounce tail.
+    With ``scal`` [P, 16], ray ``i`` reads row ``i // rays_per_pose``."""
     en_cols, evw_cols = rc.band_cols(params.n_bands)
     state[rc._C_LTRI] = 0.0
     idx = torch.nonzero(state[rc._C_DONE] == 0.0).squeeze(1)
@@ -179,8 +187,8 @@ def trace_round_sched_plain(state: torch.Tensor, rows: torch.Tensor,
         better = t < bt
         best_t[sel] = torch.where(better, t, bt)
         best_i[sel] = torch.where(better, i + c * cs, bi)
-    rc._bounce(s, rows, scal, en_cols, evw_cols, params.max_bounces,
-               best=(best_t, best_i))
+    rc._bounce(s, rows, rc.pose_rows(scal, idx, rays_per_pose), en_cols,
+               evw_cols, params.max_bounces, best=(best_t, best_i))
     state[:, idx] = s
     return state
 
@@ -203,18 +211,21 @@ def _check_k2_inputs(state, rows, boxes, sched, scal, n_bands) -> None:
 
 def trace_round_sched(state: torch.Tensor, rows: torch.Tensor,
                       boxes: torch.Tensor, sched: torch.Tensor,
-                      scal: torch.Tensor,
-                      params: TraceParams) -> torch.Tensor:
+                      scal: torch.Tensor, params: TraceParams,
+                      rays_per_pose: int | None = None) -> torch.Tensor:
     """K2: one bounce of ``state`` [ncols, N] over each tile's candidate
     clusters (``sched`` from :func:`tile_schedule`; ``rows``, ``boxes``
     from ``raytrace_cuda.pack_tris_clusters``), in place; returns
-    ``state``. A CUDA tensor goes to ``csrc/trace_sched.cu``, a CPU tensor
-    to :func:`trace_round_sched_plain`."""
-    global trace_round_sched_launches
+    ``state``. ``scal`` is one scalar row [16], or [P, 16] for a pose-major
+    state of P poses with ``rays_per_pose`` rays each. A CUDA tensor goes
+    to ``csrc/trace_sched.cu``, a CPU tensor to
+    :func:`trace_round_sched_plain`."""
+    global trace_round_sched_launches, trace_round_sched_posed_launches
     _check_k2_inputs(state, rows, boxes, sched, scal, params.n_bands)
+    n_poses, rays_per_pose = rc.check_poses(state, scal, rays_per_pose)
     if state.device.type == "cpu":
         return trace_round_sched_plain(state, rows, boxes, sched, scal,
-                                       params)
+                                       params, rays_per_pose)
     if state.device.type != "cuda":
         raise ValueError(f"no trace kernel for device {state.device}")
     lib = _build.library()
@@ -222,8 +233,11 @@ def trace_round_sched(state: torch.Tensor, rows: torch.Tensor,
     err = lib.ar2_trace_sched(
         state.data_ptr(), state.shape[1], state.shape[0], rows.data_ptr(),
         rows.shape[0] // boxes.shape[0], sched.data_ptr(), sched.shape[1],
-        scal.data_ptr(), params.n_bands, rc.layout_bands(params.n_bands),
-        params.max_bounces, stream)
-    trace_round_sched_launches += 1
+        scal.data_ptr(), n_poses, rays_per_pose, params.n_bands,
+        rc.layout_bands(params.n_bands), params.max_bounces, stream)
+    if scal.dim() == 2:
+        trace_round_sched_posed_launches += 1
+    else:
+        trace_round_sched_launches += 1
     _build.check(err, "ar2_trace_sched")
     return state

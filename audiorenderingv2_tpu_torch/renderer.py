@@ -6,9 +6,11 @@ sphere, so pose changes never touch geometry), the trace parameters, an
 explicit ``torch.Generator`` for the ray directions, and the last IR, kept
 on the device for the convolutions.
 
-Not ported yet (ROADMAP.md): banded scenes, whose per-band IRs need the
-filterbank (Queue 1 item 5b); the live-input convolution of the streaming
-layer (item 10).
+A scene with per-band absorption ([T, n_bands]) switches the whole pipeline
+to per-band IRs and filterbank auralization (``ops/filterbank.py``).
+
+Not ported yet (ROADMAP.md): the live-input convolution of the streaming
+layer (Queue 1 item 10).
 """
 from __future__ import annotations
 
@@ -22,7 +24,7 @@ import torch
 from . import accel, constants, tuned
 from .core.params import TraceParams
 from .core.tracer import TracerOptions, render_ir, scene_to_arrays
-from .ops import convolve
+from .ops import convolve, filterbank
 from .ops.raytrace_cuda import pack_scene
 from .scene import Scene
 
@@ -45,6 +47,8 @@ class AudioRenderer:
         so the sequence of IRs is reproducible.
       device: where the scene, the trace and the IR live. A CUDA device
         runs the kernels, the CPU their plain versions.
+      band_edges: crossover frequencies [Hz] of the filterbank that
+        auralizes a banded IR; n_bands - 1 of them.
     """
 
     def __init__(
@@ -62,11 +66,8 @@ class AudioRenderer:
         opts: TracerOptions | None = None,
         seed: int = 0,
         device: torch.device | str = "cuda",
+        band_edges: tuple = filterbank.DEFAULT_BAND_EDGES,
     ):
-        if scene.absorption.ndim == 2 and scene.absorption.shape[1] > 1:
-            raise NotImplementedError(
-                "banded absorption (per-band IRs and the filterbank) is not "
-                "ported yet: ROADMAP.md Queue 1 item 5b")
         self.device = torch.device(device)
         self.n_rays = int(n_rays)
         self._auto_opts = opts is None
@@ -89,7 +90,10 @@ class AudioRenderer:
             max_bounces=int(max_bounces),
             hrtf_absorption_rate=float(hrtf_absorption_rate),
             is_mono=bool(is_mono),
+            n_bands=(scene.absorption.shape[1]
+                     if scene.absorption.ndim == 2 else 1),
         )
+        self.band_edges = tuple(band_edges)
         # Triangle rows (and cluster boxes), packed once: the trim at the
         # last valid triangle reads it back to the host.
         self.rows, self.boxes = pack_scene(self.sc, self.params.n_bands)
@@ -139,7 +143,8 @@ class AudioRenderer:
     # ------------------------------------------------------------- render
     def render(self, generator: torch.Generator | None = None) -> np.ndarray:
         """Trace a fresh IR from the renderer's generator (or ``generator``)
-        and return it as float32 [2, ir_length] (left, right). The IR also
+        and return it as float32 [2, ir_length] (left, right), or
+        [2, n_bands, ir_length] for a banded scene. The IR also
         stays on the device (``ir_device``) for the convolutions."""
         if generator is None:
             generator = self.generator
@@ -159,12 +164,13 @@ class AudioRenderer:
 
     @property
     def ir(self) -> np.ndarray | None:
-        """Last rendered IR on the host, [2, ir_length]."""
+        """Last rendered IR on the host, [2(, n_bands), ir_length]."""
         return self._ir
 
     @property
     def ir_device(self) -> torch.Tensor | None:
-        """Last rendered IR on the renderer's device, [2, ir_length]."""
+        """Last rendered IR on the renderer's device, [2(, n_bands),
+        ir_length]."""
         return self._ir_dev
 
     def dump_ir(self, prefix: str = "output_ir") -> tuple[str, str]:
@@ -184,6 +190,10 @@ class AudioRenderer:
         the f32 [2, L] tensor there, with no host copy and no dump."""
         if self._ir_dev is None:
             raise RuntimeError("render() an IR first")
+        if self._ir_dev.dim() == 3:  # banded IR: filterbank auralization
+            return filterbank.convolve_file_banded(
+                samples, self._ir_dev, self.params.sample_rate,
+                self.band_edges)
         return convolve.convolve_file_stereo(samples, self._ir_dev,
                                              self.params.sample_rate)
 

@@ -33,15 +33,62 @@ Phases, in order; any failure raises and the script exits non-zero:
 7. the office export as a user runs it (config.json -> load_context ->
    export_audio, 1M rays, 32 bounces) with the launch counts read around
    it: the schedule kernel and K2 run, K1 does not; render times, median of
-   3, of the clustered route and of K1 over all rows on the same scene.
+   3, of the clustered route and of K1 over all rows on the same scene;
+8. the posed kernels (K1 and K2 reading one scalar row per pose) at the
+   shapes the matrices of phases 10 and 12 give them. K1: the demo's box, 8
+   poses x 1,000,064 rays, through the matrix's rounds (8 bounces, the
+   per-pose partition, 32 bounces), the kernel's chain and the plain chain
+   run apart, bit for bit in every column after each round and each pose's
+   segment against a single-pose K1 launch, at 1 band and at 4 bands (24
+   state columns). K2: the office, 4 poses x 250,112 rays, one round after
+   a bounce and the per-pose sort, bit for bit against the plain version
+   and against single-pose K2 launches, at 1 and 4 bands; times of both;
+9. K4, the state-initialising kernel with in-kernel Philox directions, at
+   1,000,064 rays (1,000,000 real) and 1 and 4 bands against its plain
+   version: every exactly rounded column bit-equal (VZ carries the second
+   word's 24 bits), VX and VY (through sinf, cosf) within 2e-7; times;
+10. the multi-pose path as a user runs it, the configuration of
+   examples/demo_6_multipose.py: an 18 x 10 x 14 m box, 2 sources x 4
+   listeners, 1,000,000 rays a pair, 40 bounces in rounds (8, 32), a 2 s IR
+   at 16 kHz, render_ir_matrix at pair_batch=8 (one launch of 8M rays per
+   round) and mix_sources of two 2 s signals, the launch counts read around
+   it: the posed K1 ran, the single-pose K1 did not; one pair against a
+   single render_ir of that pair; K3 as the posed histogram launches it
+   (8,000,512 events, 512,000 flat bins) against its plain version and a
+   float64 sum; times of the fused matrix, of pair_batch=1 and of the mix.
+   Then the large-scene form: the office, 1 source x 4 listeners, 250,000
+   rays a pair, 32 bounces, fused (schedule + posed K2), against a single
+   render, and K3 at its events;
+11. a native_rng render (K4) of the box at 1M rays x 100 bounces through
+   AudioRenderer, the launch counts read around it, against renders of
+   sampled directions, 8 seeds each: the means of the per-ear energy
+   within 5 standard errors, spreads of one size, and the IR summed into
+   20 ms bins no further from the sampled ones than twice what they are
+   from each other; render times with and without;
+12. a banded scene (4 bands, wall absorption 0.1 / 0.25 / 0.4 / 0.6): the
+   demo's 2 x 4 x 1M-ray matrix and its mix through the filterbank, with
+   the checks of phase 10 (launch counts, one pair against a single
+   render, K3 at 4 bands) and the mix on the card against the mix on the
+   CPU; then a banded export as a user runs it (config.json ->
+   load_context -> export_audio, 1M rays, 100 bounces), its trace against
+   the CPU plain path on 64k shared directions in every (ear, band) and
+   its filterbank convolution against the CPU's; times.
 
-Then one JSON line per the kernels (name, route, source, the TPU kernel it
-replaces, launches in the export of phase 5 or, for the clustered route's
-kernels, of phase 7, max abs error, ms, plain ms) and, last, the result
-line. With no CUDA device the script exits non-zero and prints no result.
+Then one JSON line of the kernels: name, route, source, the TPU kernel it
+replaces, launches on its main path (the export of phase 5; for the
+clustered route's kernels that of phase 7; for the posed kernels and the
+posed histogram the matrices of phase 10, for the 4-band posed K1 that of
+phase 12; for K4 the render of phase 11), max abs error, ms,
+plain ms (for the posed K1 those of the first of its two launches, the
+8-bounce round; the 32-bounce round's under "round2"), the bound (the larger of bytes moved over 3.35 TB/s and FP32
+operations over 67 TFLOP/s, worked out from this run's inputs), what bounds
+it, and the time of one PyTorch call that computes the same function where
+there is one. Last, the result line. With no CUDA device the script exits
+non-zero and prints no result.
 """
 from __future__ import annotations
 
+import functools
 import json
 import subprocess
 import sys
@@ -65,6 +112,61 @@ ABSORPTION = 0.3
 OFFICE_TRIS = 20000
 OFFICE_BOUNCES = 32
 OFFICE_RECEIVER = (6.0, 1.0, -8.0)
+
+
+# The multi-pose demo of the JAX package (examples/demo_6_multipose.py).
+MULTI_ROOM = (18.0, 10.0, 14.0)
+MULTI_ABSORPTION = 0.25
+MULTI_BOUNCES = 40
+MULTI_BUDGETS = (8, 32)
+MULTI_EMITTERS = np.array([[-5.0, 0.0, -4.0], [6.0, 1.0, 5.0]], np.float32)
+MULTI_LISTENERS = np.stack([np.linspace(-6.0, 6.0, 4), np.zeros(4),
+                            np.linspace(4.0, -4.0, 4)],
+                           axis=1).astype(np.float32)
+MULTI_YAWS = np.linspace(0.0, 270.0, 4).astype(np.float32)
+# Its large-scene form: the office, 1 source x 4 listeners.
+OFFICE_LISTENERS = np.array([OFFICE_RECEIVER, (-10.0, 2.0, 5.0),
+                             (10.0, -3.0, 15.0), (0.5, 0.0, -1.0)],
+                            np.float32)
+OFFICE_MATRIX_RAYS = 250_000
+# Per-band wall absorption of the banded phases (4 bands, split at the
+# filterbank's default 250 / 1000 / 4000 Hz).
+BANDED_ABSORPTION = (0.1, 0.25, 0.4, 0.6)
+# The card's published peaks (NVIDIA H100 SXM data sheet): device memory
+# rate and FP32 rate outside the tensor cores (an FMA counts as two; the
+# kernels are built without FMA contraction, so they can reach half of it).
+HBM_BYTES_PER_S = 3.35e12
+FP32_OPS_PER_S = 67e12
+TRI_TEST_OPS = 40   # FP32 operations of one ray-triangle test (intersect)
+SLAB_TEST_OPS = 23  # of one ray-box slab test (tile_schedule)
+INIT_RAY_OPS = 150  # integer + FP32 operations of K4 per ray (10 Philox
+#                     rounds, the sphere mapping, sinf, cosf)
+
+
+def bound(n_bytes: float, n_ops: float) -> dict:
+    """The least time the card could take: each input read once and each
+    output written once at the memory rate, or the operations at the FP32
+    rate, whichever is larger."""
+    by_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    by_ops = n_ops / FP32_OPS_PER_S * 1e3
+    return {"bound_ms": max(by_bytes, by_ops),
+            "bound_by": "bytes" if by_bytes >= by_ops else "operations"}
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def round_tests(before: torch.Tensor, after: torch.Tensor) -> int:
+    """Ray-bounces of one K1 round in which the ray searched the triangles:
+    every completed bounce, and the last iteration of a ray that ended at
+    the receiver or missed. (A ray that ends because it may not continue
+    searches nothing; none does in the rounds measured here.)"""
+    from audiorenderingv2_tpu_torch.ops import raytrace_cuda as rc
+
+    bounces = (after[rc._C_DEPTH] - before[rc._C_DEPTH]).double().sum()
+    ended = ((after[rc._C_DONE] != 0) & (before[rc._C_DONE] == 0)).sum()
+    return int(bounces) + int(ended)
 
 
 def log(msg: str) -> None:
@@ -171,7 +273,12 @@ def phase_histogram() -> dict:
             f"{n_bins} bins: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms; "
             f"max abs err vs plain {err:.3e}, median rel err vs float64 "
             f"{np.median(rel_k):.3e}")
-        result[n_bands] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+        # Bytes: bins and weights read, the accumulator written; one add
+        # per kept event and band. The plain version is the library call.
+        result[n_bands] = {
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            **bound(nbytes(b_d, w_d, kern), int(keep.sum()) * n_bands),
+            "library_ms": plain_ms}
     return result[1]
 
 
@@ -284,13 +391,46 @@ def phase_trace() -> dict:
         f"{rows.shape[0]} triangle rows: kernel {ms:.3f} ms, plain "
         f"{plain_ms:.3f} ms; max abs err over the column-checked rounds "
         f"{err:.3e}")
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+    after = rc.trace_round(state.clone(), rows, scal, params, budgets[0])
+    n_valid = int((rows[:, rc._R_VAL] > 0).sum())
+    tests = round_tests(state, after) * n_valid
+    k1_bound = bound(2 * nbytes(state) + nbytes(rows, scal),
+                     tests * TRI_TEST_OPS)
+    log(f"K1 first round: {tests:.4g} ray-triangle tests of the {n_valid} "
+        f"valid rows, bound "
+        f"{k1_bound['bound_ms']:.4f} ms by {k1_bound['bound_by']}")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **k1_bound,
+            "library_ms": None}
+
+
+def _reset_launches() -> None:
+    from audiorenderingv2_tpu_torch.ops import histogram_cuda as hc
+    from audiorenderingv2_tpu_torch.ops import raytrace_cuda as rc
+    from audiorenderingv2_tpu_torch.ops import schedule_cuda as sc
+
+    rc.launches = rc.posed_launches = rc.init_launches = hc.launches = 0
+    sc.tile_schedule_launches = sc.trace_round_sched_launches = 0
+    sc.trace_round_sched_posed_launches = 0
+
+
+def _read_launches() -> dict:
+    from audiorenderingv2_tpu_torch.ops import histogram_cuda as hc
+    from audiorenderingv2_tpu_torch.ops import raytrace_cuda as rc
+    from audiorenderingv2_tpu_torch.ops import schedule_cuda as sc
+
+    return {"trace_round": rc.launches,
+            "trace_round_posed": rc.posed_launches,
+            "init_state": rc.init_launches, "histogram": hc.launches,
+            "tile_schedule": sc.tile_schedule_launches,
+            "trace_round_sched": sc.trace_round_sched_launches,
+            "trace_round_sched_posed": sc.trace_round_sched_posed_launches}
 
 
 def _write_inputs(tmp: Path, scene_file: str = "room.obj",
-                  receiver=RECEIVER, max_bounces: int = MAX_BOUNCES) -> Path:
+                  receiver=RECEIVER, max_bounces: int = MAX_BOUNCES,
+                  absorption=ABSORPTION) -> Path:
     """The dry signal and config.json in ``tmp`` for the scene file that
-    the caller wrote there."""
+    the caller wrote there; a list of absorptions makes a banded scene."""
     from audiorenderingv2_tpu_torch.io import wav
 
     rng = np.random.default_rng(7)
@@ -309,7 +449,7 @@ def _write_inputs(tmp: Path, scene_file: str = "room.obj",
             "base_power": 3.62, "rays": {"x": 100, "y": 100, "z": 100},
             "ray_energy_threshold": 0.0, "ray_max_bounces": max_bounces,
             "hrtf_absorption_rate": 0.9,
-            "materials": [{"name": "walls", "mat_absorption": ABSORPTION}]},
+            "materials": [{"name": "walls", "mat_absorption": absorption}]},
     }
     path = tmp / "config.json"
     path.write_text(json.dumps(cfg, indent=1))
@@ -320,25 +460,23 @@ def phase_export() -> dict:
     from audiorenderingv2_tpu_torch import context, testing
     from audiorenderingv2_tpu_torch.core import tracer
     from audiorenderingv2_tpu_torch.io import wav
-    from audiorenderingv2_tpu_torch.ops import histogram_cuda as hc
-    from audiorenderingv2_tpu_torch.ops import raytrace_cuda as rc
 
     with tempfile.TemporaryDirectory() as tmp:
         testing.write_box_obj(Path(tmp) / "room.obj", ROOM, material="walls")
         cfg = _write_inputs(Path(tmp))
         out_path = Path(tmp) / "export.wav"
-        rc.launches = 0
-        hc.launches = 0
+        _reset_launches()
         t0 = time.perf_counter()
         ctx = context.load_context(cfg, device="cuda")
         context.export_audio(ctx, out_path)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches = {"trace_round": rc.launches, "histogram": hc.launches}
+        launches = _read_launches()
         log(f"export: {wall:.2f} s wall (first call, scene load included); "
             f"launches {launches}")
         assert launches["trace_round"] > 0 and launches["histogram"] > 0, \
             launches
+        assert launches["trace_round_posed"] == launches["init_state"] == 0
 
         audio = wav.read_wav(out_path)
         assert audio.n_channels == 2 and audio.sample_rate == SR, \
@@ -376,19 +514,43 @@ def phase_export() -> dict:
     return launches
 
 
-def _office_params():
+def _office_params(n_bands: int = 1):
     from audiorenderingv2_tpu_torch.core.params import TraceParams
 
     return TraceParams(sample_rate=SR, ir_length=IR_SECONDS * SR,
                        base_power=3.62, max_bounces=OFFICE_BOUNCES,
-                       hrtf_absorption_rate=0.9)
+                       hrtf_absorption_rate=0.9, n_bands=n_bands)
+
+
+@functools.cache
+def _office_clustered():
+    """The office scene, Morton-sorted into clusters of 32, on the card:
+    (unsorted scene, clustered SceneArrays, packed rows, packed boxes)."""
+    from audiorenderingv2_tpu_torch import accel, testing
+    from audiorenderingv2_tpu_torch.core import tracer
+    from audiorenderingv2_tpu_torch.ops import raytrace_cuda as rc
+
+    scene = testing.office_scene(OFFICE_TRIS)
+    sorted_scene, clusters = accel.prepare_scene(scene, cluster_size=32)
+    scc = tracer.scene_to_arrays(sorted_scene, 128, device="cuda",
+                                 clusters=clusters)
+    return (scene, scc, *rc.pack_tris_clusters(scc))
+
+
+def k2_work(state: torch.Tensor, sched: torch.Tensor, cs: int) -> int:
+    """Ray-triangle tests of one K2 round: every ray of a tile that is not
+    done tests the rows of every candidate cluster of its tile."""
+    from audiorenderingv2_tpu_torch.ops import raytrace_cuda as rc
+
+    alive = (state[rc._C_DONE] == 0).view(-1, 128).sum(dim=1)
+    return int((alive.double() * sched[:, 0].double()).sum()) * cs
 
 
 def phase_cluster_kernels(n_rays: int = N_RAYS) -> dict:
     """K1's multi-chunk branch, the schedule kernel and K2 against their
     plain versions on the office scene, and the clustered IR against K1's;
     returns the JSON entries' numbers of the two new kernels."""
-    from audiorenderingv2_tpu_torch import accel, constants, testing, tuned
+    from audiorenderingv2_tpu_torch import constants, testing, tuned
     from audiorenderingv2_tpu_torch.core import tracer
     from audiorenderingv2_tpu_torch.ops import raytrace_cuda as rc
     from audiorenderingv2_tpu_torch.ops import schedule_cuda as sc
@@ -397,7 +559,7 @@ def phase_cluster_kernels(n_rays: int = N_RAYS) -> dict:
     params = _office_params()
     emitter = torch.tensor(EMITTER, device=dev)
     receiver = torch.tensor(OFFICE_RECEIVER, device=dev)
-    scene = testing.office_scene(OFFICE_TRIS)
+    scene, scc, rows, boxes = _office_clustered()
 
     def start_state(n, seed):
         e0 = params.base_power / (n * constants.SPHERE_VOLUME)
@@ -425,10 +587,6 @@ def phase_cluster_kernels(n_rays: int = N_RAYS) -> dict:
         f"{n_eq} of {kern.shape[1]} rays bit-identical; kernel "
         f"{k1_ms:.3f} ms")
 
-    sorted_scene, clusters = accel.prepare_scene(scene, cluster_size=32)
-    scc = tracer.scene_to_arrays(sorted_scene, 128, device=dev,
-                                 clusters=clusters)
-    rows, boxes = rc.pack_tris_clusters(scc)
     log(f"office clustered: {rows.shape[0]} rows, {boxes.shape[0]} "
         f"clusters of {rows.shape[0] // boxes.shape[0]}, schedule width "
         f"{sc.schedule_width(boxes.shape[0])}")
@@ -506,12 +664,25 @@ def phase_cluster_kernels(n_rays: int = N_RAYS) -> dict:
         f"over every row; energy {float(ir_c.sum()):.6e} / "
         f"{float(ir_r.sum()):.6e}; relative L1 "
         f"{float(np.abs(ir_c - ir_r).sum() / np.abs(ir_r).sum()):.3e}")
+    cs = rows.shape[0] // boxes.shape[0]
+    k2_bound = bound(2 * nbytes(st1) + nbytes(sched_k, rows, scal),
+                     k2_work(st1, sched_k, cs) * TRI_TEST_OPS)
+    # The schedule reads positions, directions and the done flag (7
+    # columns) and the boxes, and writes its rows.
+    sched_bound = bound(7 * 4 * st1.shape[1] + nbytes(boxes, sched_k),
+                        (st1.shape[1] - n_done) * boxes.shape[0]
+                        * SLAB_TEST_OPS)
+    log(f"bounds: K2 {k2_bound['bound_ms']:.4f} ms by "
+        f"{k2_bound['bound_by']}, schedule {sched_bound['bound_ms']:.4f} ms "
+        f"by {sched_bound['bound_by']}")
     return {
         "trace_round_sched": {"max_abs_err": k2_err, "ms": k2_ms,
-                              "plain_ms": k2_plain_ms},
+                              "plain_ms": k2_plain_ms, **k2_bound,
+                              "library_ms": None},
         "tile_schedule": {
             "max_abs_err": float((sched_k - sched_p).abs().max()),
-            "ms": sched_ms, "plain_ms": sched_plain_ms},
+            "ms": sched_ms, "plain_ms": sched_plain_ms, **sched_bound,
+            "library_ms": None},
     }
 
 
@@ -521,9 +692,6 @@ def phase_office_export() -> dict:
     from audiorenderingv2_tpu_torch import context, testing, tuned
     from audiorenderingv2_tpu_torch.core.tracer import TracerOptions
     from audiorenderingv2_tpu_torch.io import wav
-    from audiorenderingv2_tpu_torch.ops import histogram_cuda as hc
-    from audiorenderingv2_tpu_torch.ops import raytrace_cuda as rc
-    from audiorenderingv2_tpu_torch.ops import schedule_cuda as sc
     from audiorenderingv2_tpu_torch.renderer import AudioRenderer
 
     with tempfile.TemporaryDirectory() as tmp:
@@ -532,17 +700,14 @@ def phase_office_export() -> dict:
                           *testing.office_mesh(OFFICE_TRIS))
         cfg = _write_inputs(Path(tmp), "office.obj", OFFICE_RECEIVER,
                             OFFICE_BOUNCES)
-        rc.launches = hc.launches = 0
-        sc.tile_schedule_launches = sc.trace_round_sched_launches = 0
+        _reset_launches()
         ctx = context.load_context(cfg, device="cuda")
         context.export_audio(ctx, Path(tmp) / "office.wav")
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         r = ctx.renderer
         r_clusters = None if r.boxes is None else r.boxes.shape[0]
-        launches = {"trace_round": rc.launches, "histogram": hc.launches,
-                    "tile_schedule": sc.tile_schedule_launches,
-                    "trace_round_sched": sc.trace_round_sched_launches}
+        launches = _read_launches()
         log(f"office export: {wall:.2f} s wall (obj written and loaded, "
             f"scene sorted and clustered, first call); {r_clusters} "
             f"clusters; launches {launches}")
@@ -583,6 +748,651 @@ def phase_office_export() -> dict:
     return launches
 
 
+def _multi_poses(dev):
+    """The 2 x 4 matrix's eight poses in its pair order: emitters [8, 3],
+    listeners [8, 3], yaws [8]."""
+    return (torch.from_numpy(np.repeat(MULTI_EMITTERS, 4, axis=0)).to(dev),
+            torch.from_numpy(np.tile(MULTI_LISTENERS, (2, 1))).to(dev),
+            torch.from_numpy(np.tile(MULTI_YAWS, 2)).to(dev))
+
+
+def _multi_box(n_bands: int):
+    """The multi-pose demo's box; with ``n_bands`` > 1 its walls absorb
+    per band."""
+    from audiorenderingv2_tpu_torch import testing
+
+    v, t = testing.box_room(MULTI_ROOM)
+    absorb = MULTI_ABSORPTION if n_bands == 1 else np.tile(
+        np.asarray(BANDED_ABSORPTION[:n_bands], np.float32), (t.shape[0], 1))
+    return testing.scene_from_arrays(v, t, absorb)
+
+
+def _multi_params(n_bands: int = 1):
+    from audiorenderingv2_tpu_torch.core.params import TraceParams
+
+    return TraceParams(sample_rate=SR, ir_length=IR_SECONDS * SR,
+                       base_power=3.62, max_bounces=MULTI_BOUNCES,
+                       hrtf_absorption_rate=0.9, n_bands=n_bands)
+
+
+def _pose_directions(seed: int, p: int, n: int, dev) -> torch.Tensor:
+    """[p, n, 3]: the directions render_ir_matrix draws for pairs 0..p-1."""
+    from audiorenderingv2_tpu_torch.core import sampling
+
+    return torch.stack([
+        sampling.sample_directions(n, sampling.pose_generator(seed, i, dev),
+                                   dev) for i in range(p)])
+
+
+def _assert_same_bits(kern: torch.Tensor, plain: torch.Tensor,
+                      what: str) -> float:
+    """Every column of ``kern`` bit-equal to ``plain``; returns the largest
+    absolute difference found (0.0 when it passes)."""
+    assert torch.isfinite(kern).all(), f"{what}: not finite"
+    err = float((kern - plain).abs().max())
+    n_diff = int((kern != plain).any(dim=0).sum())
+    assert n_diff == 0, (f"{what}: {n_diff} of {kern.shape[1]} rays differ "
+                         f"from the plain version, max abs err {err:.3e}")
+    return err
+
+
+def posed_rows_check(n_bands: int) -> dict:
+    """The posed K1 at the 2 x 4 matrix's own shape (8 poses x 1,000,064
+    rays on the demo's box) through the matrix's two rounds, the kernel's
+    chain and the plain chain run apart with the per-pose partition between
+    the rounds: bit for bit in every column after each round, and every
+    pose's segment against a single-pose launch. Returns the JSON entry's
+    numbers: those of the first round, the second round's under
+    ``round2``."""
+    from audiorenderingv2_tpu_torch import constants
+    from audiorenderingv2_tpu_torch.core import tracer
+    from audiorenderingv2_tpu_torch.ops import raytrace_cuda as rc
+
+    dev = torch.device("cuda")
+    p, n_pad = 8, -(-N_RAYS // 128) * 128
+    params = _multi_params(n_bands)
+    rows = rc.pack_tris_rows(
+        tracer.scene_to_arrays(_multi_box(n_bands), 128, device=dev), n_bands)
+    n_valid = int((rows[:, rc._R_VAL] > 0).sum())
+    em, rcv, yaw = _multi_poses(dev)
+    e0 = params.base_power / (N_RAYS * constants.SPHERE_VOLUME)
+    kern = rc.init_state(_pose_directions(0, p, N_RAYS, dev), em, e0, n_pad,
+                         n_bands)
+    scal = rc.scalars(em, rcv, yaw, e0, params)
+    plain = kern.clone()
+    err, rounds = 0.0, []
+    for k, budget in enumerate(MULTI_BUDGETS):
+        if k:
+            kern = rc._partition_alive_first(kern, p)
+            plain = rc._partition_alive_first(plain, p)
+        before = kern.clone()
+        kern = rc.trace_round(kern, rows, scal, params, budget, n_pad)
+        plain = rc.trace_round_plain(plain, rows, scal, params, budget, n_pad)
+        torch.cuda.synchronize()
+        what = (f"posed K1, {n_bands} band(s), round {k + 1} (budget "
+                f"{budget})")
+        err = max(err, _assert_same_bits(kern, plain, what))
+        for i in range(p):
+            seg = slice(i * n_pad, (i + 1) * n_pad)
+            one = rc.trace_round(before[:, seg].contiguous(), rows,
+                                 scal[i].contiguous(), params, budget)
+            assert torch.equal(one, kern[:, seg]), \
+                f"{what}, pose {i} differs from a single-pose launch"
+        ms = median_ms(lambda s: rc.trace_round(s, rows, scal, params,
+                                                budget, n_pad), 3,
+                       setup=lambda: (before.clone(),))
+        plain_ms = median_ms(
+            lambda s: rc.trace_round_plain(s, rows, scal, params, budget,
+                                           n_pad), 1,
+            setup=lambda: (before.clone(),))
+        tests = round_tests(before, kern) * n_valid
+        rounds.append({"ms": ms, "plain_ms": plain_ms,
+                       **bound(2 * nbytes(before) + nbytes(rows, scal),
+                               tests * TRI_TEST_OPS)})
+        log(f"K1-pose, rows, {n_bands} band(s), the demo's box, {p} poses x "
+            f"{n_pad} rays, round {k + 1} ({budget} bounces), "
+            f"{kern.shape[0]} columns: bit-identical to the plain version "
+            f"in every column, and every pose's segment to a single-pose "
+            f"launch; {int((kern[rc._C_DONE] == 0).sum())} alive after; "
+            f"{tests:.4g} tests of {n_valid} valid rows; kernel {ms:.3f} "
+            f"ms, plain {plain_ms:.3f} ms, bound "
+            f"{rounds[-1]['bound_ms']:.4f} ms by {rounds[-1]['bound_by']}")
+    assert int((kern[rc._C_EVW] != 0).sum()) > 1000
+    return {"max_abs_err": err, **rounds[0], "library_ms": None,
+            "round2": rounds[1]}
+
+
+def posed_sched_check(n_bands: int) -> dict:
+    """The posed K2 at the office matrix's own shape (4 poses x 250,112
+    rays, 250,000 real), one round after a bounce and the per-pose sort:
+    bit for bit against the plain version in every column and against
+    single-pose launches. Returns the JSON entry's numbers."""
+    from audiorenderingv2_tpu_torch import constants
+    from audiorenderingv2_tpu_torch.ops import raytrace_cuda as rc
+    from audiorenderingv2_tpu_torch.ops import schedule_cuda as sc
+
+    dev = torch.device("cuda")
+    p, n = 4, OFFICE_MATRIX_RAYS
+    n_pad = -(-n // 128) * 128
+    params = _office_params(n_bands)
+    _, scc, rows, boxes = _office_clustered()
+    if n_bands > 1:  # the office's one absorption value in every band
+        rows, boxes = rc.pack_tris_clusters(scc, n_bands)
+    em = torch.zeros((p, 3), device=dev)
+    e0 = params.base_power / (n * constants.SPHERE_VOLUME)
+    state = rc.init_state(_pose_directions(1, p, n, dev), em, e0, n_pad,
+                          n_bands)
+    scal = rc.scalars(em, torch.from_numpy(OFFICE_LISTENERS).to(dev),
+                      torch.from_numpy(MULTI_YAWS).to(dev), e0, params)
+    st1 = sc.trace_round_sched(state.clone(), rows, boxes,
+                               sc.tile_schedule(state, boxes), scal, params,
+                               n_pad)
+    st1 = rc._sort_state_by_keys(st1, rc._compaction_keys(st1, n_poses=p), p)
+    sched = sc.tile_schedule(st1, boxes)
+    kern = sc.trace_round_sched(st1.clone(), rows, boxes, sched, scal,
+                                params, n_pad)
+    plain = sc.trace_round_sched_plain(st1.clone(), rows, boxes, sched, scal,
+                                       params, n_pad)
+    torch.cuda.synchronize()
+    err = _assert_same_bits(kern, plain, f"posed K2, {n_bands} band(s)")
+    tiles = n_pad // 128
+    for i in range(p):
+        seg = slice(i * n_pad, (i + 1) * n_pad)
+        one = sc.trace_round_sched(
+            st1[:, seg].contiguous(), rows, boxes,
+            sched[i * tiles:(i + 1) * tiles].contiguous(),
+            scal[i].contiguous(), params)
+        assert torch.equal(one, kern[:, seg]), \
+            f"posed K2, pose {i} differs from a single-pose launch"
+    counts = sched[:, 0].double()
+    sort_ms = median_ms(lambda: rc._sort_state_by_keys(
+        st1, rc._compaction_keys(st1, n_poses=p), p), 5)
+    ms = median_ms(lambda s: sc.trace_round_sched(s, rows, boxes, sched,
+                                                  scal, params, n_pad), 5,
+                   setup=lambda: (st1.clone(),))
+    plain_ms = median_ms(
+        lambda s: sc.trace_round_sched_plain(s, rows, boxes, sched, scal,
+                                             params, n_pad), 2,
+        setup=lambda: (st1.clone(),))
+    cs = rows.shape[0] // boxes.shape[0]
+    k2_bound = bound(2 * nbytes(st1) + nbytes(sched, rows, scal),
+                     k2_work(st1, sched, cs) * TRI_TEST_OPS)
+    log(f"K1-pose, schedule, {n_bands} band(s), office, {p} poses x {n_pad} "
+        f"rays ({n} real), one round after a bounce and the per-pose sort, "
+        f"{kern.shape[0]} columns: K2 bit-identical to the plain version in "
+        f"every column, and every pose's segment to a single-pose launch; "
+        f"candidates per live tile mean "
+        f"{float(counts[counts > 0].mean()):.2f}; kernel {ms:.3f} ms, plain "
+        f"{plain_ms:.3f} ms, bound {k2_bound['bound_ms']:.4f} ms by "
+        f"{k2_bound['bound_by']}; per-pose keys + sort + gather "
+        f"{sort_ms:.3f} ms")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **k2_bound,
+            "library_ms": None}
+
+
+def phase_pose_kernels() -> dict:
+    """K1 and K2 with one scalar row per pose, at the shapes the matrices
+    of phase 10 and 12 give them, against their plain versions and against
+    single-pose launches; returns the JSON entries' numbers."""
+    out = {"trace_round_posed": posed_rows_check(1),
+           "trace_round_posed_4band": posed_rows_check(4),
+           "trace_round_sched_posed": posed_sched_check(1)}
+    posed_sched_check(4)
+    return out
+
+
+def phase_init() -> dict:
+    """K4 against its plain version on the card."""
+    from audiorenderingv2_tpu_torch.ops import raytrace_cuda as rc
+
+    dev = torch.device("cuda")
+    n = N_RAYS
+    n_pad = -(-n // 128) * 128
+    scal = torch.zeros(16, device=dev)
+    scal[rc._S_EMX:rc._S_EMZ + 1] = torch.tensor([0.5, -1.0, 2.0])
+    scal[rc._S_E0] = 3.62 / (n * 4.18879020478)
+    scal[rc._S_PAD14] = 4242421.0
+    result = {}
+    for n_bands in (1, 4):
+        kern = rc.init_state_native(scal, n_pad, n, n_bands)
+        plain = rc.init_state_native_plain(scal, n_pad, n, n_bands)
+        torch.cuda.synchronize()
+        assert kern.shape == plain.shape == (rc.state_ncols(n_bands), n_pad)
+        inexact = (rc._C_VX, rc._C_VY)
+        for c in range(kern.shape[0]):
+            if c not in inexact:
+                assert torch.equal(kern[c], plain[c]), \
+                    f"K4, {n_bands} band(s), column {c} differs"
+        # VZ = 2 u2 - 1 exactly, so its equality is the equality of the
+        # second word's 24 bits; VX and VY carry the first word through
+        # sinf and cosf.
+        err = float((kern - plain).abs().max())
+        assert err <= 2e-7, f"K4 directions differ by {err:.3e}"
+        same = [int((kern[c] == plain[c]).sum()) for c in inexact]
+        norm = kern[rc._C_VX:rc._C_VZ + 1].norm(dim=0)
+        assert float((norm - 1).abs().max()) < 1e-6
+        ms = median_ms(lambda: rc.init_state_native(scal, n_pad, n, n_bands),
+                       20)
+        plain_ms = median_ms(
+            lambda: rc.init_state_native_plain(scal, n_pad, n, n_bands), 5)
+        k4_bound = bound(nbytes(scal, kern), n_pad * INIT_RAY_OPS)
+        log(f"K4 init, {n_pad} rays ({n} real), {n_bands} band(s), "
+            f"{kern.shape[0]} columns: every exactly rounded column equals "
+            f"the plain version's (VZ: the Philox words agree); VX, VY max "
+            f"abs err {err:.3e} (bar 2e-7), {same[0]} and {same[1]} of "
+            f"{n_pad} bit-identical; kernel {ms:.4f} ms, plain "
+            f"{plain_ms:.3f} ms, bound {k4_bound['bound_ms']:.4f} ms by "
+            f"{k4_bound['bound_by']}")
+        result[n_bands] = {"max_abs_err": err, "ms": ms,
+                           "plain_ms": plain_ms, **k4_bound,
+                           "library_ms": None}
+    return result[1]
+
+
+def wall_ms(fn, reps: int) -> float:
+    """Median host-clock time of ``fn()`` (which ends on the host) over
+    ``reps`` runs after one warm-up."""
+    times = []
+    for r in range(reps + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        if r:
+            times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times))
+
+
+def posed_histogram_check(ev_bin_f, ev_w, ev_ear, params, what: str) -> dict:
+    """K3 as the posed histogram launches it (flat bin = (pose * 2 + ear) *
+    ir_length + bin) on a matrix's own events: the kernel against its plain
+    version (index_add_) on the flat bins the function hands it, both
+    against a float64 sum, and the finished IRs with the kernel against
+    those with the plain version in its place. Returns the JSON entry's
+    numbers.
+
+    The early bins of an IR sum thousands of events, in an order that
+    differs from run to run in both versions (atomics), so the bar per bin
+    is 1e-4 of the float64 sum."""
+    from audiorenderingv2_tpu_torch.core import binning, tracer
+    from audiorenderingv2_tpu_torch.ops import histogram_cuda as hc
+
+    seen = []
+    real = binning.histogram_sum_banded
+
+    def spy(bins, weights, n_bins):
+        seen.append((bins, weights, n_bins))
+        return real(bins, weights, n_bins)
+
+    try:
+        binning.histogram_sum_banded = spy
+        irs_k = tracer._histogram_from_events_posed(ev_bin_f, ev_w, ev_ear,
+                                                    params)
+        binning.histogram_sum_banded = hc.histogram_plain
+        irs_p = tracer._histogram_from_events_posed(ev_bin_f, ev_w, ev_ear,
+                                                    params)
+    finally:
+        binning.histogram_sum_banded = real
+    assert len(seen) == 1, f"{what}: {len(seen)} histogram calls"
+    bins, weights, n_bins = seen[0]
+    kern = hc.histogram_sum_banded(bins, weights, n_bins)
+    plain = hc.histogram_plain(bins, weights, n_bins)
+    keep = (bins >= 0) & (bins < n_bins)
+    ref = torch.zeros(kern.shape, dtype=torch.float64, device=kern.device)
+    ref.index_add_(0, bins[keep].long(), weights[keep].double())
+    torch.cuda.synchronize()
+    occ = ref > 0
+    rel_k = float(((kern - ref).abs()[occ] / ref[occ]).max())
+    rel_p = float(((plain - ref).abs()[occ] / ref[occ]).max())
+    err = float((kern - plain).abs().max())
+    assert rel_k < 1e-4 and rel_p < 1e-4, (what, rel_k, rel_p)
+    assert not kern[~occ].any(), f"{what}: K3 wrote a bin no event maps to"
+    ir_err = float((irs_k - irs_p).abs().max() / irs_p.abs().max())
+    assert irs_k.shape == irs_p.shape and ir_err < 1e-4, (what, ir_err)
+    ms = median_ms(lambda: hc.histogram_sum_banded(bins, weights, n_bins),
+                   10)
+    plain_ms = median_ms(lambda: hc.histogram_plain(bins, weights, n_bins),
+                         10)
+    n_adds = int((keep & (weights != 0).any(dim=1)).sum()) * weights.shape[1]
+    k3_bound = bound(nbytes(bins, weights, kern), n_adds)
+    log(f"K3 posed histogram, {what}: {bins.shape[0]} events x "
+        f"{weights.shape[1]} band(s) -> {n_bins} flat bins, {int(keep.sum())}"
+        f" in range: kernel within {rel_k:.3e} of the float64 sum per bin, "
+        f"plain within {rel_p:.3e} (bar 1e-4); max abs err vs plain "
+        f"{err:.3e}; the IRs differ by {ir_err:.3e} of their peak; kernel "
+        f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+        f"{k3_bound['bound_ms']:.4f} ms by {k3_bound['bound_by']}")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **k3_bound,
+            "library_ms": plain_ms}
+
+
+def _dry_signals():
+    """Two 2 s dry signals: a click train and a tone burst."""
+    tt = np.arange(2 * SR) / SR
+    click = (np.sin(2 * np.pi * 6 * tt) > 0.995).astype(np.float32)
+    tone = (np.sin(2 * np.pi * 440 * tt)
+            * np.exp(-((tt - 0.5) ** 2) / 0.02)).astype(np.float32)
+    return [click, tone]
+
+
+def box_matrix(n_bands: int):
+    """The demo's 2 x 4 x 1M-ray matrix and its mix on the card, the launch
+    counts read around them; one pair against a single render_ir of that
+    pair; K3 at the matrix's events against its plain version. Returns
+    (scene arrays, rows, params, opts, matrix, launches, K3's numbers)."""
+    from audiorenderingv2_tpu_torch import multi, testing
+    from audiorenderingv2_tpu_torch.core import sampling, tracer
+    from audiorenderingv2_tpu_torch.ops import raytrace_cuda as rc
+
+    dev = torch.device("cuda")
+    sc = tracer.scene_to_arrays(_multi_box(n_bands), 128, device=dev)
+    rows, _ = rc.pack_scene(sc, n_bands)
+    params = _multi_params(n_bands)
+    opts = tracer.TracerOptions(round_budgets=MULTI_BUDGETS)
+    signals = _dry_signals()
+    band_shape = () if n_bands == 1 else (n_bands,)
+
+    _reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    irs = multi.render_ir_matrix(sc, 0, MULTI_EMITTERS, MULTI_LISTENERS,
+                                 MULTI_YAWS, N_RAYS, params, opts,
+                                 pair_batch=8, rows=rows)
+    out = multi.mix_sources(irs, signals, SR)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _read_launches()
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    log(f"multi-pose, {n_bands} band(s): 2 sources x 4 listeners x {N_RAYS} "
+        f"rays, {MULTI_BOUNCES} bounces in rounds {MULTI_BUDGETS}, "
+        f"pair_batch=8, then the mix: {wall:.3f} s wall (first call); "
+        f"launches {launches}; peak device memory {peak:.0f} MiB")
+    assert launches["trace_round_posed"] == len(MULTI_BUDGETS), launches
+    assert launches["trace_round"] == 0, launches
+    assert launches["histogram"] == 1, launches
+    assert irs.shape == (2, 4, 2) + band_shape + (IR_SECONDS * SR,)
+    assert np.isfinite(irs).all()
+    nz = (irs > 0).sum(axis=-1)
+    assert nz.min() >= 200, nz
+    assert out.shape == (4, 2, 2 * SR) and np.isfinite(out).all()
+    assert np.abs(out).max(axis=(1, 2)).min() > 0
+
+    # One pair against a single render_ir of that pair (pair 1 * 4 + 2).
+    single = tracer.render_ir(
+        sc, sampling.pose_generator(0, 6, dev), N_RAYS, MULTI_EMITTERS[1],
+        MULTI_LISTENERS[2], float(MULTI_YAWS[2]), params, opts,
+        rows=rows).cpu().numpy()
+    pair = irs[1, 2]
+    testing.assert_ir_close(pair.reshape(-1, pair.shape[-1]),
+                            single.reshape(-1, pair.shape[-1]), exact=False)
+    log(f"multi-pose, {n_bands} band(s): pair (1, 2) of the matrix passes "
+        f"assert_ir_close(exact=False) against a single render_ir of that "
+        f"pair; max abs diff {np.abs(pair - single).max():.3e}, energy "
+        f"{pair.sum():.6e} / {single.sum():.6e}; non-zero bins per (pair, "
+        f"ear, band) min {nz.min()}, max {nz.max()}")
+
+    em, rcv, yaw = _multi_poses(dev)
+    ev = rc.trace_events_pose_batch(
+        rows, _pose_directions(0, 8, N_RAYS, dev), em, rcv, yaw, params,
+        round_budgets=MULTI_BUDGETS)
+    k3 = posed_histogram_check(*ev, params,
+                               f"2 x 4 matrix, {n_bands} band(s)")
+    return sc, rows, params, opts, irs, launches, k3
+
+
+def phase_multipose() -> tuple[dict, dict]:
+    """The multi-pose path at full width, then its large-scene form;
+    returns the launches of the posed kernels on it and K3's numbers at
+    the matrix's events."""
+    from audiorenderingv2_tpu_torch import multi, testing
+    from audiorenderingv2_tpu_torch.core import sampling, tracer
+    from audiorenderingv2_tpu_torch.ops import raytrace_cuda as rc
+
+    dev = torch.device("cuda")
+    sc, rows, params, opts, irs, launches, k3 = box_matrix(1)
+    signals = _dry_signals()
+    args = (sc, 0, MULTI_EMITTERS, MULTI_LISTENERS, MULTI_YAWS, N_RAYS,
+            params, opts)
+    fused_ms = wall_ms(lambda: multi.render_ir_matrix(
+        *args, pair_batch=8, rows=rows), 3)
+    loop_ms = wall_ms(lambda: multi.render_ir_matrix(
+        *args, pair_batch=1, rows=rows), 3)
+    mix_ms = wall_ms(lambda: multi.mix_sources(irs, signals, SR), 5)
+    log(f"multi-pose timings, 8 pairs x {N_RAYS} rays, host clock, the "
+        f"matrix's copy to the host included: fused (pair_batch=8) "
+        f"{fused_ms:.3f} ms, pair_batch=1 {loop_ms:.3f} ms ("
+        f"{loop_ms / fused_ms:.2f}x), mix_sources of two 2 s signals at 4 "
+        f"listeners {mix_ms:.3f} ms")
+
+    # Where the fused render's time goes: its stages driven by hand, each
+    # between two CUDA events.
+    def staged(fn):
+        ms = median_ms(fn, 1)
+        return fn(), ms
+
+    em, rcv, yaw = _multi_poses(dev)
+    n_pad = -(-N_RAYS // 128) * 128
+    e0 = params.base_power / (N_RAYS * 4.18879020478)
+    d, t_sample = staged(lambda: _pose_directions(0, 8, N_RAYS, dev))
+    (state, scal), t_init = staged(lambda: (
+        rc.init_state(d, em, e0, n_pad),
+        rc.scalars(em, rcv, yaw, e0, params)))
+    st1, t_r1 = staged(lambda: rc.trace_round(
+        state.clone(), rows, scal, params, MULTI_BUDGETS[0], n_pad))
+    alive1 = int((st1[rc._C_DONE] == 0).sum())
+    st1p, t_part = staged(lambda: rc._partition_alive_first(st1, 8))
+    st2, t_r2 = staged(lambda: rc.trace_round(
+        st1p.clone(), rows, scal, params, MULTI_BUDGETS[1], n_pad))
+    alive2 = int((st2[rc._C_DONE] == 0).sum())
+    ev = st2.view(-1, 8, n_pad)
+    hist, t_hist = staged(lambda: tracer._histogram_from_events_posed(
+        ev[rc._C_EVB].contiguous(),
+        ev[rc._C_EVW][..., None].contiguous(),
+        ev[rc._C_EVE].to(torch.int32), params))
+    _, t_copy = staged(lambda: hist.cpu().numpy())
+    log(f"multi-pose stages (8 x {n_pad} rays; each median of 1 after a "
+        f"warm-up; rounds include a clone of the state): sampling "
+        f"{t_sample:.3f} ms, init + scalars {t_init:.3f} ms, K1 round 1 "
+        f"{t_r1:.3f} ms ({alive1} alive after), partition {t_part:.3f} ms, "
+        f"K1 round 2 {t_r2:.3f} ms ({alive2} alive after), posed histogram "
+        f"{t_hist:.3f} ms, copy to the host {t_copy:.3f} ms")
+    del d, state, st1, st1p, st2, ev, hist
+
+    # The large-scene form: the office, 1 source x 4 listeners, fused.
+    _, scc, orows, oboxes = _office_clustered()
+    oparams = _office_params()
+    oargs = (scc, 1, np.array([EMITTER], np.float32), OFFICE_LISTENERS,
+             MULTI_YAWS, OFFICE_MATRIX_RAYS, oparams)
+    _reset_launches()
+    oirs = multi.render_ir_matrix(*oargs, pair_batch=4, rows=orows,
+                                  boxes=oboxes)
+    torch.cuda.synchronize()
+    olaunches = _read_launches()
+    log(f"multi-pose, office: 1 source x 4 listeners x {OFFICE_MATRIX_RAYS} "
+        f"rays, {OFFICE_BOUNCES} bounces, fused; launches {olaunches}")
+    assert olaunches["trace_round_sched_posed"] == OFFICE_BOUNCES, olaunches
+    assert olaunches["tile_schedule"] == OFFICE_BOUNCES, olaunches
+    assert olaunches["trace_round_sched"] == 0, olaunches
+    assert olaunches["trace_round"] == olaunches["trace_round_posed"] == 0
+    assert olaunches["histogram"] == 1, olaunches
+    assert oirs.shape == (1, 4, 2, IR_SECONDS * SR)
+    assert np.isfinite(oirs).all() and (oirs > 0).sum(axis=-1).min() >= 200
+    osingle = tracer.render_ir(
+        scc, sampling.pose_generator(1, 3, dev), OFFICE_MATRIX_RAYS, EMITTER,
+        OFFICE_LISTENERS[3], float(MULTI_YAWS[3]), oparams, rows=orows,
+        boxes=oboxes).cpu().numpy()
+    testing.assert_ir_close(oirs[0, 3], osingle, exact=False)
+    ofused_ms = wall_ms(lambda: multi.render_ir_matrix(
+        *oargs, pair_batch=4, rows=orows, boxes=oboxes), 2)
+    oloop_ms = wall_ms(lambda: multi.render_ir_matrix(
+        *oargs, pair_batch=1, rows=orows, boxes=oboxes), 2)
+    log(f"multi-pose, office: pair (0, 3) passes assert_ir_close("
+        f"exact=False) against a single render_ir; max abs diff "
+        f"{np.abs(oirs[0, 3] - osingle).max():.3e}; fused {ofused_ms:.3f} "
+        f"ms, pair_batch=1 {oloop_ms:.3f} ms ({oloop_ms / ofused_ms:.2f}x)")
+    oev = rc.trace_events_pose_batch(
+        orows, _pose_directions(1, 4, OFFICE_MATRIX_RAYS, dev),
+        torch.zeros((4, 3), device=dev),
+        torch.from_numpy(OFFICE_LISTENERS).to(dev),
+        torch.from_numpy(MULTI_YAWS).to(dev), oparams, boxes=oboxes)
+    posed_histogram_check(*oev, oparams, "office 1 x 4 matrix")
+    return ({"trace_round_posed": launches["trace_round_posed"],
+             "histogram_posed": launches["histogram"],
+             "trace_round_sched_posed": olaunches["trace_round_sched_posed"]},
+            k3)
+
+
+def phase_banded() -> dict:
+    """A 4-band scene on the card: the demo's matrix and its mix through
+    the filterbank, then a banded export through AudioRenderer. Returns the
+    launches of the posed kernels on the banded matrix."""
+    from audiorenderingv2_tpu_torch import context, multi, testing
+    from audiorenderingv2_tpu_torch.core import tracer
+    from audiorenderingv2_tpu_torch.io import wav
+    from audiorenderingv2_tpu_torch.ops import filterbank
+
+    n_bands = len(BANDED_ABSORPTION)
+    sc, rows, params, opts, irs, launches, _ = box_matrix(n_bands)
+    signals = _dry_signals()
+    # Walls absorb more in every higher band, so the bands' energy falls.
+    band_energy = irs.sum(axis=(0, 1, 2, 4))
+    assert np.all(np.diff(band_energy) < 0), band_energy
+    out = multi.mix_sources(irs, signals, SR)
+    out_cpu = multi.mix_sources(irs, signals, SR, device="cpu")
+    mix_err = float(np.abs(out - out_cpu).max() / np.abs(out_cpu).max())
+    assert mix_err < 1e-4, mix_err
+    fused_ms = wall_ms(lambda: multi.render_ir_matrix(
+        sc, 0, MULTI_EMITTERS, MULTI_LISTENERS, MULTI_YAWS, N_RAYS, params,
+        opts, pair_batch=8, rows=rows), 3)
+    mix_ms = wall_ms(lambda: multi.mix_sources(irs, signals, SR), 5)
+    log(f"banded multi-pose ({n_bands} bands, absorption "
+        f"{BANDED_ABSORPTION}): energy per band {band_energy.tolist()}; the "
+        f"mix on the card is within {mix_err:.3e} of its peak of the mix "
+        f"on the CPU (bar 1e-4); host clock: fused matrix {fused_ms:.3f} "
+        f"ms, mix_sources through the filterbank {mix_ms:.3f} ms")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        testing.write_box_obj(Path(tmp) / "room.obj", ROOM, material="walls")
+        cfg = _write_inputs(Path(tmp), absorption=list(BANDED_ABSORPTION))
+        _reset_launches()
+        ctx = context.load_context(cfg, device="cuda")
+        context.export_audio(ctx, Path(tmp) / "banded.wav")
+        torch.cuda.synchronize()
+        xl = _read_launches()
+        r = ctx.renderer
+        log(f"banded export: launches {xl}")
+        assert r.params.n_bands == n_bands and r.boxes is None
+        assert xl["trace_round"] == len(r.opts.round_budgets), xl
+        assert xl["histogram"] == 1 and xl["trace_round_posed"] == 0, xl
+        audio = wav.read_wav(Path(tmp) / "banded.wav")
+        assert audio.n_channels == 2 and audio.sample_rate == SR
+        assert audio.n_frames == 5 * SR and np.isfinite(audio.samples).all()
+        peaks = np.abs(audio.samples).max(axis=1)
+        assert np.all(np.abs(peaks - 1.0) < 1e-3), peaks
+        ir = r.ir
+        assert ir.shape == (2, n_bands, IR_SECONDS * SR)
+        assert np.isfinite(ir).all() and (ir > 0).sum(axis=-1).min() >= 200
+        assert np.all(np.diff(ir.sum(axis=(0, 2))) < 0)
+
+        # The banded trace on the card against the CPU plain path.
+        d = unit_dirs(65536, 5)
+        targs = (r.emitter_pos, r.receiver_pos, r.receiver_yaw_deg, r.params,
+                 r.opts)
+        ir_gpu = tracer.trace_ir(r.sc, torch.from_numpy(d).cuda(), *targs)
+        ir_cpu = tracer.trace_ir(tracer.scene_to_arrays(ctx.scene),
+                                 torch.from_numpy(d), *targs)
+        nb = IR_SECONDS * SR
+        testing.assert_ir_close(ir_gpu.cpu().numpy().reshape(-1, nb),
+                                ir_cpu.numpy().reshape(-1, nb), exact=False)
+        # The filterbank on the card against the CPU's, on the export's IR.
+        samples = torch.from_numpy(ctx.audio.mono())
+        wet = r.convolve_audio_file_device(samples.cuda()).cpu()
+        wet_cpu = filterbank.convolve_file_banded(
+            samples, torch.from_numpy(ir), SR, r.band_edges)
+        conv_err = float((wet - wet_cpu).abs().max() / wet_cpu.abs().max())
+        assert wet.shape == (2, 5 * SR) and conv_err < 1e-4, conv_err
+        render_ms = median_ms(r.render, 5)
+        conv_ms = median_ms(
+            lambda: r.convolve_audio_file_device(samples.cuda()), 5)
+        log(f"banded export ({n_bands} bands, {N_RAYS} rays, {MAX_BOUNCES} "
+            f"bounces): WAV stereo {SR} Hz, peaks {peaks.tolist()}; IR "
+            f"energy per band {ir.sum(axis=(0, 2)).tolist()}; on 65536 "
+            f"shared directions the CUDA IR passes assert_ir_close("
+            f"exact=False) against the CPU plain path in every (ear, "
+            f"band); the banded convolution on the card is within "
+            f"{conv_err:.3e} of its peak of the CPU's (bar 1e-4); render "
+            f"{render_ms:.3f} ms (median of 5), banded convolve of the 5 s "
+            f"signal {conv_ms:.3f} ms")
+    return {"trace_round_posed_4band": launches["trace_round_posed"]}
+
+
+def phase_native_rng() -> int:
+    """A native_rng render of the box against renders of sampled
+    directions; returns K4's launches in one render."""
+    from audiorenderingv2_tpu_torch import tuned
+    from audiorenderingv2_tpu_torch.core.tracer import TracerOptions
+    from audiorenderingv2_tpu_torch.renderer import AudioRenderer
+
+    budgets = tuned.round_budgets_for(MAX_BOUNCES)
+
+    def renderer(native: bool, seed: int) -> AudioRenderer:
+        r = AudioRenderer(_box_scene(), IR_SECONDS, SR, N_RAYS,
+                          base_power=3.62, max_bounces=MAX_BOUNCES,
+                          hrtf_absorption_rate=0.9, seed=seed, device="cuda",
+                          opts=TracerOptions(round_budgets=budgets,
+                                             native_rng=native))
+        r.set_emitter_pos(EMITTER)
+        r.set_receiver(RECEIVER, 0.0)
+        return r
+
+    def coarse(ir):  # 20 ms bins
+        return ir.reshape(2, -1, SR // 50).sum(axis=-1)
+
+    def l1(a, b):
+        return float(np.abs(a - b).sum() / np.abs(b).sum())
+
+    n_seeds = 8
+    sampled = [renderer(False, s).render().copy() for s in range(n_seeds)]
+    native_r = renderer(True, 0)
+    _reset_launches()
+    native = native_r.render().copy()
+    torch.cuda.synchronize()
+    launches = _read_launches()
+    assert launches["init_state"] == 1, launches
+    assert launches["trace_round"] == len(budgets), launches
+    assert native.shape == (2, IR_SECONDS * SR) and np.isfinite(native).all()
+    assert np.all((native > 0).sum(axis=1) >= 200)
+    natives = [native] + [renderer(True, s).render().copy()
+                          for s in range(1, n_seeds)]
+    # Two samples of n_seeds renders each: the means of the per-ear energy
+    # within 5 standard errors of their difference, and spreads of one
+    # size (4 renders gave a spread 6 times too small once, by chance).
+    es = np.array([ir.sum(axis=1) for ir in sampled], np.float64)
+    en = np.array([ir.sum(axis=1) for ir in natives], np.float64)
+    ss, sn = es.std(axis=0, ddof=1), en.std(axis=0, ddof=1)
+    diff = np.abs(en.mean(axis=0) - es.mean(axis=0))
+    sem = np.sqrt((ss ** 2 + sn ** 2) / n_seeds)
+    assert np.all(diff < 5 * sem), (diff, sem)
+    assert np.all(sn < 3 * ss) and np.all(ss < 3 * sn), (ss, sn)
+    among = max(l1(coarse(a), coarse(b)) for i, a in enumerate(sampled)
+                for b in sampled[i + 1:])
+    to_native = float(np.mean([l1(coarse(native), coarse(b))
+                               for b in sampled]))
+    assert to_native < 2 * among, (to_native, among)
+    native_ms = median_ms(native_r.render, 5)
+    sampled_ms = median_ms(renderer(False, 0).render, 5)
+    log(f"native_rng render ({N_RAYS} rays, {MAX_BOUNCES} bounces): "
+        f"launches {launches}; per-ear energy over {n_seeds} seeds: native "
+        f"mean {en.mean(axis=0).tolist()} std {sn.tolist()}, sampled mean "
+        f"{es.mean(axis=0).tolist()} std {ss.tolist()}; the means differ "
+        f"by {(diff / sem).round(2).tolist()} standard errors (bar 5); "
+        f"relative L1 of the IR in 20 ms bins to the sampled renders "
+        f"{to_native:.3e}, among them at most {among:.3e} (bar: twice "
+        f"that); render {native_ms:.3f} ms with native_rng, "
+        f"{sampled_ms:.3f} ms with sampled directions")
+    return launches["init_state"]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; the port's "
@@ -601,6 +1411,11 @@ def main() -> int:
     launches = phase_export()
     cluster = phase_cluster_kernels()
     office = phase_office_export()
+    posed = phase_pose_kernels()
+    k4 = phase_init()
+    multi_launches, k3_posed = phase_multipose()
+    k4_launches = phase_native_rng()
+    multi_launches.update(phase_banded())
     kernels = [
         {"name": "trace_round", "route": "cuda",
          "source": "audiorenderingv2_tpu_torch/csrc/trace_round.cu",
@@ -619,6 +1434,29 @@ def main() -> int:
          "source": "audiorenderingv2_tpu_torch/csrc/tile_schedule.cu",
          "replaces": "audiorenderingv2_tpu/ops/raytrace_pallas_v2.py:1103",
          "launches": office["tile_schedule"], **cluster["tile_schedule"]},
+        {"name": "trace_round_posed", "route": "cuda",
+         "source": "audiorenderingv2_tpu_torch/csrc/trace_round.cu",
+         "replaces": "audiorenderingv2_tpu/ops/raytrace_pallas_v2.py:887",
+         "launches": multi_launches["trace_round_posed"],
+         **posed["trace_round_posed"]},
+        {"name": "trace_round_posed_4band", "route": "cuda",
+         "source": "audiorenderingv2_tpu_torch/csrc/trace_round.cu",
+         "replaces": "audiorenderingv2_tpu/ops/raytrace_pallas_v2.py:887",
+         "launches": multi_launches["trace_round_posed_4band"],
+         **posed["trace_round_posed_4band"]},
+        {"name": "histogram_posed", "route": "cuda",
+         "source": "audiorenderingv2_tpu_torch/csrc/histogram.cu",
+         "replaces": "audiorenderingv2_tpu/ops/histogram_pallas.py:59",
+         "launches": multi_launches["histogram_posed"], **k3_posed},
+        {"name": "trace_round_sched_posed", "route": "cuda",
+         "source": "audiorenderingv2_tpu_torch/csrc/trace_sched.cu",
+         "replaces": "audiorenderingv2_tpu/ops/raytrace_pallas_v2.py:887",
+         "launches": multi_launches["trace_round_sched_posed"],
+         **posed["trace_round_sched_posed"]},
+        {"name": "init_state_native", "route": "cuda",
+         "source": "audiorenderingv2_tpu_torch/csrc/init_state.cu",
+         "replaces": "audiorenderingv2_tpu/ops/raytrace_pallas_v2.py:284",
+         "launches": k4_launches, **k4},
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

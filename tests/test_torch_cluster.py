@@ -430,8 +430,8 @@ def test_build_dir_follows_shared_header(tmp_path, monkeypatch):
         shutil.copy(src, tmp_path / src.name)
     monkeypatch.setattr(_build, "CSRC", tmp_path)
     assert {p.name for p in _build.sources()} == {
-        "histogram.cu", "tile_schedule.cu", "trace_round.cu",
-        "trace_sched.cu"}
+        "histogram.cu", "init_state.cu", "tile_schedule.cu",
+        "trace_round.cu", "trace_sched.cu"}
     before = _build.build_dir()
     header = tmp_path / "trace_common.cuh"
     header.write_text(header.read_text() + "\n")

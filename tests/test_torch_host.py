@@ -93,6 +93,25 @@ def test_copied_module_source_equals_original(rel):
     assert '"""' + rest == orig
 
 
+@pytest.mark.parametrize("edges,transition", [
+    ((250.0, 1000.0, 4000.0), 0.25), ((300.0, 3000.0), 0.4)])
+def test_copied_band_gains_equal_original(edges, transition):
+    """``ops/filterbank.py`` imports JAX, so the port copies its numpy
+    ``band_gains``; the copy gives the original's gains bit for bit."""
+    from audiorenderingv2_tpu.ops import filterbank as j_fb
+    from audiorenderingv2_tpu_torch.ops import filterbank as t_fb
+
+    assert t_fb.DEFAULT_BAND_EDGES == j_fb.DEFAULT_BAND_EDGES
+    for n_freqs, sr in ((4001, 8000), (16001, 16000), (513, 44100)):
+        a = j_fb.band_gains(n_freqs, sr, edges, transition)
+        b = t_fb.band_gains(n_freqs, sr, edges, transition)
+        assert b.dtype == np.float32 and b.shape == (len(edges) + 1, n_freqs)
+        np.testing.assert_array_equal(a, b)
+        np.testing.assert_allclose(b.sum(axis=0), 1.0, atol=1e-6)
+    np.testing.assert_array_equal(j_fb.band_gains(100, 8000),
+                                  t_fb.band_gains(100, 8000))
+
+
 def test_config_parse_matches():
     data = {
         "renderer_parameters": {"ir_length_in_seconds": 2,

@@ -133,8 +133,11 @@ def test_error_paths(tmp_path):
         live.renderer.convolve_audio_file(np.zeros(16000, np.float32))
     v, t = tt.box_room()
     banded = tt.scene_from_arrays(v, t, np.full((12, 3), 0.2, np.float32))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        AudioRenderer(banded, 1, SR, 128, device="cpu")
+    r = AudioRenderer(banded, 1, SR, 128, device="cpu")  # banded is ported
+    assert r.params.n_bands == 3 and r.render().shape == (2, 3, SR)
+    nine = tt.scene_from_arrays(v, t, np.full((12, 9), 0.2, np.float32))
+    with pytest.raises(ValueError, match="at most 8 bands"):
+        AudioRenderer(nine, 1, SR, 128, device="cpu")
 
 
 def test_cli_export_reads_back_in_jax(tmp_path, capsys):
