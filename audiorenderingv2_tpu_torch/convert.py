@@ -3,7 +3,9 @@
 The tests feed both packages the same scene through these: the JAX
 package's ``SceneArrays`` (as a dict of numpy arrays, e.g.
 ``{k: np.asarray(v) for k, v in sc._asdict().items()}``), its
-``TraceParams`` and its ``TracerOptions``. Nothing here imports JAX.
+``TraceParams`` and its ``TracerOptions``; and a fit's parameters and Adam
+moments (``fit_state_from_jax``), so that a fit begun in one package goes on
+in the other. Nothing here imports JAX.
 """
 from __future__ import annotations
 
@@ -44,9 +46,50 @@ def tracer_options_from_jax(opts) -> TracerOptions:
     that change results or the round schedule carry over; the ones that
     tuned the TPU kernels (``pallas_precision``, ``pallas_layout``,
     ``rays_per_tile``, ``pallas_unroll``, ...) are dropped. The Pallas
-    round budgets carry over whatever the JAX backend, as the port has one
-    path; ``pallas_native_rng`` becomes ``native_rng``."""
-    return TracerOptions(soft_binning=bool(opts.soft_binning),
-                         compact=bool(opts.pallas_compact),
-                         round_budgets=opts.pallas_round_budgets,
-                         native_rng=bool(opts.pallas_native_rng))
+    round budgets carry over whatever the JAX backend;
+    ``pallas_native_rng`` becomes ``native_rng``, ``pallas_schedule``
+    ``schedule``, and the backend ``"xla"`` / ``"pallas"`` becomes
+    ``"autograd"`` / ``"kernels"``, with the options that shape the
+    differentiable trace (``block_size``, ``tri_chunk``, ``early_exit``,
+    ``remat``). The JAX package's default backend is the differentiable
+    one, the port's the kernels: default options map to
+    ``TracerOptions(backend="autograd")``."""
+    return TracerOptions(
+        soft_binning=bool(opts.soft_binning),
+        compact=bool(opts.pallas_compact),
+        round_budgets=opts.pallas_round_budgets,
+        native_rng=bool(opts.pallas_native_rng),
+        schedule=bool(opts.pallas_schedule),
+        backend={"xla": "autograd", "pallas": "kernels"}[opts.backend],
+        block_size=int(opts.block_size), tri_chunk=int(opts.tri_chunk),
+        early_exit=bool(opts.early_exit), remat=bool(opts.remat))
+
+
+def fit_state_from_jax(leaves_or_npz, theta_like: dict,
+                       device: torch.device | str = "cpu"):
+    """A JAX fit's state as the port's: ``(theta, opt_state)``.
+
+    ``leaves_or_npz``: the flat leaves of the JAX package's ``(theta,
+    opt_state)`` for ``optax.adam`` as numpy arrays, in ``jax.tree.flatten``
+    order (parameters by sorted key, Adam's count, first moments, second
+    moments), or the path of a checkpoint its ``save_fit_state`` wrote.
+    ``theta_like``: a dict with the parameters' names. Returns ``theta``, a
+    dict of leaf tensors on ``device`` that require gradients, and the
+    ``diff.checkpoint.AdamState`` to hand to ``load_adam_state`` with a
+    ``torch.optim.Adam`` over those tensors. One Adam step from there, on
+    the same gradient, gives the ``theta`` that optax's gives."""
+    from .diff import checkpoint
+
+    if isinstance(leaves_or_npz, (str, bytes)) or hasattr(leaves_or_npz,
+                                                          "__fspath__"):
+        restored = checkpoint.load_fit_state(leaves_or_npz, theta_like)
+        if restored is None:
+            raise FileNotFoundError(f"no checkpoint at {leaves_or_npz}")
+        _, theta_np, state, _ = restored
+    else:
+        theta_np, state = checkpoint.fit_from_leaves(list(leaves_or_npz),
+                                                     theta_like)
+    theta = {k: torch.tensor(np.asarray(v), dtype=torch.float32,
+                             device=device).requires_grad_(True)
+             for k, v in theta_np.items()}
+    return theta, state

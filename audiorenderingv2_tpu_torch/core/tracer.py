@@ -1,13 +1,24 @@
 """The path tracer: scene arrays, the trace entry points and the histogram.
 
-The counterpart of ``audiorenderingv2_tpu/core/tracer.py`` on the export
-path. ``trace_ir`` packs the triangle rows, runs the bounce rounds of
-``ops/raytrace_cuda.py`` and sums the events into the binaural IR through
-``core/binning.py`` (K3). A scene without cluster boxes takes the rows
-route (K1 over every triangle, several bounces per round); a scene with
-them, Morton-sorted by ``accel.prepare_scene``, the clustered route (one
-bounce per round: the per-tile schedule, then K2 over each tile's candidate
-clusters, then a coherent sort of the rays). ``render_ir_pose_batch``
+The counterpart of ``audiorenderingv2_tpu/core/tracer.py``. ``trace_ir`` has
+two backends (``TracerOptions.backend``):
+
+* ``"kernels"`` (the JAX package's ``"pallas"``), forward only: it packs the
+  triangle rows, runs the bounce rounds of ``ops/raytrace_cuda.py`` and sums
+  the events into the binaural IR through ``core/binning.py`` (K3). A scene
+  without cluster boxes takes the rows route (K1 over every triangle,
+  several bounces per round); a scene with them, Morton-sorted by
+  ``accel.prepare_scene``, the clustered route, one bounce per round and a
+  coherent sort of the rays after it: with ``opts.schedule`` the per-tile
+  schedule, then K2 over each tile's candidate clusters; without it K5, the
+  front-to-back traversal inside the kernel (``ops/traverse_cuda.py``).
+* ``"autograd"`` (its ``"xla"``): the bounce loop as out-of-place PyTorch
+  ops over blocks of rays (``_bounce_step``), differentiable in absorption,
+  emitter, receiver and the geometry rows. It is the ``"full"`` method of
+  ``diff/inverse.py`` and the oracle of ``diff/replay.py``. Both backends
+  end in the same histogram, whose backward is K3-bwd.
+
+``render_ir_pose_batch``
 renders P poses in one launch per round (``trace_events_pose_batch``) and
 one posed histogram; ``render_ir`` with ``opts.native_rng`` generates its
 directions inside K4 instead of sampling them. The tensors' device picks
@@ -20,12 +31,14 @@ ray grazes a triangle edge.
 """
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
+from .. import constants
 from . import binning
 from .params import TraceParams
 
@@ -67,6 +80,20 @@ class TracerOptions:
     ``pallas_native_rng``), so no [N, 3] array is made; the stream differs
     from ``sample_directions``', so the two renders agree statistically.
 
+    ``schedule``: a clustered scene's rounds run the per-tile schedule and
+    K2 (its ``pallas_schedule``; ``tuned.auto_options`` sets it); False runs
+    K5, the traversal inside the kernel, which also takes rounds of several
+    bounces.
+
+    ``backend``: ``"kernels"`` (the hand-written kernels, forward only; its
+    ``"pallas"``) or ``"autograd"`` (out-of-place PyTorch ops that autograd
+    can differentiate; its ``"xla"``). The rest are the autograd backend's:
+    ``block_size`` rays advance in lockstep, ``tri_chunk`` triangles per
+    step of the nearest-hit search, ``early_exit`` stops a block when all
+    its rays are done (forward only: it reads a flag back per bounce),
+    ``remat`` recomputes each block in the backward pass instead of keeping
+    its activations (``torch.utils.checkpoint``, non-reentrant).
+
     The JAX package's options that only tuned its TPU kernels have no field
     here; ``convert.tracer_options_from_jax`` drops them.
     """
@@ -75,6 +102,16 @@ class TracerOptions:
     compact: bool = True
     round_budgets: tuple | None = None
     native_rng: bool = False
+    schedule: bool = False
+    backend: str = "kernels"
+    block_size: int = 8192
+    tri_chunk: int = 2048
+    early_exit: bool = True
+    remat: bool = False
+
+    def __post_init__(self):
+        if self.backend not in ("kernels", "autograd"):
+            raise ValueError(f"unknown backend {self.backend!r}")
 
 
 def scene_to_arrays(scene, tri_chunk: int = 2048,
@@ -123,6 +160,232 @@ def scene_to_arrays(scene, tri_chunk: int = 2048,
         bary_u=pad(scene.bary_u), bary_v=pad(scene.bary_v),
         u_off=pad(u_off), v_off=pad(v_off), normal=pad(scene.normal),
         absorption=pad(absorb), valid=pad(scene.valid), cluster_boxes=boxes)
+
+
+# ------------------------------------------------------ the autograd backend
+
+_BARY_EPS = 1e-7
+
+
+def _dot3(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Row-wise dot product of [..., 3] tensors as two adds, never a
+    matmul (see the module docstring)."""
+    return (a[..., 0] * b[..., 0] + a[..., 1] * b[..., 1]
+            + a[..., 2] * b[..., 2])
+
+
+def _rows(table: torch.Tensor, index: torch.Tensor) -> torch.Tensor:
+    """``table[index]`` for a 1-D int64 ``index``, as ``index_select``: its
+    backward is one ``index_add_`` (atomics on the card), where the
+    backward of ``table[index]`` sorts the indices first and, with a
+    million rays gathering from twenty thousand triangle rows, took some
+    thirty times as long on an H100 (``chip_smoke.py`` times the two)."""
+    return table.index_select(0, index)
+
+
+def _intersect_block(sc: SceneArrays, pos: torch.Tensor, dirn: torch.Tensor,
+                     tri_chunk: int):
+    """Nearest triangle hit of each ray of a block: (t [B], inf on a miss,
+    triangle index int64 [B]).
+
+    The search over all T triangles, ``tri_chunk`` at a time with a strict
+    running minimum (ties to the lowest index), builds no graph: the
+    gradient of a minimum is the gradient of its winner, so ``t`` is then
+    recomputed from the winning triangle's plane row with the same
+    operations, which gives the same bits and a graph of O(B) size, where
+    differentiating the search itself would keep [B, T] activations."""
+    t_total = sc.plane_n.shape[0]
+    tri_chunk = min(tri_chunk, t_total)
+    with torch.no_grad():
+        p, d = pos.detach()[:, None, :], dirn.detach()[:, None, :]
+        b = pos.shape[0]
+        t_best = torch.full((b,), math.inf, dtype=torch.float32,
+                            device=pos.device)
+        i_best = torch.zeros((b,), dtype=torch.int64, device=pos.device)
+        for c0 in range(0, t_total, tri_chunk):
+            c = slice(c0, c0 + tri_chunk)
+            pn, au, av = (x.detach()[None, c] for x in
+                          (sc.plane_n, sc.bary_u, sc.bary_v))
+            nd = _dot3(d, pn)                              # [B, Tc]
+            no = _dot3(p, pn) + sc.plane_d.detach()[None, c]
+            safe = torch.abs(nd) > 1e-12
+            t = -no / torch.where(safe, nd, 1.0)
+            u = (_dot3(p, au) + sc.u_off[None, c]) + t * _dot3(d, au)
+            v = (_dot3(p, av) + sc.v_off[None, c]) + t * _dot3(d, av)
+            ok = (safe & (t > constants.T_MIN)
+                  & (u >= -_BARY_EPS) & (v >= -_BARY_EPS)
+                  & (u + v <= 1.0 + _BARY_EPS) & (sc.valid[None, c] > 0))
+            t_min, i_min = torch.where(ok, t, math.inf).min(dim=1)
+            better = t_min < t_best
+            t_best = torch.where(better, t_min, t_best)
+            i_best = torch.where(better, i_min + c0, i_best)
+    hit = t_best < math.inf
+    pn = _rows(sc.plane_n, i_best)
+    nd = _dot3(dirn, pn)
+    no = _dot3(pos, pn) + _rows(sc.plane_d, i_best)
+    t = -no / torch.where(hit & (torch.abs(nd) > 1e-12), nd, 1.0)
+    return torch.where(hit, t, math.inf), i_best
+
+
+def _sphere_entry(pos: torch.Tensor, dirn: torch.Tensor,
+                  center: torch.Tensor):
+    """The analytic receiver-sphere crossing: (t_hit [B], inf on a miss,
+    chord [B]). The chord is the secant through the radius-1 sphere, the
+    deposited-energy factor; an origin inside the sphere hits the far
+    surface. The inner ``where`` keeps the square root of a negative
+    discriminant, and with it a NaN gradient, out of the graph."""
+    oc = pos - center[None, :]
+    b = _dot3(oc, dirn)
+    c = _dot3(oc, oc) - constants.RECEIVER_RADIUS ** 2
+    disc = b * b - c
+    hit = disc > 0.0
+    s = torch.sqrt(torch.where(hit, disc, 0.0))
+    t1 = -b - s
+    t2 = -b + s
+    t_hit = torch.where(hit & (t1 > constants.T_MIN), t1,
+                        torch.where(hit & (t2 > constants.T_MIN), t2,
+                                    math.inf))
+    return t_hit, t2 - t1
+
+
+class _RayState(NamedTuple):
+    pos: torch.Tensor       # [B, 3]
+    dirn: torch.Tensor      # [B, 3]
+    dist: torch.Tensor      # [B]
+    energy: torch.Tensor    # [B, n_bands]
+    depth: torch.Tensor     # [B] int32
+    done: torch.Tensor      # [B] bool
+    ev_bin_f: torch.Tensor  # [B] fractional arrival bin of the one deposit
+    ev_w: torch.Tensor      # [B, n_bands] deposited energy
+    ev_ear: torch.Tensor    # [B] int32, 0 left / 1 right
+
+
+def band_absorption(sc: SceneArrays, n_bands: int) -> torch.Tensor:
+    """The scene's absorption as [T, n_bands]; only a one-band table
+    broadcasts over the bands."""
+    absorb = sc.absorption
+    if absorb.dim() == 1:
+        absorb = absorb[:, None]
+    if absorb.shape[1] != n_bands:
+        if absorb.shape[1] != 1:
+            raise ValueError(f"scene has {absorb.shape[1]} absorption bands "
+                             f"but params ask for {n_bands}; only 1-band "
+                             f"scenes broadcast")
+        absorb = absorb.expand(-1, n_bands)
+    return absorb
+
+
+def _bounce_step(state: _RayState, sc: SceneArrays, rec_center, yaw_rad,
+                 params: TraceParams, opts: TracerOptions):
+    """One bounce of a block, out of place (autograd keeps every tensor it
+    saved): the physics of the kernels' tail, receiver before surface.
+    Returns the new state and the step's topology (surface bool [B],
+    receiver bool [B], tri int64 [B]): which rays bounced, which reached
+    the receiver, and the triangle the search found."""
+    can_continue = ((state.dist < params.distance_threshold)
+                    & (state.energy.amax(dim=-1) > params.energy_threshold)
+                    & (state.depth < params.max_bounces))
+    alive = ~state.done & can_continue
+
+    t_tri, tri = _intersect_block(sc, state.pos, state.dirn, opts.tri_chunk)
+    t_sph, chord = _sphere_entry(state.pos, state.dirn, rec_center)
+
+    receiver = alive & (t_sph < t_tri)
+    surface = alive & ~receiver & torch.isfinite(t_tri)
+    miss = alive & ~receiver & ~surface
+
+    # The receiver event: the ray's one deposit. Each inner ``where`` turns
+    # an infinite distance into 0 before it meets a product.
+    t_sph_safe = torch.where(torch.isfinite(t_sph), t_sph, 0.0)
+    dist_r = state.dist + t_sph_safe
+    d_local = state.pos + t_sph_safe[:, None] * state.dirn - rec_center[None]
+    local_z = (-torch.sin(yaw_rad) * d_local[:, 0]
+               + torch.cos(yaw_rad) * d_local[:, 2])
+    ear = (local_z >= 0.0).to(torch.int32)
+    bin_f = dist_r * (params.sample_rate / constants.SPEED_OF_SOUND)
+
+    # The surface bounce: reflect, absorb, offset, advance.
+    t_tri_safe = torch.where(torch.isfinite(t_tri), t_tri, 0.0)
+    n = _rows(sc.normal, tri)
+    refl = state.dirn - 2.0 * _dot3(state.dirn, n)[:, None] * n
+    hit_p = state.pos + t_tri_safe[:, None] * state.dirn
+    new_pos = hit_p + constants.BOUNCE_EPSILON * refl
+    absorb = _rows(band_absorption(sc, state.energy.shape[1]), tri)
+
+    sm = surface[:, None]
+    return _RayState(
+        pos=torch.where(sm, new_pos, state.pos),
+        dirn=torch.where(sm, refl, state.dirn),
+        dist=torch.where(surface, state.dist + t_tri_safe, state.dist),
+        energy=torch.where(sm, state.energy * (1.0 - absorb), state.energy),
+        depth=torch.where(surface, state.depth + 1, state.depth),
+        done=state.done | receiver | miss | ~can_continue,
+        ev_bin_f=torch.where(receiver, bin_f, state.ev_bin_f),
+        ev_w=torch.where(receiver[:, None], state.energy * chord[:, None],
+                         state.ev_w),
+        ev_ear=torch.where(receiver, ear, state.ev_ear),
+    ), (surface, receiver, tri)
+
+
+def _start_state(dirs_block, energy0, emitter, n_bands: int) -> _RayState:
+    """A block of rays at the emitter, ``energy0`` [B] in every band."""
+    b = dirs_block.shape[0]
+    dev = dirs_block.device
+    return _RayState(
+        pos=emitter[None, :].expand(b, 3),
+        dirn=dirs_block,
+        dist=torch.zeros(b, device=dev),
+        energy=energy0[:, None].expand(b, n_bands),
+        depth=torch.zeros(b, dtype=torch.int32, device=dev),
+        done=torch.zeros(b, dtype=torch.bool, device=dev),
+        ev_bin_f=torch.zeros(b, device=dev),
+        ev_w=torch.zeros((b, n_bands), device=dev),
+        ev_ear=torch.zeros(b, dtype=torch.int32, device=dev),
+    )
+
+
+def _trace_block(dirs_block, energy0, sc, emitter, rec_center, yaw_rad,
+                 params: TraceParams, opts: TracerOptions):
+    """Trace one block of rays to the end; returns its event slots."""
+    state = _start_state(dirs_block, energy0, emitter, params.n_bands)
+    for _ in range(params.max_bounces):
+        if opts.early_exit and bool(state.done.all()):
+            break
+        state, _ = _bounce_step(state, sc, rec_center, yaw_rad, params, opts)
+    return state.ev_bin_f, state.ev_w, state.ev_ear
+
+
+def _trace_events_autograd(sc: SceneArrays, directions, emitter, rec_center,
+                           receiver_yaw_deg, params: TraceParams,
+                           opts: TracerOptions, n_total_rays: int | None):
+    """The event slots of ``directions`` [N, 3] through the autograd
+    backend, block by block: (ev_bin_f [N], ev_w [N, n_bands], ev_ear
+    int32 [N]). A tail block is padded with zero directions of zero
+    energy."""
+    from torch.utils.checkpoint import checkpoint
+
+    n = directions.shape[0]
+    n_total = n_total_rays if n_total_rays is not None else n
+    block = min(opts.block_size, n)
+    e0 = params.base_power / (n_total * constants.SPHERE_VOLUME)
+    yaw_rad = torch.deg2rad(_as_vec(receiver_yaw_deg, sc.device))
+
+    def block_fn(d, e):
+        return _trace_block(d, e, sc, emitter, rec_center, yaw_rad, params,
+                            opts)
+
+    outs = []
+    for start in range(0, n, block):
+        d = directions[start:start + block]
+        e = torch.full((block,), e0, dtype=torch.float32, device=d.device)
+        if d.shape[0] < block:
+            e[d.shape[0]:] = 0.0
+            d = torch.cat([d, d.new_zeros((block - d.shape[0], 3))])
+        if opts.remat and torch.is_grad_enabled():
+            outs.append(checkpoint(block_fn, d, e, use_reentrant=False))
+        else:
+            outs.append(block_fn(d, e))
+    return tuple(torch.cat([o[k] for o in outs])[:n] for k in range(3))
 
 
 def _soft_slots(bin_f: torch.Tensor, active: torch.Tensor, n_bins: int):
@@ -247,6 +510,14 @@ def packed_scene(sc: SceneArrays, params: TraceParams, rows, boxes):
     return rows, boxes
 
 
+def _kernels_only(opts: TracerOptions, what: str) -> None:
+    """Refuse an entry that exists only on the forward kernels rather than
+    run them under options that ask for the differentiable backend."""
+    if opts.backend != "kernels":
+        raise ValueError(f"{what} runs the forward-only kernels; it has no "
+                         f"backend={opts.backend!r} form")
+
+
 def trace_ir(sc: SceneArrays, directions: torch.Tensor, emitter,
              receiver_pos, receiver_yaw_deg: float, params: TraceParams,
              opts: TracerOptions = TracerOptions(),
@@ -260,16 +531,29 @@ def trace_ir(sc: SceneArrays, directions: torch.Tensor, emitter,
     ``rows``, ``boxes``: the scene's packed triangle rows and cluster boxes
     from ``raytrace_cuda.pack_scene(sc, params.n_bands)``, packed once per
     scene by a caller that renders it many times; None packs them here.
-    The clustered route runs when the scene has cluster boxes."""
+    The clustered route runs when the scene has cluster boxes.
+
+    With ``opts.backend == "autograd"`` the trace is differentiable:
+    ``emitter``, ``receiver_pos`` and the scene's tensors may require
+    gradients (with ``opts.soft_binning`` the arrival time has one too);
+    ``rows`` and ``boxes`` are not used. An unknown backend is refused when
+    the options are made."""
     from ..ops import raytrace_cuda
 
     dev = sc.device
+    directions = directions.to(device=dev, dtype=torch.float32)
+    if opts.backend == "autograd":
+        ev = _trace_events_autograd(
+            sc, directions, _as_vec(emitter, dev), _as_vec(receiver_pos, dev),
+            receiver_yaw_deg, params, opts, n_total_rays)
+        return _histogram_from_events(*ev, params, opts.soft_binning)
     rows, boxes = packed_scene(sc, params, rows, boxes)
     ev_bin_f, ev_w, ev_ear = raytrace_cuda.trace_events(
-        rows, directions.to(device=dev, dtype=torch.float32).contiguous(),
+        rows, directions.contiguous(),
         _as_vec(emitter, dev), _as_vec(receiver_pos, dev),
         float(receiver_yaw_deg), params, n_total_rays=n_total_rays,
-        compact=opts.compact, round_budgets=opts.round_budgets, boxes=boxes)
+        compact=opts.compact, round_budgets=opts.round_budgets, boxes=boxes,
+        schedule=opts.schedule)
     return _histogram_from_events(ev_bin_f, ev_w, ev_ear, params,
                                   opts.soft_binning)
 
@@ -285,19 +569,22 @@ def render_ir(sc: SceneArrays, generator: torch.Generator, n_rays: int,
 
     With ``opts.native_rng`` the generator gives only a seed (an integer
     below 2^23, which survives its f32 scalar slot exactly) and K4
-    generates the directions while it initialises the state."""
+    generates the directions while it initialises the state; that is the
+    kernels backend's, and raises with ``backend="autograd"``."""
     from ..ops import raytrace_cuda
     from . import sampling
 
     dev = sc.device
     if opts.native_rng:
+        _kernels_only(opts, "native_rng")
         rows, boxes = packed_scene(sc, params, rows, boxes)
         seed = torch.randint(0, 2**23, (), generator=generator, device=dev)
         ev_bin_f, ev_w, ev_ear = raytrace_cuda.trace_events(
             rows, None, _as_vec(emitter, dev), _as_vec(receiver_pos, dev),
             float(receiver_yaw_deg), params, n_total_rays=n_total_rays,
             compact=opts.compact, round_budgets=opts.round_budgets,
-            boxes=boxes, n_rays=n_rays, native_rng_seed=seed)
+            boxes=boxes, n_rays=n_rays, native_rng_seed=seed,
+            schedule=opts.schedule)
         return _histogram_from_events(ev_bin_f, ev_w, ev_ear, params,
                                       opts.soft_binning)
     dirs = sampling.sample_directions(n_rays, generator, dev)
@@ -317,11 +604,15 @@ def render_ir_pose_batch(sc: SceneArrays, seed: int, n_rays: int, emitters,
     ``i`` draws its ``n_rays`` directions from
     ``sampling.pose_generator(seed, pose_indices[i], device)`` (default
     ``i``), the stream a single :func:`render_ir` of that pose sees from the
-    same generator. Hard binning only: ``opts.soft_binning`` raises. Returns [P, 2, ir_length] on the scene's
-    device, or [P, 2, n_bands, ir_length]."""
+    same generator. Hard binning and the kernels backend only:
+    ``opts.soft_binning`` and ``backend="autograd"`` raise, and so does a
+    clustered scene without ``opts.schedule`` (it batches through the
+    schedule and K2, as in the JAX package). Returns
+    [P, 2, ir_length] on the scene's device, or [P, 2, n_bands, ir_length]."""
     from ..ops import raytrace_cuda
     from . import sampling
 
+    _kernels_only(opts, "render_ir_pose_batch")
     if opts.soft_binning:
         raise ValueError("render_ir_pose_batch is a forward-rendering path "
                          "(hard binning); use render_ir per pose for "
@@ -339,5 +630,6 @@ def render_ir_pose_batch(sc: SceneArrays, seed: int, n_rays: int, emitters,
         rows, directions.to(device=dev, dtype=torch.float32).contiguous(),
         emitters, _as_vec(receivers, dev).reshape(-1, 3),
         _as_vec(receiver_yaws_deg, dev).reshape(-1), params,
-        compact=opts.compact, round_budgets=opts.round_budgets, boxes=boxes)
+        compact=opts.compact, round_budgets=opts.round_budgets, boxes=boxes,
+        schedule=opts.schedule)
     return _histogram_from_events_posed(ev_bin_f, ev_w, ev_ear, params)

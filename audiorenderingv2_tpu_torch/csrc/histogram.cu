@@ -1,4 +1,5 @@
-// K3: sum event weights into IR bins (forward only).
+// K3: sum event weights into IR bins, and K3-bwd, the gather that is its
+// backward pass.
 //
 // Replaces the TPU kernel audiorenderingv2_tpu/ops/histogram_pallas.py
 // (_hist_kernel, launched by _hist_pallas_raw), which scatters 128 events at
@@ -16,8 +17,16 @@
 // their atomics on it. f32 atomics add in a run-dependent order, so sums
 // agree with a sequential sum to a few ulp, not bit for bit.
 //
-// The wrapper (ops/histogram_cuda.py) zero-fills `out` and checks shapes,
-// types and devices; nothing here allocates or synchronises.
+// K3-bwd replaces the backward of the TPU version's custom VJP
+// (histogram_pallas.py:124-143, an index_select on a zero-padded gradient):
+// g_w[e, b] = g[bins[e], b], and 0 where bins[e] is out of range; the bins
+// get no gradient. One thread per event loops over the bands. It is a pure
+// gather with no atomics, so it equals its plain version bit for bit. What
+// bounds it: the write of g_w (E * 4 * n_bands bytes) and the read of the
+// bins; the reads of g (250 KiB to a few MiB) are served by the L2.
+//
+// The wrappers (ops/histogram_cuda.py) zero-fill `out`, allocate `g_w` and
+// check shapes, types and devices; nothing here allocates or synchronises.
 
 #include <cuda_runtime.h>
 
@@ -39,6 +48,19 @@ __global__ void histogram_kernel(const int* __restrict__ bins,
   }
 }
 
+__global__ void histogram_bwd_kernel(const int* __restrict__ bins,
+                                     const float* __restrict__ g,
+                                     long long n_events, int n_bins,
+                                     int n_bands, float* __restrict__ g_w) {
+  const long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (e >= n_events) return;
+  const int b = bins[e];
+  const bool in_range = b >= 0 && b < n_bins;
+  const float* src = g + (long long)(in_range ? b : 0) * n_bands;
+  float* dst = g_w + e * n_bands;
+  for (int k = 0; k < n_bands; ++k) dst[k] = in_range ? src[k] : 0.0f;
+}
+
 }  // namespace
 
 extern "C" int ar2_histogram(const int* bins, const float* weights,
@@ -49,6 +71,18 @@ extern "C" int ar2_histogram(const int* bins, const float* weights,
   const long long blocks = (n_events + threads - 1) / threads;
   histogram_kernel<<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
       bins, weights, n_events, n_bins, n_bands, out);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int ar2_histogram_bwd(const int* bins, const float* g,
+                                 long long n_events, int n_bins, int n_bands,
+                                 float* g_w, void* stream) {
+  if (n_events <= 0) return (int)cudaSuccess;
+  const int threads = 256;
+  const long long blocks = (n_events + threads - 1) / threads;
+  histogram_bwd_kernel<<<(unsigned)blocks, threads, 0,
+                         (cudaStream_t)stream>>>(bins, g, n_events, n_bins,
+                                                 n_bands, g_w);
   return (int)cudaGetLastError();
 }
 

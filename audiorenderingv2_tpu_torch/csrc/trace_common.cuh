@@ -1,6 +1,7 @@
-// What K1 (trace_round.cu) and K2 (trace_sched.cu) share: the state, scalar
-// and triangle-row layouts, one ray's state in registers, the
-// Moller-Trumbore search over triangle rows and the bounce tail.
+// What K1 (trace_round.cu), K2 (trace_sched.cu) and K5 (trace_traverse.cu)
+// share: the state, scalar and triangle-row layouts, one ray's state in
+// registers, the Moller-Trumbore search over triangle rows and the bounce
+// tail.
 //
 // The tail is the TPU kernel's (audiorenderingv2_tpu/ops/
 // raytrace_pallas_v2.py:_trace_round_kernel_v2, :692-747): the analytic

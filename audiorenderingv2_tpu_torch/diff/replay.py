@@ -1,0 +1,223 @@
+"""Path-replay differentiation: gradients at full ray scale.
+
+The counterpart of ``audiorenderingv2_tpu/diff/replay.py``. The autograd
+backend of ``core/tracer.py`` differentiates a trace whose every bounce
+searches all triangles: fine for a small fit, far too slow at a million rays
+on a large scene. But which triangle a ray hits is a discrete fact with no
+useful derivative; what absorption, pose and geometry gradients need flows
+through the continuous quantities along a FIXED path: plane distances, the
+products of (1 - absorption), the receiver-sphere crossing. So:
+
+1. ``record_paths_kernels`` (or ``record_paths``, the plain search) runs the
+   forward tracer once and keeps only the triangle bounced off at each step
+   and the step at which the receiver was reached: int32 [N, K] and [N].
+2. ``replay_events`` walks the recorded paths again: per bounce one gather
+   and one plane intersection, no search, out-of-place PyTorch ops that
+   autograd differentiates.
+3. ``render_ir_replay`` bins the replayed events into the IR (soft or hard);
+   any loss on it back-propagates through K3-bwd and the replay.
+
+The topology is recorded again whenever the parameters have moved far enough
+to change it (the caller's choice; ``diff/inverse.py`` does so every
+``replay_refresh`` steps).
+
+MAINTENANCE INVARIANT: the bounce physics (alive predicate, receiver before
+surface, reflect / absorb / offset) exists in THREE forms where the JAX
+package has four: the autograd tracer's ``core/tracer.py:_bounce_step``
+(full search; ``record_paths`` runs that very step and keeps its topology,
+where the JAX package writes the step out again), ``replay_events``' step
+(gather, no search), and the kernels' tail
+(``csrc/trace_common.cuh:finish_bounce`` with its plain version
+``ops/raytrace_cuda.py:_bounce``). A change to the physics lands in all
+three; the equality tests of ``tests/test_torch_replay.py`` are
+the tripwire.
+"""
+from __future__ import annotations
+
+import torch
+
+from .. import constants
+from ..core.params import TraceParams
+from ..core.tracer import (SceneArrays, TracerOptions, _as_vec, _bounce_step,
+                           _dot3, _histogram_from_events, _rows,
+                           _sphere_entry, _start_state, band_absorption,
+                           packed_scene)
+
+
+@torch.no_grad()
+def record_paths(sc: SceneArrays, dirs: torch.Tensor, emitter, rec_center,
+                 receiver_yaw_deg, params: TraceParams,
+                 opts: TracerOptions = TracerOptions(),
+                 n_total_rays: int | None = None):
+    """Trace once by the plain search, recording topology only.
+
+    Returns (tri_ids int32 [N, K], recv_step int32 [N]), K =
+    ``params.max_bounces``: ``tri_ids[i, k]`` is the triangle ray i bounced
+    off at step k (-1: it did not advance at step k), ``recv_step[i]`` the
+    step at which it entered the receiver sphere (-1: never). No gradients;
+    blocks of ``opts.block_size`` rays as in the autograd tracer.
+
+    ``n_total_rays``: the whole launch's ray count when this call records a
+    share of it; it sets the per-ray energy, so that the energy threshold
+    ends the same rays as in a trace of the whole launch.
+    """
+    dev = sc.device
+    n = dirs.shape[0]
+    dirs = dirs.to(device=dev, dtype=torch.float32)
+    emitter, rec_center = _as_vec(emitter, dev), _as_vec(rec_center, dev)
+    yaw_rad = torch.deg2rad(_as_vec(receiver_yaw_deg, dev))
+    e0 = params.base_power / ((n_total_rays if n_total_rays is not None
+                               else n) * constants.SPHERE_VOLUME)
+    ids = torch.full((n, params.max_bounces), -1, dtype=torch.int32,
+                     device=dev)
+    recv = torch.full((n,), -1, dtype=torch.int32, device=dev)
+    block = max(1, min(opts.block_size, n))
+    for start in range(0, n, block):
+        rays = slice(start, start + block)
+        state = _start_state(dirs[rays],
+                             torch.full((dirs[rays].shape[0],), e0,
+                                        device=dev),
+                             emitter, params.n_bands)
+        for k in range(params.max_bounces):
+            state, (surface, receiver, tri) = _bounce_step(
+                state, sc, rec_center, yaw_rad, params, opts)
+            recv[rays] = torch.where(receiver, k, recv[rays])
+            ids[rays, k] = torch.where(surface, tri, -1).to(torch.int32)
+    return ids, recv
+
+
+@torch.no_grad()
+def record_paths_kernels(sc: SceneArrays, dirs: torch.Tensor, emitter,
+                         rec_center, receiver_yaw_deg, params: TraceParams,
+                         opts: TracerOptions = TracerOptions(),
+                         n_total_rays: int | None = None,
+                         rows: torch.Tensor | None = None,
+                         boxes: torch.Tensor | None = None):
+    """:func:`record_paths` through the trace kernels: the fast recorder,
+    the counterpart of the JAX package's ``record_paths_pallas``.
+
+    The ray state carries three recording columns: RAYID, the launch index
+    (so the topology survives the reorder between rounds), LTRI, 1 + the
+    triangle bounced off in the current round, and RECVD, the depth at which
+    the receiver was entered. This function runs one kernel round per bounce:
+    K1 on an unclustered scene; on a clustered one the schedule kernel and
+    K2 with ``opts.schedule``, else K5. After each round it reads (RAYID,
+    LTRI) and scatters the triangle ids into launch order; then the rays are
+    reordered as in a render (alive-first partition, or the dir72 sort).
+    ``rows``, ``boxes``: the packed scene, as in ``core.tracer.trace_ir``.
+
+    Returns the same (tri_ids int32 [N, K], recv_step int32 [N]) as
+    :func:`record_paths`. Ids index the scene's own (sorted) triangles. The
+    two recorders run the same arithmetic and agree wherever no two
+    triangles tie for the nearest hit; on a tie K5 keeps the cluster visited
+    first, the search and K2 the lowest index, which leaves the path's
+    geometry the same (equal distance) and can differ in the normal only
+    on an edge shared by two faces.
+    """
+    from ..ops import raytrace_cuda as rc
+
+    dev = sc.device
+    n, k_steps = dirs.shape[0], params.max_bounces
+    n_pad = -(-n // 128) * 128
+    if n_pad > 2 ** 24:
+        raise ValueError(f"{n_pad} rays: the launch index rides in an f32 "
+                         f"state column, exact only up to 2^24; record in "
+                         f"chunks with n_total_rays")
+    rows, boxes = packed_scene(sc, params, rows, boxes)
+    emitter, rec_center = _as_vec(emitter, dev), _as_vec(rec_center, dev)
+    e0 = params.base_power / ((n_total_rays if n_total_rays is not None
+                               else n) * constants.SPHERE_VOLUME)
+    scal = rc.scalars(emitter, rec_center, float(receiver_yaw_deg), e0,
+                      params)
+    state = rc.init_state(dirs.to(device=dev, dtype=torch.float32), emitter,
+                          e0, n_pad, params.n_bands)
+    state[rc._C_RAYID] = torch.arange(n_pad, device=dev).to(torch.float32)
+    state[rc._C_RECVD] = -1.0
+    tri_ids = torch.empty((n_pad, k_steps), dtype=torch.int32, device=dev)
+
+    def harvest(k: int, st: torch.Tensor) -> None:
+        tri_ids[st[rc._C_RAYID].long(), k] = st[rc._C_LTRI].to(torch.int32) - 1
+
+    state = rc._run_rounds(state, rows, boxes, scal, params, [1] * k_steps,
+                           compact=True, schedule=opts.schedule,
+                           harvest=harvest)
+    recv = torch.empty((n_pad,), dtype=torch.int32, device=dev)
+    recv[state[rc._C_RAYID].long()] = state[rc._C_RECVD].to(torch.int32)
+    return tri_ids[:n], recv[:n]
+
+
+def replay_events(sc: SceneArrays, tri_ids: torch.Tensor,
+                  recv_step: torch.Tensor, dirs: torch.Tensor, emitter,
+                  rec_center, receiver_yaw_deg, params: TraceParams,
+                  n_total_rays: int | None = None):
+    """Walk recorded paths again, differentiably; returns the event slots
+    (ev_bin_f [N], ev_w [N, n_bands], ev_ear int32 [N]) as the tracers do.
+
+    Per step: one gather of the known triangle's plane, normal and
+    absorption and one plane intersection, no search. The cost is O(N * K),
+    and gradients flow to absorption, emitter, receiver pose and the
+    triangle rows (``plane_n``, ``plane_d``, ``normal``). The energy
+    threshold ends no path here: the recorded topology is the forward run
+    that is being linearised. Every step is out of place: autograd keeps
+    what it saved.
+    """
+    dev = sc.device
+    n, k_steps = tri_ids.shape
+    n_total = n_total_rays if n_total_rays is not None else n
+    e0 = params.base_power / (n_total * constants.SPHERE_VOLUME)
+    emitter, rec_center = _as_vec(emitter, dev), _as_vec(rec_center, dev)
+    yaw_rad = torch.deg2rad(_as_vec(receiver_yaw_deg, dev))
+    sin_y, cos_y = torch.sin(yaw_rad), torch.cos(yaw_rad)
+    dirn = dirs.to(device=dev, dtype=torch.float32)
+    absorb = band_absorption(sc, params.n_bands)
+    bin_rate = params.sample_rate / constants.SPEED_OF_SOUND
+
+    pos = emitter[None, :].expand(n, 3)
+    dist = torch.zeros(n, device=dev)
+    energy = torch.full((n, params.n_bands), e0, device=dev)
+    ev_bin = torch.zeros(n, device=dev)
+    ev_w = torch.zeros((n, params.n_bands), device=dev)
+    ev_ear = torch.zeros(n, dtype=torch.int32, device=dev)
+    for k in range(k_steps):
+        # The receiver deposit comes before this step's surface advance. On
+        # a recorded path the sphere is hit wherever recv_step says so; the
+        # other rays are guarded all the same.
+        t_sph, chord = _sphere_entry(pos, dirn, rec_center)
+        t_safe = torch.where(torch.isfinite(t_sph), t_sph, 0.0)
+        d_local = pos + t_safe[:, None] * dirn - rec_center[None, :]
+        local_z = -sin_y * d_local[:, 0] + cos_y * d_local[:, 2]
+        ok = (recv_step == k) & torch.isfinite(t_sph)
+        ev_bin = torch.where(ok, (dist + t_safe) * bin_rate, ev_bin)
+        ev_w = torch.where(ok[:, None], energy * chord[:, None], ev_w)
+        ev_ear = torch.where(ok, (local_z >= 0.0).to(torch.int32), ev_ear)
+
+        tri = tri_ids[:, k]
+        surface = tri >= 0
+        ti = torch.clamp(tri, min=0).long()
+        pn, nrm = _rows(sc.plane_n, ti), _rows(sc.normal, ti)
+        nd = _dot3(pn, dirn)
+        no = _dot3(pn, pos) + _rows(sc.plane_d, ti)
+        t = -no / torch.where(torch.abs(nd) > 1e-12, nd, 1.0)
+        refl = dirn - 2.0 * _dot3(dirn, nrm)[:, None] * nrm
+        hit_p = pos + t[:, None] * dirn
+        sm = surface[:, None]
+        pos = torch.where(sm, hit_p + constants.BOUNCE_EPSILON * refl, pos)
+        dirn = torch.where(sm, refl, dirn)
+        dist = torch.where(surface, dist + t, dist)
+        energy = torch.where(sm, energy * (1.0 - _rows(absorb, ti)), energy)
+    # recv_step is always below K: a ray at depth max_bounces may not
+    # continue and deposits nothing, so the loop covers every deposit.
+    return ev_bin, ev_w, ev_ear
+
+
+def render_ir_replay(sc: SceneArrays, tri_ids, recv_step, dirs, emitter,
+                     rec_center, receiver_yaw_deg, params: TraceParams,
+                     soft_binning: bool = True,
+                     n_total_rays: int | None = None) -> torch.Tensor:
+    """The replayed, differentiable IR: [2, ir_length], or [2, n_bands,
+    ir_length]. ``soft_binning`` (the default) gives the arrival time a
+    gradient, which is the point of replaying a pose; hard binning
+    reproduces the forward tracer's IR."""
+    ev = replay_events(sc, tri_ids, recv_step, dirs, emitter, rec_center,
+                       receiver_yaw_deg, params, n_total_rays)
+    return _histogram_from_events(*ev, params, soft_binning)

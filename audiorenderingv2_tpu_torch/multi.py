@@ -57,8 +57,9 @@ def render_ir_matrix(
       rows, boxes: the scene's packed rows and boxes
         (``raytrace_cuda.pack_scene``), None packs them here once.
 
-    The fused batch needs hard binning, sampled directions (not
-    ``opts.native_rng``) and at most 8 bands; otherwise every pair is one
+    The fused batch needs the kernels backend, hard binning, sampled
+    directions (not ``opts.native_rng``), at most 8 bands and, on a
+    clustered scene, ``opts.schedule``; otherwise every pair is one
     ``render_ir``.
 
     Returns float32 [S, L, 2, ir_length], or [S, L, 2, n_bands, ir_length]
@@ -80,7 +81,10 @@ def render_ir_matrix(
     yw_p = np.tile(yaws, s)
     rows, boxes = packed_scene(sc, params, rows, boxes)
 
-    fused_ok = (not opts.soft_binning and not opts.native_rng
+    fused_ok = (opts.backend == "kernels"
+                # a clustered scene batches through the schedule and K2
+                and (sc.cluster_boxes is None or opts.schedule)
+                and not opts.soft_binning and not opts.native_rng
                 and params.n_bands <= 8)
     if fused_ok and pair_batch != 1:
         # pair_batch is a bound on memory, not a hint: honour it exactly.

@@ -44,6 +44,8 @@ _SIGNATURES = {
                         _P),
     # bins, weights, n_events, n_bins, n_bands, out, stream
     "ar2_histogram": (_P, _P, _LL, _I, _I, _P, _P),
+    # bins, g, n_events, n_bins, n_bands, g_w, stream
+    "ar2_histogram_bwd": (_P, _P, _LL, _I, _I, _P, _P),
     # state, n, boxes, n_clusters, sched, width, stream
     "ar2_tile_schedule": (_P, _LL, _P, _I, _P, _I, _P),
     # state, n, ncols, rows, cluster_size, sched, width, scal, n_poses,
@@ -52,6 +54,11 @@ _SIGNATURES = {
                         _P),
     # state, n_pad, ncols, n_real, scal, n_bands, layout_bands, stream
     "ar2_init_state": (_P, _LL, _I, _LL, _P, _I, _I, _P),
+    # state, n, ncols, rows, cluster_size, boxes, n_clusters, scal, n_poses,
+    # rays_per_pose, n_bands, layout_bands, budget, max_bounces, visits,
+    # stream
+    "ar2_trace_traverse": (_P, _LL, _I, _P, _I, _P, _I, _P, _I, _LL, _I, _I,
+                           _I, _I, _P, _P),
 }
 
 

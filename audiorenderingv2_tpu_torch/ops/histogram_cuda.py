@@ -1,4 +1,5 @@
-"""K3, the IR histogram: sum event weights into bins.
+"""K3, the IR histogram: sum event weights into bins; and K3-bwd, its
+backward pass.
 
 Kernel: ``csrc/histogram.cu`` (CUDA C++, one thread per event, f32
 ``atomicAdd`` into a device-memory accumulator). It replaces the TPU kernel
@@ -9,12 +10,19 @@ event read and the atomics the L2 resolves; the 250 KiB stereo accumulator
 does not fit a block's shared memory, so it stays in device memory, and
 events that are out of range or weigh nothing return before any atomic
 (the TPU's sentinel slot would serialise them on one address). More in the
-source's header. Forward only: the gather backward of the TPU version's
-custom VJP is ROADMAP work.
+source's header.
 
-``histogram_sum_banded`` launches the kernel for a CUDA tensor and runs the
-plain version, ``histogram_plain`` (``index_add_``), for a CPU tensor. It
-never falls back from one to the other. ``launches`` counts kernel launches.
+K3-bwd (the second entry point of the same source) is the gather
+``g_w[e] = g[bins[e]]``, 0 where ``bins[e]`` is out of range: the backward
+of the TPU version's custom VJP (``histogram_pallas.py:124-143``). It has no
+atomics and equals its plain version, ``histogram_bwd_plain``, bit for bit.
+``core/binning.py`` joins the two in a ``torch.autograd.Function``.
+
+``histogram_sum_banded`` and ``histogram_bwd`` launch their kernels for a
+CUDA tensor and run the plain versions, ``histogram_plain``
+(``index_add_``) and ``histogram_bwd_plain``, for a CPU tensor. They never
+fall back from one to the other. ``launches`` and ``bwd_launches`` count
+kernel launches.
 """
 from __future__ import annotations
 
@@ -24,6 +32,7 @@ from . import _build
 
 # Kernel launches since import (or since a caller reset it to 0).
 launches = 0
+bwd_launches = 0
 
 
 def histogram_plain(bins: torch.Tensor, weights: torch.Tensor,
@@ -77,3 +86,46 @@ def histogram_sum_banded(bins: torch.Tensor, weights: torch.Tensor,
     launches += 1
     _build.check(err, "ar2_histogram")
     return out
+
+
+def histogram_bwd_plain(bins: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of K3-bwd: ``g`` f32 [n_bins, n_bands] gathered
+    at ``bins`` int [E] -> f32 [E, n_bands], rows of zeros where the bin is
+    out of range."""
+    n_bins = g.shape[0]
+    keep = (bins >= 0) & (bins < n_bins)
+    rows = g[torch.where(keep, bins, 0).long()]
+    return torch.where(keep[:, None], rows, 0.0)
+
+
+def histogram_bwd(bins: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """K3-bwd: the gradient of ``histogram_sum_banded`` with respect to its
+    weights, given the gradient ``g`` f32 [n_bins, n_bands] of its result:
+    ``g_w[e, b] = g[bins[e], b]``, 0 for an out-of-range bin. Returns f32
+    [E, n_bands] on the input's device."""
+    global bwd_launches
+    if bins.dtype != torch.int32 or g.dtype != torch.float32:
+        raise TypeError(f"histogram_bwd needs int32 bins and a float32 "
+                        f"gradient, got {bins.dtype} and {g.dtype}")
+    if bins.dim() != 1 or g.dim() != 2 or not 0 < g.shape[0] < 2**31:
+        raise ValueError(f"histogram_bwd needs bins [E] and a gradient "
+                         f"[n_bins, n_bands], got {tuple(bins.shape)} and "
+                         f"{tuple(g.shape)}")
+    if bins.device != g.device:
+        raise ValueError(f"bins on {bins.device}, gradient on {g.device}")
+    if not (bins.is_contiguous() and g.is_contiguous()):
+        raise ValueError("histogram_bwd needs contiguous bins and gradient")
+    if bins.device.type == "cpu":
+        return histogram_bwd_plain(bins, g)
+    if bins.device.type != "cuda":
+        raise ValueError(f"no histogram kernel for device {bins.device}")
+    lib = _build.library()
+    g_w = torch.empty((bins.shape[0], g.shape[1]), dtype=torch.float32,
+                      device=bins.device)
+    stream = torch.cuda.current_stream(bins.device).cuda_stream
+    err = lib.ar2_histogram_bwd(bins.data_ptr(), g.data_ptr(), bins.shape[0],
+                                g.shape[0], g.shape[1], g_w.data_ptr(),
+                                stream)
+    bwd_launches += 1
+    _build.check(err, "ar2_histogram_bwd")
+    return g_w

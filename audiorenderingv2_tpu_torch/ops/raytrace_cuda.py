@@ -23,9 +23,12 @@ with the packing of ``raytrace_pallas_v2.py``:
 * ``trace_events``: the loop of rounds. Unclustered: per-round bounce
   budgets and an alive-first partition of the ray state between rounds.
   Clustered: one bounce per round, the per-tile schedule and K2
-  (``ops/schedule_cuda.py``), then a stable sort of the rays by dir72
-  coherence keys (``_compaction_keys``), so that the 128 rays of a tile
-  share directions and cells and reach few clusters;
+  (``ops/schedule_cuda.py``) or, with ``schedule=False``, K5
+  (``ops/traverse_cuda.py``, which finds and orders the clusters inside
+  the kernel and so also takes rounds of several bounces), then a stable
+  sort of the rays by dir72 coherence keys (``_compaction_keys``), so that
+  the 128 rays of a tile share directions and cells and reach few
+  clusters;
 * ``trace_events_pose_batch``: P poses in one launch per round (K1-pose,
   the TPU kernel's ``tiles_per_pose`` index map,
   ``raytrace_pallas_v2.py:887-904``, driven by
@@ -463,6 +466,18 @@ def _nearest_hit(px, py, pz, vx, vy, vz, tris: torch.Tensor,
     return best_t, best_i
 
 
+def _can_continue(s: torch.Tensor, scal: torch.Tensor, en_cols: list[int],
+                  max_bounces: int) -> torch.Tensor:
+    """bool [k]: the rays of ``s`` [ncols, k] that may take another bounce
+    (distance, energy of the strongest band, depth). ``scal`` is slot-major:
+    ``scal[j]`` is slot j of every ray's row, [] or [k]."""
+    e_max = s[en_cols[0]]
+    for c in en_cols[1:]:
+        e_max = torch.maximum(e_max, s[c])
+    return ((s[_C_DIST] < scal[_S_DTHR]) & (e_max > scal[_S_ETHR])
+            & (s[_C_DEPTH] < float(max_bounces)))
+
+
 def _bounce(s: torch.Tensor, tris: torch.Tensor, scal: torch.Tensor,
             en_cols: list[int], evw_cols: list[int], max_bounces: int,
             best: tuple | None = None):
@@ -475,11 +490,7 @@ def _bounce(s: torch.Tensor, tris: torch.Tensor, scal: torch.Tensor,
     px, py, pz, vx, vy, vz = (s[c] for c in range(_C_PX, _C_VZ + 1))
     dist, depth, done = s[_C_DIST], s[_C_DEPTH], s[_C_DONE]
     energy = [s[c] for c in en_cols]
-    e_max = energy[0]
-    for e in energy[1:]:
-        e_max = torch.maximum(e_max, e)
-    can_continue = ((dist < scal[_S_DTHR]) & (e_max > scal[_S_ETHR])
-                    & (depth < float(max_bounces)))
+    can_continue = _can_continue(s, scal, en_cols, max_bounces)
     alive = (done == 0.0) & can_continue
 
     if best is None:
@@ -656,8 +667,11 @@ def trace_round(state: torch.Tensor, tris: torch.Tensor, scal: torch.Tensor,
 # ------------------------------------------------------- the loop of rounds
 
 def _budgets(params: TraceParams, round_budgets: tuple | None,
-             compact: bool, clustered: bool) -> list[int]:
-    """The per-round bounce budgets of a trace, checked."""
+             compact: bool, clustered: bool,
+             schedule: bool) -> list[int]:
+    """The per-round bounce budgets of a trace, checked. Only the schedule
+    route is held to one bounce per round: K5 finds its clusters inside
+    each bounce."""
     if round_budgets is not None:
         if sum(round_budgets) < params.max_bounces:
             raise ValueError(
@@ -671,7 +685,7 @@ def _budgets(params: TraceParams, round_budgets: tuple | None,
         budgets = [1] * params.max_bounces
     else:
         budgets = _round_schedule(params.max_bounces)
-    if clustered and any(b != 1 for b in budgets):
+    if clustered and schedule and any(b != 1 for b in budgets):
         raise ValueError(f"the clustered route takes one bounce per round, "
                          f"got budgets {budgets}: positions move after a "
                          f"bounce, staling the schedule")
@@ -681,10 +695,14 @@ def _budgets(params: TraceParams, round_budgets: tuple | None,
 def _run_rounds(state: torch.Tensor, tris: torch.Tensor,
                 boxes: torch.Tensor | None, scal: torch.Tensor,
                 params: TraceParams, budgets: list[int], compact: bool,
-                n_poses: int = 1) -> torch.Tensor:
+                n_poses: int = 1, *, schedule: bool,
+                harvest=None) -> torch.Tensor:
     """The loop of rounds over ``state`` [ncols, n_poses * n_pad] with the
-    reorder between rounds kept inside each pose's segment."""
-    from . import schedule_cuda  # it builds on this module
+    reorder between rounds kept inside each pose's segment. ``harvest``,
+    when given, is called with the round's index and the state after every
+    round's kernel, before the reorder (the path recorder reads RAYID and
+    LTRI there)."""
+    from . import schedule_cuda, traverse_cuda  # they build on this module
 
     rays_per_pose = state.shape[1] // n_poses
     for k, budget in enumerate(budgets):
@@ -692,15 +710,20 @@ def _run_rounds(state: torch.Tensor, tris: torch.Tensor,
         if boxes is None:
             state = trace_round(state, tris, scal, params, budget,
                                 rays_per_pose)
-            if compact and not last:
-                state = _partition_alive_first(state, n_poses)
-        else:
+        elif schedule:
             sched = schedule_cuda.tile_schedule(state, boxes)
             state = schedule_cuda.trace_round_sched(
                 state, tris, boxes, sched, scal, params, rays_per_pose)
-            if compact and not last:
-                state = _sort_state_by_keys(
-                    state, _compaction_keys(state, n_poses=n_poses), n_poses)
+        else:
+            state = traverse_cuda.trace_traverse(
+                state, tris, boxes, scal, params, budget, rays_per_pose)
+        if harvest is not None:
+            harvest(k, state)
+        if compact and not last:
+            state = (_partition_alive_first(state, n_poses) if boxes is None
+                     else _sort_state_by_keys(
+                         state, _compaction_keys(state, n_poses=n_poses),
+                         n_poses))
     return state
 
 
@@ -711,16 +734,22 @@ def trace_events(tris: torch.Tensor, directions: torch.Tensor | None,
                  round_budgets: tuple | None = None,
                  boxes: torch.Tensor | None = None,
                  n_rays: int | None = None,
-                 native_rng_seed: torch.Tensor | None = None):
+                 native_rng_seed: torch.Tensor | None = None,
+                 schedule: bool = False):
     """Trace ``directions`` [N, 3] in bounce rounds.
 
     ``tris``, ``boxes``: from :func:`pack_scene`; with ``boxes`` the
-    clustered route runs. ``n_total_rays``: the ray count that normalises
-    the per-ray energy when this call traces a share of a larger launch.
-    ``round_budgets``: explicit per-round budgets (they must sum to at
-    least ``max_bounces``); by default a geometric schedule, or one bounce
-    per round on the clustered route, which takes no other budget (its
-    schedule is computed from the positions before the bounce).
+    clustered route runs. ``schedule`` (the JAX package's
+    ``schedule_mode``): a clustered round is the per-tile schedule and K2;
+    False makes it K5, the traversal inside the kernel
+    (``ops/traverse_cuda.py``), the default here as in
+    ``TracerOptions.schedule``. ``n_total_rays``: the ray count that
+    normalises the per-ray energy when this call traces a share of a
+    larger launch. ``round_budgets``: explicit per-round budgets (they
+    must sum to at least ``max_bounces``); by default a geometric
+    schedule, or one bounce per round on the clustered route. The
+    schedule route takes no other budget (its schedule is computed from
+    the positions before the bounce); K5 takes any.
     ``compact``: reorder the state between rounds (alive-first partition,
     or the coherent sort on the clustered route). With ``directions`` None,
     K4 generates ``n_rays`` directions in its kernel from
@@ -732,7 +761,8 @@ def trace_events(tris: torch.Tensor, directions: torch.Tensor | None,
     n = directions.shape[0] if directions is not None else int(n_rays)
     n_real = n_total_rays if n_total_rays is not None else n
     n_pad = -(-n // _LANES) * _LANES
-    budgets = _budgets(params, round_budgets, compact, boxes is not None)
+    budgets = _budgets(params, round_budgets, compact, boxes is not None,
+                       schedule)
     e0 = params.base_power / (n_real * constants.SPHERE_VOLUME)
     scal = scalars(emitter, receiver_pos, receiver_yaw_deg, e0, params)
     if directions is None:
@@ -741,7 +771,8 @@ def trace_events(tris: torch.Tensor, directions: torch.Tensor | None,
         state = init_state_native(seeded, n_pad, n, params.n_bands)
     else:
         state = init_state(directions, emitter, e0, n_pad, params.n_bands)
-    state = _run_rounds(state, tris, boxes, scal, params, budgets, compact)
+    state = _run_rounds(state, tris, boxes, scal, params, budgets, compact,
+                        schedule=schedule)
     evw_cols = band_cols(params.n_bands)[1]
     return (state[_C_EVB].contiguous(), state[evw_cols].T.contiguous(),
             state[_C_EVE].to(torch.int32))
@@ -754,12 +785,15 @@ def trace_events_pose_batch(tris: torch.Tensor, directions: torch.Tensor,
                             n_total_rays_per_pose: int | None = None,
                             compact: bool = True,
                             round_budgets: tuple | None = None,
-                            boxes: torch.Tensor | None = None):
+                            boxes: torch.Tensor | None = None,
+                            schedule: bool = False):
     """Trace P poses in one kernel launch per round.
 
     ``directions`` [P, N, 3], ``emitters`` and ``receivers`` [P, 3],
-    ``receiver_yaws_deg`` [P]; ``tris``, ``boxes``, ``compact`` and
-    ``round_budgets`` as in :func:`trace_events`, with the same errors. The
+    ``receiver_yaws_deg`` [P]; ``tris``, ``boxes``, ``compact``,
+    ``round_budgets`` and ``schedule`` as in :func:`trace_events`, with the
+    same errors; a clustered scene batches only through the schedule and
+    K2, so ``boxes`` without ``schedule`` raises, as in the JAX package. The
     ray state is pose-major, [ncols, P * n_pad]: each 128-ray tile belongs
     to one pose and the kernels read that pose's scalar row. Between rounds
     the alive-first partition, or on the clustered route the coherent sort
@@ -771,15 +805,19 @@ def trace_events_pose_batch(tris: torch.Tensor, directions: torch.Tensor,
     Returns (ev_bin_f f32 [P, n_pad], ev_w f32 [P, n_pad, n_bands], ev_ear
     int32 [P, n_pad]).
     """
+    if boxes is not None and not schedule:
+        raise ValueError("pose-batched tracing on clustered scenes requires "
+                         "schedule=True")
     p, n = directions.shape[0], directions.shape[1]
     n_real = n_total_rays_per_pose if n_total_rays_per_pose is not None else n
     n_pad = -(-n // _LANES) * _LANES
-    budgets = _budgets(params, round_budgets, compact, boxes is not None)
+    budgets = _budgets(params, round_budgets, compact, boxes is not None,
+                       schedule)
     e0 = params.base_power / (n_real * constants.SPHERE_VOLUME)
     scal = scalars(emitters, receivers, receiver_yaws_deg, e0, params)
     state = init_state(directions, emitters, e0, n_pad, params.n_bands)
     state = _run_rounds(state, tris, boxes, scal, params, budgets, compact,
-                        n_poses=p)
+                        n_poses=p, schedule=schedule)
     state = state.view(-1, p, n_pad)
     evw_cols = band_cols(params.n_bands)[1]
     return (state[_C_EVB].contiguous(),

@@ -78,6 +78,27 @@ def _check_schedule_inputs(state: torch.Tensor,
 
 # ------------------------------------------------------ the schedule, plain
 
+def slab_pass(st: torch.Tensor, boxes: torch.Tensor):
+    """The exact slab test of every ray of ``st`` [ncols, k, 128] (k tiles)
+    against every box [C, 8]: (entry f32 [k, C, 128], the distance at which
+    the ray enters the box, floored at 0; ok bool [k, C, 128], the ray
+    reaches a box whose valid flag is set). The rays' done flags are the
+    caller's to apply."""
+    lo = boxes[:, 0:3].T[:, None, :, None]                  # [3, 1, C, 1]
+    hi = boxes[:, 3:6].T[:, None, :, None]
+    box_ok = (boxes[:, 6] > 0.0)[None, :, None]             # [1, C, 1]
+    p = st[rc._C_PX:rc._C_PZ + 1, :, None, :]               # [3, k, 1, 128]
+    v = st[rc._C_VX:rc._C_VZ + 1, :, None, :]
+    inv = 1.0 / torch.where(torch.abs(v) > _EPS_DIR, v,
+                            torch.where(v >= 0, _EPS_DIR, -_EPS_DIR))
+    t1 = (lo - p) * inv                                     # [3, k, C, 128]
+    t2 = (hi - p) * inv
+    tn = torch.minimum(t1, t2).amax(dim=0)                  # [k, C, 128]
+    tf = torch.maximum(t1, t2).amin(dim=0)
+    entry = torch.clamp(tn, min=0.0)
+    return entry, (tf >= entry) & box_ok
+
+
 def tile_schedule_plain(state: torch.Tensor, boxes: torch.Tensor,
                         chunk: int = 64) -> torch.Tensor:
     """Plain PyTorch version of the schedule, ``chunk`` tiles at a time so
@@ -88,24 +109,11 @@ def tile_schedule_plain(state: torch.Tensor, boxes: torch.Tensor,
     dev = state.device
     out = torch.zeros((n_tiles, schedule_width(c)), dtype=torch.int32,
                       device=dev)
-    lo = boxes[:, 0:3].T[:, None, :, None]                  # [3, 1, C, 1]
-    hi = boxes[:, 3:6].T[:, None, :, None]
-    box_ok = (boxes[:, 6] > 0.0)[None, :, None]             # [1, C, 1]
     ids = torch.arange(c, device=dev)
     for t0 in range(0, n_tiles, chunk):
         k = min(chunk, n_tiles - t0)
         st = state[:, t0 * _TILE:(t0 + k) * _TILE].reshape(-1, k, _TILE)
-        p = st[rc._C_PX:rc._C_PZ + 1, :, None, :]           # [3, k, 1, 128]
-        v = st[rc._C_VX:rc._C_VZ + 1, :, None, :]
-        inv = 1.0 / torch.where(torch.abs(v) > _EPS_DIR, v,
-                                torch.where(v >= 0, _EPS_DIR, -_EPS_DIR))
-        t1 = (lo - p) * inv                                 # [3, k, C, 128]
-        t2 = (hi - p) * inv
-        tn = torch.minimum(t1, t2).amax(dim=0)              # [k, C, 128]
-        tf = torch.maximum(t1, t2).amin(dim=0)
-        entry = torch.clamp(tn, min=0.0)
-        ok = ((tf >= entry) & box_ok
-              & (st[rc._C_DONE][:, None, :] == 0.0))
+        ok = slab_pass(st, boxes)[1] & (st[rc._C_DONE][:, None, :] == 0.0)
         reach = ok.any(dim=2)                               # [k, C]
         # Reachable ids ascending, then C for the rest, which become 0.
         listed = torch.sort(torch.where(reach, ids, c), dim=1).values

@@ -41,8 +41,11 @@ class AudioRenderer:
       is_mono: pathtracer parameters (config.json).
       opts: tracer options; None = ``tuned.auto_options`` for the scene,
         which also Morton-sorts a scene of 512 triangles and up into
-        clusters (``accel.prepare_scene``), so that it takes the clustered
-        route. Explicit ``opts`` keep the scene as it is, on the rows route.
+        clusters of 32 (``accel.prepare_scene``) and traces it through the
+        schedule and K2. Explicit ``opts`` with the kernels backend sort the
+        scene into clusters of 128, as the JAX renderer does for manual
+        pallas-v2 options, and trace it through K5 unless they set
+        ``schedule``; a scene too small to cluster stays on the rows route.
       seed: seed of the direction generator; renders draw from it in turn,
         so the sequence of IRs is reproducible.
       device: where the scene, the trace and the IR live. A CUDA device
@@ -75,9 +78,13 @@ class AudioRenderer:
         if opts is None:
             opts, cluster_size = tuned.auto_options(scene.n_triangles,
                                                     int(max_bounces))
-            if cluster_size is not None:
-                scene, clusters = accel.prepare_scene(
-                    scene, cluster_size=cluster_size)
+        elif opts.backend == "kernels":
+            cluster_size = tuned.MANUAL_CLUSTER_SIZE
+        else:
+            cluster_size = None
+        if cluster_size is not None:
+            scene, clusters = accel.prepare_scene(scene,
+                                                  cluster_size=cluster_size)
         self.opts = opts
         self.scene = scene
         self.sc = scene_to_arrays(scene, tri_chunk=128, device=self.device,

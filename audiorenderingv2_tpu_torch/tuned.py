@@ -5,7 +5,8 @@ scenes as the JAX package does: below ``CLUSTER_THRESHOLD`` triangles the
 trace runs K1 over every triangle row in rounds of several bounces; at and
 above it the scene is Morton-sorted into clusters of ``CLUSTER_SIZE``
 triangles and traced one bounce per round through the per-tile schedule and
-K2. Culling changes only the speed: the physics is the same over all
+K2 (``TracerOptions(schedule=True)``; without it a clustered scene runs K5,
+the traversal inside the kernel). Culling changes only the speed: the physics is the same over all
 triangles. The device of the scene's tensors picks the kernels (CUDA) or
 their plain versions (CPU), not these options.
 
@@ -19,6 +20,7 @@ from .core.tracer import TracerOptions
 
 CLUSTER_THRESHOLD = 512
 CLUSTER_SIZE = 32
+MANUAL_CLUSTER_SIZE = 128  # a renderer given explicit kernel options
 SMALL_BUDGET_FRACS = (0.08, 0.24)
 
 
@@ -43,5 +45,5 @@ def auto_options(n_triangles: int, max_bounces: int
     the size to pass to ``accel.prepare_scene`` (the clustered route, one
     bounce per round)."""
     if int(n_triangles) >= CLUSTER_THRESHOLD:
-        return TracerOptions(), CLUSTER_SIZE
+        return TracerOptions(schedule=True), CLUSTER_SIZE
     return TracerOptions(round_budgets=round_budgets_for(max_bounces)), None

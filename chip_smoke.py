@@ -32,8 +32,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    versions, and of the sort;
 7. the office export as a user runs it (config.json -> load_context ->
    export_audio, 1M rays, 32 bounces) with the launch counts read around
-   it: the schedule kernel and K2 run, K1 does not; render times, median of
-   3, of the clustered route and of K1 over all rows on the same scene;
+   it: the schedule kernel and K2 run, K1 does not; then a renderer given
+   explicit options on the same scene (clusters of 128, K5 every round, no
+   schedule); render times of both, median of 3, and of K1 over all rows;
 8. the posed kernels (K1 and K2 reading one scalar row per pose) at the
    shapes the matrices of phases 10 and 12 give them. K1: the demo's box, 8
    poses x 1,000,064 rays, through the matrix's rounds (8 bounces, the
@@ -58,7 +59,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    float64 sum; times of the fused matrix, of pair_batch=1 and of the mix.
    Then the large-scene form: the office, 1 source x 4 listeners, 250,000
    rays a pair, 32 bounces, fused (schedule + posed K2), against a single
-   render, and K3 at its events;
+   render, and K3 at its events; the same matrix with default options (no
+   schedule: one render_ir through K5 per pair) against the fused one, and
+   its time beside it;
 11. a native_rng render (K4) of the box at 1M rays x 100 bounces through
    AudioRenderer, the launch counts read around it, against renders of
    sampled directions, 8 seeds each: the means of the per-ear energy
@@ -72,16 +75,50 @@ Phases, in order; any failure raises and the script exits non-zero:
    CPU; then a banded export as a user runs it (config.json ->
    load_context -> export_audio, 1M rays, 100 bounces), its trace against
    the CPU plain path on 64k shared directions in every (ear, band) and
-   its filterbank convolution against the CPU's; times.
+   its filterbank convolution against the CPU's; times;
+13. K3-bwd, the histogram's backward gather, against its plain version and
+   against index_select, bit for bit, at the soft stereo IR's shape
+   (4,000,256 events, 64,000 bins; 1 and 4 bands) and the posed
+   histogram's (8,000,512 events, 512,000 bins), out-of-range bins among
+   them; the autograd Function's gradient against autograd's through
+   index_add_; times of the three;
+14. K5, the in-kernel cluster traversal, on the office in clusters of 32 and
+   of 128: against its plain version at 65,536 rays and at the recorder's
+   1,000,064, from the start state and after one bounce and the sort, every
+   column and every tile's visit count bit for bit; at 1,000,064 rays also
+   against K2 on the same state (DIST, energy and the event columns equal;
+   the rays that bounce off another triangle at the same distance counted);
+   visits per tile; times; then K5 with one scalar row per pose (4 poses x
+   250,112 rays) against its plain version and single-pose launches;
+15. the path recorder (diff.record_paths_kernels) at 1M rays x 32 bounces on
+   the office with the schedule (schedule kernel + K2) and without (K5) and
+   on the box (K1 in one-bounce rounds), the launch counts saying which
+   kernel ran; its paths against the plain search at 65,536 rays x 8
+   bounces (bar 99.5% identical); render_ir_replay of the recorded paths
+   against the forward render;
+16. the gradient step at full width (benchmarks/grad_bench_clustered.py's
+   shape): record, replay and grad times (CUDA events, median of 3), peak
+   memory, K3 and K3-bwd launches per step; its gate at 16,384 rays x 8
+   bounces: the replay's gradient against the autograd tracer's within 1%
+   on the card, and against the replay's on the CPU;
+17. a trainer that takes a few steps: diff.fit_scene_parameters(method=
+   "replay") on the office at 1M rays, 5 Adam steps on the absorption
+   logits from recorded paths, the launch counts read around it (schedule,
+   K2, K3, K3-bwd), a falling loss and finite gradients; then the fit of
+   examples/demo_4_inverse.py on the card (coarse_emitter_search, then 200
+   steps of the full method on 3 receivers): absorption within 0.08, the
+   emitter within 0.5 m.
 
 Then one JSON line of the kernels: name, route, source, the TPU kernel it
 replaces, launches on its main path (the export of phase 5; for the
 clustered route's kernels that of phase 7; for the posed kernels and the
 posed histogram the matrices of phase 10, for the 4-band posed K1 that of
-phase 12; for K4 the render of phase 11), max abs error, ms,
-plain ms (for the posed K1 those of the first of its two launches, the
-8-bounce round; the 32-bounce round's under "round2"), the bound (the larger of bytes moved over 3.35 TB/s and FP32
-operations over 67 TFLOP/s, worked out from this run's inputs), what bounds
+phase 12; for K4 the render of phase 11; for K3-bwd the office fit of phase
+17; for K5 the recording without the schedule of phase 15), max abs error,
+ms, plain ms (for the posed K1 those of the first of its two launches, the
+8-bounce round; the 32-bounce round's under "round2"), the bound (the larger
+of bytes moved over 3.35 TB/s and FP32 operations over 67 TFLOP/s, worked
+out from this run's inputs), what bounds
 it, and the time of one PyTorch call that computes the same function where
 there is one. Last, the result line. With no CUDA device the script exits
 non-zero and prints no result.
@@ -407,23 +444,28 @@ def _reset_launches() -> None:
     from audiorenderingv2_tpu_torch.ops import histogram_cuda as hc
     from audiorenderingv2_tpu_torch.ops import raytrace_cuda as rc
     from audiorenderingv2_tpu_torch.ops import schedule_cuda as sc
+    from audiorenderingv2_tpu_torch.ops import traverse_cuda as tc
 
     rc.launches = rc.posed_launches = rc.init_launches = hc.launches = 0
     sc.tile_schedule_launches = sc.trace_round_sched_launches = 0
     sc.trace_round_sched_posed_launches = 0
+    hc.bwd_launches = tc.trace_traverse_launches = 0
 
 
 def _read_launches() -> dict:
     from audiorenderingv2_tpu_torch.ops import histogram_cuda as hc
     from audiorenderingv2_tpu_torch.ops import raytrace_cuda as rc
     from audiorenderingv2_tpu_torch.ops import schedule_cuda as sc
+    from audiorenderingv2_tpu_torch.ops import traverse_cuda as tc
 
     return {"trace_round": rc.launches,
             "trace_round_posed": rc.posed_launches,
             "init_state": rc.init_launches, "histogram": hc.launches,
+            "histogram_bwd": hc.bwd_launches,
             "tile_schedule": sc.tile_schedule_launches,
             "trace_round_sched": sc.trace_round_sched_launches,
-            "trace_round_sched_posed": sc.trace_round_sched_posed_launches}
+            "trace_round_sched_posed": sc.trace_round_sched_posed_launches,
+            "trace_traverse": tc.trace_traverse_launches}
 
 
 def _write_inputs(tmp: Path, scene_file: str = "room.obj",
@@ -655,7 +697,8 @@ def phase_cluster_kernels(n_rays: int = N_RAYS) -> dict:
     # The clustered IR against K1 over every row, 64k shared directions.
     d = torch.from_numpy(unit_dirs(65536, 14)).to(dev)
     args = (EMITTER, OFFICE_RECEIVER, 0.0, params)
-    ir_c = tracer.trace_ir(scc, d, *args).cpu().numpy()
+    ir_c = tracer.trace_ir(scc, d, *args, tracer.TracerOptions(
+        schedule=True)).cpu().numpy()
     ir_r = tracer.trace_ir(flat, d, *args, tracer.TracerOptions(
         round_budgets=tuned.round_budgets_for(OFFICE_BOUNCES))).cpu().numpy()
     testing.assert_ir_close(ir_c, ir_r, exact=False)
@@ -690,8 +733,10 @@ def phase_office_export() -> dict:
     """The office export on the clustered route, and render times of both
     routes on the same scene; returns the clustered export's launches."""
     from audiorenderingv2_tpu_torch import context, testing, tuned
+    from audiorenderingv2_tpu_torch.core import tracer
     from audiorenderingv2_tpu_torch.core.tracer import TracerOptions
     from audiorenderingv2_tpu_torch.io import wav
+    from audiorenderingv2_tpu_torch.ops import raytrace_cuda as rc
     from audiorenderingv2_tpu_torch.renderer import AudioRenderer
 
     with tempfile.TemporaryDirectory() as tmp:
@@ -729,21 +774,48 @@ def phase_office_export() -> dict:
             f"nonzero bins per ear {nz.tolist()}, energy "
             f"{ir.sum(axis=1).tolist()}")
 
-        rows_r = AudioRenderer(
+        clustered_ms = median_ms(r.render, 3)
+
+        # A renderer given explicit options: clusters of 128, K5.
+        manual = AudioRenderer(
             ctx.scene, IR_SECONDS, SR, r.n_rays, base_power=3.62,
             max_bounces=OFFICE_BOUNCES, hrtf_absorption_rate=0.9,
-            opts=TracerOptions(
-                round_budgets=tuned.round_budgets_for(OFFICE_BOUNCES)),
-            device="cuda")
-        rows_r.set_emitter_pos(r.emitter_pos)
-        rows_r.set_receiver(r.receiver_pos, r.receiver_yaw_deg)
-        assert rows_r.boxes is None
-        clustered_ms = median_ms(r.render, 3)
-        rows_ms = median_ms(rows_r.render, 3)
+            opts=TracerOptions(), device="cuda")
+        manual.set_emitter_pos(r.emitter_pos)
+        manual.set_receiver(r.receiver_pos, r.receiver_yaw_deg)
+        assert manual.boxes is not None and \
+            manual.rows.shape[0] // manual.boxes.shape[0] == 128
+        _reset_launches()
+        ir_m = manual.render()
+        torch.cuda.synchronize()
+        ml = _read_launches()
+        assert ml["trace_traverse"] == OFFICE_BOUNCES, ml
+        assert ml["trace_round"] == ml["tile_schedule"] == 0, ml
+        assert ml["trace_round_sched"] == 0 and ml["histogram"] == 1, ml
+        assert np.isfinite(ir_m).all() and np.all((ir_m > 0).sum(axis=1)
+                                                  >= 200)
+        # Its energy against the clustered export's (other directions: the
+        # two renderers draw from their own generators, so statistically).
+        e_m, e_c = ir_m.sum(axis=1), ir.sum(axis=1)
+        assert np.all(np.abs(e_m - e_c) < 0.05 * e_c), (e_m, e_c)
+
+        # K1 over every row of the unsorted scene, the baseline.
+        flat = tracer.scene_to_arrays(ctx.scene, 128, device="cuda")
+        rows_flat = rc.pack_tris_rows(flat)
+        d = torch.from_numpy(unit_dirs(r.n_rays, 15)).cuda()
+        rows_opts = TracerOptions(
+            round_budgets=tuned.round_budgets_for(OFFICE_BOUNCES))
+        manual_ms = median_ms(manual.render, 3)
+        rows_ms = median_ms(lambda: tracer.trace_ir(
+            flat, d, r.emitter_pos, r.receiver_pos, r.receiver_yaw_deg,
+            r.params, rows_opts, rows=rows_flat), 1)
         log(f"office render ({r.n_rays} rays, {OFFICE_BOUNCES} bounces, "
-            f"{IR_SECONDS} s IR at {SR} Hz), median of 3: clustered "
-            f"{clustered_ms:.3f} ms, K1 over all {rows_r.rows.shape[0]} rows "
-            f"{rows_ms:.3f} ms; rows / clustered "
+            f"{IR_SECONDS} s IR at {SR} Hz): clustered (32 + schedule + K2) "
+            f"{clustered_ms:.3f} ms, explicit options ("
+            f"{manual.boxes.shape[0]} clusters of 128, K5; launches {ml}) "
+            f"{manual_ms:.3f} ms, medians of 3; K1 over all "
+            f"{rows_flat.shape[0]} rows (trace_ir on given directions, one "
+            f"run after a warm-up) {rows_ms:.3f} ms; rows / clustered "
             f"{rows_ms / clustered_ms:.2f}")
     return launches
 
@@ -1201,8 +1273,9 @@ def phase_multipose() -> tuple[dict, dict]:
     # The large-scene form: the office, 1 source x 4 listeners, fused.
     _, scc, orows, oboxes = _office_clustered()
     oparams = _office_params()
+    oopts = tracer.TracerOptions(schedule=True)
     oargs = (scc, 1, np.array([EMITTER], np.float32), OFFICE_LISTENERS,
-             MULTI_YAWS, OFFICE_MATRIX_RAYS, oparams)
+             MULTI_YAWS, OFFICE_MATRIX_RAYS, oparams, oopts)
     _reset_launches()
     oirs = multi.render_ir_matrix(*oargs, pair_batch=4, rows=orows,
                                   boxes=oboxes)
@@ -1219,8 +1292,8 @@ def phase_multipose() -> tuple[dict, dict]:
     assert np.isfinite(oirs).all() and (oirs > 0).sum(axis=-1).min() >= 200
     osingle = tracer.render_ir(
         scc, sampling.pose_generator(1, 3, dev), OFFICE_MATRIX_RAYS, EMITTER,
-        OFFICE_LISTENERS[3], float(MULTI_YAWS[3]), oparams, rows=orows,
-        boxes=oboxes).cpu().numpy()
+        OFFICE_LISTENERS[3], float(MULTI_YAWS[3]), oparams, oopts,
+        rows=orows, boxes=oboxes).cpu().numpy()
     testing.assert_ir_close(oirs[0, 3], osingle, exact=False)
     ofused_ms = wall_ms(lambda: multi.render_ir_matrix(
         *oargs, pair_batch=4, rows=orows, boxes=oboxes), 2)
@@ -1230,11 +1303,33 @@ def phase_multipose() -> tuple[dict, dict]:
         f"exact=False) against a single render_ir; max abs diff "
         f"{np.abs(oirs[0, 3] - osingle).max():.3e}; fused {ofused_ms:.3f} "
         f"ms, pair_batch=1 {oloop_ms:.3f} ms ({oloop_ms / ofused_ms:.2f}x)")
+    # The same matrix with default options: a clustered scene without the
+    # schedule leaves the fused batch, one render_ir (K5) per pair.
+    dargs = oargs[:-1] + (tracer.TracerOptions(),)
+    _reset_launches()
+    dirs_ = multi.render_ir_matrix(*dargs, pair_batch=4, rows=orows,
+                                   boxes=oboxes)
+    torch.cuda.synchronize()
+    dlaunches = _read_launches()
+    assert dlaunches["trace_traverse"] == 4 * OFFICE_BOUNCES, dlaunches
+    assert dlaunches["trace_round_sched_posed"] == 0, dlaunches
+    assert dlaunches["tile_schedule"] == dlaunches["trace_round"] == 0
+    assert dlaunches["histogram"] == 4, dlaunches
+    testing.assert_ir_close(dirs_[0].reshape(-1, dirs_.shape[-1]),
+                            oirs[0].reshape(-1, oirs.shape[-1]), exact=False)
+    ddefault_ms = wall_ms(lambda: multi.render_ir_matrix(
+        *dargs, pair_batch=4, rows=orows, boxes=oboxes), 2)
+    log(f"multi-pose, office, default options (no schedule): launches "
+        f"{dlaunches}; passes assert_ir_close(exact=False) against the "
+        f"fused matrix, max abs diff {np.abs(dirs_ - oirs).max():.3e}; "
+        f"{ddefault_ms:.3f} ms against {ofused_ms:.3f} ms fused with "
+        f"schedule=True")
     oev = rc.trace_events_pose_batch(
         orows, _pose_directions(1, 4, OFFICE_MATRIX_RAYS, dev),
         torch.zeros((4, 3), device=dev),
         torch.from_numpy(OFFICE_LISTENERS).to(dev),
-        torch.from_numpy(MULTI_YAWS).to(dev), oparams, boxes=oboxes)
+        torch.from_numpy(MULTI_YAWS).to(dev), oparams, boxes=oboxes,
+        schedule=True)
     posed_histogram_check(*oev, oparams, "office 1 x 4 matrix")
     return ({"trace_round_posed": launches["trace_round_posed"],
              "histogram_posed": launches["histogram"],
@@ -1393,6 +1488,630 @@ def phase_native_rng() -> int:
     return launches["init_state"]
 
 
+def phase_histogram_bwd() -> dict:
+    """K3-bwd against its plain version, bit for bit, at the shapes the
+    gradient path gives it, and the Function's gradient against autograd's
+    through ``index_add_``; returns the JSON entry's numbers (those of the
+    soft stereo IR at one band)."""
+    from audiorenderingv2_tpu_torch.core import binning
+    from audiorenderingv2_tpu_torch.ops import histogram_cuda as hc
+
+    n_pad = -(-N_RAYS // 128) * 128
+    shapes = [("soft stereo IR", 4 * n_pad, 2 * IR_SECONDS * SR, 1),
+              ("soft stereo IR", 4 * n_pad, 2 * IR_SECONDS * SR, 4),
+              ("posed histogram", 8 * n_pad, 8 * 2 * IR_SECONDS * SR, 1)]
+    rng = np.random.default_rng(17)
+    result = None
+    for what, n_events, n_bins, n_bands in shapes:
+        # A fifth of the bins out of range on either side, the sentinel
+        # n_bins (what an inactive deposit carries) among them.
+        bins = rng.integers(-n_bins // 8, n_bins + n_bins // 8,
+                            size=n_events).astype(np.int32)
+        bins[::97] = n_bins
+        b_d = torch.from_numpy(bins).cuda()
+        g = torch.from_numpy(rng.standard_normal(
+            (n_bins, n_bands)).astype(np.float32)).cuda()
+        kern = hc.histogram_bwd(b_d, g)
+        plain = hc.histogram_bwd_plain(b_d, g)
+        torch.cuda.synchronize()
+        keep = (b_d >= 0) & (b_d < n_bins)
+        assert kern.shape == (n_events, n_bands)
+        assert torch.equal(kern, plain), f"K3-bwd, {what}: not bit-identical"
+        assert not kern[~keep].any() and int((~keep).sum()) > n_events // 10
+        # The one PyTorch call for the same function: index_select on the
+        # gradient padded with a zero row (set up outside the timing).
+        g_pad = torch.cat([g, torch.zeros((1, n_bands), device="cuda")])
+        idx = torch.where(keep, b_d, n_bins).long()
+        assert torch.equal(g_pad.index_select(0, idx), kern)
+        ms = median_ms(lambda: hc.histogram_bwd(b_d, g), 20)
+        plain_ms = median_ms(lambda: hc.histogram_bwd_plain(b_d, g), 10)
+        lib_ms = median_ms(lambda: g_pad.index_select(0, idx), 20)
+        bwd_bound = bound(nbytes(b_d, g, kern), 0)
+        log(f"K3-bwd, {what}: {n_events} events x {n_bands} band(s) from "
+            f"{n_bins} bins, {int((~keep).sum())} out of range: "
+            f"bit-identical to the plain version and to index_select; "
+            f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, index_select "
+            f"{lib_ms:.4f} ms, bound {bwd_bound['bound_ms']:.4f} ms by "
+            f"{bwd_bound['bound_by']}")
+        if result is None:
+            result = {"max_abs_err": float((kern - plain).abs().max()),
+                      "ms": ms, "plain_ms": plain_ms, **bwd_bound,
+                      "library_ms": lib_ms}
+
+    # The Function: forward K3, backward K3-bwd, against autograd through
+    # index_add_ (which gathers the same rows, so the gradients are equal).
+    w = torch.rand((n_events, 1), device="cuda", requires_grad=True)
+    _reset_launches()
+    hist = binning.histogram_sum_banded(b_d, w, n_bins)
+    (hist * g).sum().backward()
+    torch.cuda.synchronize()
+    fl = _read_launches()
+    assert fl["histogram"] == 1 and fl["histogram_bwd"] == 1, fl
+    w2 = w.detach().clone().requires_grad_(True)
+    h2 = torch.zeros((n_bins, 1), device="cuda").index_add(
+        0, b_d[keep].long(), w2[keep])
+    (h2 * g).sum().backward()
+    assert torch.equal(w.grad, w2.grad), "Function gradient != index_add_'s"
+    log(f"histogram Function, {n_events} events: one K3 launch forward, "
+        f"one K3-bwd launch backward; d(sum(hist * g))/d(weights) equals "
+        f"autograd's through index_add_ bit for bit")
+    return result
+
+
+def k5_work(state: torch.Tensor, visits: torch.Tensor, n_clusters: int,
+            cs: int, alive: torch.Tensor) -> float:
+    """FP32 operations of one K5 bounce: a slab test of every alive ray
+    against every box, and a triangle test of every alive ray against the
+    rows of every cluster its tile visited."""
+    per_tile = alive.view(-1, 128).sum(dim=1).double()
+    return (float(per_tile.sum()) * n_clusters * SLAB_TEST_OPS
+            + float((per_tile * visits.double()).sum()) * cs * TRI_TEST_OPS)
+
+
+def phase_traverse() -> dict:
+    """K5 against its plain version on the office (clusters of 32 and of
+    128) and against K2 at full width; returns the JSON entry's numbers."""
+    from audiorenderingv2_tpu_torch import accel, constants
+    from audiorenderingv2_tpu_torch.core import tracer
+    from audiorenderingv2_tpu_torch.ops import raytrace_cuda as rc
+    from audiorenderingv2_tpu_torch.ops import schedule_cuda as sc
+    from audiorenderingv2_tpu_torch.ops import traverse_cuda as tc
+
+    dev = torch.device("cuda")
+    params = _office_params()
+    emitter = torch.tensor(EMITTER, device=dev)
+    receiver = torch.tensor(OFFICE_RECEIVER, device=dev)
+    scene = _office_clustered()[0]
+    event_cols = [rc._C_DIST, rc._C_EN, rc._C_DEPTH, rc._C_DONE, rc._C_EVB,
+                  rc._C_EVW, rc._C_EVE, rc._C_RECVD]
+    result, errs = None, []
+    for cs in (32, 128):
+        if cs == 32:
+            _, _, rows, boxes = _office_clustered()
+        else:
+            sorted_scene, clusters = accel.prepare_scene(scene,
+                                                         cluster_size=cs)
+            rows, boxes = rc.pack_tris_clusters(tracer.scene_to_arrays(
+                sorted_scene, 128, device=dev, clusters=clusters))
+        n_clusters = boxes.shape[0]
+        for n in (65536, -(-N_RAYS // 128) * 128):
+            e0 = params.base_power / (n * constants.SPHERE_VOLUME)
+            st = rc.init_state(torch.from_numpy(unit_dirs(n, 18)).to(dev),
+                               emitter, e0, n)
+            scal = rc.scalars(emitter, receiver, 0.0, e0, params)
+            for step in range(2):  # the start state, then after a bounce
+                visits = torch.zeros(n // 128, dtype=torch.int32, device=dev)
+                kern = tc.trace_traverse(st.clone(), rows, boxes, scal,
+                                         params, 1, visits=visits)
+                torch.cuda.synchronize()
+                assert torch.isfinite(kern).all()
+                when = ("start state" if step == 0
+                        else "after one bounce and the sort")
+                what = (f"K5, office, {n_clusters} clusters of {cs}, {n} "
+                        f"rays, {when}")
+                line = (f"{what}: visits per tile mean "
+                        f"{float(visits.float().mean()):.2f}, max "
+                        f"{int(visits.max())}")
+                # Against the plain version, at both widths: every column and
+                # every tile's visit count, bit for bit. At full width the
+                # plain run is also the one that is timed.
+                vp = torch.zeros_like(visits)
+                t_start = torch.cuda.Event(enable_timing=True)
+                t_end = torch.cuda.Event(enable_timing=True)
+                plain = st.clone()
+                t_start.record()
+                tc.trace_traverse_plain(plain, rows, boxes, scal, params, 1,
+                                        visits=vp)
+                t_end.record()
+                torch.cuda.synchronize()
+                plain_ms = t_start.elapsed_time(t_end)
+                err = _assert_same_bits(kern, plain, what)
+                assert torch.equal(visits, vp), f"{what}: visits differ"
+                errs.append(err)
+                del plain
+                line += ("; every column and every tile's visit count "
+                         "bit-identical to the plain version")
+                if n != 65536:
+                    # Against K2 on the same state. Equal distances and
+                    # events everywhere; the triangle, and with it the
+                    # reflected direction, may differ only where two
+                    # triangles tie for the nearest hit (K5 keeps the
+                    # cluster visited first, K2 the lowest row).
+                    sched = sc.tile_schedule(st, boxes)
+                    k2 = sc.trace_round_sched(st.clone(), rows, boxes, sched,
+                                              scal, params)
+                    torch.cuda.synchronize()
+                    assert torch.equal(kern[event_cols], k2[event_cols]), \
+                        f"{what}: DIST or an event column differs from K2"
+                    tie = kern[rc._C_LTRI] != k2[rc._C_LTRI]
+                    assert torch.equal(kern[:, ~tie], k2[:, ~tie]), \
+                        f"{what}: a ray with K2's triangle differs from K2"
+                    assert int(tie.sum()) <= 64, int(tie.sum())
+                    assert (visits <= sched[:, 0]).all()
+                    line += (f"; against K2: DIST, energy and the event "
+                             f"columns equal bit for bit, {int(tie.sum())} "
+                             f"ray(s) bounce off another triangle at the "
+                             f"same distance, every other ray equal in "
+                             f"every column; candidates per tile mean "
+                             f"{float(sched[:, 0].float().mean()):.2f}")
+                    if step == 1:
+                        alive = (st[rc._C_DONE] == 0)
+                        ms = median_ms(lambda s: tc.trace_traverse(
+                            s, rows, boxes, scal, params, 1), 5,
+                            setup=lambda: (st.clone(),))
+                        k2_ms = median_ms(lambda s: sc.trace_round_sched(
+                            s, rows, boxes, sc.tile_schedule(s, boxes), scal,
+                            params), 5, setup=lambda: (st.clone(),))
+                        k5_bound = bound(
+                            2 * nbytes(st) + nbytes(rows, boxes, scal),
+                            k5_work(st, visits, n_clusters, cs, alive))
+                        line += (f"; K5 {ms:.3f} ms, schedule + K2 "
+                                 f"{k2_ms:.3f} ms, plain {plain_ms:.3f} ms "
+                                 f"(the compared run, after the start "
+                                 f"state's as warm-up), bound "
+                                 f"{k5_bound['bound_ms']:.4f} ms by "
+                                 f"{k5_bound['bound_by']}")
+                        if cs == 32:
+                            # The recorder's own shape: clusters of 32,
+                            # 1,000,064 rays, one bounce a launch.
+                            result = {"max_abs_err": err, "ms": ms,
+                                      "plain_ms": plain_ms, **k5_bound,
+                                      "library_ms": None}
+                log(line)
+                st = rc._sort_state_by_keys(kern, rc._compaction_keys(kern))
+    assert len(errs) == 8 and max(errs) == 0.0, errs
+    posed_traverse_check()
+    return result
+
+
+def posed_traverse_check() -> None:
+    """K5 with one scalar row per pose, the launch that no entry point
+    makes (a clustered pose batch goes through the schedule) but the
+    wrapper takes: the office, 4 poses x 250,112 rays, the start state and
+    the state after a bounce and the per-pose sort, bit for bit against the
+    plain version in every column and against single-pose launches."""
+    from audiorenderingv2_tpu_torch import constants
+    from audiorenderingv2_tpu_torch.ops import raytrace_cuda as rc
+    from audiorenderingv2_tpu_torch.ops import traverse_cuda as tc
+
+    dev = torch.device("cuda")
+    p, n = 4, OFFICE_MATRIX_RAYS
+    n_pad = -(-n // 128) * 128
+    params = _office_params()
+    _, _, rows, boxes = _office_clustered()
+    em = torch.zeros((p, 3), device=dev)
+    e0 = params.base_power / (n * constants.SPHERE_VOLUME)
+    st = rc.init_state(_pose_directions(1, p, n, dev), em, e0, n_pad)
+    scal = rc.scalars(em, torch.from_numpy(OFFICE_LISTENERS).to(dev),
+                      torch.from_numpy(MULTI_YAWS).to(dev), e0, params)
+    assert scal.shape == (p, 16)
+    tiles = n_pad // 128
+    for step in range(2):
+        what = (f"posed K5, office, {p} poses x {n_pad} rays, "
+                + ("start state" if step == 0
+                   else "after one bounce and the per-pose sort"))
+        visits = torch.zeros(p * tiles, dtype=torch.int32, device=dev)
+        vp = torch.zeros_like(visits)
+        kern = tc.trace_traverse(st.clone(), rows, boxes, scal, params, 1,
+                                 n_pad, visits=visits)
+        plain = tc.trace_traverse_plain(st.clone(), rows, boxes, scal,
+                                        params, 1, n_pad, visits=vp)
+        torch.cuda.synchronize()
+        err = _assert_same_bits(kern, plain, what)
+        assert torch.equal(visits, vp), f"{what}: visits differ"
+        for i in range(p):
+            seg = slice(i * n_pad, (i + 1) * n_pad)
+            one = tc.trace_traverse(st[:, seg].contiguous(), rows, boxes,
+                                    scal[i].contiguous(), params, 1)
+            assert torch.equal(one, kern[:, seg]), \
+                f"{what}: pose {i} differs from a single-pose launch"
+        ms = median_ms(lambda s: tc.trace_traverse(
+            s, rows, boxes, scal, params, 1, n_pad), 3,
+            setup=lambda: (st.clone(),))
+        log(f"{what}: every column and every tile's visit count "
+            f"bit-identical to the plain version (max abs err {err}), every "
+            f"pose's segment to a single-pose launch; visits per tile mean "
+            f"{float(visits.float().mean()):.2f}; kernel {ms:.3f} ms")
+        st = rc._sort_state_by_keys(kern, rc._compaction_keys(kern, n_poses=p),
+                                    p)
+    assert int((kern[rc._C_DONE] == 0).sum()) > 1000
+
+
+def _grad_params(max_bounces: int = OFFICE_BOUNCES):
+    """The gradient benchmark's parameters (benchmarks/
+    grad_bench_clustered.py:56-58): the default hrtf absorption rate."""
+    from audiorenderingv2_tpu_torch.core.params import TraceParams
+
+    return TraceParams(sample_rate=SR, ir_length=IR_SECONDS * SR,
+                       base_power=3.62, max_bounces=max_bounces,
+                       energy_threshold=0.0)
+
+
+def phase_recording() -> dict:
+    """The path recorder on the card: which kernel each route launches, its
+    paths against the plain search, and the replay of recorded paths
+    against the forward render. Returns K5's launches on its main path."""
+    from audiorenderingv2_tpu_torch import testing
+    from audiorenderingv2_tpu_torch.core import tracer
+    from audiorenderingv2_tpu_torch.diff import replay
+
+    dev = torch.device("cuda")
+    params = _grad_params()
+    _, scc, rows, boxes = _office_clustered()
+    d = torch.from_numpy(unit_dirs(N_RAYS, 0)).to(dev)
+    args = (d, EMITTER, OFFICE_RECEIVER, 0.0, params)
+    paths, launches = {}, {}
+    for name, opts in (("schedule", tracer.TracerOptions(schedule=True)),
+                       ("k5", tracer.TracerOptions())):
+        _reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        paths[name] = replay.record_paths_kernels(scc, *args, opts,
+                                                  rows=rows, boxes=boxes)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches[name] = _read_launches()
+        log(f"record_paths_kernels, office, {N_RAYS} rays x {OFFICE_BOUNCES}"
+            f" bounces, {name}: {wall * 1e3:.1f} ms (first call); launches "
+            f"{launches[name]}")
+    ls, lk = launches["schedule"], launches["k5"]
+    assert ls["tile_schedule"] == ls["trace_round_sched"] == OFFICE_BOUNCES
+    assert ls["trace_traverse"] == ls["trace_round"] == 0, ls
+    assert lk["trace_traverse"] == OFFICE_BOUNCES, lk
+    assert lk["tile_schedule"] == lk["trace_round_sched"] == 0, lk
+    assert lk["trace_round"] == 0, lk
+    (ids_s, recv_s), (ids_k, recv_k) = paths["schedule"], paths["k5"]
+    assert ids_s.shape == (N_RAYS, OFFICE_BOUNCES) and \
+        ids_s.dtype == recv_s.dtype == torch.int32
+    same = (ids_s == ids_k).all(dim=1) & (recv_s == recv_k)
+    hits = int((recv_s >= 0).sum())
+    assert hits > 1000 and float(same.float().mean()) >= 0.995
+    log(f"recorded paths: {hits} rays reach the receiver; the schedule's "
+        f"and K5's recordings agree on {int(same.sum())} of {N_RAYS} rays "
+        f"(a tie between two triangles parts the rest)")
+
+    # The box: K1 in one-bounce rounds.
+    box = tracer.scene_to_arrays(_box_scene(), 128, device=dev)
+    _reset_launches()
+    ids_b, recv_b = replay.record_paths_kernels(
+        box, d, EMITTER, RECEIVER, 30.0, params)
+    torch.cuda.synchronize()
+    lb = _read_launches()
+    assert lb["trace_round"] == OFFICE_BOUNCES, lb
+    assert lb["trace_traverse"] == lb["trace_round_sched"] == 0, lb
+    log(f"record_paths_kernels, box, {N_RAYS} rays x {OFFICE_BOUNCES} "
+        f"bounces: launches {lb}; {int((recv_b >= 0).sum())} rays reach "
+        f"the receiver")
+
+    # Against the plain search, 65,536 rays x 8 bounces on the office.
+    p8 = _grad_params(8)
+    d8 = d[:65536]
+    found = []
+    search = replay.record_paths(
+        scc, d8, EMITTER, OFFICE_RECEIVER, 0.0, p8,
+        tracer.TracerOptions(backend="autograd", tri_chunk=2048))
+    for name, opts in (("schedule", tracer.TracerOptions(schedule=True)),
+                       ("k5", tracer.TracerOptions())):
+        got = replay.record_paths_kernels(scc, d8, EMITTER, OFFICE_RECEIVER,
+                                          0.0, p8, opts, rows=rows,
+                                          boxes=boxes)
+        share = float(((got[0] == search[0]).all(dim=1)
+                       & (got[1] == search[1])).float().mean())
+        assert share >= 0.995, (name, share)
+        found.append(f"{name} {share * 100:.4f}%")
+    log(f"recorders against record_paths (plain search), office, 65536 rays "
+        f"x 8 bounces, rays with identical paths (bar 99.5%): "
+        f"{', '.join(found)}")
+
+    # The replay of the recorded paths against the forward render.
+    for name, (ids, recv), sc_, rcv, yaw in (
+            ("office (K5's recording)", paths["k5"], scc, OFFICE_RECEIVER,
+             0.0),
+            ("box (K1's recording)", (ids_b, recv_b), box, RECEIVER, 30.0)):
+        with torch.no_grad():
+            ir_rep = replay.render_ir_replay(sc_, ids, recv, d, EMITTER, rcv,
+                                             yaw, params, soft_binning=False)
+        ir_fwd = tracer.trace_ir(sc_, d, EMITTER, rcv, yaw, params,
+                                 tracer.TracerOptions(schedule=True))
+        testing.assert_ir_close(ir_rep.cpu().numpy(), ir_fwd.cpu().numpy(),
+                                exact=False)
+        log(f"render_ir_replay(soft_binning=False), {name}, {N_RAYS} rays: "
+            f"passes assert_ir_close(exact=False) against the forward "
+            f"render of the same directions; energy "
+            f"{float(ir_rep.sum()):.6e} / {float(ir_fwd.sum()):.6e}, max "
+            f"abs diff {float((ir_rep - ir_fwd).abs().max()):.3e}")
+    return {"trace_traverse": lk["trace_traverse"]}
+
+
+def profile_device(fn, top: int = 8) -> str:
+    """One call of ``fn`` under torch.profiler: the device's busy share of
+    the wall time and its kernels by total time, as text."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    rows = []
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total",
+                     getattr(e, "self_cuda_time_total", 0))
+        if e.device_type == DeviceType.CUDA and us > 0:
+            rows.append((us / 1e3, e.count, e.key))
+    if not rows:
+        return "the profiler reported no device time: not measured"
+    rows.sort(reverse=True)
+    busy = sum(r[0] for r in rows)
+    head = "; ".join(f"{ms:.1f} ms in {n} x {key[:70]}"
+                     for ms, n, key in rows[:top])
+    return (f"{wall_ms:.1f} ms of wall under the profiler, the device busy "
+            f"{busy:.1f} ms ({100 * busy / wall_ms:.0f}%) in "
+            f"{sum(r[1] for r in rows)} kernel launches of {len(rows)} "
+            f"kinds; the largest: {head}")
+
+
+def phase_gradient_step() -> None:
+    """The gradient step at full width (benchmarks/grad_bench_clustered.py's
+    shape: the office in clusters of 32, 1M rays x 32 bounces, a 2 s IR at
+    16 kHz): record, replay, d(loss)/d(absorption logits); then its gate at
+    16,384 rays x 8 bounces: the replay's gradient against the autograd
+    tracer's on the card, and against the replay's on the CPU."""
+    from audiorenderingv2_tpu_torch.core import tracer
+    from audiorenderingv2_tpu_torch.diff import replay
+    from audiorenderingv2_tpu_torch.diff.inverse import \
+        with_material_absorption
+
+    dev = torch.device("cuda")
+    params = _grad_params()
+    _, scc, rows, boxes = _office_clustered()
+    mat_ids = torch.zeros(scc.plane_n.shape[0], dtype=torch.long, device=dev)
+    d = torch.from_numpy(unit_dirs(N_RAYS, 0)).to(dev)
+    sched_opts = tracer.TracerOptions(schedule=True)
+
+    def record(opts):
+        return replay.record_paths_kernels(scc, d, EMITTER, OFFICE_RECEIVER,
+                                           0.0, params, opts, rows=rows,
+                                           boxes=boxes)
+
+    def replay_ir(logits, sc_, ids, recv, dirs, p):
+        sc_t = with_material_absorption(sc_, mat_ids.to(logits.device),
+                                        torch.sigmoid(logits))
+        return replay.render_ir_replay(sc_t, ids, recv, dirs, EMITTER,
+                                       OFFICE_RECEIVER, 0.0, p,
+                                       soft_binning=False)
+
+    record_ms = median_ms(lambda: record(sched_opts), 3)
+    record_k5_ms = median_ms(lambda: record(tracer.TracerOptions()), 3)
+    ids, recv = record(sched_opts)
+    logits = torch.zeros(1, device=dev, requires_grad=True)
+    with torch.no_grad():
+        replay_ms = median_ms(
+            lambda: replay_ir(logits, scc, ids, recv, d, params), 3)
+        target = replay_ir(logits, scc, ids, recv, d, params) * 0.9
+
+    def grad_step():
+        logits.grad = None
+        ir = replay_ir(logits, scc, ids, recv, d, params)
+        (torch.mean((ir - target) ** 2) * 1e12).backward()
+
+    _reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    grad_step()
+    torch.cuda.synchronize()
+    gl = _read_launches()
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    g_big = float(logits.grad)
+    assert gl["histogram"] == 1 and gl["histogram_bwd"] == 1, gl
+    assert np.isfinite(g_big) and g_big != 0.0
+    grad_ms = median_ms(grad_step, 3)
+
+    def forward_only():
+        return replay_ir(logits, scc, ids, recv, d, params)
+
+    fwd_graph_ms = median_ms(forward_only, 3)
+    log(f"gradient step, one grad under torch.profiler: "
+        f"{profile_device(grad_step)}")
+    total = record_ms + replay_ms + grad_ms
+    log(f"gradient step, office ({boxes.shape[0]} clusters of 32), {N_RAYS} "
+        f"rays x {OFFICE_BOUNCES} bounces, {IR_SECONDS} s IR at {SR} Hz, "
+        f"CUDA events, medians of 3: record {record_ms:.1f} ms with the "
+        f"schedule ({record_k5_ms:.1f} ms with K5), replay {replay_ms:.1f} "
+        f"ms, grad (replay + backward) {grad_ms:.1f} ms, of which the "
+        f"replay with its graph kept {fwd_graph_ms:.1f} ms; "
+        f"{1e3 / total:.3f} steps/s with a recording each step, "
+        f"{1e3 / (replay_ms + grad_ms):.3f} without; peak device memory of "
+        f"one grad {peak:.0f} MiB; launches per grad {gl}; g = {g_big:.6e}")
+
+    # Why the replay gathers scene rows with index_select: the backward of
+    # the two gathers at this step's own shape, one bounce's triangle ids
+    # into a per-triangle table.
+    table = torch.rand((scc.plane_n.shape[0], 1), device=dev,
+                       requires_grad=True)
+    ti = ids[:, 0].clamp(min=0).long()
+    g_out = torch.rand((ti.shape[0], 1), device=dev)
+
+    def bwd(gather):
+        return torch.autograd.grad(gather(), table, g_out)[0]
+
+    g_put = bwd(lambda: table[ti])
+    g_add = bwd(lambda: table.index_select(0, ti))
+    assert torch.allclose(g_put, g_add, rtol=1e-4, atol=1e-5)
+    put_ms = median_ms(lambda: bwd(lambda: table[ti]), 3)
+    add_ms = median_ms(lambda: bwd(lambda: table.index_select(0, ti)), 3)
+    log(f"gather of {ti.shape[0]} triangle ids from a [{table.shape[0]}, 1] "
+        f"table, forward + backward: table[ids] {put_ms:.3f} ms, "
+        f"index_select {add_ms:.3f} ms (the replay's choice; 32 such "
+        f"gathers of absorption a step)")
+
+    # The gate (grad_bench_clustered.py:120-161).
+    n_s, p_s = 16384, _grad_params(8)
+    d_s = torch.from_numpy(unit_dirs(n_s, 1)).to(dev)
+    ids_s, recv_s = replay.record_paths_kernels(
+        scc, d_s, EMITTER, OFFICE_RECEIVER, 0.0, p_s, sched_opts, rows=rows,
+        boxes=boxes)
+    with torch.no_grad():
+        tgt = replay_ir(logits, scc, ids_s, recv_s, d_s, p_s) * 0.9
+    full_opts = tracer.TracerOptions(backend="autograd", block_size=2048,
+                                     tri_chunk=2048, early_exit=False,
+                                     remat=True)
+
+    def g_of(ir_fn, lg):
+        (torch.mean((ir_fn(lg) - tgt.to(lg.device)) ** 2) * 1e12).backward()
+        return float(lg.grad)
+
+    t0 = time.perf_counter()
+    g_full = g_of(lambda lg: tracer.trace_ir(
+        with_material_absorption(scc, mat_ids, torch.sigmoid(lg)), d_s,
+        EMITTER, OFFICE_RECEIVER, 0.0, p_s, full_opts),
+        torch.zeros(1, device=dev, requires_grad=True))
+    torch.cuda.synchronize()
+    full_s = time.perf_counter() - t0
+    g_rep = g_of(lambda lg: replay_ir(lg, scc, ids_s, recv_s, d_s, p_s),
+                 torch.zeros(1, device=dev, requires_grad=True))
+    scc_cpu = tracer.SceneArrays(*(None if x is None else x.cpu()
+                                   for x in scc))
+    g_cpu = g_of(lambda lg: replay_ir(lg, scc_cpu, ids_s.cpu(), recv_s.cpu(),
+                                      d_s.cpu(), p_s),
+                 torch.zeros(1, requires_grad=True))
+    rel = abs(g_full - g_rep) / max(abs(g_full), 1e-30)
+    rel_cpu = abs(g_cpu - g_rep) / max(abs(g_cpu), 1e-30)
+    assert rel < 1e-2, (g_full, g_rep)
+    assert rel_cpu < 1e-3, (g_cpu, g_rep)
+    log(f"gradient gate, {n_s} rays x 8 bounces on the office: autograd "
+        f"tracer {g_full:.6e} (in {full_s:.1f} s), replay {g_rep:.6e}, "
+        f"relative difference {rel:.2e} (bar 1e-2); the replay's gradient "
+        f"on the CPU from the same paths {g_cpu:.6e}, relative difference "
+        f"{rel_cpu:.2e} (bar 1e-3)")
+
+
+def phase_trainer() -> dict:
+    """A trainer that takes a few steps: ``fit_scene_parameters`` at full
+    width on the office (5 Adam steps on the absorption logits at 1M rays,
+    from recorded paths), the launch counts read around it; then the fit of
+    examples/demo_4_inverse.py on the card. Returns the launches of the
+    office fit."""
+    from audiorenderingv2_tpu_torch import testing
+    from audiorenderingv2_tpu_torch.core import tracer
+    from audiorenderingv2_tpu_torch.core.params import TraceParams
+    from audiorenderingv2_tpu_torch.diff import (coarse_emitter_search,
+                                                 emitter_grid,
+                                                 fit_scene_parameters,
+                                                 record_paths_kernels,
+                                                 render_ir_replay,
+                                                 render_soft_ir)
+
+    dev = torch.device("cuda")
+    params = _grad_params()
+    scene, scc, rows, boxes = _office_clustered()
+    d = torch.from_numpy(unit_dirs(N_RAYS, 2)).to(dev)
+    # The target: the soft IR of the scene as it is (absorption 0.3), by
+    # the replay of its own recorded paths.
+    with torch.no_grad():
+        ids, recv = record_paths_kernels(
+            scc, d, EMITTER, OFFICE_RECEIVER, 0.0, params,
+            tracer.TracerOptions(schedule=True), rows=rows, boxes=boxes)
+        target = render_ir_replay(scc, ids, recv, d, EMITTER,
+                                  OFFICE_RECEIVER, 0.0, params)
+    del ids, recv
+    grads = []
+
+    def watch(i, loss, theta):
+        g = theta["absorption_logits"].grad
+        grads.append(bool(torch.isfinite(g).all()) and bool(g.abs().sum() > 0))
+
+    steps = 5
+    _reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = fit_scene_parameters(
+        scene, target, params, steps=steps, learning_rate=0.1,
+        init_absorption=0.5, receiver_pos=OFFICE_RECEIVER, method="replay",
+        replay_refresh=25, device="cuda", directions=d, callback=watch)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    fl = _read_launches()
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    log(f"trainer, office, {N_RAYS} rays x {OFFICE_BOUNCES} bounces, "
+        f"fit_scene_parameters(method='replay'), {steps} Adam steps on the "
+        f"absorption logits from 0.5 (true 0.3): {wall:.2f} s; losses "
+        f"{[float(f'{x:.6e}') for x in res.losses]}; absorption "
+        f"{res.params['absorption'].tolist()}; launches {fl}; peak device "
+        f"memory {peak:.0f} MiB")
+    assert fl["tile_schedule"] == fl["trace_round_sched"] == OFFICE_BOUNCES
+    assert fl["histogram"] == fl["histogram_bwd"] == steps, fl
+    assert fl["trace_round"] == fl["trace_traverse"] == 0, fl
+    assert len(res.losses) == steps and np.isfinite(res.losses).all()
+    assert np.all(np.diff(res.losses) < 0), res.losses
+    assert len(grads) == steps and all(grads)
+    assert 0.3 < float(res.params["absorption"][-1]) < 0.5
+
+    # examples/demo_4_inverse.py on the card.
+    true_a, true_em = 0.35, np.array([0.8, -0.4, 0.6], np.float32)
+    box = testing.scene_from_arrays(*testing.box_room((12.0, 8.0, 10.0)),
+                                    true_a)
+    p = TraceParams(sample_rate=8000, ir_length=8000, base_power=3.62,
+                    max_bounces=5)
+    recs = np.array([[2.0, 1.0, -1.5], [-3.0, -1.0, 2.0], [1.0, 2.5, 3.0]],
+                    np.float32)
+    opts = tracer.TracerOptions(block_size=1024, tri_chunk=128)
+    kw = dict(n_rays=2048, opts=opts, seed=7, device="cuda")
+    t0 = time.perf_counter()
+    tgt = torch.stack([render_soft_ir(box, p, emitter=true_em,
+                                      receiver_pos=r, **kw) for r in recs])
+    grid = emitter_grid(box.bounds_min + 1.0, box.bounds_max - 1.0,
+                        spacing=2.0)
+    best, losses = coarse_emitter_search(box, tgt, p, candidates=grid,
+                                         receiver_pos=recs,
+                                         smooth_radius=32, **kw)
+    torch.cuda.synchronize()
+    search_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    fit = fit_scene_parameters(
+        box, tgt, p, steps=200, learning_rate=0.03, fit_absorption=True,
+        fit_emitter=True, smooth_radius=8, init_emitter=tuple(best),
+        receiver_pos=recs, **kw)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    a_fit = float(fit.params["absorption"][-1])
+    em_err = float(np.linalg.norm(fit.params["emitter"] - true_em))
+    log(f"inverse demo on the card (box 12 x 8 x 10 m, 3 receivers, 2048 "
+        f"rays, 5 bounces): grid of {len(grid)} candidates -> {best} in "
+        f"{search_s:.2f} s; 200 steps of the full method in {fit_s:.2f} s: "
+        f"absorption {a_fit:.4f} (true {true_a}), emitter "
+        f"{fit.params['emitter'].round(3).tolist()} (true "
+        f"{true_em.tolist()}), off by {em_err:.3f} m; loss "
+        f"{fit.losses[0]:.3e} -> {fit.final_loss:.3e}")
+    assert abs(a_fit - true_a) < 0.08, a_fit
+    assert em_err < 0.5, em_err
+    assert np.isfinite(fit.losses).all()
+    return fl
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; the port's "
@@ -1416,6 +2135,11 @@ def main() -> int:
     multi_launches, k3_posed = phase_multipose()
     k4_launches = phase_native_rng()
     multi_launches.update(phase_banded())
+    k3_bwd = phase_histogram_bwd()
+    k5 = phase_traverse()
+    k5_launches = phase_recording()
+    phase_gradient_step()
+    fit_launches = phase_trainer()
     kernels = [
         {"name": "trace_round", "route": "cuda",
          "source": "audiorenderingv2_tpu_torch/csrc/trace_round.cu",
@@ -1457,6 +2181,14 @@ def main() -> int:
          "source": "audiorenderingv2_tpu_torch/csrc/init_state.cu",
          "replaces": "audiorenderingv2_tpu/ops/raytrace_pallas_v2.py:284",
          "launches": k4_launches, **k4},
+        {"name": "histogram_bwd", "route": "cuda",
+         "source": "audiorenderingv2_tpu_torch/csrc/histogram.cu",
+         "replaces": "audiorenderingv2_tpu/ops/histogram_pallas.py:124",
+         "launches": fit_launches["histogram_bwd"], **k3_bwd},
+        {"name": "trace_traverse", "route": "cuda",
+         "source": "audiorenderingv2_tpu_torch/csrc/trace_traverse.cu",
+         "replaces": "audiorenderingv2_tpu/ops/raytrace_pallas_v2.py:547",
+         "launches": k5_launches["trace_traverse"], **k5},
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

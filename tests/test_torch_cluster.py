@@ -270,9 +270,10 @@ def test_clustered_route_takes_only_single_bounce_rounds():
     args = (rows, torch.from_numpy(_dirs(128, 0)), torch.zeros(3),
             torch.from_numpy(REC), 0.0, params)
     with pytest.raises(ValueError, match="one bounce per round"):
-        rc.trace_events(*args, boxes=boxes, round_budgets=(2, 2))
+        rc.trace_events(*args, boxes=boxes, round_budgets=(2, 2),
+                        schedule=True)
     with pytest.raises(ValueError, match="one bounce per round"):
-        rc.trace_events(*args, boxes=boxes, compact=False)
+        rc.trace_events(*args, boxes=boxes, compact=False, schedule=True)
     with pytest.raises(ValueError, match="packed boxes"):
         t_tracer.trace_ir(sct, args[1], np.zeros(3), REC, 0.0, params,
                           rows=rows)
@@ -431,7 +432,7 @@ def test_build_dir_follows_shared_header(tmp_path, monkeypatch):
     monkeypatch.setattr(_build, "CSRC", tmp_path)
     assert {p.name for p in _build.sources()} == {
         "histogram.cu", "init_state.cu", "tile_schedule.cu",
-        "trace_round.cu", "trace_sched.cu"}
+        "trace_round.cu", "trace_sched.cu", "trace_traverse.cu"}
     before = _build.build_dir()
     header = tmp_path / "trace_common.cuh"
     header.write_text(header.read_text() + "\n")

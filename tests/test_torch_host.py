@@ -60,18 +60,23 @@ SCENES = {
 
 
 def test_port_imports_without_jax():
-    """Every module of the port imports with JAX made unimportable, and
-    nothing pulls in the JAX package."""
+    """Every module of the port, ``diff/`` included, imports with JAX and
+    optax made unimportable, and nothing pulls in the JAX package."""
     code = textwrap.dedent("""
         import importlib, pkgutil, sys
-        sys.modules["jax"] = None
+        sys.modules["jax"] = sys.modules["optax"] = None
         import audiorenderingv2_tpu_torch as pkg
-        for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
-            importlib.import_module(m.name)
+        names = [m.name for m in pkgutil.walk_packages(pkg.__path__,
+                                                       pkg.__name__ + ".")]
+        for name in names:
+            importlib.import_module(name)
+        for sub in ("diff.replay", "diff.inverse", "diff.checkpoint",
+                    "ops.traverse_cuda"):
+            assert pkg.__name__ + "." + sub in names, sub
         bad = [m for m, mod in sys.modules.items() if mod is not None and (
                m == "audiorenderingv2_tpu"
                or m.startswith("audiorenderingv2_tpu.")
-               or m.startswith("jax"))]
+               or m.startswith("jax") or m.startswith("optax"))]
         assert not bad, bad
         print("ok")
     """)
@@ -256,7 +261,8 @@ def test_convert_round_trip():
 
 
 def test_tracer_options_from_jax():
-    """Result options and round budgets carry over; TPU tuning is dropped."""
+    """Result options, round budgets, the backend and the differentiable
+    trace's options carry over; TPU tuning is dropped."""
     j = ar.TracerOptions(soft_binning=True, pallas_compact=False,
                          pallas_round_budgets=(2, 3, 5),
                          pallas_precision="high", pallas_layout="group",
@@ -264,9 +270,19 @@ def test_tracer_options_from_jax():
                          pallas_partition_mode="sort",
                          pallas_dynamic_grid=True)
     assert convert.tracer_options_from_jax(j) == t_tracer.TracerOptions(
-        soft_binning=True, compact=False, round_budgets=(2, 3, 5))
+        soft_binning=True, compact=False, round_budgets=(2, 3, 5),
+        backend="autograd")
+    # JAX's default backend is the differentiable one, the port's the
+    # kernels; everything else of the defaults agrees.
     assert convert.tracer_options_from_jax(ar.TracerOptions()) == \
-        t_tracer.TracerOptions()
+        t_tracer.TracerOptions(backend="autograd")
+    assert convert.tracer_options_from_jax(
+        ar.TracerOptions(backend="pallas")) == t_tracer.TracerOptions()
+    g = ar.TracerOptions(backend="xla", block_size=256, tri_chunk=128,
+                         early_exit=False, remat=True, pallas_schedule=True)
+    assert convert.tracer_options_from_jax(g) == t_tracer.TracerOptions(
+        backend="autograd", block_size=256, tri_chunk=128, early_exit=False,
+        remat=True, schedule=True)
 
 
 def test_renderer_packs_rows_once():

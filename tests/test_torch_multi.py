@@ -100,7 +100,8 @@ def test_trace_events_pose_batch_matches_jax_and_single_pose(route):
     rows, boxes = rc.pack_scene(sct)
     args = [torch.from_numpy(x) for x in (d, em, rcv, yaw)]
     got = rc.trace_events_pose_batch(rows, *args, tparams,
-                                     round_budgets=budgets, boxes=boxes)
+                                     round_budgets=budgets, boxes=boxes,
+                                     schedule=route == "clustered")
     assert got[0].shape == (p, 384) and got[1].shape == (p, 384, 1)
     assert got[2].dtype == torch.int32
     w_scale = float(np.abs(np.asarray(ref[1])).max())
@@ -113,7 +114,7 @@ def test_trace_events_pose_batch_matches_jax_and_single_pose(route):
     for i in range(p):
         one = rc.trace_events(rows, args[0][i], args[1][i], args[2][i],
                               float(yaw[i]), tparams, round_budgets=budgets,
-                              boxes=boxes)
+                              boxes=boxes, schedule=route == "clustered")
         for a, b in zip(got, one):
             assert torch.equal(a[i], b), f"pose {i} differs from its own trace"
 
@@ -185,10 +186,15 @@ def test_pose_batch_rejects_what_jax_rejects():
     em, rcv, yaw = (torch.from_numpy(x * 0.5) for x in _poses(2))
     with pytest.raises(ValueError, match="one bounce per round"):
         rc.trace_events_pose_batch(rows, d, em, rcv, yaw, tparams,
-                                   round_budgets=(2, 3), boxes=boxes)
+                                   round_budgets=(2, 3), boxes=boxes,
+                                   schedule=True)
+    with pytest.raises(ValueError, match="requires schedule=True"):
+        rc.trace_events_pose_batch(rows, d, em, rcv, yaw, tparams,
+                                   boxes=boxes)
     with pytest.raises(ValueError, match="deep paths would be truncated"):
         rc.trace_events_pose_batch(rows, d, em, rcv, yaw, tparams,
-                                   round_budgets=(1, 1), boxes=boxes)
+                                   round_budgets=(1, 1), boxes=boxes,
+                                   schedule=True)
     with pytest.raises(ValueError, match="deep paths would be truncated"):
         rc.trace_events_pose_batch(rc.pack_tris_rows(box_t), d, em, rcv, yaw,
                                    tparams, round_budgets=(2, 2))
