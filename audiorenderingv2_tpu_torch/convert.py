@@ -42,10 +42,14 @@ def trace_params_from_jax(params) -> TraceParams:
 
 
 def tracer_options_from_jax(opts) -> TracerOptions:
-    """The port's TracerOptions from the JAX package's. Only the options
-    that change results or the round schedule carry over; the ones that
-    tuned the TPU kernels (``pallas_precision``, ``pallas_layout``,
-    ``rays_per_tile``, ``pallas_unroll``, ...) are dropped. The Pallas
+    """The port's TracerOptions from the JAX package's. The options that
+    change results, the round schedule or the kernel carry over; the ones
+    that only tuned the TPU kernels (``rays_per_tile``, ``pallas_unroll``,
+    ``pallas_tri_block``, ...) are dropped. ``pallas_layout`` becomes
+    ``layout`` (``"auto"`` is ``"rows"``), ``pallas_version`` ``version``,
+    ``pallas_precision`` ``precision`` (``"split3"`` is its alias of
+    ``"high"``); ``"default"``, a single bf16 pass that corrupts the
+    geometry, raises ``ValueError``. The Pallas
     round budgets carry over whatever the JAX backend;
     ``pallas_native_rng`` becomes ``native_rng``, ``pallas_schedule``
     ``schedule``, and the backend ``"xla"`` / ``"pallas"`` becomes
@@ -62,7 +66,11 @@ def tracer_options_from_jax(opts) -> TracerOptions:
         schedule=bool(opts.pallas_schedule),
         backend={"xla": "autograd", "pallas": "kernels"}[opts.backend],
         block_size=int(opts.block_size), tri_chunk=int(opts.tri_chunk),
-        early_exit=bool(opts.early_exit), remat=bool(opts.remat))
+        early_exit=bool(opts.early_exit), remat=bool(opts.remat),
+        layout={"auto": "rows"}.get(opts.pallas_layout, opts.pallas_layout),
+        version=int(opts.pallas_version),
+        precision={"split3": "high"}.get(opts.pallas_precision,
+                                         opts.pallas_precision))
 
 
 def fit_state_from_jax(leaves_or_npz, theta_like: dict,

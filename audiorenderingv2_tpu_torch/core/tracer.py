@@ -94,8 +94,22 @@ class TracerOptions:
     ``remat`` recomputes each block in the backward pass instead of keeping
     its activations (``torch.utils.checkpoint``, non-reentrant).
 
-    The JAX package's options that only tuned its TPU kernels have no field
-    here; ``convert.tracer_options_from_jax`` drops them.
+    Three options pick the kernel of an unclustered trace (the JAX
+    package's ``pallas_layout``, ``pallas_version``, ``pallas_precision``).
+    ``layout``: ``"rows"`` runs K1 over the triangle rows; ``"group"`` runs
+    K6 (``ops/group_cuda.py``), which forms the six plane and barycentric
+    quantities of eight triangles at a time as a [48, 8] x [8] product per
+    ray, and refuses a clustered scene. ``precision`` is that product's:
+    ``"highest"`` is exact f32, ``"high"`` (the JAX package's ``"high"``
+    and its alias ``"split3"``) splits both operands into bf16 high and low parts and sums three products, about
+    2^-17 relative; the other kernels ignore it. ``version``: 2, or 1 for
+    K7 (``ops/v1_cuda.py``), the rays-in-rows kernel: one band, the whole
+    padded triangle list, no clusters, no pose batch, sampled directions
+    only; with more than one band ``trace_ir`` runs the differentiable
+    tracer instead, as the JAX package does.
+
+    The JAX package's other options that only tuned its TPU kernels have no
+    field here; ``convert.tracer_options_from_jax`` drops them.
     """
 
     soft_binning: bool = False
@@ -108,10 +122,21 @@ class TracerOptions:
     tri_chunk: int = 2048
     early_exit: bool = True
     remat: bool = False
+    layout: str = "rows"
+    version: int = 2
+    precision: str = "highest"
 
     def __post_init__(self):
         if self.backend not in ("kernels", "autograd"):
             raise ValueError(f"unknown backend {self.backend!r}")
+        if self.layout not in ("rows", "group"):
+            raise ValueError(f"layout must be rows|group, got "
+                             f"{self.layout!r}")
+        if self.version not in (1, 2):
+            raise ValueError(f"version must be 1 or 2, got {self.version!r}")
+        from ..ops.group_cuda import check_precision
+
+        check_precision(self.precision)
 
 
 def scene_to_arrays(scene, tri_chunk: int = 2048,
@@ -497,13 +522,36 @@ def _as_vec(x, device) -> torch.Tensor:
     return torch.as_tensor(x, dtype=torch.float32, device=device)
 
 
-def packed_scene(sc: SceneArrays, params: TraceParams, rows, boxes):
-    """The scene's packed rows and boxes: the caller's, checked, or a fresh
-    pack."""
+def runs_kernels(opts: TracerOptions, params: TraceParams) -> bool:
+    """Whether a trace under ``opts`` runs the forward kernels: the kernels
+    backend, except version 1 with more than one band, which K7 does not
+    carry and the differentiable tracer renders instead (the JAX package's
+    gate, ``pallas_ok``)."""
+    return opts.backend == "kernels" and not (opts.version == 1
+                                              and params.n_bands > 1)
+
+
+def packed_scene(sc: SceneArrays, params: TraceParams, rows, boxes,
+                 opts: TracerOptions = TracerOptions()):
+    """The scene's packed triangles and boxes under ``opts.layout`` and
+    ``opts.version`` (``raytrace_cuda.pack_scene``): the caller's, checked,
+    or a fresh pack. Version 1 never culls: its boxes are None whatever the
+    scene carries."""
     from ..ops import raytrace_cuda
 
+    if not runs_kernels(opts, params):
+        return rows, boxes  # the differentiable tracer reads the scene
     if rows is None:
-        return raytrace_cuda.pack_scene(sc, params.n_bands)
+        return raytrace_cuda.pack_scene(sc, params.n_bands, opts.layout,
+                                        opts.version)
+    grouped = opts.version == 2 and opts.layout == "group"
+    if isinstance(rows, tuple) != grouped:
+        raise ValueError(f"the packed triangles are not those of layout="
+                         f"{opts.layout!r}, version={opts.version}: pack them "
+                         f"with raytrace_cuda.pack_scene under the same "
+                         f"options")
+    if opts.version == 1:
+        return rows, None  # K7's wrapper checks its [17, T] table
     if (boxes is None) != (sc.cluster_boxes is None):
         raise ValueError("a clustered scene needs its packed boxes, and an "
                          "unclustered one none")
@@ -528,10 +576,14 @@ def trace_ir(sc: SceneArrays, directions: torch.Tensor, emitter,
     the scene's device: f32 [2, ir_length], or [2, n_bands, ir_length]
     when ``params.n_bands > 1``. Mono folding is the renderer's job.
 
-    ``rows``, ``boxes``: the scene's packed triangle rows and cluster boxes
-    from ``raytrace_cuda.pack_scene(sc, params.n_bands)``, packed once per
-    scene by a caller that renders it many times; None packs them here.
-    The clustered route runs when the scene has cluster boxes.
+    ``rows``, ``boxes``: the scene's packed triangles and cluster boxes
+    from ``raytrace_cuda.pack_scene(sc, params.n_bands, opts.layout,
+    opts.version)``, packed once per scene by a caller that renders it many
+    times; None packs them here. The clustered route runs when the scene
+    has cluster boxes. ``opts.layout``, ``opts.version`` and
+    ``opts.precision`` pick the kernel of an unclustered scene (K1, K6 or
+    K7); ``version=1`` with more than one band runs the differentiable
+    tracer, since K7 carries one band (the JAX package's gate).
 
     With ``opts.backend == "autograd"`` the trace is differentiable:
     ``emitter``, ``receiver_pos`` and the scene's tensors may require
@@ -542,18 +594,19 @@ def trace_ir(sc: SceneArrays, directions: torch.Tensor, emitter,
 
     dev = sc.device
     directions = directions.to(device=dev, dtype=torch.float32)
-    if opts.backend == "autograd":
+    if not runs_kernels(opts, params):
         ev = _trace_events_autograd(
             sc, directions, _as_vec(emitter, dev), _as_vec(receiver_pos, dev),
             receiver_yaw_deg, params, opts, n_total_rays)
         return _histogram_from_events(*ev, params, opts.soft_binning)
-    rows, boxes = packed_scene(sc, params, rows, boxes)
+    rows, boxes = packed_scene(sc, params, rows, boxes, opts)
     ev_bin_f, ev_w, ev_ear = raytrace_cuda.trace_events(
         rows, directions.contiguous(),
         _as_vec(emitter, dev), _as_vec(receiver_pos, dev),
         float(receiver_yaw_deg), params, n_total_rays=n_total_rays,
         compact=opts.compact, round_budgets=opts.round_budgets, boxes=boxes,
-        schedule=opts.schedule)
+        schedule=opts.schedule, layout=opts.layout, version=opts.version,
+        precision=opts.precision)
     return _histogram_from_events(ev_bin_f, ev_w, ev_ear, params,
                                   opts.soft_binning)
 
@@ -570,21 +623,24 @@ def render_ir(sc: SceneArrays, generator: torch.Generator, n_rays: int,
     With ``opts.native_rng`` the generator gives only a seed (an integer
     below 2^23, which survives its f32 scalar slot exactly) and K4
     generates the directions while it initialises the state; that is the
-    kernels backend's, and raises with ``backend="autograd"``."""
+    kernels backend's, and raises with ``backend="autograd"``. Version 1
+    has no such kernel and samples its directions, as in the JAX
+    package."""
     from ..ops import raytrace_cuda
     from . import sampling
 
     dev = sc.device
-    if opts.native_rng:
+    if opts.native_rng and opts.version == 2:
         _kernels_only(opts, "native_rng")
-        rows, boxes = packed_scene(sc, params, rows, boxes)
+        rows, boxes = packed_scene(sc, params, rows, boxes, opts)
         seed = torch.randint(0, 2**23, (), generator=generator, device=dev)
         ev_bin_f, ev_w, ev_ear = raytrace_cuda.trace_events(
             rows, None, _as_vec(emitter, dev), _as_vec(receiver_pos, dev),
             float(receiver_yaw_deg), params, n_total_rays=n_total_rays,
             compact=opts.compact, round_budgets=opts.round_budgets,
             boxes=boxes, n_rays=n_rays, native_rng_seed=seed,
-            schedule=opts.schedule)
+            schedule=opts.schedule, layout=opts.layout,
+            precision=opts.precision)
         return _histogram_from_events(ev_bin_f, ev_w, ev_ear, params,
                                       opts.soft_binning)
     dirs = sampling.sample_directions(n_rays, generator, dev)
@@ -604,10 +660,11 @@ def render_ir_pose_batch(sc: SceneArrays, seed: int, n_rays: int, emitters,
     ``i`` draws its ``n_rays`` directions from
     ``sampling.pose_generator(seed, pose_indices[i], device)`` (default
     ``i``), the stream a single :func:`render_ir` of that pose sees from the
-    same generator. Hard binning and the kernels backend only:
-    ``opts.soft_binning`` and ``backend="autograd"`` raise, and so does a
-    clustered scene without ``opts.schedule`` (it batches through the
-    schedule and K2, as in the JAX package). Returns
+    same generator. Hard binning and the version-2 kernels only:
+    ``opts.soft_binning``, ``backend="autograd"`` and ``version=1`` raise,
+    and so does a clustered scene without ``opts.schedule`` (it batches
+    through the schedule and K2, as in the JAX package); ``opts.layout``
+    and ``opts.precision`` pick K1 or K6 as in :func:`trace_ir`. Returns
     [P, 2, ir_length] on the scene's device, or [P, 2, n_bands, ir_length]."""
     from ..ops import raytrace_cuda
     from . import sampling
@@ -617,6 +674,10 @@ def render_ir_pose_batch(sc: SceneArrays, seed: int, n_rays: int, emitters,
         raise ValueError("render_ir_pose_batch is a forward-rendering path "
                          "(hard binning); use render_ir per pose for "
                          "soft_binning gradients")
+    if opts.version != 2:
+        raise ValueError("render_ir_pose_batch requires the kernels backend "
+                         "with version=2; render per pose via render_ir for "
+                         "other backends")
     dev = sc.device
     emitters = _as_vec(emitters, dev).reshape(-1, 3)
     if pose_indices is None:
@@ -625,11 +686,12 @@ def render_ir_pose_batch(sc: SceneArrays, seed: int, n_rays: int, emitters,
         sampling.sample_directions(
             n_rays, sampling.pose_generator(seed, int(i), dev), dev)
         for i in pose_indices])
-    rows, boxes = packed_scene(sc, params, rows, boxes)
+    rows, boxes = packed_scene(sc, params, rows, boxes, opts)
     ev_bin_f, ev_w, ev_ear = raytrace_cuda.trace_events_pose_batch(
         rows, directions.to(device=dev, dtype=torch.float32).contiguous(),
         emitters, _as_vec(receivers, dev).reshape(-1, 3),
         _as_vec(receiver_yaws_deg, dev).reshape(-1), params,
         compact=opts.compact, round_budgets=opts.round_budgets, boxes=boxes,
-        schedule=opts.schedule)
+        schedule=opts.schedule, layout=opts.layout,
+        precision=opts.precision)
     return _histogram_from_events_posed(ev_bin_f, ev_w, ev_ear, params)

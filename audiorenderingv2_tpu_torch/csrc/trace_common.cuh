@@ -1,7 +1,7 @@
-// What K1 (trace_round.cu), K2 (trace_sched.cu) and K5 (trace_traverse.cu)
-// share: the state, scalar and triangle-row layouts, one ray's state in
-// registers, the Moller-Trumbore search over triangle rows and the bounce
-// tail.
+// What K1 (trace_round.cu), K2 (trace_sched.cu), K5 (trace_traverse.cu), K6
+// (trace_group.cu) and K7 (trace_round_v1.cu) share: the state, scalar and
+// triangle-row layouts, one ray's state in registers, the Moller-Trumbore
+// search over triangle rows and the bounce tail.
 //
 // The tail is the TPU kernel's (audiorenderingv2_tpu/ops/
 // raytrace_pallas_v2.py:_trace_round_kernel_v2, :692-747): the analytic
@@ -53,6 +53,19 @@ template <int LB>
 __device__ __forceinline__ int evw_col(int b) {
   return b == 0 ? C_EVW : 16 + (LB - 1) + b - 1;
 }
+
+// Where the tail finds the normal and the absorptions of the triangle a ray
+// bounced off: the rows of K1, K2 and K5. K6 and K7 keep them in tables of
+// their own layouts and bring their own.
+struct RowAttrs {
+  const float* tris;
+  __device__ float normal(int tri, int axis) const {
+    return tris[(long long)tri * kNR + R_NX + axis];
+  }
+  __device__ float absorption(int tri, int band) const {
+    return tris[(long long)tri * kNR + R_ABS + band];
+  }
+};
 
 // Block-wide copy of `n_floats` floats into shared memory.
 __device__ __forceinline__ void load_rows(float* dst, const float* src,
@@ -158,6 +171,16 @@ struct Ray {
   __device__ __forceinline__ void finish_bounce(
       bool running, bool can_cont, float best_t, int best_i,
       const float* __restrict__ tris, const Scalars& sc, int n_bands) {
+    finish_bounce(running, can_cont, best_t, best_i, RowAttrs{tris}, sc,
+                  n_bands);
+  }
+
+  // The same with the bounced-off triangle's attributes read through
+  // `attrs` (normal(tri, axis), absorption(tri, band)).
+  template <class Attrs>
+  __device__ __forceinline__ void finish_bounce(
+      bool running, bool can_cont, float best_t, int best_i,
+      const Attrs& attrs, const Scalars& sc, int n_bands) {
     const float inf = CUDART_INF_F;
     const bool alive = running && can_cont;
     const float ocx = px - sc.rcx, ocy = py - sc.rcy, ocz = pz - sc.rcz;
@@ -187,8 +210,9 @@ struct Ray {
       recvd = depth;  // depth before any increment
     }
     if (surface) {
-      const float* r = tris + (long long)best_i * kNR;
-      const float nx = r[R_NX], ny = r[R_NY], nz = r[R_NZ];
+      const float nx = attrs.normal(best_i, 0);
+      const float ny = attrs.normal(best_i, 1);
+      const float nz = attrs.normal(best_i, 2);
       const float dn = vx * nx + vy * ny + vz * nz;
       const float rx = vx - 2.0f * dn * nx;
       const float ry = vy - 2.0f * dn * ny;
@@ -202,7 +226,8 @@ struct Ray {
       dist = dist + best_t;
 #pragma unroll
       for (int b = 0; b < LB; ++b)
-        if (b < n_bands) en[b] = en[b] * (1.0f - r[R_ABS + b]);
+        if (b < n_bands)
+          en[b] = en[b] * (1.0f - attrs.absorption(best_i, b));
       ltri = (float)best_i + 1.0f;
       depth = depth + 1.0f;
     }

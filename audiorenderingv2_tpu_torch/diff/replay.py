@@ -34,6 +34,8 @@ the tripwire.
 """
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 
 from .. import constants
@@ -100,8 +102,10 @@ def record_paths_kernels(sc: SceneArrays, dirs: torch.Tensor, emitter,
     (so the topology survives the reorder between rounds), LTRI, 1 + the
     triangle bounced off in the current round, and RECVD, the depth at which
     the receiver was entered. This function runs one kernel round per bounce:
-    K1 on an unclustered scene; on a clustered one the schedule kernel and
-    K2 with ``opts.schedule``, else K5. After each round it reads (RAYID,
+    K1 on an unclustered scene (K6 with ``opts.layout="group"``, its
+    product at ``opts.precision``); on a clustered one the schedule kernel
+    and K2 with ``opts.schedule``, else K5. Version 1 records no topology,
+    so ``opts.version`` is not read: the recorder is version 2's. After each round it reads (RAYID,
     LTRI) and scatters the triangle ids into launch order; then the rays are
     reordered as in a render (alive-first partition, or the dir72 sort).
     ``rows``, ``boxes``: the packed scene, as in ``core.tracer.trace_ir``.
@@ -123,7 +127,9 @@ def record_paths_kernels(sc: SceneArrays, dirs: torch.Tensor, emitter,
         raise ValueError(f"{n_pad} rays: the launch index rides in an f32 "
                          f"state column, exact only up to 2^24; record in "
                          f"chunks with n_total_rays")
-    rows, boxes = packed_scene(sc, params, rows, boxes)
+    rows, boxes = packed_scene(
+        sc, params, rows, boxes,
+        dataclasses.replace(opts, version=2, backend="kernels"))
     emitter, rec_center = _as_vec(emitter, dev), _as_vec(rec_center, dev)
     e0 = params.base_power / ((n_total_rays if n_total_rays is not None
                                else n) * constants.SPHERE_VOLUME)
@@ -140,7 +146,8 @@ def record_paths_kernels(sc: SceneArrays, dirs: torch.Tensor, emitter,
 
     state = rc._run_rounds(state, rows, boxes, scal, params, [1] * k_steps,
                            compact=True, schedule=opts.schedule,
-                           harvest=harvest)
+                           harvest=harvest, layout=opts.layout,
+                           precision=opts.precision)
     recv = torch.empty((n_pad,), dtype=torch.int32, device=dev)
     recv[state[rc._C_RAYID].long()] = state[rc._C_RECVD].to(torch.int32)
     return tri_ids[:n], recv[:n]

@@ -57,7 +57,7 @@ def render_ir_matrix(
       rows, boxes: the scene's packed rows and boxes
         (``raytrace_cuda.pack_scene``), None packs them here once.
 
-    The fused batch needs the kernels backend, hard binning, sampled
+    The fused batch needs the version-2 kernels backend, hard binning, sampled
     directions (not ``opts.native_rng``), at most 8 bands and, on a
     clustered scene, ``opts.schedule``; otherwise every pair is one
     ``render_ir``.
@@ -79,9 +79,9 @@ def render_ir_matrix(
     em_p = np.repeat(emitters, l, axis=0)
     rc_p = np.tile(receivers, (s, 1))
     yw_p = np.tile(yaws, s)
-    rows, boxes = packed_scene(sc, params, rows, boxes)
+    rows, boxes = packed_scene(sc, params, rows, boxes, opts)
 
-    fused_ok = (opts.backend == "kernels"
+    fused_ok = (opts.backend == "kernels" and opts.version == 2
                 # a clustered scene batches through the schedule and K2
                 and (sc.cluster_boxes is None or opts.schedule)
                 and not opts.soft_binning and not opts.native_rng

@@ -6,7 +6,11 @@ with the packing of ``raytrace_pallas_v2.py``:
 * ``pack_tris_rows``: the triangle rows K1 reads (``pack_tris_v2`` with
   ``layout="rows"``, trimmed at the last valid triangle);
   ``pack_tris_clusters``: the rows and boxes of a clustered scene (its
-  cluster branch, trimmed to whole clusters); ``pack_scene`` picks one;
+  cluster branch, trimmed to whole clusters); ``pack_tris_group``: the
+  coefficient groups and attributes K6 reads (its ``layout="group"``,
+  trimmed to whole groups of 8); ``pack_tris_v1``: the untrimmed [17, T]
+  table K7 reads (``raytrace_pallas.py:pack_tris``); ``pack_scene`` picks
+  one by layout and version;
 * ``init_state``: the ray state, as ``[ncols, N]`` columns (structure of
   arrays: ray ``i`` of column ``c`` is ``state[c, i]``), with the column
   indices of the JAX package;
@@ -21,7 +25,10 @@ with the packing of ``raytrace_pallas_v2.py``:
   warp divergence, which the partition between rounds limits; triangle
   rows sit in shared memory. More in the source's header;
 * ``trace_events``: the loop of rounds. Unclustered: per-round bounce
-  budgets and an alive-first partition of the ray state between rounds.
+  budgets and an alive-first partition of the ray state between rounds;
+  the kernel is K1, or K6 with ``layout="group"`` (``ops/group_cuda.py``),
+  or K7 with ``version=1`` (``ops/v1_cuda.py``), whose state is row-major
+  [N, 16] from the first round to the last.
   Clustered: one bounce per round, the per-tile schedule and K2
   (``ops/schedule_cuda.py``) or, with ``schedule=False``, K5
   (``ops/traverse_cuda.py``, which finds and orders the clusters inside
@@ -72,6 +79,9 @@ _LANES = 128      # rays are padded to a multiple of this
 _TRI_BLOCK = 16   # triangle rows are trimmed to whole blocks of this
 _MAX_BANDS = 8
 _NR = 24          # floats per triangle row: 16 fixed + up to 8 bands
+_GROUP = 8        # triangles per group of the group layout
+_NQ = 6           # its quantities per triangle: no, nd, ou, du, ov, dv
+_AROWS = _NQ * _GROUP  # coefficient rows per group
 
 # Triangle-row columns (raytrace_pallas_v2.py:60-63).
 (_R_PNX, _R_PNY, _R_PNZ, _R_PD,
@@ -117,14 +127,12 @@ def band_cols(n_bands: int) -> tuple[list[int], list[int]]:
     return en, evw
 
 
-def _stack_rows(sc: SceneArrays, n_bands: int) -> torch.Tensor:
-    """Untrimmed triangle rows f32 [T, 24]: plane (n, d), barycentric (a_u,
-    u_off, a_v, v_off), unit normal, valid flag, then one absorption column
-    per band."""
+def _absorption_columns(sc: SceneArrays, n_bands: int) -> list:
+    """One absorption column [T] per band; only a one-band table
+    broadcasts over the bands."""
     if n_bands > _MAX_BANDS:
         raise ValueError(f"the trace kernel supports at most {_MAX_BANDS} "
                          f"bands")
-    t = sc.plane_n.shape[0]
     absorb = sc.absorption
     if absorb.dim() == 1:
         absorb = absorb[:, None]
@@ -132,7 +140,15 @@ def _stack_rows(sc: SceneArrays, n_bands: int) -> torch.Tensor:
         raise ValueError(f"scene has {absorb.shape[1]} absorption bands "
                          f"but params ask for {n_bands}; only 1-band "
                          f"scenes broadcast")
-    ab_cols = [absorb[:, min(b, absorb.shape[1] - 1)] for b in range(n_bands)]
+    return [absorb[:, min(b, absorb.shape[1] - 1)] for b in range(n_bands)]
+
+
+def _stack_rows(sc: SceneArrays, n_bands: int) -> torch.Tensor:
+    """Untrimmed triangle rows f32 [T, 24]: plane (n, d), barycentric (a_u,
+    u_off, a_v, v_off), unit normal, valid flag, then one absorption column
+    per band."""
+    ab_cols = _absorption_columns(sc, n_bands)
+    t = sc.plane_n.shape[0]
     zeros = torch.zeros(t, dtype=torch.float32, device=sc.plane_n.device)
     return torch.stack([
         sc.plane_n[:, 0], sc.plane_n[:, 1], sc.plane_n[:, 2], sc.plane_d,
@@ -184,10 +200,95 @@ def pack_tris_clusters(sc: SceneArrays, n_bands: int = 1
     return rows.contiguous(), boxes.to(torch.float32).contiguous()
 
 
-def pack_scene(sc: SceneArrays, n_bands: int = 1
-               ) -> tuple[torch.Tensor, torch.Tensor | None]:
-    """(rows, boxes) for :func:`trace_events`: the clustered packing when
-    the scene has cluster boxes, else K1's rows and None."""
+def attr_cols(n_bands: int) -> int:
+    """Columns of the group layout's attribute table: 3 normal + n_bands
+    absorption + valid, rounded up to 8 or 16."""
+    return 8 if n_bands <= 4 else 16
+
+
+def pack_tris_group(sc: SceneArrays, n_bands: int = 1
+                    ) -> tuple[torch.Tensor, torch.Tensor]:
+    """K6's operands (``pack_tris_v2`` with ``layout="group"``): ``coeffs``
+    f32 [G * 48, 8] and ``attrs`` f32 [G * 8, 8 or 16], G groups of 8
+    triangles, trimmed to whole groups past the last valid triangle.
+
+    Row ``g * 48 + q * 8 + i`` of ``coeffs`` holds the 8 coefficients that
+    give quantity q of triangle ``g * 8 + i`` as a product with the ray's
+    (px, py, pz, vx, vy, vz, 1, 0):
+      no = pn . p + pd     nd = pn . v
+      ou = au . p + u_off  du = au . v
+      ov = av . p + v_off  dv = av . v
+    ``attrs`` rows: unit normal, ``n_bands`` absorptions, the valid flag at
+    column 3 + n_bands, zeros. Raises for a triangle count that is not a
+    multiple of 8, more than 8 bands, a band mismatch, and a clustered
+    scene."""
+    t = sc.plane_n.shape[0]
+    if t % _GROUP:
+        raise ValueError(f"triangle count {t} not a multiple of {_GROUP}")
+    ab_cols = _absorption_columns(sc, n_bands)
+    if sc.cluster_boxes is not None:
+        raise ValueError("group layout cannot carry cluster boxes")
+    zeros = torch.zeros(t, dtype=torch.float32, device=sc.plane_n.device)
+
+    def coeff(vec3, offset, on_pos):
+        x, y, z = vec3[:, 0], vec3[:, 1], vec3[:, 2]
+        if on_pos:
+            return torch.stack([x, y, z, zeros, zeros, zeros, offset, zeros],
+                               dim=1)
+        return torch.stack([zeros, zeros, zeros, x, y, z, zeros, zeros],
+                           dim=1)
+
+    q = torch.stack([
+        coeff(sc.plane_n, sc.plane_d, True), coeff(sc.plane_n, zeros, False),
+        coeff(sc.bary_u, sc.u_off, True), coeff(sc.bary_u, zeros, False),
+        coeff(sc.bary_v, sc.v_off, True), coeff(sc.bary_v, zeros, False),
+    ], dim=1)  # [T, 6 quantities, 8 coefficients]
+    coeffs = q.reshape(t // _GROUP, _GROUP, _NQ, 8).permute(0, 2, 1, 3)
+    coeffs = coeffs.reshape(t // _GROUP * _AROWS, 8).to(torch.float32)
+    attrs = torch.stack([
+        sc.normal[:, 0], sc.normal[:, 1], sc.normal[:, 2], *ab_cols,
+        sc.valid, *[zeros] * (attr_cols(n_bands) - 4 - n_bands),
+    ], dim=1).to(torch.float32)
+    keep = max(1, -(-_n_valid(sc) // _GROUP))
+    if keep < t // _GROUP:
+        coeffs, attrs = coeffs[:keep * _AROWS], attrs[:keep * _GROUP]
+    return coeffs.contiguous(), attrs.contiguous()
+
+
+def pack_tris_v1(sc: SceneArrays) -> torch.Tensor:
+    """K7's triangle table f32 [17, T] (``raytrace_pallas.py:pack_tris``):
+    the rows of K1's layout as columns, with the absorption (row 15) before
+    the valid flag (row 16). One band, no trim; T must be a multiple of
+    128."""
+    absorb = sc.absorption
+    if absorb.dim() == 2 and absorb.shape[1] == 1:
+        absorb = absorb[:, 0]
+    if absorb.dim() != 1:
+        raise ValueError(f"the version-1 kernel carries one absorption "
+                         f"band, the scene has {absorb.shape[1]}")
+    tris = torch.stack([
+        sc.plane_n[:, 0], sc.plane_n[:, 1], sc.plane_n[:, 2], sc.plane_d,
+        sc.bary_u[:, 0], sc.bary_u[:, 1], sc.bary_u[:, 2], sc.u_off,
+        sc.bary_v[:, 0], sc.bary_v[:, 1], sc.bary_v[:, 2], sc.v_off,
+        sc.normal[:, 0], sc.normal[:, 1], sc.normal[:, 2], absorb, sc.valid,
+    ]).to(torch.float32)
+    if tris.shape[1] % _LANES:
+        raise ValueError(f"triangle count {tris.shape[1]} not a multiple of "
+                         f"{_LANES}")
+    return tris.contiguous()
+
+
+def pack_scene(sc: SceneArrays, n_bands: int = 1, layout: str = "rows",
+               version: int = 2):
+    """(tris, boxes) for :func:`trace_events` under the same ``layout`` and
+    ``version``: K7's [17, T] table for version 1 (it never culls: boxes
+    None); the (coeffs, attrs) pair of K6 for the group layout, which a
+    clustered scene refuses; else the clustered packing when the scene has
+    cluster boxes, or K1's rows and None."""
+    if version == 1:
+        return pack_tris_v1(sc), None
+    if layout == "group":
+        return pack_tris_group(sc, n_bands), None
     if sc.cluster_boxes is not None:
         return pack_tris_clusters(sc, n_bands)
     return pack_tris_rows(sc, n_bands), None
@@ -346,17 +447,18 @@ def _round_schedule(max_bounces: int, first: int = 6,
     return budgets
 
 
-def _partition_alive_first(state: torch.Tensor,
-                           n_poses: int = 1) -> torch.Tensor:
-    """Stable alive-first reorder of the ray columns, within each of the
-    ``n_poses`` equal segments of the ray axis. One cumsum over the whole
+def _partition_alive_first(state: torch.Tensor, n_poses: int = 1,
+                           ray_dim: int = 1) -> torch.Tensor:
+    """Stable alive-first reorder of the rays, within each of the
+    ``n_poses`` equal segments of the ray axis ``ray_dim`` (1 for the
+    [ncols, N] state, 0 for K7's row-major [N, 16]). One cumsum over the whole
     ray axis, rebased at each pose's first ray, counts the alive rays up to
     each ray of its pose (the dead ones follow from the ray's position);
     that gives each ray its slot, a scatter inverts the slots into a
     permutation, and one ``index_select`` applies it."""
-    n = state.shape[1]
+    n = state.shape[ray_dim]
     dev = state.device
-    alive = (state[_C_DONE] == 0.0).to(torch.int64)
+    alive = (state.select(1 - ray_dim, _C_DONE) == 0.0).to(torch.int64)
     ca = torch.cumsum(alive, 0).view(n_poses, -1)
     alive = alive.view(n_poses, -1)
     ca = ca - (ca[:, :1] - alive[:, :1])          # restart at every pose
@@ -366,7 +468,7 @@ def _partition_alive_first(state: torch.Tensor,
     first = torch.arange(n_poses, device=dev)[:, None] * alive.shape[1]
     perm = torch.empty(n, dtype=torch.int64, device=dev).scatter_(
         0, (dest + first).reshape(-1), torch.arange(n, device=dev))
-    return state.index_select(1, perm)
+    return state.index_select(ray_dim, perm)
 
 
 # Coherence keys of the clustered route (raytrace_pallas.py:270-351, the
@@ -692,22 +794,27 @@ def _budgets(params: TraceParams, round_budgets: tuple | None,
     return budgets
 
 
-def _run_rounds(state: torch.Tensor, tris: torch.Tensor,
-                boxes: torch.Tensor | None, scal: torch.Tensor,
-                params: TraceParams, budgets: list[int], compact: bool,
-                n_poses: int = 1, *, schedule: bool,
-                harvest=None) -> torch.Tensor:
+def _run_rounds(state: torch.Tensor, tris, boxes: torch.Tensor | None,
+                scal: torch.Tensor, params: TraceParams, budgets: list[int],
+                compact: bool, n_poses: int = 1, *, schedule: bool,
+                harvest=None, layout: str = "rows",
+                precision: str = "highest") -> torch.Tensor:
     """The loop of rounds over ``state`` [ncols, n_poses * n_pad] with the
-    reorder between rounds kept inside each pose's segment. ``harvest``,
-    when given, is called with the round's index and the state after every
-    round's kernel, before the reorder (the path recorder reads RAYID and
-    LTRI there)."""
-    from . import schedule_cuda, traverse_cuda  # they build on this module
+    reorder between rounds kept inside each pose's segment. ``tris``: the
+    triangle rows, or with ``layout="group"`` K6's (coeffs, attrs).
+    ``harvest``, when given, is called with the round's index and the state
+    after every round's kernel, before the reorder (the path recorder reads
+    RAYID and LTRI there)."""
+    # they build on this module
+    from . import group_cuda, schedule_cuda, traverse_cuda
 
     rays_per_pose = state.shape[1] // n_poses
     for k, budget in enumerate(budgets):
         last = k + 1 == len(budgets)
-        if boxes is None:
+        if layout == "group":
+            state = group_cuda.trace_round_group(
+                state, *tris, scal, params, budget, rays_per_pose, precision)
+        elif boxes is None:
             state = trace_round(state, tris, scal, params, budget,
                                 rays_per_pose)
         elif schedule:
@@ -727,7 +834,33 @@ def _run_rounds(state: torch.Tensor, tris: torch.Tensor,
     return state
 
 
-def trace_events(tris: torch.Tensor, directions: torch.Tensor | None,
+def _no_boxes_in_groups(layout: str, boxes: torch.Tensor | None) -> None:
+    """``TracerOptions`` checks the three options' values and K6's wrapper
+    its precision; what only a trace can see is the pairing."""
+    if layout == "group" and boxes is not None:
+        raise ValueError("group layout cannot carry cluster boxes")
+
+
+def _trace_events_v1(tris: torch.Tensor, directions: torch.Tensor,
+                     emitter: torch.Tensor, scal: torch.Tensor, e0: float,
+                     n_pad: int, params: TraceParams, budgets: list[int],
+                     compact: bool):
+    """The rounds of version 1: K7 over a row-major state [n_pad, 16] that
+    stays row-major from the first round to the last, the alive-first
+    partition between rounds a gather of rows."""
+    from . import v1_cuda  # it builds on this module
+
+    state = init_state(directions, emitter, e0, n_pad).T.contiguous()
+    for k, budget in enumerate(budgets):
+        state = v1_cuda.trace_round_v1(state, tris, scal, params, budget)
+        if compact and k + 1 < len(budgets):
+            state = _partition_alive_first(state, ray_dim=0)
+    return (state[:, _C_EVB].contiguous(),
+            state[:, _C_EVW:_C_EVW + 1].contiguous(),
+            state[:, _C_EVE].to(torch.int32))
+
+
+def trace_events(tris, directions: torch.Tensor | None,
                  emitter: torch.Tensor, receiver_pos: torch.Tensor,
                  receiver_yaw_deg, params: TraceParams,
                  n_total_rays: int | None = None, compact: bool = True,
@@ -735,11 +868,17 @@ def trace_events(tris: torch.Tensor, directions: torch.Tensor | None,
                  boxes: torch.Tensor | None = None,
                  n_rays: int | None = None,
                  native_rng_seed: torch.Tensor | None = None,
-                 schedule: bool = False):
+                 schedule: bool = False, layout: str = "rows",
+                 version: int = 2, precision: str = "highest"):
     """Trace ``directions`` [N, 3] in bounce rounds.
 
-    ``tris``, ``boxes``: from :func:`pack_scene`; with ``boxes`` the
-    clustered route runs. ``schedule`` (the JAX package's
+    ``tris``, ``boxes``: from :func:`pack_scene` under the same ``layout``
+    and ``version``; with ``boxes`` the clustered route runs. ``layout``,
+    ``version``, ``precision`` (``TracerOptions``' fields of those names)
+    pick the kernel of an unclustered trace: K1 over the rows; K6 over the
+    group layout's (coeffs, attrs), its product at ``precision``; or, with
+    ``version=1``, K7 over the [17, T] table, which keeps a row-major state,
+    ignores ``boxes`` and needs ``directions``. ``schedule`` (the JAX package's
     ``schedule_mode``): a clustered round is the per-tile schedule and K2;
     False makes it K5, the traversal inside the kernel
     (``ops/traverse_cuda.py``), the default here as in
@@ -758,6 +897,13 @@ def trace_events(tris: torch.Tensor, directions: torch.Tensor | None,
     Returns the event slots (ev_bin_f f32 [n_pad], ev_w f32 [n_pad,
     n_bands], ev_ear int32 [n_pad]); padding rays carry zero weight.
     """
+    if directions is None and (version != 2 or native_rng_seed is None
+                               or n_rays is None):
+        raise ValueError("directions=None needs version=2 + "
+                         "native_rng_seed + n_rays")
+    if version == 1:
+        boxes = None
+    _no_boxes_in_groups(layout, boxes)
     n = directions.shape[0] if directions is not None else int(n_rays)
     n_real = n_total_rays if n_total_rays is not None else n
     n_pad = -(-n // _LANES) * _LANES
@@ -765,6 +911,9 @@ def trace_events(tris: torch.Tensor, directions: torch.Tensor | None,
                        schedule)
     e0 = params.base_power / (n_real * constants.SPHERE_VOLUME)
     scal = scalars(emitter, receiver_pos, receiver_yaw_deg, e0, params)
+    if version == 1:
+        return _trace_events_v1(tris, directions, emitter, scal, e0, n_pad,
+                                params, budgets, compact)
     if directions is None:
         seeded = scal.clone()
         seeded[_S_PAD14] = native_rng_seed.to(torch.float32)
@@ -772,13 +921,14 @@ def trace_events(tris: torch.Tensor, directions: torch.Tensor | None,
     else:
         state = init_state(directions, emitter, e0, n_pad, params.n_bands)
     state = _run_rounds(state, tris, boxes, scal, params, budgets, compact,
-                        schedule=schedule)
+                        schedule=schedule, layout=layout,
+                        precision=precision)
     evw_cols = band_cols(params.n_bands)[1]
     return (state[_C_EVB].contiguous(), state[evw_cols].T.contiguous(),
             state[_C_EVE].to(torch.int32))
 
 
-def trace_events_pose_batch(tris: torch.Tensor, directions: torch.Tensor,
+def trace_events_pose_batch(tris, directions: torch.Tensor,
                             emitters: torch.Tensor, receivers: torch.Tensor,
                             receiver_yaws_deg: torch.Tensor,
                             params: TraceParams,
@@ -786,13 +936,15 @@ def trace_events_pose_batch(tris: torch.Tensor, directions: torch.Tensor,
                             compact: bool = True,
                             round_budgets: tuple | None = None,
                             boxes: torch.Tensor | None = None,
-                            schedule: bool = False):
+                            schedule: bool = False, layout: str = "rows",
+                            precision: str = "highest"):
     """Trace P poses in one kernel launch per round.
 
     ``directions`` [P, N, 3], ``emitters`` and ``receivers`` [P, 3],
     ``receiver_yaws_deg`` [P]; ``tris``, ``boxes``, ``compact``,
-    ``round_budgets`` and ``schedule`` as in :func:`trace_events`, with the
-    same errors; a clustered scene batches only through the schedule and
+    ``round_budgets``, ``schedule``, ``layout`` and ``precision`` as in
+    :func:`trace_events`, with the same errors (version 1 has no posed
+    form); a clustered scene batches only through the schedule and
     K2, so ``boxes`` without ``schedule`` raises, as in the JAX package. The
     ray state is pose-major, [ncols, P * n_pad]: each 128-ray tile belongs
     to one pose and the kernels read that pose's scalar row. Between rounds
@@ -805,6 +957,7 @@ def trace_events_pose_batch(tris: torch.Tensor, directions: torch.Tensor,
     Returns (ev_bin_f f32 [P, n_pad], ev_w f32 [P, n_pad, n_bands], ev_ear
     int32 [P, n_pad]).
     """
+    _no_boxes_in_groups(layout, boxes)
     if boxes is not None and not schedule:
         raise ValueError("pose-batched tracing on clustered scenes requires "
                          "schedule=True")
@@ -817,7 +970,8 @@ def trace_events_pose_batch(tris: torch.Tensor, directions: torch.Tensor,
     scal = scalars(emitters, receivers, receiver_yaws_deg, e0, params)
     state = init_state(directions, emitters, e0, n_pad, params.n_bands)
     state = _run_rounds(state, tris, boxes, scal, params, budgets, compact,
-                        n_poses=p, schedule=schedule)
+                        n_poses=p, schedule=schedule, layout=layout,
+                        precision=precision)
     state = state.view(-1, p, n_pad)
     evw_cols = band_cols(params.n_bands)[1]
     return (state[_C_EVB].contiguous(),

@@ -23,9 +23,9 @@ import torch
 
 from . import accel, constants, tuned
 from .core.params import TraceParams
-from .core.tracer import TracerOptions, render_ir, scene_to_arrays
+from .core.tracer import (TracerOptions, packed_scene, render_ir,
+                          scene_to_arrays)
 from .ops import convolve, filterbank
-from .ops.raytrace_cuda import pack_scene
 from .scene import Scene
 
 
@@ -42,10 +42,13 @@ class AudioRenderer:
       opts: tracer options; None = ``tuned.auto_options`` for the scene,
         which also Morton-sorts a scene of 512 triangles and up into
         clusters of 32 (``accel.prepare_scene``) and traces it through the
-        schedule and K2. Explicit ``opts`` with the kernels backend sort the
-        scene into clusters of 128, as the JAX renderer does for manual
-        pallas-v2 options, and trace it through K5 unless they set
-        ``schedule``; a scene too small to cluster stays on the rows route.
+        schedule and K2. Explicit ``opts`` with the version-2 kernels
+        backend sort the scene into clusters of 128, as the JAX renderer
+        does for manual pallas-v2 options, and trace it through K5 unless
+        they set ``schedule``; a scene too small to cluster stays
+        unclustered, on K1 or, with ``layout="group"``, K6 (which refuses a
+        scene large enough to cluster: its layout carries no boxes).
+        ``version=1`` never clusters: K7 runs over every triangle.
       seed: seed of the direction generator; renders draw from it in turn,
         so the sequence of IRs is reproducible.
       device: where the scene, the trace and the IR live. A CUDA device
@@ -78,7 +81,7 @@ class AudioRenderer:
         if opts is None:
             opts, cluster_size = tuned.auto_options(scene.n_triangles,
                                                     int(max_bounces))
-        elif opts.backend == "kernels":
+        elif opts.backend == "kernels" and opts.version == 2:
             cluster_size = tuned.MANUAL_CLUSTER_SIZE
         else:
             cluster_size = None
@@ -101,9 +104,11 @@ class AudioRenderer:
                      if scene.absorption.ndim == 2 else 1),
         )
         self.band_edges = tuple(band_edges)
-        # Triangle rows (and cluster boxes), packed once: the trim at the
-        # last valid triangle reads it back to the host.
-        self.rows, self.boxes = pack_scene(self.sc, self.params.n_bands)
+        # The triangles as the options' kernel reads them (and the cluster
+        # boxes), packed once: the trim at the last valid triangle reads it
+        # back to the host.
+        self.rows, self.boxes = packed_scene(self.sc, self.params, None,
+                                             None, opts)
         self.emitter_pos = np.zeros(3, np.float32)
         self.receiver_pos = np.zeros(3, np.float32)
         self.receiver_yaw_deg = 0.0
@@ -203,6 +208,14 @@ class AudioRenderer:
                 self.band_edges)
         return convolve.convolve_file_stereo(samples, self._ir_dev,
                                              self.params.sample_rate)
+
+    def convolve_audio_file_device_checksum(self, samples) -> float:
+        """The device convolution of ``samples`` (an array, or a tensor
+        already on the device) reduced to the sum of its output, read back
+        as one float: the fence of a timed convolution. The float exists
+        only once the convolution has run, where the call alone returns
+        as soon as a CUDA device has the work queued."""
+        return float(self.convolve_audio_file_device(samples).sum())
 
     def convolve_audio_file(self, samples: np.ndarray) -> np.ndarray:
         """Convolve a full signal with the current IR: overlap-add per 1 s

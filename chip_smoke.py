@@ -109,8 +109,33 @@ Phases, in order; any failure raises and the script exits non-zero:
    steps of the full method on 3 receivers): absorption within 0.08, the
    emitter within 0.5 m.
 
+18. K6, the group-layout kernel, against its plain version on the card, bit
+   for bit: the box, 65,536 and 1,000,064 rays, an 8-bounce round from the
+   start state, 1 and 4 bands, "highest" and "high"; the 320-triangle
+   icosphere (40 groups: the multi-chunk branch) at 65,536 rays; with one
+   scalar row per pose at the demo matrix's shape (8 x 1,000,064 rays), also
+   against single-pose launches; then K6 ("highest") against K1 on the same
+   state, every column; times of K6, K1 and the plain version; then the
+   2 x 4 x 1M-ray matrix through K6 (render_ir_matrix with
+   layout="group"), the launch counts read around it, against the rows
+   matrix;
+19. K7, the version-1 kernel, against its plain version, bit for bit: the
+   box (128 columns) and the icosphere padded to 512 columns, 65,536 and
+   1,000,064 rays, budgets 6 and 12, and a 1,280-triangle icosphere (the
+   block-synchronous branch) at 65,536 rays; columns 13-15 zero; then K7
+   against K1 on the same start state (columns 0-12); times;
+20. the manual-options path as a user runs it: the CLI's experimentation
+   mode on the box config at 1M rays x 100 bounces, --rounds 10, with
+   default options, with --layout group and with --kernel-version 1, the
+   launch counts read around each run and the three summaries printed;
+   round 0's IR of each manual route against the default route's (per-ear
+   energy within 1e-3, relative L1 < 1e-2); then a native_rng render with
+   the group layout (K4 then K6) against the same render with rows.
+
 Then one JSON line of the kernels: name, route, source, the TPU kernel it
-replaces, launches on its main path (the export of phase 5; for the
+replaces, launches on its main path (the export of phase 5; for K6 and K7
+the experimentation runs of phase 20, for the posed K6 the matrix of phase
+18; for the
 clustered route's kernels that of phase 7; for the posed kernels and the
 posed histogram the matrices of phase 10, for the 4-band posed K1 that of
 phase 12; for K4 the render of phase 11; for K3-bwd the office fit of phase
@@ -118,7 +143,9 @@ phase 12; for K4 the render of phase 11; for K3-bwd the office fit of phase
 ms, plain ms (for the posed K1 those of the first of its two launches, the
 8-bounce round; the 32-bounce round's under "round2"), the bound (the larger
 of bytes moved over 3.35 TB/s and FP32 operations over 67 TFLOP/s, worked
-out from this run's inputs), what bounds
+out from this run's inputs; K6 is bound on K1's 40 operations a test, with
+the product as it issues it under "issued_bound_ms", and K7 on the valid
+triangles, with its padded columns under "padded_bound_ms"), what bounds
 it, and the time of one PyTorch call that computes the same function where
 there is one. Last, the result line. With no CUDA device the script exits
 non-zero and prints no result.
@@ -176,6 +203,11 @@ HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
 TRI_TEST_OPS = 40   # FP32 operations of one ray-triangle test (intersect)
 SLAB_TEST_OPS = 23  # of one ray-box slab test (tile_schedule)
+GROUP_TEST_OPS = 103  # of one ray-triangle test as K6 issues it: 48
+#                       eight-term sums per group of 8 (2 * 48 * 8 / 8 = 96
+#                       a triangle, its zeros included) plus the test's 7.
+#                       The function is K1's test, so K6 is bound at
+#                       TRI_TEST_OPS; this count gives "issued_bound_ms"
 INIT_RAY_OPS = 150  # integer + FP32 operations of K4 per ray (10 Philox
 #                     rounds, the sphere mapping, sinf, cosf)
 
@@ -444,19 +476,25 @@ def _reset_launches() -> None:
     from audiorenderingv2_tpu_torch.ops import histogram_cuda as hc
     from audiorenderingv2_tpu_torch.ops import raytrace_cuda as rc
     from audiorenderingv2_tpu_torch.ops import schedule_cuda as sc
+    from audiorenderingv2_tpu_torch.ops import group_cuda as gc
     from audiorenderingv2_tpu_torch.ops import traverse_cuda as tc
+    from audiorenderingv2_tpu_torch.ops import v1_cuda as v1
 
     rc.launches = rc.posed_launches = rc.init_launches = hc.launches = 0
     sc.tile_schedule_launches = sc.trace_round_sched_launches = 0
     sc.trace_round_sched_posed_launches = 0
     hc.bwd_launches = tc.trace_traverse_launches = 0
+    gc.trace_round_group_launches = gc.trace_round_group_posed_launches = 0
+    v1.trace_round_v1_launches = 0
 
 
 def _read_launches() -> dict:
     from audiorenderingv2_tpu_torch.ops import histogram_cuda as hc
     from audiorenderingv2_tpu_torch.ops import raytrace_cuda as rc
     from audiorenderingv2_tpu_torch.ops import schedule_cuda as sc
+    from audiorenderingv2_tpu_torch.ops import group_cuda as gc
     from audiorenderingv2_tpu_torch.ops import traverse_cuda as tc
+    from audiorenderingv2_tpu_torch.ops import v1_cuda as v1
 
     return {"trace_round": rc.launches,
             "trace_round_posed": rc.posed_launches,
@@ -465,7 +503,10 @@ def _read_launches() -> dict:
             "tile_schedule": sc.tile_schedule_launches,
             "trace_round_sched": sc.trace_round_sched_launches,
             "trace_round_sched_posed": sc.trace_round_sched_posed_launches,
-            "trace_traverse": tc.trace_traverse_launches}
+            "trace_traverse": tc.trace_traverse_launches,
+            "trace_round_group": gc.trace_round_group_launches,
+            "trace_round_group_posed": gc.trace_round_group_posed_launches,
+            "trace_round_v1": v1.trace_round_v1_launches}
 
 
 def _write_inputs(tmp: Path, scene_file: str = "room.obj",
@@ -2112,6 +2153,369 @@ def phase_trainer() -> dict:
     return fl
 
 
+def _box_params(n_bands: int = 1):
+    from audiorenderingv2_tpu_torch.core.params import TraceParams
+
+    return TraceParams(sample_rate=SR, ir_length=IR_SECONDS * SR,
+                       base_power=3.62, max_bounces=MAX_BOUNCES,
+                       hrtf_absorption_rate=0.9, n_bands=n_bands)
+
+
+def _start_state(n: int, params, n_bands: int = 1):
+    """The box's start state [ncols, n_pad] of ``n`` seeded rays and its
+    scalar row."""
+    from audiorenderingv2_tpu_torch import constants
+    from audiorenderingv2_tpu_torch.ops import raytrace_cuda as rc
+
+    dev = torch.device("cuda")
+    emitter = torch.tensor(EMITTER, device=dev)
+    receiver = torch.tensor(RECEIVER, device=dev)
+    e0 = params.base_power / (n * constants.SPHERE_VOLUME)
+    d = torch.from_numpy(unit_dirs(n, 11)).to(dev)
+    return (rc.init_state(d, emitter, e0, -(-n // 128) * 128, n_bands),
+            rc.scalars(emitter, receiver, 30.0, e0, params))
+
+
+def _scene_arrays(mesh, n_bands: int = 1, pad_to: int | None = None):
+    """Scene arrays on the card of a (vertices, triangles) mesh, absorption
+    0.3 or the banded phases' per band; ``pad_to`` appends all-zero padding
+    triangles up to that count."""
+    from audiorenderingv2_tpu_torch import testing
+    from audiorenderingv2_tpu_torch.core import tracer
+
+    absorb = ABSORPTION if n_bands == 1 else np.tile(
+        np.asarray(BANDED_ABSORPTION[:n_bands], np.float32),
+        (mesh[1].shape[0], 1))
+    sc = tracer.scene_to_arrays(testing.scene_from_arrays(*mesh, absorb),
+                                128, device="cuda")
+    if pad_to is not None:
+        extra = pad_to - sc.valid.shape[0]
+        sc = sc._replace(**{
+            k: torch.cat([x, x.new_zeros((extra,) + tuple(x.shape[1:]))])
+            for k, x in sc._asdict().items() if x is not None})
+    return sc
+
+
+def phase_group() -> tuple[dict, dict, dict]:
+    """K6 against its plain version and against K1; returns the JSON
+    numbers of K6 with one scalar row and with a row per pose, and the
+    launches of the posed K6 on the matrix."""
+    from audiorenderingv2_tpu_torch import constants, multi, testing
+    from audiorenderingv2_tpu_torch.core import tracer
+    from audiorenderingv2_tpu_torch.ops import group_cuda as gc
+    from audiorenderingv2_tpu_torch.ops import raytrace_cuda as rc
+
+    dev = torch.device("cuda")
+    budget = 8
+    entry = {}
+    ico = testing.icosphere(radius=6.0, subdivisions=2)
+    for scene_name, mesh, sizes in (
+            ("box", testing.box_room(ROOM), (65536, N_RAYS)),
+            ("icosphere (320 triangles, 40 groups)", ico, (65536,))):
+        for n_bands in (1, 4):
+            sc = _scene_arrays(mesh, n_bands)
+            params = _box_params(n_bands)
+            coeffs, attrs = rc.pack_tris_group(sc, n_bands)
+            rows = rc.pack_tris_rows(sc, n_bands)
+            for n in sizes:
+                state, scal = _start_state(n, params, n_bands)
+                k1 = rc.trace_round(state.clone(), rows, scal, params, budget)
+                for precision in ("highest", "high"):
+                    what = (f"K6 {precision}, {scene_name}, {n_bands} "
+                            f"band(s), {state.shape[1]} rays")
+                    kern = gc.trace_round_group(state.clone(), coeffs, attrs,
+                                                scal, params, budget,
+                                                precision=precision)
+                    plain = gc.trace_round_group_plain(
+                        state.clone(), coeffs, attrs, scal, params, budget,
+                        precision=precision)
+                    torch.cuda.synchronize()
+                    err = _assert_same_bits(kern, plain, what)
+                    differ = int((kern != k1).any(dim=0).sum())
+                    if precision == "highest":
+                        # the packing's zeros add exactly: K1's bits
+                        assert differ == 0, (what, differ)
+                    else:
+                        # the rays whose path is K1's: same triangle,
+                        # depth, end, receiver entry and ear
+                        flags = [rc._C_LTRI, rc._C_DEPTH, rc._C_DONE,
+                                 rc._C_RECVD, rc._C_EVE]
+                        same = (kern[flags] == k1[flags]).all(dim=0)
+                        frac = float(same.float().mean())
+                        rel = float(((kern - k1)[:, same].abs()
+                                     / k1[:, same].abs().clamp(min=1.0))
+                                    .max())
+                        assert frac > 0.99 and rel < 1e-2, (what, frac, rel)
+                    log(f"{what}, {budget}-bounce round, "
+                        f"{coeffs.shape[0] // 48} group(s): bit-identical "
+                        f"to the plain version in every column; {differ} "
+                        f"rays differ from K1 in some bit"
+                        + ("" if precision == "highest" else
+                           f", {frac:.6f} of the rays on K1's path, those "
+                           f"within {rel:.2e} of K1 (relative to max(|x|, "
+                           f"1))"))
+                    if (scene_name, n_bands, n) == ("box", 1, N_RAYS):
+                        ms = median_ms(
+                            lambda s: gc.trace_round_group(
+                                s, coeffs, attrs, scal, params, budget,
+                                precision=precision), 5,
+                            setup=lambda: (state.clone(),))
+                        plain_ms = median_ms(
+                            lambda s: gc.trace_round_group_plain(
+                                s, coeffs, attrs, scal, params, budget,
+                                precision=precision), 2,
+                            setup=lambda: (state.clone(),))
+                        k1_ms = median_ms(
+                            lambda s: rc.trace_round(s, rows, scal, params,
+                                                     budget), 5,
+                            setup=lambda: (state.clone(),))
+                        n_valid = int((attrs[:, 3 + n_bands] > 0).sum())
+                        tests = round_tests(state, kern) * n_valid
+                        # The function is K1's ray-triangle test; the
+                        # product as issued (its zeros, and the three
+                        # products of "high") is counted beside it.
+                        ops = GROUP_TEST_OPS * (3 if precision == "high"
+                                                else 1)
+                        b = bound(2 * nbytes(state)
+                                  + nbytes(coeffs, attrs, scal),
+                                  tests * TRI_TEST_OPS)
+                        issued = bound(0, tests * ops)["bound_ms"]
+                        log(f"{what}: kernel {ms:.3f} ms, plain "
+                            f"{plain_ms:.3f} ms, K1 on the same state "
+                            f"{k1_ms:.3f} ms; {tests:.4g} tests of "
+                            f"{n_valid} valid triangles at {TRI_TEST_OPS} "
+                            f"operations, bound {b['bound_ms']:.4f} ms by "
+                            f"{b['bound_by']} (at the {ops} operations the "
+                            f"kernel issues a test: {issued:.4f} ms)")
+                        entry[precision] = {
+                            "max_abs_err": err, "ms": ms,
+                            "plain_ms": plain_ms, **b, "library_ms": None,
+                            "k1_ms": k1_ms, "issued_bound_ms": issued}
+
+    # One scalar row per pose, at the demo matrix's shape.
+    p, n_pad = 8, -(-N_RAYS // 128) * 128
+    params = _multi_params()
+    sc = tracer.scene_to_arrays(_multi_box(1), 128, device=dev)
+    coeffs, attrs = rc.pack_tris_group(sc)
+    em, rcv, yaw = _multi_poses(dev)
+    e0 = params.base_power / (N_RAYS * constants.SPHERE_VOLUME)
+    state = rc.init_state(_pose_directions(0, p, N_RAYS, dev), em, e0, n_pad)
+    scal = rc.scalars(em, rcv, yaw, e0, params)
+    kern = gc.trace_round_group(state.clone(), coeffs, attrs, scal, params,
+                                budget, n_pad)
+    plain = gc.trace_round_group_plain(state.clone(), coeffs, attrs, scal,
+                                       params, budget, n_pad)
+    torch.cuda.synchronize()
+    err = _assert_same_bits(kern, plain, "posed K6")
+    for i in range(p):
+        seg = slice(i * n_pad, (i + 1) * n_pad)
+        one = gc.trace_round_group(state[:, seg].contiguous(), coeffs, attrs,
+                                   scal[i].contiguous(), params, budget)
+        assert torch.equal(one, kern[:, seg]), \
+            f"posed K6, pose {i} differs from a single-pose launch"
+    ms = median_ms(lambda s: gc.trace_round_group(s, coeffs, attrs, scal,
+                                                  params, budget, n_pad), 3,
+                   setup=lambda: (state.clone(),))
+    plain_ms = median_ms(
+        lambda s: gc.trace_round_group_plain(s, coeffs, attrs, scal, params,
+                                             budget, n_pad), 1,
+        setup=lambda: (state.clone(),))
+    n_valid = int((attrs[:, 4] > 0).sum())
+    tests = round_tests(state, kern) * n_valid
+    posed = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+             **bound(2 * nbytes(state) + nbytes(coeffs, attrs, scal),
+                     tests * TRI_TEST_OPS), "library_ms": None,
+             "issued_bound_ms": bound(0, tests * GROUP_TEST_OPS)["bound_ms"]}
+    log(f"K6-pose, the demo's box, {p} poses x {n_pad} rays, scal [8, 16], "
+        f"{budget}-bounce round: bit-identical to the plain version and, "
+        f"per pose, to single-pose launches; kernel {ms:.3f} ms, plain "
+        f"{plain_ms:.3f} ms, bound {posed['bound_ms']:.4f} ms by "
+        f"{posed['bound_by']} (as issued: {posed['issued_bound_ms']:.4f} ms)")
+
+    # The matrix through K6 against the matrix through K1.
+    opts = tracer.TracerOptions(round_budgets=MULTI_BUDGETS, layout="group")
+    _reset_launches()
+    irs = multi.render_ir_matrix(sc, 0, MULTI_EMITTERS, MULTI_LISTENERS,
+                                 MULTI_YAWS, N_RAYS, params, opts,
+                                 pair_batch=8)
+    launches = _read_launches()
+    assert launches["trace_round_group_posed"] == len(MULTI_BUDGETS), launches
+    assert launches["trace_round_posed"] == launches["trace_round"] == 0
+    rows_irs = multi.render_ir_matrix(
+        sc, 0, MULTI_EMITTERS, MULTI_LISTENERS, MULTI_YAWS, N_RAYS, params,
+        tracer.TracerOptions(round_budgets=MULTI_BUDGETS), pair_batch=8)
+    assert np.isfinite(irs).all() and (irs > 0).sum(axis=-1).min() >= 200
+    testing.assert_ir_close(irs.reshape(-1, irs.shape[-1]),
+                            rows_irs.reshape(-1, irs.shape[-1]), exact=False)
+    group_ms = wall_ms(lambda: multi.render_ir_matrix(
+        sc, 0, MULTI_EMITTERS, MULTI_LISTENERS, MULTI_YAWS, N_RAYS, params,
+        opts, pair_batch=8), 3)
+    log(f"2 x 4 x {N_RAYS}-ray matrix with layout='group': launches "
+        f"{launches}; against the rows matrix max abs diff "
+        f"{np.abs(irs - rows_irs).max():.3e} (relative L1 "
+        f"{np.abs(irs - rows_irs).sum() / np.abs(rows_irs).sum():.3e}); "
+        f"{group_ms:.3f} ms (median of 3, host clock)")
+    entry["highest"]["high"] = {k: entry["high"][k]
+                                for k in ("ms", "plain_ms", "bound_ms",
+                                          "bound_by", "issued_bound_ms")}
+    return entry["highest"], posed, launches
+
+
+def phase_v1() -> dict:
+    """K7 against its plain version and against K1; returns its JSON
+    numbers (the box, 1,000,064 rays, budget 6)."""
+    from audiorenderingv2_tpu_torch import testing
+    from audiorenderingv2_tpu_torch.ops import raytrace_cuda as rc
+    from audiorenderingv2_tpu_torch.ops import v1_cuda
+
+    params = _box_params()
+    ico = testing.icosphere(radius=6.0, subdivisions=2)
+    entry = None
+    for scene_name, mesh, pad_to, sizes in (
+            ("box", testing.box_room(ROOM), None, (65536, N_RAYS)),
+            ("icosphere (320 triangles)", ico, 512, (65536, N_RAYS)),
+            ("icosphere (1,280 triangles, two shared-memory chunks)",
+             testing.icosphere(radius=6.0, subdivisions=3), None, (65536,))):
+        sc = _scene_arrays(mesh, pad_to=pad_to)
+        tris = rc.pack_tris_v1(sc)
+        rows = rc.pack_tris_rows(sc)
+        for n in sizes:
+            state, scal = _start_state(n, params)
+            state_rows = state.T.contiguous()
+            for budget in (6, 12):
+                what = (f"K7, {scene_name}, {tris.shape[1]} columns, "
+                        f"{state.shape[1]} rays, budget {budget}")
+                kern = v1_cuda.trace_round_v1(state_rows.clone(), tris, scal,
+                                              params, budget)
+                plain = v1_cuda.trace_round_v1_plain(
+                    state_rows.clone(), tris, scal, params, budget)
+                k1 = rc.trace_round(state.clone(), rows, scal, params, budget)
+                torch.cuda.synchronize()
+                err = _assert_same_bits(kern.T, plain.T, what)
+                assert not kern[:, 13:].any(), f"{what}: columns 13-15"
+                assert torch.equal(kern[:, :13], k1[:13].T), \
+                    f"{what}: columns 0-12 differ from K1's"
+                ms = median_ms(lambda s: v1_cuda.trace_round_v1(
+                    s, tris, scal, params, budget), 5,
+                    setup=lambda: (state_rows.clone(),))
+                k1_ms = median_ms(lambda s: rc.trace_round(
+                    s, rows, scal, params, budget), 5,
+                    setup=lambda: (state.clone(),))
+                log(f"{what}: bit-identical to the plain version; columns "
+                    f"13-15 zero; columns 0-12 bit-identical to K1's; "
+                    f"kernel {ms:.3f} ms, K1 over {rows.shape[0]} rows "
+                    f"{k1_ms:.3f} ms")
+                if (scene_name, n, budget) == ("box", N_RAYS, 6):
+                    plain_ms = median_ms(
+                        lambda s: v1_cuda.trace_round_v1_plain(
+                            s, tris, scal, params, budget), 2,
+                        setup=lambda: (state_rows.clone(),))
+                    n_valid = int((tris[16] > 0).sum())
+                    searches = round_tests(state, k1)
+                    b = bound(2 * nbytes(state_rows) + nbytes(tris, scal),
+                              searches * n_valid * TRI_TEST_OPS)
+                    padded = bound(0, searches * tris.shape[1]
+                                   * TRI_TEST_OPS)["bound_ms"]
+                    log(f"{what}: plain {plain_ms:.3f} ms; "
+                        f"{searches * n_valid:.4g} tests of the {n_valid} "
+                        f"valid triangles, bound {b['bound_ms']:.4f} ms by "
+                        f"{b['bound_by']} (over all {tris.shape[1]} padded "
+                        f"columns, as the kernel runs them: {padded:.4f} "
+                        f"ms)")
+                    entry = {"max_abs_err": err, "ms": ms,
+                             "plain_ms": plain_ms, **b, "library_ms": None,
+                             "k1_ms": k1_ms, "padded_bound_ms": padded}
+    return entry
+
+
+def phase_experimentation() -> dict:
+    """The CLI's experimentation mode on the box with default options, with
+    the group layout and with version 1; returns the launches of each
+    run."""
+    import contextlib
+    import io
+
+    from audiorenderingv2_tpu_torch import cli, context, experiment, testing
+    from audiorenderingv2_tpu_torch.core.tracer import TracerOptions
+    from audiorenderingv2_tpu_torch.renderer import AudioRenderer
+
+    rounds = 10
+    routes = {"default": ([], None),
+              "group": (["--layout", "group"], TracerOptions(layout="group")),
+              "v1": (["--kernel-version", "1"], TracerOptions(version=1))}
+    launches, irs = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        testing.write_box_obj(Path(tmp) / "room.obj", ROOM, material="walls")
+        cfg = _write_inputs(Path(tmp))
+        for name, (flags, opts) in routes.items():
+            out = io.StringIO()
+            _reset_launches()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(out):
+                rc_ = cli.main([str(cfg), "experimentation", "--rounds",
+                                str(rounds), *flags])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches[name] = _read_launches()
+            lines = out.getvalue().strip().splitlines()
+            assert rc_ == 0 and len(lines) == 10, out.getvalue()
+            assert lines[0] == f"rounds: {rounds}"
+            values = [float(x.split(":")[1].split()[0]) for x in lines[1:]]
+            assert np.isfinite(values).all() and min(values[:8]) > 0, lines
+            log(f"experimentation, {name} options ({N_RAYS} rays, "
+                f"{MAX_BOUNCES} bounces, {wall:.2f} s wall); launches "
+                f"{launches[name]}:")
+            for line in lines:
+                log(f"  {line}")
+            # Round 0's IR of this route, from the generator the mode gave
+            # that round.
+            ctx = context.load_context(cfg, opts=opts, device="cuda")
+            ctx.renderer.set_receiver(ctx.receiver_pos, ctx.receiver_yaw_deg)
+            irs[name] = ctx.renderer.render(
+                experiment.round_generator(0, 0, "cuda")).copy()
+    renders = rounds + 1  # one warm-up
+    d, g, v = launches["default"], launches["group"], launches["v1"]
+    assert d["trace_round"] == 3 * renders and d["histogram"] == renders, d
+    assert d["trace_round_group"] == d["trace_round_v1"] == 0, d
+    # explicit options take the default schedule (6, 12, 24, 58)
+    assert g["trace_round_group"] == 4 * renders and g["trace_round"] == 0, g
+    assert v["trace_round_v1"] == 4 * renders and v["trace_round"] == 0, v
+    assert g["histogram"] == v["histogram"] == renders
+    base = irs["default"]
+    assert base.shape == (2, IR_SECONDS * SR) and np.isfinite(base).all()
+    assert np.all((base > 0).sum(axis=1) >= 200)
+    for name in ("group", "v1"):
+        testing.assert_ir_close(irs[name], base, exact=False)
+        log(f"experimentation, round 0's IR with {name} options against the "
+            f"default route's: passes assert_ir_close(exact=False); per-ear "
+            f"energy {irs[name].sum(axis=1).tolist()} / "
+            f"{base.sum(axis=1).tolist()}, relative L1 "
+            f"{np.abs(irs[name] - base).sum() / np.abs(base).sum():.3e}")
+
+    # K4 then K6: a native_rng render with the group layout against the
+    # same seed through the rows.
+    def native(layout: str) -> AudioRenderer:
+        r = AudioRenderer(_box_scene(), IR_SECONDS, SR, N_RAYS,
+                          base_power=3.62, max_bounces=MAX_BOUNCES,
+                          hrtf_absorption_rate=0.9, seed=0, device="cuda",
+                          opts=TracerOptions(native_rng=True, layout=layout))
+        r.set_emitter_pos(EMITTER)
+        r.set_receiver(RECEIVER, 0.0)
+        return r
+
+    _reset_launches()
+    ir_g = native("group").render().copy()
+    nl = _read_launches()
+    assert nl["init_state"] == 1 and nl["trace_round_group"] == 4, nl
+    assert nl["trace_round"] == 0, nl
+    ir_r = native("rows").render().copy()
+    testing.assert_ir_close(ir_g, ir_r, exact=False)
+    log(f"native_rng render with the group layout (K4 then K6): launches "
+        f"{nl}; against the rows render of the same seed relative L1 "
+        f"{np.abs(ir_g - ir_r).sum() / np.abs(ir_r).sum():.3e}")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; the port's "
@@ -2140,6 +2544,9 @@ def main() -> int:
     k5_launches = phase_recording()
     phase_gradient_step()
     fit_launches = phase_trainer()
+    k6, k6_posed, k6_posed_launches = phase_group()
+    k7 = phase_v1()
+    manual = phase_experimentation()
     kernels = [
         {"name": "trace_round", "route": "cuda",
          "source": "audiorenderingv2_tpu_torch/csrc/trace_round.cu",
@@ -2189,6 +2596,19 @@ def main() -> int:
          "source": "audiorenderingv2_tpu_torch/csrc/trace_traverse.cu",
          "replaces": "audiorenderingv2_tpu/ops/raytrace_pallas_v2.py:547",
          "launches": k5_launches["trace_traverse"], **k5},
+        {"name": "trace_round_group", "route": "cuda",
+         "source": "audiorenderingv2_tpu_torch/csrc/trace_group.cu",
+         "replaces": "audiorenderingv2_tpu/ops/raytrace_pallas_v2.py:397",
+         "launches": manual["group"]["trace_round_group"], **k6},
+        {"name": "trace_round_group_posed", "route": "cuda",
+         "source": "audiorenderingv2_tpu_torch/csrc/trace_group.cu",
+         "replaces": "audiorenderingv2_tpu/ops/raytrace_pallas_v2.py:887",
+         "launches": k6_posed_launches["trace_round_group_posed"],
+         **k6_posed},
+        {"name": "trace_round_v1", "route": "cuda",
+         "source": "audiorenderingv2_tpu_torch/csrc/trace_round_v1.cu",
+         "replaces": "audiorenderingv2_tpu/ops/raytrace_pallas.py:452",
+         "launches": manual["v1"]["trace_round_v1"], **k7},
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -71,7 +71,8 @@ def test_port_imports_without_jax():
         for name in names:
             importlib.import_module(name)
         for sub in ("diff.replay", "diff.inverse", "diff.checkpoint",
-                    "ops.traverse_cuda"):
+                    "ops.traverse_cuda", "ops.group_cuda", "ops.v1_cuda",
+                    "experiment", "utils.profiling", "cli"):
             assert pkg.__name__ + "." + sub in names, sub
         bad = [m for m, mod in sys.modules.items() if mod is not None and (
                m == "audiorenderingv2_tpu"
@@ -261,8 +262,9 @@ def test_convert_round_trip():
 
 
 def test_tracer_options_from_jax():
-    """Result options, round budgets, the backend and the differentiable
-    trace's options carry over; TPU tuning is dropped."""
+    """Result options, round budgets, the backend, the differentiable
+    trace's options and the three that pick a kernel (layout, version,
+    precision) carry over; the rest of the TPU tuning is dropped."""
     j = ar.TracerOptions(soft_binning=True, pallas_compact=False,
                          pallas_round_budgets=(2, 3, 5),
                          pallas_precision="high", pallas_layout="group",
@@ -271,7 +273,18 @@ def test_tracer_options_from_jax():
                          pallas_dynamic_grid=True)
     assert convert.tracer_options_from_jax(j) == t_tracer.TracerOptions(
         soft_binning=True, compact=False, round_budgets=(2, 3, 5),
-        backend="autograd")
+        backend="autograd", layout="group", precision="high")
+    v1 = ar.TracerOptions(backend="pallas", pallas_version=1,
+                          pallas_layout="rows", pallas_precision="split3",
+                          pallas_tri_block=32, pallas_sched_unroll=2)
+    assert convert.tracer_options_from_jax(v1) == t_tracer.TracerOptions(
+        version=1, precision="high")  # "split3" is the JAX alias of "high"
+    # "auto" is the rows layout; a single bf16 pass has no counterpart
+    assert convert.tracer_options_from_jax(
+        ar.TracerOptions(pallas_layout="auto")).layout == "rows"
+    with pytest.raises(ValueError, match="single bf16 pass"):
+        convert.tracer_options_from_jax(
+            ar.TracerOptions(pallas_precision="default"))
     # JAX's default backend is the differentiable one, the port's the
     # kernels; everything else of the defaults agrees.
     assert convert.tracer_options_from_jax(ar.TracerOptions()) == \

@@ -149,7 +149,7 @@ def test_cli_export_reads_back_in_jax(tmp_path, capsys):
     assert audio.n_channels == 2 and audio.sample_rate == SR
     assert audio.n_frames == 2 * SR + 300
     assert np.isclose(np.abs(audio.samples).max(), 1.0, atol=1e-4)
-    for mode in ("main", "experimentation", "walkthrough"):
+    for mode in ("main", "walkthrough"):
         with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1"):
             cli.main([str(cfg), mode])
 
