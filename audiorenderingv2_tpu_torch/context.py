@@ -74,6 +74,7 @@ def build_context(config: Config, base_dir: str | Path = ".",
         is_mono=config.scene.mono,
         opts=opts,
         seed=seed,
+        band_edges=config.pathtracer.absorption_band_edges,
         device=device,
     )
     renderer.write_ir_to_file_flag = config.renderer.write_first_ir_to_file

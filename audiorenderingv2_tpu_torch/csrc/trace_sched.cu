@@ -11,26 +11,129 @@
 // K1's receiver test and bounce tail (trace_common.cuh). The round is one
 // bounce: the schedule is computed from the positions before it.
 //
-// Design. One block of 128 threads is one tile, one thread one ray. For
-// each candidate, block-synchronously, the cluster's cs rows (3 KiB at
-// cs = 32) are staged into shared memory and every ray that is still alive
-// tests them. What bounds it on Hopper: the reads of the candidate
-// clusters' rows, which the L2 serves (the office scene's 19,872 rows are
-// 1.9 MB), and FP32 intersection math; the coherent sort between rounds
-// keeps a tile's rays close in position and direction, so its list stays
-// short. Done rays reach every barrier: there is no early return before
-// the loop, and a tile with count 0 still runs the receiver test.
+// Design. One block of 128 threads is one tile, one thread one ray, the
+// ray's state in registers. The tile's candidate clusters stream through a
+// ring of shared-memory stages: thread 0 fills a stage with one bulk
+// asynchronous copy of the cluster's cs rows (cp.async.bulk, completing on
+// the stage's "full" mbarrier), up to the ring's depth ahead; each warp
+// arrives on the stage's "empty" mbarrier when its rays are done with it,
+// and thread 0 refills the stage once all four warps have. No block-wide
+// barrier in the loop, and the copies of the next clusters overlap the
+// tests of this one. A test reads a row as four float4 broadcasts (columns
+// 0-15), 16 rows unrolled, and runs Ray::intersect's operations in its
+// order. What bounds it: the issue of the test's instructions, built
+// without FMA contraction for bit equality with the plain version: about
+// 66 a test (37 FP32 operations, the IEEE division's ~10, the compares),
+// against the bound's 40 operations. Exact pre-tests (the sign of the
+// quotient, the running minimum) skip too little work in a warp to pay
+// for their branches, and were left out. Done rays wait on and release
+// every stage, and a tile with count 0 still runs the receiver test.
 //
 // Poses (the TPU kernel with `tiles_per_pose`, raytrace_pallas_v2.py:
 // 887-904): `scal` is [P, 16], the state pose-major, and tile i reads scalar
 // row i // tiles_per_pose. The schedule is per tile and reads positions
 // only, so it is the same for any P. One pose is the single-pose launch.
 
+#include <cstdint>
+
 #include "trace_common.cuh"
 
 namespace {
 
 using namespace ar2;
+
+constexpr int kMaxStages = 4;
+constexpr int kStageBudget = 16 * 1024;  // bytes of rows the ring aims for
+constexpr int kWarps = kThreads / 32;
+constexpr int kUnroll = 16;  // rows per unrolled step; cs is a multiple
+
+__host__ __device__ constexpr int ring_stages(int stage_bytes) {
+  return stage_bytes * kMaxStages <= kStageBudget ? kMaxStages
+         : stage_bytes * 3 <= kStageBudget        ? 3
+                                                  : 2;
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(
+                   smem_addr(bar)),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(
+                   smem_addr(bar))
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}"
+        : "=r"(done)
+        : "r"(smem_addr(bar)), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// Thread 0: copy `bytes` from `src` (global, 16-byte aligned) into `dst`
+// (shared), completing on `bar`.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
+          smem_addr(bar)),
+      "r"(bytes)
+      : "memory");
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+// Ray::intersect over one staged cluster (n_rows a multiple of 16) with
+// the rows read as four float4 broadcasts (columns 0-15) instead of 17
+// scalars, 16 rows unrolled; the arithmetic is intersect's, operation for
+// operation.
+template <int LB>
+__device__ __forceinline__ void intersect_staged(const Ray<LB>& r,
+                                                 const float* rows, int n_rows,
+                                                 int base, float& best_t,
+                                                 int& best_i) {
+  const float4* row4 = reinterpret_cast<const float4*>(rows);
+  for (int t0 = 0; t0 < n_rows; t0 += kUnroll)
+#pragma unroll
+  for (int t = t0; t < t0 + kUnroll; ++t) {
+    const float4 pl = row4[t * (kNR / 4)];      // R_PNX, R_PNY, R_PNZ, R_PD
+    const float4 au = row4[t * (kNR / 4) + 1];  // R_AUX, R_AUY, R_AUZ, R_AUO
+    const float4 av = row4[t * (kNR / 4) + 2];  // R_AVX, R_AVY, R_AVZ, R_AVO
+    const float val = row4[t * (kNR / 4) + 3].w;  // R_VAL
+    const float nd = r.vx * pl.x + r.vy * pl.y + r.vz * pl.z;
+    const float no = r.px * pl.x + r.py * pl.y + r.pz * pl.z + pl.w;
+    const bool safe = fabsf(nd) > kSafeDen;
+    const float tt = -no / (safe ? nd : 1.0f);
+    const float ou = r.px * au.x + r.py * au.y + r.pz * au.z + au.w;
+    const float du = r.vx * au.x + r.vy * au.y + r.vz * au.z;
+    const float u = ou + tt * du;
+    const float ov = r.px * av.x + r.py * av.y + r.pz * av.z + av.w;
+    const float dv = r.vx * av.x + r.vy * av.y + r.vz * av.z;
+    const float v = ov + tt * dv;
+    const bool ok = safe && tt > kTMin && u >= -kBaryEps && v >= -kBaryEps &&
+                    u + v <= 1.0f + kBaryEps && val > 0.f;
+    if (ok && tt < best_t) {
+      best_t = tt;
+      best_i = base + t;
+    }
+  }
+}
 
 template <int LB>
 __global__ void __launch_bounds__(kThreads)
@@ -39,8 +142,10 @@ trace_sched_kernel(float* __restrict__ st, long long n,
                    const int* __restrict__ sched, int width,
                    const float* __restrict__ scal, int tiles_per_pose,
                    int n_bands, int max_bounces) {
-  extern __shared__ float s_rows[];
-  const long long ray = (long long)blockIdx.x * kThreads + threadIdx.x;
+  extern __shared__ __align__(128) float s_rows[];
+  __shared__ uint64_t s_full[kMaxStages], s_empty[kMaxStages];
+  const int tid = threadIdx.x;
+  const long long ray = (long long)blockIdx.x * kThreads + tid;
   const bool have_ray = ray < n;
   const Scalars sc(scal + (long long)(blockIdx.x / tiles_per_pose) * kNScal);
   Ray<LB> r;
@@ -51,14 +156,43 @@ trace_sched_kernel(float* __restrict__ st, long long n,
 
   const int* list = sched + (long long)blockIdx.x * width;
   const int count = list[0];
+  const int stage_floats = cs * kNR;
+  const uint32_t stage_bytes = (uint32_t)stage_floats * sizeof(float);
+  const int stages = ring_stages((int)stage_bytes);
+  if (tid == 0) {
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(&s_full[s], 1);
+      mbar_init(&s_empty[s], kWarps);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+  if (tid == 0)
+    for (int k = 0; k < min(stages, count); ++k)
+      bulk_load(s_rows + k * stage_floats,
+                rows + (long long)list[1 + k] * stage_floats, stage_bytes,
+                &s_full[k]);
+
   float best_t = CUDART_INF_F;
   int best_i = -1;
   for (int k = 0; k < count; ++k) {
-    const int c = list[1 + k];
-    __syncthreads();  // every thread is done with the previous cluster
-    load_rows(s_rows, rows + (long long)c * cs * kNR, cs * kNR);
-    __syncthreads();
-    if (alive) r.intersect(s_rows, cs, c * cs, best_t, best_i);
+    // Thread 0 refills the stage that candidate k - 1 used once every warp
+    // has released it.
+    const int j = k - 1, next = j + stages;
+    if (tid == 0 && j >= 0 && next < count) {
+      const int s = j % stages;
+      mbar_wait(&s_empty[s], (uint32_t)(j / stages) & 1u);
+      bulk_load(s_rows + s * stage_floats,
+                rows + (long long)list[1 + next] * stage_floats, stage_bytes,
+                &s_full[s]);
+    }
+    const int s = k % stages;
+    mbar_wait(&s_full[s], (uint32_t)(k / stages) & 1u);
+    if (alive)
+      intersect_staged(r, s_rows + s * stage_floats, cs, list[1 + k] * cs,
+                       best_t, best_i);
+    __syncwarp();
+    if ((tid & 31) == 0) mbar_arrive(&s_empty[s]);
   }
   r.finish_bounce(running, can_cont, best_t, best_i, rows, sc, n_bands);
   if (have_ray) r.store(st, n, ray, n_bands);
@@ -71,8 +205,14 @@ int launch(float* state, long long n, int ncols, const float* rows, int cs,
            cudaStream_t stream) {
   if (ncols != state_ncols<LB>() || n_bands > LB)
     return (int)cudaErrorInvalidValue;
-  const size_t smem = sizeof(float) * kNR * (size_t)cs;
-  if (smem > 48 * 1024) return (int)cudaErrorInvalidValue;
+  const size_t stage_bytes = sizeof(float) * kNR * (size_t)cs;
+  const size_t smem = stage_bytes * ring_stages((int)stage_bytes);
+  if (smem > 47 * 1024) {  // over the default 48 KiB with the barriers
+    const cudaError_t err = cudaFuncSetAttribute(
+        trace_sched_kernel<LB>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
   const long long blocks = n / kThreads;
   trace_sched_kernel<LB><<<(unsigned)blocks, kThreads, smem, stream>>>(
       state, n, rows, cs, sched, width, scal, tiles_per_pose, n_bands,
@@ -88,8 +228,12 @@ extern "C" int ar2_trace_sched(float* state, long long n, int ncols,
                                long long rays_per_pose, int n_bands,
                                int layout_bands, int max_bounces,
                                void* stream) {
-  if (n <= 0 || n % kThreads || cs < 1 || width < 1 || n_bands < 1 ||
-      n_poses < 1 || rays_per_pose * n_poses != n || rays_per_pose % kThreads)
+  // A cluster's rows are one bulk copy: 16-byte aligned, whole 16 bytes.
+  if (n <= 0 || n % kThreads || cs < 1 || cs % kUnroll || cs > 1024 ||
+      width < 1 ||
+      n_bands < 1 || n_poses < 1 || rays_per_pose * n_poses != n ||
+      rays_per_pose % kThreads ||
+      reinterpret_cast<uintptr_t>(rows) % 16)
     return (int)cudaErrorInvalidValue;
   const int tiles_per_pose = (int)(rays_per_pose / kThreads);
   cudaStream_t s = (cudaStream_t)stream;

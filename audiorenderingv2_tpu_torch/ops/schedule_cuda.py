@@ -8,7 +8,8 @@ JAX package's ``to_tiles``). Each round of the clustered route runs:
   cluster box. The counterpart of
   ``audiorenderingv2_tpu/ops/raytrace_pallas_v2.py:tile_schedule`` in exact
   mode, which is plain XLA there. Its kernel is ``csrc/tile_schedule.cu``
-  (one block per tile; bounded by FP32 slab math, n_rays x C tests a round).
+  (one block per tile; a warp tests a group of 32 boxes only where one of
+  its rays reaches the group's union, which is exact).
   Rows are int32 [n_tiles, S], S = ceil((C + 1) / 8) * 8: slot 0 holds the
   count, then the reachable ids in ascending order, then zeros. (The JAX
   rows carry the unreachable ids after the count instead of zeros; nothing
@@ -17,8 +18,9 @@ JAX package's ``to_tiles``). Each round of the clustered route runs:
   clusters of its tile, then K1's receiver test and bounce tail. Its kernel
   is ``csrc/trace_sched.cu``, which replaces the schedule branch of the TPU
   kernel ``raytrace_pallas_v2.py:_trace_round_kernel_v2`` (``use_sched``,
-  launched by ``trace_round_v2``, :799). Bounded by the reads of the
-  candidate clusters' rows (from L2) and FP32 intersection. With ``scal``
+  launched by ``trace_round_v2``, :799): the candidate clusters' rows
+  stream through a ring of shared-memory stages filled by bulk
+  asynchronous copies, and the FP32 intersection bounds it. With ``scal``
   [P, 16] it is the posed form: tile ``i`` of a pose-major state reads the
   scalar row of pose ``i // tiles_per_pose``
   (``raytrace_pallas_v2.py:887-904``); the schedule is per tile and reads
@@ -61,6 +63,14 @@ def _contiguous_on(ref: torch.Tensor, **tensors) -> None:
             raise ValueError(f"{name} on {x.device}, state on {ref.device}")
         if not x.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+
+
+def _check_aligned(**tensors) -> None:
+    """Raise unless every tensor starts on a 16-byte boundary: the kernels
+    read boxes as float4 and copy a cluster's rows in one bulk copy."""
+    for name, x in tensors.items():
+        if x.data_ptr() % 16:
+            raise ValueError(f"{name} must start on a 16-byte boundary")
 
 
 def _check_schedule_inputs(state: torch.Tensor,
@@ -134,6 +144,7 @@ def tile_schedule(state: torch.Tensor, boxes: torch.Tensor) -> torch.Tensor:
         return tile_schedule_plain(state, boxes)
     if state.device.type != "cuda":
         raise ValueError(f"no schedule kernel for device {state.device}")
+    _check_aligned(boxes=boxes)
     lib = _build.library()
     n_tiles = state.shape[1] // _TILE
     width = schedule_width(boxes.shape[0])
@@ -236,6 +247,7 @@ def trace_round_sched(state: torch.Tensor, rows: torch.Tensor,
                                        params, rays_per_pose)
     if state.device.type != "cuda":
         raise ValueError(f"no trace kernel for device {state.device}")
+    _check_aligned(rows=rows)
     lib = _build.library()
     stream = torch.cuda.current_stream(state.device).cuda_stream
     err = lib.ar2_trace_sched(

@@ -29,7 +29,15 @@ Phases, in order; any failure raises and the script exits non-zero:
    rounds (schedule, K2, coherent sort) at 1M rays, the chains run apart,
    every column after each round; the clustered IR against K1's over all
    rows on 64k shared directions; times of both kernels and their plain
-   versions, and of the sort;
+   versions, and of the sort. Then both kernels on three states of the
+   office render (round 1 unsorted, after one bounce and the sort, after
+   16 bounces) at 65,536 and 1,000,064 rays, at 1, 4 and 8 bands in
+   clusters of 32 and at 1 band in clusters of 128: schedule rows equal to
+   the plain rows, K2 bit-identical to its plain version; their times at
+   the three states beside their bounds; and a whole 32-round office trace
+   at 65,536 rays, the kernels' chain bit-identical to the plain chain
+   after every round; one office trace at 1M rays x 32 rounds by stage
+   (schedule, K2, keys, sort), CUDA events around each;
 7. the office export as a user runs it (config.json -> load_context ->
    export_audio, 1M rays, 32 bounces) with the launch counts read around
    it: the schedule kernel and K2 run, K1 does not; then a renderer given
@@ -143,10 +151,12 @@ phase 12; for K4 the render of phase 11; for K3-bwd the office fit of phase
 ms, plain ms (for the posed K1 those of the first of its two launches, the
 8-bounce round; the 32-bounce round's under "round2"), the bound (the larger
 of bytes moved over 3.35 TB/s and FP32 operations over 67 TFLOP/s, worked
-out from this run's inputs; K6 is bound on K1's 40 operations a test, with
-the product as it issues it under "issued_bound_ms", and K7 on the valid
-triangles, with its padded columns under "padded_bound_ms"), what bounds
-it, and the time of one PyTorch call that computes the same function where
+out from this run's inputs; the schedule is bound by its bytes, with the
+all-pairs slab-test count under "all_pairs_bound_ms" and its times at the
+three states under "states", as K2's; K6 is bound on K1's 40 operations a
+test, with the product as it issues it under "issued_bound_ms", and K7 on
+the valid triangles, with its padded columns under "padded_bound_ms"), what
+bounds it, and the time of one PyTorch call that computes the same function where
 there is one. Last, the result line. With no CUDA device the script exits
 non-zero and prints no result.
 """
@@ -629,6 +639,190 @@ def k2_work(state: torch.Tensor, sched: torch.Tensor, cs: int) -> int:
     return int((alive.double() * sched[:, 0].double()).sum()) * cs
 
 
+@functools.cache
+def _office_packed(cs: int, n_bands: int):
+    """The office in clusters of ``cs`` on the card, packed for ``n_bands``
+    bands (its one absorption value in every band): (rows, boxes)."""
+    from audiorenderingv2_tpu_torch import accel
+    from audiorenderingv2_tpu_torch.core import tracer
+    from audiorenderingv2_tpu_torch.ops import raytrace_cuda as rc
+
+    scene = _office_clustered()[0]
+    sorted_scene, clusters = accel.prepare_scene(scene, cluster_size=cs)
+    scc = tracer.scene_to_arrays(sorted_scene, 128, device="cuda",
+                                 clusters=clusters)
+    return rc.pack_tris_clusters(scc, n_bands)
+
+
+def _office_start(n: int, seed: int, params):
+    """The office's start state of ``n`` rays from the emitter (padded to
+    128) and its scalar row."""
+    from audiorenderingv2_tpu_torch import constants
+    from audiorenderingv2_tpu_torch.ops import raytrace_cuda as rc
+
+    dev = torch.device("cuda")
+    emitter = torch.tensor(EMITTER, device=dev)
+    e0 = params.base_power / (n * constants.SPHERE_VOLUME)
+    d = torch.from_numpy(unit_dirs(n, seed)).to(dev)
+    return (rc.init_state(d, emitter, e0, -(-n // 128) * 128,
+                          params.n_bands),
+            rc.scalars(emitter, torch.tensor(OFFICE_RECEIVER, device=dev),
+                       0.0, e0, params))
+
+
+def _cluster_rounds(state, rows, boxes, scal, params, k: int):
+    """``k`` clustered rounds through the kernels: schedule, K2, sort."""
+    from audiorenderingv2_tpu_torch.ops import raytrace_cuda as rc
+    from audiorenderingv2_tpu_torch.ops import schedule_cuda as sc
+
+    for _ in range(k):
+        state = sc.trace_round_sched(state, rows, boxes,
+                                     sc.tile_schedule(state, boxes), scal,
+                                     params)
+        state = rc._sort_state_by_keys(state, rc._compaction_keys(state))
+    return state
+
+
+def cluster_state_check(n: int, n_bands: int, cs: int,
+                        timed: bool = False) -> dict:
+    """The schedule kernel against its plain version, integer for integer,
+    and K2 against its plain version, bit for bit in every column, on the
+    office in clusters of ``cs`` at ``n`` rays and ``n_bands`` bands, on
+    three states reached through the kernels: round 1 (the start state,
+    unsorted), after one bounce and the sort, and after 16 bounces. With
+    ``timed``, both kernels' times at each state beside their bounds:
+    K2's by operations (40 a test made), the schedule's by bytes (seven
+    state columns read, the boxes read, the rows written), with the
+    all-pairs slab-test count (23 operations a ray and box) beside it.
+    Returns the times per state."""
+    from audiorenderingv2_tpu_torch.ops import raytrace_cuda as rc
+    from audiorenderingv2_tpu_torch.ops import schedule_cuda as sc
+
+    params = _office_params(n_bands)
+    rows, boxes = _office_packed(cs, n_bands)
+    start, scal = _office_start(n, 13, params)
+    after1 = _cluster_rounds(start.clone(), rows, boxes, scal, params, 1)
+    states = {"round1": start, "after1": after1,
+              "after16": _cluster_rounds(after1.clone(), rows, boxes, scal,
+                                         params, 15)}
+    out = {}
+    for name, st in states.items():
+        what = (f"office, clusters of {cs}, {n_bands} band(s), "
+                f"{st.shape[1]} rays, {name}")
+        sk = sc.tile_schedule(st, boxes)
+        sp = sc.tile_schedule_plain(st, boxes)
+        torch.cuda.synchronize()
+        assert torch.equal(sk, sp), f"{what}: schedule rows differ"
+        kern = sc.trace_round_sched(st.clone(), rows, boxes, sk, scal,
+                                    params)
+        plain = sc.trace_round_sched_plain(st.clone(), rows, boxes, sk,
+                                           scal, params)
+        torch.cuda.synchronize()
+        _assert_same_bits(kern, plain, f"{what}: K2")
+        counts = sk[:, 0].double()
+        live = counts > 0
+        line = (f"{what}: schedule rows equal the plain rows, K2 "
+                f"bit-identical to its plain version; candidates per live "
+                f"tile {float(counts[live].mean()):.2f} (max "
+                f"{int(counts.max())}, {int(live.sum())} of {sk.shape[0]} "
+                f"tiles live)")
+        if timed:
+            n_live = int((st[rc._C_DONE] == 0).sum())
+            k2 = {"ms": median_ms(
+                lambda s: sc.trace_round_sched(s, rows, boxes, sk, scal,
+                                               params), 5,
+                setup=lambda: (st.clone(),)),
+                  **bound(2 * nbytes(st) + nbytes(sk, rows, scal),
+                          k2_work(st, sk, cs) * TRI_TEST_OPS)}
+            sched = {"ms": median_ms(lambda: sc.tile_schedule(st, boxes),
+                                     10),
+                     **bound(7 * 4 * st.shape[1] + nbytes(boxes, sk), 0),
+                     "all_pairs_bound_ms": bound(
+                         0, n_live * boxes.shape[0] * SLAB_TEST_OPS)[
+                             "bound_ms"]}
+            out[name] = {"trace_round_sched": k2, "tile_schedule": sched}
+            line += (f"; K2 {k2['ms']:.3f} ms (bound {k2['bound_ms']:.4f}, "
+                     f"{k2['ms'] / k2['bound_ms']:.1f}x), schedule "
+                     f"{sched['ms']:.3f} ms (bytes bound "
+                     f"{sched['bound_ms']:.4f}; all-pairs "
+                     f"{sched['all_pairs_bound_ms']:.4f})")
+        log(line)
+    return out
+
+
+def office_trace_check(n: int = 65536) -> None:
+    """A whole office trace (32 one-bounce rounds) at ``n`` rays, the
+    kernels' chain (schedule kernel, K2) and the plain chain run apart,
+    each sorted by its own keys: bit for bit after every round."""
+    from audiorenderingv2_tpu_torch.ops import raytrace_cuda as rc
+    from audiorenderingv2_tpu_torch.ops import schedule_cuda as sc
+
+    params = _office_params()
+    _, _, rows, boxes = _office_clustered()
+    kern, scal = _office_start(n, 16, params)
+    plain = kern.clone()
+    for k in range(OFFICE_BOUNCES):
+        kern = sc.trace_round_sched(kern, rows, boxes,
+                                    sc.tile_schedule(kern, boxes), scal,
+                                    params)
+        plain = sc.trace_round_sched_plain(
+            plain, rows, boxes, sc.tile_schedule_plain(plain, boxes), scal,
+            params)
+        torch.cuda.synchronize()
+        _assert_same_bits(kern, plain, f"office trace, round {k + 1}")
+        kern = rc._sort_state_by_keys(kern, rc._compaction_keys(kern))
+        plain = rc._sort_state_by_keys(plain, rc._compaction_keys(plain))
+    alive = int((kern[rc._C_DONE] == 0).sum())
+    events = int((kern[rc._C_EVW] != 0).sum())
+    log(f"office trace, {n} rays x {OFFICE_BOUNCES} rounds: the kernels' "
+        f"chain bit-identical to the plain chain after every round; "
+        f"{alive} alive at the end, {events} rays with an event")
+
+
+def office_stage_breakdown(n: int = N_RAYS) -> None:
+    """One clustered office trace at ``n`` rays x 32 one-bounce rounds,
+    driven as ``raytrace_cuda._run_rounds`` drives it (schedule, K2, then
+    the keys and the sort between rounds), each stage between CUDA events:
+    ms per stage summed over the rounds, and the schedule's and K2's ms in
+    every round."""
+    from audiorenderingv2_tpu_torch.ops import raytrace_cuda as rc
+    from audiorenderingv2_tpu_torch.ops import schedule_cuda as sc
+
+    params = _office_params()
+    _, _, rows, boxes = _office_clustered()
+    stages = ("schedule", "K2", "keys", "sort + gather")
+    for attempt in ("warm-up", "timed"):
+        state, scal = _office_start(n, 17, params)
+        marks = []
+        torch.cuda.synchronize()
+        for k in range(OFFICE_BOUNCES):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+            ev[0].record()
+            sched = sc.tile_schedule(state, boxes)
+            ev[1].record()
+            state = sc.trace_round_sched(state, rows, boxes, sched, scal,
+                                         params)
+            ev[2].record()
+            if k + 1 < OFFICE_BOUNCES:
+                keys = rc._compaction_keys(state)
+                ev[3].record()
+                state = rc._sort_state_by_keys(state, keys)
+            else:
+                ev[3].record()
+            ev[4].record()
+            marks.append(ev)
+        torch.cuda.synchronize()
+    per = np.array([[ev[i].elapsed_time(ev[i + 1]) for i in range(4)]
+                    for ev in marks])
+    whole = marks[0][0].elapsed_time(marks[-1][4])
+    log(f"office trace by stage, {n} rays x {OFFICE_BOUNCES} rounds "
+        f"(CUDA events): " + ", ".join(
+            f"{name} {t:.2f} ms" for name, t in zip(stages, per.sum(0)))
+        + f"; first event to last {whole:.2f} ms")
+    log("  schedule ms per round: " + " ".join(f"{t:.3f}" for t in per[:, 0]))
+    log("  K2 ms per round: " + " ".join(f"{t:.3f}" for t in per[:, 1]))
+
+
 def phase_cluster_kernels(n_rays: int = N_RAYS) -> dict:
     """K1's multi-chunk branch, the schedule kernel and K2 against their
     plain versions on the office scene, and the clustered IR against K1's;
@@ -752,21 +946,38 @@ def phase_cluster_kernels(n_rays: int = N_RAYS) -> dict:
     k2_bound = bound(2 * nbytes(st1) + nbytes(sched_k, rows, scal),
                      k2_work(st1, sched_k, cs) * TRI_TEST_OPS)
     # The schedule reads positions, directions and the done flag (7
-    # columns) and the boxes, and writes its rows.
-    sched_bound = bound(7 * 4 * st1.shape[1] + nbytes(boxes, sched_k),
-                        (st1.shape[1] - n_done) * boxes.shape[0]
-                        * SLAB_TEST_OPS)
+    # columns) and the boxes, and writes its rows: its bound is those
+    # bytes. Testing every live ray against every box (23 operations
+    # each) is no lower bound on its work since the two-level test skips
+    # most boxes; that count stands beside the bound as "all_pairs".
+    sched_bound = bound(7 * 4 * st1.shape[1] + nbytes(boxes, sched_k), 0)
+    all_pairs = bound(0, (st1.shape[1] - n_done) * boxes.shape[0]
+                      * SLAB_TEST_OPS)["bound_ms"]
     log(f"bounds: K2 {k2_bound['bound_ms']:.4f} ms by "
         f"{k2_bound['bound_by']}, schedule {sched_bound['bound_ms']:.4f} ms "
-        f"by {sched_bound['bound_by']}")
+        f"by {sched_bound['bound_by']} (all-pairs slab tests "
+        f"{all_pairs:.4f} ms)")
+
+    # Both kernels on three states of the render, at the recorder's and a
+    # small ray count, 1, 4 and 8 bands, clusters of 32 and 128; then a
+    # whole trace, round by round.
+    states = cluster_state_check(n_rays, 1, 32, timed=True)
+    cluster_state_check(65536, 1, 32)
+    for n_bands, c in ((4, 32), (8, 32), (1, 128)):
+        for n in (65536, n_rays):
+            cluster_state_check(n, n_bands, c)
+    office_trace_check()
+    office_stage_breakdown(n_rays)
     return {
-        "trace_round_sched": {"max_abs_err": k2_err, "ms": k2_ms,
-                              "plain_ms": k2_plain_ms, **k2_bound,
-                              "library_ms": None},
+        "trace_round_sched": {
+            "max_abs_err": k2_err, "ms": k2_ms, "plain_ms": k2_plain_ms,
+            **k2_bound, "library_ms": None,
+            "states": {k: v["trace_round_sched"] for k, v in states.items()}},
         "tile_schedule": {
             "max_abs_err": float((sched_k - sched_p).abs().max()),
             "ms": sched_ms, "plain_ms": sched_plain_ms, **sched_bound,
-            "library_ms": None},
+            "all_pairs_bound_ms": all_pairs, "library_ms": None,
+            "states": {k: v["tile_schedule"] for k, v in states.items()}},
     }
 
 
