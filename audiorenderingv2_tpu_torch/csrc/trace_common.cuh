@@ -1,7 +1,9 @@
 // What K1 (trace_round.cu), K2 (trace_sched.cu), K5 (trace_traverse.cu), K6
 // (trace_group.cu) and K7 (trace_round_v1.cu) share: the state, scalar and
 // triangle-row layouts, one ray's state in registers, the Moller-Trumbore
-// search over triangle rows and the bounce tail.
+// search over triangle rows (read as 17 scalars, or as float4 with rows
+// unrolled: K1, K2 and K5), the bounce tail, and the bulk copies on
+// mbarriers that K2 (a ring of them) and K5 stage cluster rows with.
 //
 // The tail is the TPU kernel's (audiorenderingv2_tpu/ops/
 // raytrace_pallas_v2.py:_trace_round_kernel_v2, :692-747): the analytic
@@ -14,6 +16,8 @@
 // with -fmad=false so no multiply-add pair is contracted into an FMA that
 // the plain version does not do.
 #pragma once
+
+#include <cstdint>
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
@@ -55,8 +59,10 @@ __device__ __forceinline__ int evw_col(int b) {
 }
 
 // Where the tail finds the normal and the absorptions of the triangle a ray
-// bounced off: the rows of K1, K2 and K5. K6 and K7 keep them in tables of
-// their own layouts and bring their own.
+// bounced off: rows indexed by the triangle, in global memory (K2, K5 and
+// K1's multi-chunk branch) or staged whole in shared memory (K1's one-chunk
+// branch). K6 and K7 keep them in tables of their own layouts and bring
+// their own.
 struct RowAttrs {
   const float* tris;
   __device__ float normal(int tri, int axis) const {
@@ -165,6 +171,41 @@ struct Ray {
     }
   }
 
+  // The same search with each row read as four float4 broadcasts (columns
+  // 0-15; `rows` 16-byte aligned) instead of 17 scalars, U rows unrolled;
+  // n_rows a multiple of U. The arithmetic is intersect's, operation for
+  // operation, so the two give the same bits.
+  template <int U>
+  __device__ __forceinline__ void intersect_f4(const float* rows, int n_rows,
+                                               int base, float& best_t,
+                                               int& best_i) const {
+    const float4* row4 = reinterpret_cast<const float4*>(rows);
+    for (int t0 = 0; t0 < n_rows; t0 += U)
+#pragma unroll
+    for (int t = t0; t < t0 + U; ++t) {
+      const float4 pl = row4[t * (kNR / 4)];      // R_PNX, R_PNY, R_PNZ, R_PD
+      const float4 au = row4[t * (kNR / 4) + 1];  // R_AUX, R_AUY, R_AUZ, R_AUO
+      const float4 av = row4[t * (kNR / 4) + 2];  // R_AVX, R_AVY, R_AVZ, R_AVO
+      const float val = row4[t * (kNR / 4) + 3].w;  // R_VAL
+      const float nd = vx * pl.x + vy * pl.y + vz * pl.z;
+      const float no = px * pl.x + py * pl.y + pz * pl.z + pl.w;
+      const bool safe = fabsf(nd) > kSafeDen;
+      const float tt = -no / (safe ? nd : 1.0f);
+      const float ou = px * au.x + py * au.y + pz * au.z + au.w;
+      const float du = vx * au.x + vy * au.y + vz * au.z;
+      const float u = ou + tt * du;
+      const float ov = px * av.x + py * av.y + pz * av.z + av.w;
+      const float dv = vx * av.x + vy * av.y + vz * av.z;
+      const float v = ov + tt * dv;
+      const bool ok = safe && tt > kTMin && u >= -kBaryEps &&
+                      v >= -kBaryEps && u + v <= 1.0f + kBaryEps && val > 0.f;
+      if (ok && tt < best_t) {
+        best_t = tt;
+        best_i = base + t;
+      }
+    }
+  }
+
   // The rest of one bounce, given the nearest hit (best_t = inf on a
   // miss): receiver sphere first, then the surface. `tris` holds the rows
   // in global memory, indexed by best_i.
@@ -234,5 +275,56 @@ struct Ray {
     if (running && (receiver || miss || !can_cont)) done = 1.f;
   }
 };
+
+// Bulk copies (K2's ring, K5): thread 0 copies a cluster's rows into a
+// shared-memory stage with one cp.async.bulk that completes on the stage's
+// "full" mbarrier; the k-th use of a stage waits on parity k & 1 of the
+// stage's own count (in K2's ring of S stages, use k of the ring is use
+// k / S of stage k % S).
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(
+                   smem_addr(bar)),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(
+                   smem_addr(bar))
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}"
+        : "=r"(done)
+        : "r"(smem_addr(bar)), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// Thread 0: copy `bytes` from `src` (global, 16-byte aligned) into `dst`
+// (shared), completing on `bar`.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
+          smem_addr(bar)),
+      "r"(bytes)
+      : "memory");
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
 
 }  // namespace ar2

@@ -20,8 +20,9 @@
 // and thread 0 refills the stage once all four warps have. No block-wide
 // barrier in the loop, and the copies of the next clusters overlap the
 // tests of this one. A test reads a row as four float4 broadcasts (columns
-// 0-15), 16 rows unrolled, and runs Ray::intersect's operations in its
-// order. What bounds it: the issue of the test's instructions, built
+// 0-15), 16 rows unrolled (Ray::intersect_f4 of trace_common.cuh, shared
+// with K1 and K5), and runs Ray::intersect's operations in its order. What
+// bounds it: the issue of the test's instructions, built
 // without FMA contraction for bit equality with the plain version: about
 // 66 a test (37 FP32 operations, the IEEE division's ~10, the compares),
 // against the bound's 40 operations. Exact pre-tests (the sign of the
@@ -51,88 +52,6 @@ __host__ __device__ constexpr int ring_stages(int stage_bytes) {
   return stage_bytes * kMaxStages <= kStageBudget ? kMaxStages
          : stage_bytes * 3 <= kStageBudget        ? 3
                                                   : 2;
-}
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(
-                   smem_addr(bar)),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(
-                   smem_addr(bar))
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}"
-        : "=r"(done)
-        : "r"(smem_addr(bar)), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-// Thread 0: copy `bytes` from `src` (global, 16-byte aligned) into `dst`
-// (shared), completing on `bar`.
-__device__ __forceinline__ void bulk_load(void* dst, const void* src,
-                                          uint32_t bytes, uint64_t* bar) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
-          smem_addr(bar)),
-      "r"(bytes)
-      : "memory");
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];" ::"r"(smem_addr(dst)),
-      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(smem_addr(bar))
-      : "memory");
-}
-
-// Ray::intersect over one staged cluster (n_rows a multiple of 16) with
-// the rows read as four float4 broadcasts (columns 0-15) instead of 17
-// scalars, 16 rows unrolled; the arithmetic is intersect's, operation for
-// operation.
-template <int LB>
-__device__ __forceinline__ void intersect_staged(const Ray<LB>& r,
-                                                 const float* rows, int n_rows,
-                                                 int base, float& best_t,
-                                                 int& best_i) {
-  const float4* row4 = reinterpret_cast<const float4*>(rows);
-  for (int t0 = 0; t0 < n_rows; t0 += kUnroll)
-#pragma unroll
-  for (int t = t0; t < t0 + kUnroll; ++t) {
-    const float4 pl = row4[t * (kNR / 4)];      // R_PNX, R_PNY, R_PNZ, R_PD
-    const float4 au = row4[t * (kNR / 4) + 1];  // R_AUX, R_AUY, R_AUZ, R_AUO
-    const float4 av = row4[t * (kNR / 4) + 2];  // R_AVX, R_AVY, R_AVZ, R_AVO
-    const float val = row4[t * (kNR / 4) + 3].w;  // R_VAL
-    const float nd = r.vx * pl.x + r.vy * pl.y + r.vz * pl.z;
-    const float no = r.px * pl.x + r.py * pl.y + r.pz * pl.z + pl.w;
-    const bool safe = fabsf(nd) > kSafeDen;
-    const float tt = -no / (safe ? nd : 1.0f);
-    const float ou = r.px * au.x + r.py * au.y + r.pz * au.z + au.w;
-    const float du = r.vx * au.x + r.vy * au.y + r.vz * au.z;
-    const float u = ou + tt * du;
-    const float ov = r.px * av.x + r.py * av.y + r.pz * av.z + av.w;
-    const float dv = r.vx * av.x + r.vy * av.y + r.vz * av.z;
-    const float v = ov + tt * dv;
-    const bool ok = safe && tt > kTMin && u >= -kBaryEps && v >= -kBaryEps &&
-                    u + v <= 1.0f + kBaryEps && val > 0.f;
-    if (ok && tt < best_t) {
-      best_t = tt;
-      best_i = base + t;
-    }
-  }
 }
 
 template <int LB>
@@ -189,8 +108,8 @@ trace_sched_kernel(float* __restrict__ st, long long n,
     const int s = k % stages;
     mbar_wait(&s_full[s], (uint32_t)(k / stages) & 1u);
     if (alive)
-      intersect_staged(r, s_rows + s * stage_floats, cs, list[1 + k] * cs,
-                       best_t, best_i);
+      r.template intersect_f4<kUnroll>(s_rows + s * stage_floats, cs,
+                                       list[1 + k] * cs, best_t, best_i);
     __syncwarp();
     if ((tid & 31) == 0) mbar_arrive(&s_empty[s]);
   }

@@ -735,6 +735,21 @@ def _check_round(state, tris, scal, n_bands, round_budget) -> None:
         raise ValueError(f"round budget must be >= 1, got {round_budget}")
 
 
+K1_CHUNK_ROWS = 512  # rows K1 stages at once (kChunk, csrc/trace_round.cu)
+
+
+def k1_branch(n_rows: int) -> str:
+    """The branch of ``csrc/trace_round.cu`` that ``n_rows`` triangle rows
+    take: ``"one_chunk"`` up to K1_CHUNK_ROWS rows, every scene of the rows
+    route (the rows staged once a block; a lane whose ray ends takes the
+    warp's next one, on a persistent grid in rounds of more than 32
+    bounces); ``"multi_chunk"`` above (the rows staged in chunks, blocks
+    in step)."""
+    if n_rows < 0:
+        raise ValueError(f"a row count is >= 0, got {n_rows}")
+    return "one_chunk" if n_rows <= K1_CHUNK_ROWS else "multi_chunk"
+
+
 def trace_round(state: torch.Tensor, tris: torch.Tensor, scal: torch.Tensor,
                 params: TraceParams, round_budget: int,
                 rays_per_pose: int | None = None) -> torch.Tensor:
@@ -742,7 +757,8 @@ def trace_round(state: torch.Tensor, tris: torch.Tensor, scal: torch.Tensor,
     ``round_budget`` bounces, in place; returns ``state``. ``scal`` is one
     scalar row [16], or [P, 16] for a pose-major state of P poses with
     ``rays_per_pose`` rays each (K1-pose). A CUDA tensor goes to the
-    kernel, a CPU tensor to :func:`trace_round_plain`."""
+    kernel's branch for ``tris``' row count (:func:`k1_branch`), a CPU
+    tensor to :func:`trace_round_plain`."""
     global launches, posed_launches
     _check_round(state, tris, scal, params.n_bands, round_budget)
     n_poses, rays_per_pose = check_poses(state, scal, rays_per_pose)

@@ -18,7 +18,10 @@ minimum, until the nearest unvisited entry is not below the largest best hit
 among the alive rays (+inf while one of them has no hit yet, 0 when none is
 alive). Then K1's receiver test and bounce tail. Among hits at exactly the
 same distance the cluster visited FIRST wins, where K2 keeps the lowest row:
-the two agree wherever the nearest distance is unique.
+the two agree wherever the nearest distance is unique. The kernel gets the
+same entries by testing superboxes of 32 clusters first, and the same visit
+sequence by sorting the reached clusters once per bounce (the plain version
+picks the least unvisited entry before every visit).
 
 ``trace_traverse`` launches ``csrc/trace_traverse.cu`` for a CUDA tensor and
 runs ``trace_traverse_plain`` for a CPU tensor; it never falls back from one
@@ -42,8 +45,8 @@ from . import schedule_cuda as sc
 trace_traverse_launches = 0
 
 _TILE = 128
-_SMEM_BYTES = 48 * 1024   # what a block of the kernel may use
-_BOX_CHUNK = 256          # boxes it stages at a time (csrc/trace_traverse.cu)
+_SMEM_BYTES = 226 * 1024  # what a block of the kernel may take (its kMaxSmem)
+_GROUP = 32               # clusters per superbox
 _SLAB_ELEMS = 1 << 22   # rays x boxes per chunk of the plain slab pass
 _TEST_ELEMS = 1 << 24   # rays x rows per chunk of the plain intersection
 
@@ -159,6 +162,15 @@ def trace_traverse_plain(state: torch.Tensor, rows: torch.Tensor,
     return state
 
 
+def _smem_bytes(cs: int, n_clusters: int) -> int:
+    """Shared memory a block of the kernel takes (``traverse_smem`` in
+    ``csrc/trace_traverse.cu``): one cluster's rows, a superbox per group
+    of 32 clusters, a key per cluster and the sorted list of them, a mask
+    word per group."""
+    groups = -(-n_clusters // _GROUP)
+    return 4 * rc._NR * cs + 32 * groups + 16 * n_clusters + 4 * groups
+
+
 def _check_inputs(state, rows, boxes, scal, n_bands, round_budget,
                   visits) -> None:
     rc._check_round(state, rows, scal, n_bands, round_budget)
@@ -169,10 +181,9 @@ def _check_inputs(state, rows, boxes, scal, n_bands, round_budget,
         raise ValueError(f"{rows.shape[0]} rows over {n_clusters} clusters "
                          f"need a cluster size that is a multiple of "
                          f"{rc._TRI_BLOCK}")
-    # One cluster's rows, an entry per cluster and a chunk of boxes share a
-    # block's shared memory; the same limit holds on every device, so that
-    # the CPU shows what the card would refuse.
-    need = 4 * (rc._NR * cs + n_clusters + 8 * _BOX_CHUNK)
+    # The same limit holds on every device, so that the CPU shows what the
+    # card would refuse.
+    need = _smem_bytes(cs, n_clusters)
     if need > _SMEM_BYTES:
         raise ValueError(f"{n_clusters} clusters of {cs} rows need {need} "
                          f"bytes of shared memory a block, over the "
@@ -207,6 +218,7 @@ def trace_traverse(state: torch.Tensor, rows: torch.Tensor,
                                     int(round_budget), rays_per_pose, visits)
     if state.device.type != "cuda":
         raise ValueError(f"no trace kernel for device {state.device}")
+    sc._check_aligned(rows=rows, boxes=boxes)
     lib = _build.library()
     stream = torch.cuda.current_stream(state.device).cuda_stream
     err = lib.ar2_trace_traverse(

@@ -1,0 +1,982 @@
+"""A/B of the PyTorch port's K1, K1-pose and K5 on one NVIDIA GPU.
+
+K1 (csrc/trace_round.cu), K1 with a scalar row per pose and K5
+(csrc/trace_traverse.cu) of this checkout against those of another
+checkout of the repository (for example the parent commit, unpacked with
+``git archive``), and against variants compiled from copies of the sources,
+each held bit for bit against the kernel's plain PyTorch version on the
+same state; K2 (csrc/trace_sched.cu) of both checkouts beside them.
+
+    python3 benchmarks/torch_trace_ab.py --parent DIR [--rays N]
+                                         [--out FILE]
+
+States (1,000,064 rays unless ``--rays``):
+
+  K1       the box of the export path (14 x 9 x 11 m, 12 triangles in 16
+           rows, 100 bounces): the start state of round 1 (8 bounces) and
+           the states before round 2 (24) and round 3 (68), each after the
+           alive-first partition, reached through the kernel; per round the
+           tests made, the bound, and the lane use of one ray a thread (a
+           warp's bounces over 32 times its longest ray's)
+  K1-pose  the multi-pose demo's box, 8 poses x 1,000,064 rays: round 1 (8
+           bounces) and round 2 (32)
+  K5       the office (19,852 triangles) in clusters of 32 and of 128, one
+           bounce from the start state and from the state after one bounce
+           and the dir72 sort; visits per tile
+  K2       the office in clusters of 32: round 1 unsorted, after one bounce
+           and the sort, after 16 bounces
+
+Variants (each its own library, built under the package's ``_build/`` from
+a copy of one source; the committed sources are not touched):
+
+  K1  parent_f4      the other checkout's kernel with the float4 test, 16
+                     rows unrolled
+      tree_scalar    this tree's kernel with Ray::intersect (17 scalars)
+      tree_unroll1   this tree's float4 test, not unrolled
+      tree_ilp       the float4 test in steps of 4 rows: their divisors,
+                     then the 4 divisions, then the rest, then the fold
+      tree_all_rows  no trim: the rows up to the last valid one and padding
+                     rows tested alike
+      tree_global_tail
+                     the tail reads the normal and absorptions from global
+                     memory
+      tree_grid_all  one warp per 32 rays in every round, no lane takes a
+                     second ray
+      tree_persist_all
+                     the persistent grid in every round
+      tree_chunk32   the persistent grid handing out 32 rays at a time
+      tree_refill8   the persistent grid, idle lanes refilled only once 8
+                     of them wait (or all)
+      tree_lb8       __launch_bounds__(128, 8): at most 64 registers
+      tree_const     rows read from a __constant__ copy (warp-uniform
+                     operands) instead of shared memory
+      tree_2x        the test run twice a bounce (the second result
+                     discarded): tree_2x - tree is the test's time
+  K5  tree_all_pairs pass 1 without the superboxes: every box tested
+      tree_rescan    this tree's pass 1, then the parent's pass 2: a block
+                     reduction over every cluster before each visit, rows
+                     staged by scalar copies, the scalar test
+      tree_ring2, tree_ring4
+                     the visits' rows through K2's ring of 2 or 4 stages:
+                     the next clusters' rows in flight while one is tested
+      tree_lb6, tree_lb8
+                     __launch_bounds__(128, 6 or 8): at most 80 or 64
+                     registers
+      tree_scalar    Ray::intersect on the staged rows
+  K2  tree_ilp       K2 with tree_ilp's test
+
+Times are CUDA-event medians of 7 launches after one warm-up, in two passes
+(forward and reverse order of the libraries). Then, alone: the office render
+with explicit options (K5 in clusters of 128) in subprocesses of the other
+checkout and of this one (other, this, this, other; median of 7 renders
+each), K3-bwd against ``index_select`` at 1 band, 4 bands and the posed
+shape, 9 repeats of each (medians of 20), and the paths a user runs end to
+end in processes of both checkouts, three pairs (``e2e_phase``). Prints
+one JSON line (and writes it to ``--out``); exits non-zero without a CUDA
+device.
+"""
+from __future__ import annotations
+
+import argparse
+import ctypes
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+REPO = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(REPO))
+sys.path.insert(0, str(Path(__file__).resolve().parent))
+
+from torch_cluster_ab import load_build_module, median_ms  # noqa: E402
+
+HBM_BYTES_PER_S = 3.35e12
+FP32_OPS_PER_S = 67e12
+TRI_TEST_OPS = 40
+SLAB_TEST_OPS = 23
+SR, IR_SECONDS = 16000, 2
+ROOM, RECEIVER, ABSORPTION, MAX_BOUNCES = (14.0, 9.0, 11.0), (2.5, 1.5, 2.0), \
+    0.3, 100
+MULTI_ROOM, MULTI_ABSORPTION, MULTI_BOUNCES = (18.0, 10.0, 14.0), 0.25, 40
+MULTI_BUDGETS = (8, 32)
+MULTI_EMITTERS = np.array([[-5.0, 0.0, -4.0], [6.0, 1.0, 5.0]], np.float32)
+MULTI_LISTENERS = np.stack([np.linspace(-6.0, 6.0, 4), np.zeros(4),
+                            np.linspace(4.0, -4.0, 4)],
+                           axis=1).astype(np.float32)
+MULTI_YAWS = np.linspace(0.0, 270.0, 4).astype(np.float32)
+OFFICE_TRIS, OFFICE_BOUNCES, OFFICE_RECEIVER = 20000, 32, (6.0, 1.0, -8.0)
+
+# ---------------------------------------------------------------- variants
+
+_K1_CALL = ("        r.template intersect_f4<kUnroll>(s_rows, n_test, 0, "
+            "best_t, best_i);")
+_K1_PARENT_CALL = ("      if (alive) r.intersect(s_rows, rows, c0, best_t, "
+                   "best_i);")
+_K1_KERNEL = ("template <int LB>\n__global__ void __launch_bounds__(kThreads)"
+              "\ntrace_rows_kernel(")
+_K1_LAUNCH = "  trace_rows_kernel<LB><<<(unsigned)(persist ? resident : want),"
+_K1_PERSIST = ("  const bool persist = budget > kPersistBudget && resident < "
+               "want;")
+_K5_KERNEL = ("template <int LB>\n__global__ void __launch_bounds__(kThreads)"
+              "\ntrace_traverse_kernel(")
+_K2_KERNEL = ("template <int LB>\n__global__ void __launch_bounds__(kThreads)"
+              "\ntrace_sched_kernel(")
+_K2_CALL = ("      r.template intersect_f4<kUnroll>(s_rows + s * "
+            "stage_floats, cs,\n" + " " * 39
+            + "list[1 + k] * cs, best_t, best_i);")
+
+# Ray::intersect_f4 with U rows at a time in four passes: the rows'
+# divisors, the U divisions, the barycentric tests, the fold in row order.
+_ILP = '''template <int U, int LB>
+__device__ __forceinline__ void intersect_ilp(const Ray<LB>& r,
+                                              const float* rows, int n_rows,
+                                              int base, float& best_t,
+                                              int& best_i) {
+  const float4* row4 = reinterpret_cast<const float4*>(rows);
+  for (int t0 = 0; t0 < n_rows; t0 += U) {
+    float num[U], den[U], tt[U];
+    bool safe[U], ok[U];
+#pragma unroll
+    for (int j = 0; j < U; ++j) {
+      const float4 pl = row4[(t0 + j) * (kNR / 4)];
+      const float nd = r.vx * pl.x + r.vy * pl.y + r.vz * pl.z;
+      const float no = r.px * pl.x + r.py * pl.y + r.pz * pl.z + pl.w;
+      safe[j] = fabsf(nd) > kSafeDen;
+      num[j] = -no;
+      den[j] = safe[j] ? nd : 1.0f;
+    }
+#pragma unroll
+    for (int j = 0; j < U; ++j) tt[j] = num[j] / den[j];
+#pragma unroll
+    for (int j = 0; j < U; ++j) {
+      const float4 au = row4[(t0 + j) * (kNR / 4) + 1];
+      const float4 av = row4[(t0 + j) * (kNR / 4) + 2];
+      const float val = row4[(t0 + j) * (kNR / 4) + 3].w;
+      const float ou = r.px * au.x + r.py * au.y + r.pz * au.z + au.w;
+      const float du = r.vx * au.x + r.vy * au.y + r.vz * au.z;
+      const float u = ou + tt[j] * du;
+      const float ov = r.px * av.x + r.py * av.y + r.pz * av.z + av.w;
+      const float dv = r.vx * av.x + r.vy * av.y + r.vz * av.z;
+      const float v = ov + tt[j] * dv;
+      ok[j] = safe[j] && tt[j] > kTMin && u >= -kBaryEps &&
+              v >= -kBaryEps && u + v <= 1.0f + kBaryEps && val > 0.f;
+    }
+#pragma unroll
+    for (int j = 0; j < U; ++j)
+      if (ok[j] && tt[j] < best_t) {
+        best_t = tt[j];
+        best_i = base + t0 + j;
+      }
+  }
+}
+
+'''
+
+# Ray::intersect over rows in a __constant__ copy, kUnroll rows unrolled.
+_K1_CONST = '''__constant__ float c_rows[kChunk * kNR];
+
+template <int LB>
+__device__ __forceinline__ void intersect_const(const Ray<LB>& r, int n_rows,
+                                                float& best_t, int& best_i) {
+  for (int t0 = 0; t0 < n_rows; t0 += kUnroll)
+#pragma unroll
+  for (int t = t0; t < t0 + kUnroll; ++t) {
+    const float* w = c_rows + t * kNR;
+    const float nd = r.vx * w[R_PNX] + r.vy * w[R_PNY] + r.vz * w[R_PNZ];
+    const float no =
+        r.px * w[R_PNX] + r.py * w[R_PNY] + r.pz * w[R_PNZ] + w[R_PD];
+    const bool safe = fabsf(nd) > kSafeDen;
+    const float tt = -no / (safe ? nd : 1.0f);
+    const float ou =
+        r.px * w[R_AUX] + r.py * w[R_AUY] + r.pz * w[R_AUZ] + w[R_AUO];
+    const float du = r.vx * w[R_AUX] + r.vy * w[R_AUY] + r.vz * w[R_AUZ];
+    const float u = ou + tt * du;
+    const float ov =
+        r.px * w[R_AVX] + r.py * w[R_AVY] + r.pz * w[R_AVZ] + w[R_AVO];
+    const float dv = r.vx * w[R_AVX] + r.vy * w[R_AVY] + r.vz * w[R_AVZ];
+    const float v = ov + tt * dv;
+    const bool ok = safe && tt > kTMin && u >= -kBaryEps &&
+                    v >= -kBaryEps && u + v <= 1.0f + kBaryEps &&
+                    w[R_VAL] > 0.f;
+    if (ok && tt < best_t) {
+      best_t = tt;
+      best_i = t;
+    }
+  }
+}
+
+'''
+_K1_CONST_COPY = '''  {
+    void* sym = nullptr;
+    const size_t used = sizeof(float) * kNR * n_tris;
+    const size_t pad = sizeof(float) * kNR * padded_rows(n_tris) - used;
+    if (cudaMemcpyToSymbolAsync(c_rows, tris, used, 0,
+                                cudaMemcpyDeviceToDevice, stream) ||
+        cudaGetSymbolAddress(&sym, c_rows) ||
+        (pad && cudaMemsetAsync((char*)sym + used, 0, pad, stream)))
+      return (int)cudaErrorInvalidValue;
+  }
+'''
+
+_K5_SUPER = '''        if (!__any_sync(kFull,
+                        slab.entry(s_sup[2 * g], s_sup[2 * g + 1]) !=
+                            kInfBits))
+          continue;
+'''
+_K5_CALL = ("        r.template intersect_f4<kUnroll>(s_rows, cs, c * cs, "
+            "best_t, best_i);")
+_K5_PASS2 = "    // Pass 2: the reached clusters' keys"
+_K5_VISITS = "    // Visit the sorted list front to back."
+_K5_VISITS_END = "    n_visits += k;\n"
+_K5_TAIL = "    r.finish_bounce(running, can_cont, best_t, best_i, rows, sc, "
+# The visits with the rows of the next `stages` clusters in flight (K2's
+# ring); copies the stop test leaves unused are waited for at the end.
+_K5_RING = '''    float best_t = CUDART_INF_F;
+    int best_i = -1;
+    const int first = min(stages, n_reached);
+    if (tid == 0)
+      for (int k = 0; k < first; ++k) {
+        const unsigned q = seq + k;
+        bulk_load(s_rows + (q % stages) * stage_floats,
+                  rows + (long long)(unsigned)s_key[k] * stage_floats,
+                  stage_bytes, &s_ring_full[q % stages]);
+      }
+    int k = 0;
+    for (; k < n_reached; ++k) {
+      const unsigned long long key = s_key[k];
+      const float tn_k = __uint_as_float((unsigned)(key >> 32));
+      if (!__syncthreads_or(alive && tn_k < best_t)) break;
+      const int refill = k - 1 + stages;
+      if (tid == 0 && k >= 1 && refill < n_reached) {
+        const unsigned q = seq + refill;
+        bulk_load(s_rows + (q % stages) * stage_floats,
+                  rows + (long long)(unsigned)s_key[refill] * stage_floats,
+                  stage_bytes, &s_ring_full[q % stages]);
+      }
+      const unsigned q = seq + k;
+      mbar_wait(&s_ring_full[q % stages], (q / stages) & 1u);
+      const int c = (int)(unsigned)key;
+      if (alive)
+        r.template intersect_f4<kUnroll>(s_rows + (q % stages) * stage_floats,
+                                         cs, c * cs, best_t, best_i);
+    }
+    n_visits += k;
+    const int issued = k == 0 ? first : min(n_reached, stages + k - 1);
+    for (int m = k; m < issued; ++m) {
+      const unsigned q = seq + m;
+      mbar_wait(&s_ring_full[q % stages], (q / stages) & 1u);
+    }
+    seq += issued;
+'''
+# The parent's pass 2 over this tree's keys (entry bits, id) per cluster.
+_K5_RESCAN = '''    float best_t = CUDART_INF_F;
+    int best_i = -1;
+    __shared__ unsigned long long s_wkey[kWarps];
+    __shared__ unsigned s_far[kWarps];
+    while (true) {
+      __syncthreads();
+      unsigned long long key = ~0ull;
+      for (int c = tid; c < n_clusters; c += kThreads)
+        key = s_key[c] < key ? s_key[c] : key;
+      for (int off = 16; off; off >>= 1) {
+        const unsigned long long o = __shfl_xor_sync(kFull, key, off);
+        key = o < key ? o : key;
+      }
+      const unsigned far =
+          __reduce_max_sync(kFull, alive ? __float_as_uint(best_t) : 0u);
+      if (lane == 0) {
+        s_wkey[warp] = key;
+        s_far[warp] = far;
+      }
+      __syncthreads();
+      unsigned long long kmin = s_wkey[0];
+      unsigned fmax = s_far[0];
+      for (int w = 1; w < kWarps; ++w) {
+        kmin = s_wkey[w] < kmin ? s_wkey[w] : kmin;
+        fmax = s_far[w] > fmax ? s_far[w] : fmax;
+      }
+      const float tn_k = __uint_as_float((unsigned)(kmin >> 32));
+      if (!(tn_k < __uint_as_float(fmax))) break;
+      const int c = (int)(kmin & 0xffffffffu);
+      load_rows(s_rows, rows + (long long)c * cs * kNR, cs * kNR);
+      if (tid == 0) s_key[c] = ((unsigned long long)kInfBits << 32) | c;
+      __syncthreads();
+      if (alive) r.intersect(s_rows, cs, c * cs, best_t, best_i);
+      ++n_visits;
+    }
+'''
+
+
+def _replace(src: str, old: str, new: str) -> str:
+    if old not in src:
+        raise RuntimeError(f"variant: {old[:60]!r} not found in the source")
+    return src.replace(old, new)
+
+
+def k1_variants(tree: str, parent: str) -> dict[str, str]:
+    twice = "      if (can_cont) {\n" + _K1_CALL + '''
+        float bt2 = CUDART_INF_F;
+        int bi2 = -1;
+        r.template intersect_f4<kUnroll>(s_rows, n_test, 0, bt2, bi2);
+        if (bt2 < 0.f) best_i = bi2;  // never: the second result unused
+      }'''
+    return {
+        "parent_f4": _replace(parent, _K1_PARENT_CALL,
+                              "      if (alive) r.template intersect_f4<16>("
+                              "s_rows, rows, c0, best_t, best_i);"),
+        "tree_scalar": _replace(tree, _K1_CALL,
+                                "        r.intersect(s_rows, n_test, 0, "
+                                "best_t, best_i);"),
+        "tree_unroll1": _replace(tree, "constexpr int kUnroll = 4;",
+                                 "constexpr int kUnroll = 1;"),
+        "tree_ilp": _replace(_replace(tree, _K1_KERNEL, _ILP + _K1_KERNEL),
+                             _K1_CALL, "        intersect_ilp<kUnroll>(r, "
+                             "s_rows, n_test, 0, best_t, best_i);"),
+        "tree_all_rows": _replace(
+            tree, "  const int n_test = padded_rows(s_last + 1);",
+            "  const int n_test = padded_rows(n_tris);"),
+        "tree_global_tail": _replace(tree, "  const RowAttrs staged{s_rows};",
+                                     "  const RowAttrs staged{tris};"),
+        "tree_grid_all": _replace(tree, _K1_PERSIST,
+                                  "  const bool persist = false && resident "
+                                  "< want;"),
+        "tree_persist_all": _replace(tree, _K1_PERSIST,
+                                     "  const bool persist = resident < "
+                                     "want;"),
+        "tree_chunk32": _replace(tree, "max_bounces, persist ? 3 : 5);",
+                                 "max_bounces, 5);"),
+        "tree_refill8": _replace(
+            tree, "      if (need == 0u) break;",
+            "      if (need == 0u || (__popc(need) < 8 && need != kFull)) "
+            "break;"),
+        "tree_lb8": _replace(tree, _K1_KERNEL, _K1_KERNEL.replace(
+            "(kThreads)", "(kThreads, 8)")),
+        "tree_const": _replace(_replace(
+            _replace(tree, _K1_KERNEL, _K1_CONST + _K1_KERNEL), _K1_CALL,
+            "        intersect_const(r, n_test, best_t, best_i);"),
+            _K1_LAUNCH, _K1_CONST_COPY + _K1_LAUNCH),
+        "tree_2x": _replace(tree, "      if (can_cont)\n" + _K1_CALL, twice),
+    }
+
+
+def k5_variants(tree: str) -> dict[str, str]:
+    start = tree.index(_K5_PASS2)
+    end = tree.index(_K5_TAIL)
+    bounds = {k: _replace(tree, _K5_KERNEL, _K5_KERNEL.replace(
+        "(kThreads)", f"(kThreads, {k})")) for k in (6, 8)}
+
+    def ring(stages: int) -> str:
+        src = tree[:tree.index(_K5_VISITS)] + _K5_RING + tree[
+            tree.index(_K5_VISITS_END) + len(_K5_VISITS_END):]
+        for old, new in (
+                ("  __shared__ uint64_t s_full;",
+                 f"  __shared__ uint64_t s_ring_full[{stages}];\n"
+                 f"  const int stages = {stages};"),
+                ("  float4* s_sup = (float4*)(s_rows + stage_floats);",
+                 "  float4* s_sup = (float4*)(s_rows + stages * "
+                 "stage_floats);"),
+                ("    mbar_init(&s_full, 1);",
+                 "    for (int s = 0; s < stages; ++s) "
+                 "mbar_init(&s_ring_full[s], 1);"),
+                ("  uint32_t phase = 0;  // parity of the rows barrier's "
+                 "current phase", "  unsigned seq = 0;"),
+                ("  return sizeof(float) * kNR * (size_t)cs + 32 * groups +",
+                 f"  return {stages} * sizeof(float) * kNR * (size_t)cs + "
+                 "32 * groups +")):
+            src = _replace(src, old, new)
+        return src
+
+    return {
+        "tree_all_pairs": _replace(tree, _K5_SUPER, ""),
+        "tree_rescan": tree[:start] + _K5_RESCAN + tree[end:],
+        "tree_ring2": ring(2),
+        "tree_ring4": ring(4),
+        "tree_lb6": bounds[6],
+        "tree_lb8": bounds[8],
+        "tree_scalar": _replace(tree, _K5_CALL,
+                                "        r.intersect(s_rows, cs, c * cs, "
+                                "best_t, best_i);"),
+    }
+
+
+def k2_variants(tree: str) -> dict[str, str]:
+    return {"tree_ilp": _replace(
+        _replace(tree, _K2_KERNEL, _ILP + _K2_KERNEL), _K2_CALL,
+        "      intersect_ilp<4>(r, s_rows + s * stage_floats, cs, "
+        "list[1 + k] * cs, best_t, best_i);")}
+
+
+def build_variants(build, sources: dict[str, str], csrc: Path,
+                   out_dir: Path) -> dict[str, ctypes.CDLL]:
+    """Compile each variant (one source) into its own library, side by
+    side; give every C entry point it exports its signature."""
+    out_dir.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for name, src in sources.items():
+        cu = out_dir / f"{name}.cu"
+        cu.write_text(src)
+        procs[name] = subprocess.Popen(
+            [build._nvcc(), *build.NVCC_FLAGS, "-I", str(csrc), "-shared",
+             "-o", str(out_dir / f"lib{name}.so"), str(cu)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    libs = {}
+    for name, proc in procs.items():
+        log = proc.communicate()[0]
+        if proc.returncode:
+            raise RuntimeError(f"nvcc failed on {name}:\n{log}")
+        (out_dir / f"{name}.log").write_text(log)
+        libs[name] = _bind(build, ctypes.CDLL(str(out_dir / f"lib{name}.so")))
+    return libs
+
+
+def _bind(build, lib: ctypes.CDLL) -> ctypes.CDLL:
+    for fn, argtypes in build._SIGNATURES.items():
+        if hasattr(lib, fn):
+            getattr(lib, fn).argtypes = argtypes
+            getattr(lib, fn).restype = ctypes.c_int
+    return lib
+
+
+def ptxas_lines(log: str, kernel: str) -> list[str]:
+    """The ptxas lines (registers, spills) of the kernels named ``kernel``."""
+    lines, keep = [], False
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            keep = kernel in line
+        if keep and ("registers" in line or "spill" in line):
+            lines.append(line.split("ptxas info    :")[-1].strip())
+    return lines
+
+
+# ------------------------------------------------------------------ timing
+
+def time_libs(libs: dict, call, state: torch.Tensor, plain: torch.Tensor,
+              check=True) -> dict[str, list[float]]:
+    """Every library's output against ``plain`` bit for bit (``check``),
+    then its CUDA-event median in a forward and a reverse pass."""
+    for who, lib in libs.items():
+        if check:
+            got = call(lib, state.clone())
+            torch.cuda.synchronize()
+            n_diff = int((got != plain).any(dim=0).sum())
+            assert n_diff == 0, f"{who}: {n_diff} rays differ from plain"
+    times: dict[str, list[float]] = {}
+    order = list(libs.items())
+    for pass_order in (order, order[::-1]):
+        for who, lib in pass_order:
+            times.setdefault(who, []).append(median_ms(
+                lambda s, lib=lib: call(lib, s), 7,
+                setup=lambda: (state.clone(),)))
+    return times
+
+
+def bound_ms(n_bytes: float, n_ops: float) -> float:
+    return max(n_bytes / HBM_BYTES_PER_S, n_ops / FP32_OPS_PER_S) * 1e3
+
+
+def round_work(before: torch.Tensor, after: torch.Tensor):
+    """(ray-bounces that searched the rows, lane use of one ray a thread)."""
+    from audiorenderingv2_tpu_torch.ops import raytrace_cuda as rc
+
+    b = (after[rc._C_DEPTH] - before[rc._C_DEPTH]).double()
+    b += ((after[rc._C_DONE] != 0) & (before[rc._C_DONE] == 0)).double()
+    warps = b[: b.numel() // 32 * 32].view(-1, 32)
+    use = float(warps.sum() / (32 * warps.amax(dim=1)).sum())
+    return int(b.sum()), use
+
+
+def unit_dirs(n: int, seed: int) -> np.ndarray:
+    d = np.random.default_rng(seed).normal(size=(n, 3))
+    return (d / np.linalg.norm(d, axis=1, keepdims=True)).astype(np.float32)
+
+
+# ------------------------------------------------------------------ phases
+
+def k1_phase(libs, n: int) -> dict:
+    from audiorenderingv2_tpu_torch import constants, testing, tuned
+    from audiorenderingv2_tpu_torch.core import tracer
+    from audiorenderingv2_tpu_torch.core.params import TraceParams
+    from audiorenderingv2_tpu_torch.ops import raytrace_cuda as rc
+
+    dev = torch.device("cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+    scene = testing.scene_from_arrays(*testing.box_room(ROOM), ABSORPTION)
+    rows = rc.pack_tris_rows(tracer.scene_to_arrays(scene, device=dev))
+    n_valid = int((rows[:, rc._R_VAL] > 0).sum())
+    params = TraceParams(sample_rate=SR, ir_length=IR_SECONDS * SR,
+                         base_power=3.62, max_bounces=MAX_BOUNCES,
+                         hrtf_absorption_rate=0.9)
+    emitter = torch.zeros(3, device=dev)
+    e0 = params.base_power / (n * constants.SPHERE_VOLUME)
+    state = rc.init_state(torch.from_numpy(unit_dirs(n, 11)).to(dev),
+                          emitter, e0, -(-n // 128) * 128)
+    scal = rc.scalars(emitter, torch.tensor(RECEIVER, device=dev), 30.0, e0,
+                      params)
+    out = {}
+    for k, budget in enumerate(tuned.round_budgets_for(MAX_BOUNCES)):
+        def call(lib, s, budget=budget):
+            err = lib.ar2_trace_round(
+                s.data_ptr(), s.shape[1], s.shape[0], rows.data_ptr(),
+                rows.shape[0], scal.data_ptr(), 1, s.shape[1], 1, 1, budget,
+                params.max_bounces, stream)
+            assert err == 0, err
+            return s
+
+        plain = rc.trace_round_plain(state.clone(), rows, scal, params,
+                                     budget)
+        tests, use = round_work(state, plain)
+        times = time_libs(libs, call, state, plain)
+        row = {"budget": budget,
+               "alive_before": int((state[rc._C_DONE] == 0).sum()),
+               "tests": tests * n_valid, "valid_rows": n_valid,
+               "lane_use_one_ray_a_thread": use,
+               "bound_ms": bound_ms(2 * state.numel() * 4
+                                    + (rows.numel() + scal.numel()) * 4,
+                                    tests * n_valid * TRI_TEST_OPS),
+               "ms": times}
+        out[f"round{k + 1}"] = row
+        print(f"K1 round {k + 1} ({budget} bounces, {row['alive_before']} "
+              f"alive): {row['tests']:.4g} tests, bound "
+              f"{row['bound_ms']:.4f} ms, lane use {use:.3f}; " + "; ".join(
+                  f"{w} {v[0]:.3f}/{v[1]:.3f}" for w, v in times.items()),
+              flush=True)
+        state = rc._partition_alive_first(plain)
+    return out
+
+
+def k1_pose_phase(libs, n: int) -> dict:
+    from audiorenderingv2_tpu_torch import constants, testing
+    from audiorenderingv2_tpu_torch.core import sampling, tracer
+    from audiorenderingv2_tpu_torch.core.params import TraceParams
+    from audiorenderingv2_tpu_torch.ops import raytrace_cuda as rc
+
+    dev = torch.device("cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+    p, n_pad = 8, -(-n // 128) * 128
+    scene = testing.scene_from_arrays(*testing.box_room(MULTI_ROOM),
+                                      MULTI_ABSORPTION)
+    rows = rc.pack_tris_rows(tracer.scene_to_arrays(scene, 128, device=dev))
+    n_valid = int((rows[:, rc._R_VAL] > 0).sum())
+    params = TraceParams(sample_rate=SR, ir_length=IR_SECONDS * SR,
+                         base_power=3.62, max_bounces=MULTI_BOUNCES,
+                         hrtf_absorption_rate=0.9)
+    em = torch.from_numpy(np.repeat(MULTI_EMITTERS, 4, axis=0)).to(dev)
+    rcv = torch.from_numpy(np.tile(MULTI_LISTENERS, (2, 1))).to(dev)
+    yaw = torch.from_numpy(np.tile(MULTI_YAWS, 2)).to(dev)
+    e0 = params.base_power / (n * constants.SPHERE_VOLUME)
+    dirs = torch.stack([sampling.sample_directions(
+        n, sampling.pose_generator(0, i, dev), dev) for i in range(p)])
+    state = rc.init_state(dirs, em, e0, n_pad)
+    scal = rc.scalars(em, rcv, yaw, e0, params)
+    out = {}
+    for k, budget in enumerate(MULTI_BUDGETS):
+        def call(lib, s, budget=budget):
+            err = lib.ar2_trace_round(
+                s.data_ptr(), s.shape[1], s.shape[0], rows.data_ptr(),
+                rows.shape[0], scal.data_ptr(), p, n_pad, 1, 1, budget,
+                params.max_bounces, stream)
+            assert err == 0, err
+            return s
+
+        plain = rc.trace_round_plain(state.clone(), rows, scal, params,
+                                     budget, n_pad)
+        tests, use = round_work(state, plain)
+        times = time_libs(libs, call, state, plain)
+        row = {"budget": budget, "tests": tests * n_valid,
+               "lane_use_one_ray_a_thread": use,
+               "bound_ms": bound_ms(2 * state.numel() * 4
+                                    + (rows.numel() + scal.numel()) * 4,
+                                    tests * n_valid * TRI_TEST_OPS),
+               "ms": times}
+        out[f"round{k + 1}"] = row
+        print(f"K1-pose round {k + 1} ({budget} bounces, {p} x {n_pad} "
+              f"rays): bound {row['bound_ms']:.4f} ms, lane use {use:.3f}; "
+              + "; ".join(f"{w} {v[0]:.3f}/{v[1]:.3f}"
+                          for w, v in times.items()), flush=True)
+        state = rc._partition_alive_first(plain, p)
+    return out
+
+
+def _office(cs: int, dev):
+    from audiorenderingv2_tpu_torch import accel, testing
+    from audiorenderingv2_tpu_torch.core import tracer
+    from audiorenderingv2_tpu_torch.ops import raytrace_cuda as rc
+
+    sorted_scene, clusters = accel.prepare_scene(
+        testing.office_scene(OFFICE_TRIS), cluster_size=cs)
+    return rc.pack_tris_clusters(tracer.scene_to_arrays(
+        sorted_scene, 128, device=dev, clusters=clusters))
+
+
+def _office_params():
+    from audiorenderingv2_tpu_torch.core.params import TraceParams
+
+    return TraceParams(sample_rate=SR, ir_length=IR_SECONDS * SR,
+                       base_power=3.62, max_bounces=OFFICE_BOUNCES,
+                       hrtf_absorption_rate=0.9)
+
+
+def k5_phase(libs, n: int) -> dict:
+    from audiorenderingv2_tpu_torch import constants
+    from audiorenderingv2_tpu_torch.ops import raytrace_cuda as rc
+    from audiorenderingv2_tpu_torch.ops import traverse_cuda as tc
+
+    dev = torch.device("cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+    params = _office_params()
+    emitter = torch.zeros(3, device=dev)
+    e0 = params.base_power / (n * constants.SPHERE_VOLUME)
+    scal = rc.scalars(emitter, torch.tensor(OFFICE_RECEIVER, device=dev),
+                      0.0, e0, params)
+    out = {}
+    for cs in (32, 128):
+        rows, boxes = _office(cs, dev)
+        c = boxes.shape[0]
+        state = rc.init_state(torch.from_numpy(unit_dirs(n, 18)).to(dev),
+                              emitter, e0, -(-n // 128) * 128)
+        for name in ("start", "after1"):
+            visits = torch.zeros(state.shape[1] // 128, dtype=torch.int32,
+                                 device=dev)
+
+            def call(lib, s, v=None):
+                err = lib.ar2_trace_traverse(
+                    s.data_ptr(), s.shape[1], s.shape[0], rows.data_ptr(), cs,
+                    boxes.data_ptr(), c, scal.data_ptr(), 1, s.shape[1], 1,
+                    1, 1, params.max_bounces,
+                    None if v is None else v.data_ptr(), stream)
+                assert err == 0, err
+                return s
+
+            plain = tc.trace_traverse_plain(state.clone(), rows, boxes, scal,
+                                            params, 1, visits=visits)
+            for who, lib in libs.items():
+                v = torch.zeros_like(visits)
+                call(lib, state.clone(), v)
+                torch.cuda.synchronize()
+                assert torch.equal(v, visits), f"K5 {who}: visits differ"
+            times = time_libs(libs, call, state, plain)
+            alive = (state[rc._C_DONE] == 0).view(-1, 128).sum(1).double()
+            ops = (float(alive.sum()) * c * SLAB_TEST_OPS
+                   + float((alive * visits.double()).sum()) * cs
+                   * TRI_TEST_OPS)
+            row = {"clusters": c, "visits_mean": float(
+                visits.float().mean()), "visits_max": int(visits.max()),
+                   "bound_ms": bound_ms(2 * state.numel() * 4
+                                        + (rows.numel() + boxes.numel()
+                                           + scal.numel()) * 4, ops),
+                   "ms": times}
+            out[f"cs{cs}_{name}"] = row
+            print(f"K5 cs {cs} {name}: visits {row['visits_mean']:.2f} (max "
+                  f"{row['visits_max']}), bound {row['bound_ms']:.4f} ms; "
+                  + "; ".join(f"{w} {v[0]:.3f}/{v[1]:.3f}"
+                              for w, v in times.items()), flush=True)
+            state = rc._sort_state_by_keys(plain, rc._compaction_keys(plain))
+    return out
+
+
+def k2_phase(libs, n: int) -> dict:
+    from audiorenderingv2_tpu_torch import constants
+    from audiorenderingv2_tpu_torch.ops import raytrace_cuda as rc
+    from audiorenderingv2_tpu_torch.ops import schedule_cuda as sc
+
+    dev = torch.device("cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+    params = _office_params()
+    rows, boxes = _office(32, dev)
+    emitter = torch.zeros(3, device=dev)
+    e0 = params.base_power / (n * constants.SPHERE_VOLUME)
+    scal = rc.scalars(emitter, torch.tensor(OFFICE_RECEIVER, device=dev),
+                      0.0, e0, params)
+    state = rc.init_state(torch.from_numpy(unit_dirs(n, 13)).to(dev),
+                          emitter, e0, -(-n // 128) * 128)
+    states = {"round1": state.clone()}
+    for k in range(16):
+        state = sc.trace_round_sched(state, rows, boxes,
+                                     sc.tile_schedule(state, boxes), scal,
+                                     params)
+        state = rc._sort_state_by_keys(state, rc._compaction_keys(state))
+        if k in (0, 15):
+            states[f"after{k + 1}"] = state.clone()
+    out = {}
+    for name, st in states.items():
+        sched = sc.tile_schedule_plain(st, boxes)
+
+        def call(lib, s):
+            err = lib.ar2_trace_sched(
+                s.data_ptr(), s.shape[1], s.shape[0], rows.data_ptr(), 32,
+                sched.data_ptr(), sched.shape[1], scal.data_ptr(), 1,
+                s.shape[1], 1, 1, params.max_bounces, stream)
+            assert err == 0, err
+            return s
+
+        plain = sc.trace_round_sched_plain(st.clone(), rows, boxes, sched,
+                                           scal, params)
+        times = time_libs(libs, call, st, plain)
+        out[name] = {"ms": times}
+        print(f"K2 {name}: " + "; ".join(
+            f"{w} {v[0]:.3f}/{v[1]:.3f}" for w, v in times.items()),
+            flush=True)
+    return out
+
+
+_RENDER = r'''
+import sys, time
+sys.path.insert(0, sys.argv[1])
+import numpy as np, torch
+from audiorenderingv2_tpu_torch import testing
+from audiorenderingv2_tpu_torch.core.tracer import TracerOptions
+from audiorenderingv2_tpu_torch.renderer import AudioRenderer
+r = AudioRenderer(testing.office_scene(20000), 2, 16000, 1_000_000,
+                  base_power=3.62, max_bounces=32, hrtf_absorption_rate=0.9,
+                  opts=TracerOptions(), device="cuda")
+r.set_emitter_pos((0.0, 0.0, 0.0))
+r.set_receiver((6.0, 1.0, -8.0), 0.0)
+assert r.rows.shape[0] // r.boxes.shape[0] == 128
+r.render()
+times = []
+for _ in range(7):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ir = r.render()
+    torch.cuda.synchronize()
+    times.append((time.perf_counter() - t0) * 1e3)
+assert np.isfinite(ir).all() and ir.sum() > 0
+print(float(np.median(times)), float(ir.sum()))
+'''
+
+
+def render_phase(parent: Path) -> dict:
+    """The office render with explicit options, alone in a process of its
+    own: other, this, this, other."""
+    out: dict[str, list] = {}
+    for who, root in (("parent", parent), ("tree", REPO), ("tree", REPO),
+                      ("parent", parent)):
+        res = subprocess.run([sys.executable, "-c", _RENDER, str(root)],
+                             capture_output=True, text=True, timeout=600,
+                             cwd=str(root))
+        if res.returncode:
+            raise RuntimeError(f"render in {root} failed:\n{res.stderr}")
+        ms, energy = map(float, res.stdout.split()[-2:])
+        out.setdefault(who, []).append({"ms": ms, "energy": energy})
+        print(f"office render, explicit options ({who}): {ms:.3f} ms "
+              f"(median of 7, host clock), energy {energy:.6e}", flush=True)
+    return out
+
+
+_E2E = r"""
+import json, sys, time
+sys.path.insert(0, sys.argv[1])
+import numpy as np, torch
+from audiorenderingv2_tpu_torch import accel, multi, testing
+from audiorenderingv2_tpu_torch.core import tracer
+from audiorenderingv2_tpu_torch.core.params import TraceParams
+from audiorenderingv2_tpu_torch.core.tracer import TracerOptions
+from audiorenderingv2_tpu_torch.diff import replay
+from audiorenderingv2_tpu_torch.ops import raytrace_cuda as rc
+from audiorenderingv2_tpu_torch.renderer import AudioRenderer
+dev, n = sys.argv[2], int(sys.argv[3])
+
+def sync():
+    if dev == "cuda":
+        torch.cuda.synchronize()
+
+def median_ms(fn, reps):
+    fn()
+    times = []
+    for _ in range(reps):
+        sync()
+        t0 = time.perf_counter()
+        fn()
+        sync()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times))
+
+def renderer(scene, bounces, receiver, opts):
+    r = AudioRenderer(scene, 2, 16000, n, base_power=3.62,
+                      max_bounces=bounces, hrtf_absorption_rate=0.9,
+                      opts=opts, device=dev)
+    r.set_emitter_pos((0.0, 0.0, 0.0))
+    r.set_receiver(receiver, 0.0)
+    return r
+
+out = {}
+box = testing.scene_from_arrays(*testing.box_room((14.0, 9.0, 11.0)), 0.3)
+out["box_render"] = median_ms(renderer(box, 100, (2.5, 1.5, 2.0),
+                                       None).render, 7)
+demo = testing.scene_from_arrays(*testing.box_room((18.0, 10.0, 14.0)), 0.25)
+sc = tracer.scene_to_arrays(demo, 128, device=dev)
+rows, _ = rc.pack_scene(sc, 1)
+params = TraceParams(sample_rate=16000, ir_length=32000, base_power=3.62,
+                     max_bounces=40, hrtf_absorption_rate=0.9)
+em = np.array([[-5.0, 0.0, -4.0], [6.0, 1.0, 5.0]], np.float32)
+li = np.stack([np.linspace(-6.0, 6.0, 4), np.zeros(4),
+               np.linspace(4.0, -4.0, 4)], axis=1).astype(np.float32)
+yaw = np.linspace(0.0, 270.0, 4).astype(np.float32)
+out["matrix_2x4"] = median_ms(lambda: multi.render_ir_matrix(
+    sc, 0, em, li, yaw, n, params, TracerOptions(round_budgets=(8, 32)),
+    pair_batch=8, rows=rows), 5)
+office = testing.office_scene(20000)
+out["office_render"] = median_ms(renderer(office, 32, (6.0, 1.0, -8.0),
+                                          None).render, 5)
+out["office_explicit"] = median_ms(renderer(office, 32, (6.0, 1.0, -8.0),
+                                            TracerOptions()).render, 5)
+ss, cl = accel.prepare_scene(office, cluster_size=32)
+scc = tracer.scene_to_arrays(ss, 128, device=dev, clusters=cl)
+crows, cboxes = rc.pack_tris_clusters(scc)
+d = np.random.default_rng(0).normal(size=(n, 3))
+d = torch.from_numpy((d / np.linalg.norm(d, axis=1, keepdims=True))
+                     .astype(np.float32)).to(dev)
+rparams = TraceParams(sample_rate=16000, ir_length=32000, base_power=3.62,
+                      max_bounces=32, energy_threshold=0.0)
+for name, opts in (("record_schedule", TracerOptions(schedule=True)),
+                   ("record_k5", TracerOptions())):
+    out[name] = median_ms(lambda: replay.record_paths_kernels(
+        scc, d, (0.0, 0.0, 0.0), (6.0, 1.0, -8.0), 0.0, rparams, opts,
+        rows=crows, boxes=cboxes), 3)
+print(json.dumps(out))
+"""
+
+
+def e2e_phase(parent: Path, pairs: int = 3, device: str = "cuda",
+              n: int = 1_000_000) -> dict:
+    """The paths a user runs, each in a process of its own per checkout, in
+    pairs that alternate which side runs first (other, this, this, other,
+    ...): the box render (1M rays x 100 bounces, median of 7), the 2 x 4 x
+    1M-ray matrix, the office render (auto options: the schedule and K2)
+    and with explicit options (K5), and the path recording of the office
+    (1M x 32) with the schedule and with K5 (medians of 5, 5, 5, 3, 3;
+    host clock around synchronised calls, one warm-up each)."""
+    out: dict[str, dict[str, list]] = {}
+    for i in range(pairs):
+        order = (("parent", parent), ("tree", REPO))
+        for who, root in (order if i % 2 == 0 else order[::-1]):
+            res = subprocess.run(
+                [sys.executable, "-c", _E2E, str(root), device, str(n)],
+                capture_output=True, text=True, timeout=900, cwd=str(root))
+            if res.returncode:
+                raise RuntimeError(f"end to end in {root} failed:\n"
+                                   f"{res.stderr}")
+            for metric, ms in json.loads(res.stdout.splitlines()[-1]).items():
+                out.setdefault(metric, {}).setdefault(who, []).append(ms)
+            print(f"end to end ({who}): " + ", ".join(
+                f"{m} {v[who][-1]:.3f}" for m, v in out.items()), flush=True)
+    return out
+
+
+def histogram_bwd_phase(n: int) -> dict:
+    from audiorenderingv2_tpu_torch.ops import histogram_cuda as hc
+
+    n_pad = -(-n // 128) * 128
+    shapes = {"1 band": (4 * n_pad, 2 * IR_SECONDS * SR, 1),
+              "4 bands": (4 * n_pad, 2 * IR_SECONDS * SR, 4),
+              "posed": (8 * n_pad, 8 * 2 * IR_SECONDS * SR, 1)}
+    rng = np.random.default_rng(17)
+    out = {}
+    for name, (n_events, n_bins, n_bands) in shapes.items():
+        bins = rng.integers(-n_bins // 8, n_bins + n_bins // 8,
+                            size=n_events).astype(np.int32)
+        b_d = torch.from_numpy(bins).cuda()
+        g = torch.from_numpy(rng.standard_normal(
+            (n_bins, n_bands)).astype(np.float32)).cuda()
+        keep = (b_d >= 0) & (b_d < n_bins)
+        g_pad = torch.cat([g, torch.zeros((1, n_bands), device="cuda")])
+        idx = torch.where(keep, b_d, n_bins).long()
+        assert torch.equal(g_pad.index_select(0, idx),
+                           hc.histogram_bwd(b_d, g))
+        kern, lib = [], []
+        for _ in range(9):
+            kern.append(median_ms(lambda: hc.histogram_bwd(b_d, g), 20))
+            lib.append(median_ms(lambda: g_pad.index_select(0, idx), 20))
+        out[name] = {"kernel_ms": kern, "index_select_ms": lib}
+        print(f"K3-bwd {name}: kernel median {np.median(kern):.4f} ms "
+              f"(range {min(kern):.4f}-{max(kern):.4f}), index_select "
+              f"{np.median(lib):.4f} ({min(lib):.4f}-{max(lib):.4f})",
+              flush=True)
+    return out
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--parent", type=Path, required=True,
+                    help="another checkout of the repository")
+    ap.add_argument("--rays", type=int, default=1_000_000)
+    ap.add_argument("--out", type=Path,
+                    help="also write the JSON line to this file")
+    ap.add_argument("--phases", default="k1,k1_pose,k5,k2,render,bwd,e2e",
+                    help="comma-separated subset of the phases to run")
+    args = ap.parse_args()
+    phases = set(args.phases.split(","))
+    if not torch.cuda.is_available():
+        print("torch_trace_ab: no CUDA device", file=sys.stderr)
+        return 2
+    from audiorenderingv2_tpu_torch.ops import _build
+
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, timeout=60).stdout.strip()
+    print(card, flush=True)
+    t0 = time.perf_counter()
+    parent_dir = args.parent.resolve()
+    parent_build = load_build_module(parent_dir, "parent_build")
+    base = {"parent": parent_build.library(), "tree": _build.library()}
+    def src(root: Path, name: str) -> str:
+        return (root / "audiorenderingv2_tpu_torch" / "csrc" /
+                name).read_text()
+
+    out_dir = _build.BUILD_ROOT / "trace_ab_variants"
+    k1_src = k1_variants(src(REPO, "trace_round.cu"),
+                         src(parent_dir, "trace_round.cu"))
+    k5_src = k5_variants(src(REPO, "trace_traverse.cu"))
+    k2_src = k2_variants(src(REPO, "trace_sched.cu"))
+    variants = build_variants(
+        _build, {**{f"k1_{k}": v for k, v in k1_src.items()},
+                 **{f"k5_{k}": v for k, v in k5_src.items()},
+                 **{f"k2_{k}": v for k, v in k2_src.items()}},
+        _build.CSRC, out_dir)
+    print(f"built {len(variants)} variants and both checkouts in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    kernel_of = {"k1": "trace_r", "k5": "trace_traverse",
+                 "k2": "trace_sched"}
+    regs = {name: ptxas_lines((out_dir / f"{name}.log").read_text(),
+                              kernel_of[name[:2]])
+            for name in variants}
+    tree_log = (_build.build_dir() / "build.log").read_text()
+    regs["tree"] = ptxas_lines(tree_log, "trace_r") + ptxas_lines(
+        tree_log, "trace_traverse")
+    for name, lines in regs.items():
+        print(f"ptxas {name}: " + " | ".join(lines), flush=True)
+
+    k1_libs = {**base, **{k[3:]: v for k, v in variants.items()
+                          if k.startswith("k1_")}}
+    k5_libs = {**base, **{k[3:]: v for k, v in variants.items()
+                          if k.startswith("k5_")}}
+    k2_libs = {**base, **{k[3:]: v for k, v in variants.items()
+                          if k.startswith("k2_")}}
+    result = {"device": card, "rays": args.rays, "ptxas": regs}
+    pose_libs = {k: v for k, v in k1_libs.items()
+                 if k in ("parent", "tree", "parent_f4", "tree_ilp",
+                          "tree_lb8", "tree_persist_all", "tree_refill8")}
+    runs = {"k1": lambda: k1_phase(k1_libs, args.rays),
+            "k1_pose": lambda: k1_pose_phase(pose_libs, args.rays),
+            "k5": lambda: k5_phase(k5_libs, args.rays),
+            "k2": lambda: k2_phase(k2_libs, args.rays),
+            "render": lambda: render_phase(parent_dir),
+            "e2e": lambda: e2e_phase(parent_dir),
+            "bwd": lambda: histogram_bwd_phase(args.rays)}
+    for name, run in runs.items():
+        if name in phases:
+            result[name] = run()
+    line = json.dumps(result)
+    if args.out is not None:
+        args.out.parent.mkdir(parents=True, exist_ok=True)
+        args.out.write_text(line + "\n")
+    print(line, flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

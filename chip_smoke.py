@@ -11,11 +11,12 @@ Phases, in order; any failure raises and the script exits non-zero:
 3. K3, the histogram kernel, against its plain version (index_add_) and a
    float64 reference, on 1M seeded events (30% out of range) at 1 and 4
    bands; times of both;
-4. K1, the bounce-round kernel, against its plain version on the card: all
-   state columns after an 8-bounce round, and the IR after 100 bounces, at
-   64k rays; then at the export path's 1M rays through its round budgets
-   (8, 24, 68) with the alive-first partition between rounds, all columns
-   after rounds 1 and 2 and the IR after round 3; times of both;
+4. K1, the bounce-round kernel, against its plain version on the card, bit
+   for bit in every state column: 100 bounces in one round at 64k rays;
+   the export path's round budgets (8, 24, 68) with the alive-first
+   partition between rounds, at 64k and at 1M rays, after every round; an
+   8-band layout (32 columns) once; at 1M rays each round's times, tests
+   and bound;
 5. the export path as a user runs it (config.json -> load_context ->
    export_audio) at 1M rays, 100 bounces, a 2 s IR at 16 kHz, with both
    kernels' launch counts read around it; its IR is checked against the CPU
@@ -23,11 +24,12 @@ Phases, in order; any failure raises and the script exits non-zero:
 6. the clustered route's kernels on the office scene of
    benchmarks/large_scene.py (19,852 triangles, 621 clusters of 32, 32
    bounces): K1's multi-chunk branch (39 chunks of 512 rows) against its
-   plain version after an 8-bounce round at 64k rays; the schedule kernel
-   against its plain version at 1M rays, integer for integer, on the state
-   after one bounce; K2 against its plain version over two clustered
-   rounds (schedule, K2, coherent sort) at 1M rays, the chains run apart,
-   every column after each round; the clustered IR against K1's over all
+   plain version after an 8-bounce round at 64k rays, bit for bit; the
+   schedule kernel against its plain version at 1M rays, integer for
+   integer, on the state after one bounce; K2 against its plain version
+   over two clustered rounds (schedule, K2, coherent sort) at 1M rays, the
+   chains run apart, every column after each round; the clustered IR
+   against K1's over all
    rows on 64k shared directions; times of both kernels and their plain
    versions, and of the sort. Then both kernels on three states of the
    office render (round 1 unsorted, after one bounce and the sort, after
@@ -92,11 +94,12 @@ Phases, in order; any failure raises and the script exits non-zero:
    index_add_; times of the three;
 14. K5, the in-kernel cluster traversal, on the office in clusters of 32 and
    of 128: against its plain version at 65,536 rays and at the recorder's
-   1,000,064, from the start state and after one bounce and the sort, every
-   column and every tile's visit count bit for bit; at 1,000,064 rays also
-   against K2 on the same state (DIST, energy and the event columns equal;
-   the rays that bounce off another triangle at the same distance counted);
-   visits per tile; times; then K5 with one scalar row per pose (4 poses x
+   1,000,064, from the start state, after one bounce and the sort and after
+   16 bounces, every column and every tile's visit count bit for bit; at
+   1,000,064 rays (the first two states) also against K2 on the same state
+   (DIST, energy and the event columns equal; the rays that bounce off
+   another triangle at the same distance counted); visits per tile; times;
+   then K5 with one scalar row per pose (4 poses x
    250,112 rays) against its plain version and single-pose launches;
 15. the path recorder (diff.record_paths_kernels) at 1M rays x 32 bounces on
    the office with the schedule (schedule kernel + K2) and without (K5) and
@@ -148,12 +151,16 @@ clustered route's kernels that of phase 7; for the posed kernels and the
 posed histogram the matrices of phase 10, for the 4-band posed K1 that of
 phase 12; for K4 the render of phase 11; for K3-bwd the office fit of phase
 17; for K5 the recording without the schedule of phase 15), max abs error,
-ms, plain ms (for the posed K1 those of the first of its two launches, the
-8-bounce round; the 32-bounce round's under "round2"), the bound (the larger
+ms, plain ms (for K1 those of the export's first round, rounds 2 and 3
+under "round2" and "round3" with their tests; for the posed K1 those of
+the first of its two launches, the 8-bounce round; the 32-bounce round's
+under "round2"), the bound (the larger
 of bytes moved over 3.35 TB/s and FP32 operations over 67 TFLOP/s, worked
 out from this run's inputs; the schedule is bound by its bytes, with the
 all-pairs slab-test count under "all_pairs_bound_ms" and its times at the
-three states under "states", as K2's; K6 is bound on K1's 40 operations a
+three states under "states", as K2's; K5 on its visited clusters' triangle
+tests and a slab test of each superbox, every box's slab test under
+"all_pairs_bound_ms"; K6 is bound on K1's 40 operations a
 test, with the product as it issues it under "issued_bound_ms", and K7 on
 the valid triangles, with its padded columns under "padded_bound_ms"), what
 bounds it, and the time of one PyTorch call that computes the same function where
@@ -162,6 +169,7 @@ non-zero and prints no result.
 """
 from __future__ import annotations
 
+import dataclasses
 import functools
 import json
 import subprocess
@@ -374,112 +382,115 @@ def phase_trace() -> dict:
     from audiorenderingv2_tpu_torch.ops import raytrace_cuda as rc
 
     dev = torch.device("cuda")
-    sc = tracer.scene_to_arrays(_box_scene(), device=dev)
-    rows = rc.pack_tris_rows(sc)
     params = TraceParams(sample_rate=SR, ir_length=IR_SECONDS * SR,
                          base_power=3.62, max_bounces=MAX_BOUNCES,
                          hrtf_absorption_rate=0.9)
     emitter = torch.tensor(EMITTER, device=dev)
     receiver = torch.tensor(RECEIVER, device=dev)
 
-    def start_state(n):
+    def box_rows(n_bands):
+        absorb = ABSORPTION if n_bands == 1 else np.tile(
+            np.linspace(0.1, 0.6, n_bands).astype(np.float32), (12, 1))
+        scene = testing.scene_from_arrays(*testing.box_room(ROOM), absorb)
+        return rc.pack_tris_rows(tracer.scene_to_arrays(scene, device=dev),
+                                 n_bands)
+
+    def start_state(n, n_bands=1):
         e0 = params.base_power / (n * constants.SPHERE_VOLUME)
         d = torch.from_numpy(unit_dirs(n, 11)).to(dev)
         n_pad = -(-n // 128) * 128
-        return (rc.init_state(d, emitter, e0, n_pad),
+        return (rc.init_state(d, emitter, e0, n_pad, n_bands),
                 rc.scalars(emitter, receiver, 30.0, e0, params))
 
-    # All state columns after one 8-bounce round, 64k rays.
-    state, scal = start_state(65536)
-    kern = rc.trace_round(state.clone(), rows, scal, params, 8)
-    plain = rc.trace_round_plain(state.clone(), rows, scal, params, 8)
-    torch.cuda.synchronize()
-    assert torch.isfinite(kern).all()
-    err = float((kern - plain).abs().max())
-    assert_columns_close(kern, plain, "K1")
-    n_eq = int((kern == plain).all(dim=0).sum())
-    log(f"K1 8-bounce round, 65536 rays: every column within rtol 1e-5; "
-        f"max abs err {err:.3e}; {n_eq} of {kern.shape[1]} rays "
-        f"bit-identical")
+    rows = box_rows(1)
+    n_valid = int((rows[:, rc._R_VAL] > 0).sum())
+    assert rc.k1_branch(rows.shape[0]) == "one_chunk"
 
-    # The IR after 100 bounces (one round each, the same histogram step).
+    # The IR after 100 bounces in one round, 64k rays.
+    state, scal = start_state(65536)
     kern = rc.trace_round(state.clone(), rows, scal, params, MAX_BOUNCES)
     plain = rc.trace_round_plain(state.clone(), rows, scal, params,
                                  MAX_BOUNCES)
+    torch.cuda.synchronize()
+    _assert_same_bits(kern, plain, "K1, 100 bounces in one round")
 
     def ir_of(st):
         return tracer._histogram_from_events(
             st[rc._C_EVB], st[rc._C_EVW][:, None].contiguous(),
             st[rc._C_EVE].to(torch.int32), params, False).cpu()
 
-    ir_k, ir_p = ir_of(kern), ir_of(plain)
-    testing.assert_ir_close(ir_k.numpy(), ir_p.numpy(), exact=False)
+    ir_k = ir_of(kern)
+    assert np.all((ir_k > 0).sum(dim=1).numpy() >= 200)
     ms100 = median_ms(lambda s: rc.trace_round(s, rows, scal, params,
                                                MAX_BOUNCES), 5,
                       setup=lambda: (state.clone(),))
-    plain100 = median_ms(
-        lambda s: rc.trace_round_plain(s, rows, scal, params, MAX_BOUNCES),
-        3,
-        setup=lambda: (state.clone(),))
-    log(f"K1 100 bounces in one round, 65536 rays: IR passes "
-        f"assert_ir_close(exact=False); energy kernel "
-        f"{float(ir_k.sum()):.6e} plain {float(ir_p.sum()):.6e}; per-ear "
-        f"nonzero bins {(ir_k > 0).sum(dim=1).tolist()}; kernel "
-        f"{ms100:.3f} ms, plain {plain100:.3f} ms")
+    log(f"K1 100 bounces in one round, 65536 rays: bit-identical to the "
+        f"plain version in every column; energy {float(ir_k.sum()):.6e}, "
+        f"per-ear nonzero bins {(ir_k > 0).sum(dim=1).tolist()}; kernel "
+        f"{ms100:.3f} ms")
 
-    # The export path's shape and schedule: 1M rays through its round
-    # budgets with the alive-first partition between rounds, the kernel's
-    # chain and the plain chain run apart. Every column must agree after
-    # each of the first two rounds; after the last, the IR.
-    state, scal = start_state(N_RAYS)
+    # The export path's round budgets with the alive-first partition
+    # between rounds, the kernel's chain and the plain chain run apart, at
+    # 64k rays and at the export's 1M: bit for bit after every round. At 1M
+    # each round's times, tests and bound.
     budgets = tuned.round_budgets_for(MAX_BOUNCES)
-    kern, plain = state.clone(), state.clone()
-    err = 0.0
-    for k, budget in enumerate(budgets):
-        if k:
-            kern = rc._partition_alive_first(kern)
-            plain = rc._partition_alive_first(plain)
-        kern = rc.trace_round(kern, rows, scal, params, budget)
-        plain = rc.trace_round_plain(plain, rows, scal, params, budget)
-        torch.cuda.synchronize()
-        assert torch.isfinite(kern).all(), f"K1 round {k + 1} not finite"
-        n_eq = int((kern == plain).all(dim=0).sum())
-        alive = int((kern[rc._C_DONE] == 0.0).sum())
-        if k + 1 < len(budgets):
-            err = max(err, float((kern - plain).abs().max()))
-            assert_columns_close(kern, plain,
-                                 f"K1 round {k + 1} (budget {budget})")
-            verdict = "every column within rtol 1e-5"
-        else:
-            ir_k, ir_p = ir_of(kern), ir_of(plain)
-            testing.assert_ir_close(ir_k.numpy(), ir_p.numpy(), exact=False)
-            verdict = (f"IR passes assert_ir_close(exact=False), energy "
-                       f"kernel {float(ir_k.sum()):.6e} plain "
-                       f"{float(ir_p.sum()):.6e}")
-        log(f"K1 round {k + 1} (budget {budget}), {kern.shape[1]} rays: "
-            f"{verdict}; {n_eq} rays bit-identical; {alive} alive after")
+    rounds, err = [], 0.0
+    for n in (65536, N_RAYS):
+        state, scal = start_state(n)
+        kern, plain = state.clone(), state.clone()
+        for k, budget in enumerate(budgets):
+            if k:
+                kern = rc._partition_alive_first(kern)
+                plain = rc._partition_alive_first(plain)
+            before = plain.clone()
+            kern = rc.trace_round(kern, rows, scal, params, budget)
+            plain = rc.trace_round_plain(plain, rows, scal, params, budget)
+            torch.cuda.synchronize()
+            what = f"K1 round {k + 1} (budget {budget}), {n} rays"
+            err = max(err, _assert_same_bits(kern, plain, what))
+            alive = int((kern[rc._C_DONE] == 0.0).sum())
+            line = (f"{what}: bit-identical to the plain version in every "
+                    f"column; {alive} alive after")
+            if n == N_RAYS:
+                ms = median_ms(lambda s, b=budget: rc.trace_round(
+                    s, rows, scal, params, b), 5, setup=lambda: (
+                        before.clone(),))
+                plain_ms = median_ms(lambda s, b=budget: rc.trace_round_plain(
+                    s, rows, scal, params, b), 1, setup=lambda: (
+                        before.clone(),))
+                tests = round_tests(before, kern) * n_valid
+                rounds.append({"budget": budget, "tests": tests, "ms": ms,
+                               "plain_ms": plain_ms,
+                               **bound(2 * nbytes(before) + nbytes(rows, scal),
+                                       tests * TRI_TEST_OPS)})
+                line += (f"; {tests:.4g} ray-triangle tests of the {n_valid} "
+                         f"valid rows; kernel {ms:.3f} ms, plain "
+                         f"{plain_ms:.3f} ms, bound "
+                         f"{rounds[-1]['bound_ms']:.4f} ms by "
+                         f"{rounds[-1]['bound_by']}")
+            log(line)
+        if n == N_RAYS:
+            ir_k = ir_of(kern)
+            assert np.all((ir_k > 0).sum(dim=1).numpy() >= 200)
+    log(f"K1 the render's three rounds, {N_RAYS} rays: "
+        f"{sum(r['ms'] for r in rounds):.3f} ms, bound "
+        f"{sum(r['bound_ms'] for r in rounds):.4f} ms")
 
-    # Times at that shape: its first round (8).
-    ms = median_ms(lambda s: rc.trace_round(s, rows, scal, params,
-                                            budgets[0]), 5,
-                   setup=lambda: (state.clone(),))
-    plain_ms = median_ms(
-        lambda s: rc.trace_round_plain(s, rows, scal, params, budgets[0]), 3,
-        setup=lambda: (state.clone(),))
-    log(f"K1 first round ({budgets[0]} bounces), {state.shape[1]} rays, "
-        f"{rows.shape[0]} triangle rows: kernel {ms:.3f} ms, plain "
-        f"{plain_ms:.3f} ms; max abs err over the column-checked rounds "
-        f"{err:.3e}")
-    after = rc.trace_round(state.clone(), rows, scal, params, budgets[0])
-    n_valid = int((rows[:, rc._R_VAL] > 0).sum())
-    tests = round_tests(state, after) * n_valid
-    k1_bound = bound(2 * nbytes(state) + nbytes(rows, scal),
-                     tests * TRI_TEST_OPS)
-    log(f"K1 first round: {tests:.4g} ray-triangle tests of the {n_valid} "
-        f"valid rows, bound "
-        f"{k1_bound['bound_ms']:.4f} ms by {k1_bound['bound_by']}")
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **k1_bound,
-            "library_ms": None}
+    # An 8-band layout (LB = 8, 32 state columns), once.
+    rows8 = box_rows(8)
+    state, scal = start_state(65536, 8)
+    params8 = dataclasses.replace(params, n_bands=8)
+    kern = rc.trace_round(state.clone(), rows8, scal, params8, 8)
+    plain = rc.trace_round_plain(state.clone(), rows8, scal, params8, 8)
+    torch.cuda.synchronize()
+    _assert_same_bits(kern, plain, "K1, 8 bands")
+    log(f"K1 8 bands ({kern.shape[0]} state columns), 65536 rays, an "
+        f"8-bounce round: bit-identical to the plain version in every column")
+    first = rounds[0]
+    return {"max_abs_err": err, "ms": first["ms"],
+            "plain_ms": first["plain_ms"], "bound_ms": first["bound_ms"],
+            "bound_by": first["bound_by"], "library_ms": None,
+            "tests": first["tests"], "round2": rounds[1], "round3": rounds[2]}
 
 
 def _reset_launches() -> None:
@@ -848,21 +859,18 @@ def phase_cluster_kernels(n_rays: int = N_RAYS) -> dict:
     flat = tracer.scene_to_arrays(scene, 128, device=dev)
     rows_flat = rc.pack_tris_rows(flat)
     state, scal = start_state(65536, 12)
+    assert rc.k1_branch(rows_flat.shape[0]) == "multi_chunk"
     kern = rc.trace_round(state.clone(), rows_flat, scal, params, 8)
     plain = rc.trace_round_plain(state.clone(), rows_flat, scal, params, 8)
     torch.cuda.synchronize()
-    assert torch.isfinite(kern).all(), "K1 multi-chunk not finite"
-    assert_columns_close(kern, plain, "K1 multi-chunk round")
-    n_eq = int((kern == plain).all(dim=0).sum())
+    _assert_same_bits(kern, plain, "K1 multi-chunk round")
     k1_ms = median_ms(lambda s: rc.trace_round(s, rows_flat, scal, params,
                                                8), 3,
                       setup=lambda: (state.clone(),))
     log(f"K1 multi-chunk, office scene ({scene.n_triangles} triangles, "
         f"{rows_flat.shape[0]} rows = {-(-rows_flat.shape[0] // 512)} "
-        f"chunks of 512), 8-bounce round, 65536 rays: every column within "
-        f"rtol 1e-5; max abs err {float((kern - plain).abs().max()):.3e}; "
-        f"{n_eq} of {kern.shape[1]} rays bit-identical; kernel "
-        f"{k1_ms:.3f} ms")
+        f"chunks of 512), 8-bounce round, 65536 rays: bit-identical to the "
+        f"plain version in every column; kernel {k1_ms:.3f} ms")
 
     log(f"office clustered: {rows.shape[0]} rows, {boxes.shape[0]} "
         f"clusters of {rows.shape[0] // boxes.shape[0]}, schedule width "
@@ -1811,13 +1819,16 @@ def phase_histogram_bwd() -> dict:
 
 
 def k5_work(state: torch.Tensor, visits: torch.Tensor, n_clusters: int,
-            cs: int, alive: torch.Tensor) -> float:
-    """FP32 operations of one K5 bounce: a slab test of every alive ray
-    against every box, and a triangle test of every alive ray against the
-    rows of every cluster its tile visited."""
+            cs: int, alive: torch.Tensor) -> tuple[float, float]:
+    """FP32 operations of one K5 bounce: a triangle test of every alive ray
+    against the rows of every cluster its tile visited, and a slab test of
+    every alive ray against each superbox of 32 clusters (the least a
+    two-level pass 1 tests); then, beside it, the same with a slab test
+    against every box (the all-pairs count of a one-level pass)."""
     per_tile = alive.view(-1, 128).sum(dim=1).double()
-    return (float(per_tile.sum()) * n_clusters * SLAB_TEST_OPS
-            + float((per_tile * visits.double()).sum()) * cs * TRI_TEST_OPS)
+    tests = float((per_tile * visits.double()).sum()) * cs * TRI_TEST_OPS
+    slab = float(per_tile.sum()) * SLAB_TEST_OPS
+    return (tests + slab * -(-n_clusters // 32), tests + slab * n_clusters)
 
 
 def phase_traverse() -> dict:
@@ -1851,14 +1862,16 @@ def phase_traverse() -> dict:
             st = rc.init_state(torch.from_numpy(unit_dirs(n, 18)).to(dev),
                                emitter, e0, n)
             scal = rc.scalars(emitter, receiver, 0.0, e0, params)
-            for step in range(2):  # the start state, then after a bounce
+            # The start state (round 1, unsorted), after one bounce and
+            # the sort, after 16 bounces.
+            for step in range(3):
                 visits = torch.zeros(n // 128, dtype=torch.int32, device=dev)
                 kern = tc.trace_traverse(st.clone(), rows, boxes, scal,
                                          params, 1, visits=visits)
                 torch.cuda.synchronize()
                 assert torch.isfinite(kern).all()
-                when = ("start state" if step == 0
-                        else "after one bounce and the sort")
+                when = ("start state", "after one bounce and the sort",
+                        "after 16 bounces")[step]
                 what = (f"K5, office, {n_clusters} clusters of {cs}, {n} "
                         f"rays, {when}")
                 line = (f"{what}: visits per tile mean "
@@ -1883,7 +1896,7 @@ def phase_traverse() -> dict:
                 del plain
                 line += ("; every column and every tile's visit count "
                          "bit-identical to the plain version")
-                if n != 65536:
+                if n != 65536 and step < 2:
                     # Against K2 on the same state. Equal distances and
                     # events everywhere; the triangle, and with it the
                     # reflected direction, may differ only where two
@@ -1914,24 +1927,34 @@ def phase_traverse() -> dict:
                         k2_ms = median_ms(lambda s: sc.trace_round_sched(
                             s, rows, boxes, sc.tile_schedule(s, boxes), scal,
                             params), 5, setup=lambda: (st.clone(),))
+                        ops, all_pairs = k5_work(st, visits, n_clusters,
+                                                 cs, alive)
                         k5_bound = bound(
-                            2 * nbytes(st) + nbytes(rows, boxes, scal),
-                            k5_work(st, visits, n_clusters, cs, alive))
+                            2 * nbytes(st) + nbytes(rows, boxes, scal), ops)
+                        all_pairs = bound(0, all_pairs)["bound_ms"]
                         line += (f"; K5 {ms:.3f} ms, schedule + K2 "
                                  f"{k2_ms:.3f} ms, plain {plain_ms:.3f} ms "
                                  f"(the compared run, after the start "
                                  f"state's as warm-up), bound "
                                  f"{k5_bound['bound_ms']:.4f} ms by "
-                                 f"{k5_bound['bound_by']}")
+                                 f"{k5_bound['bound_by']} (with every box "
+                                 f"slab-tested {all_pairs:.4f})")
                         if cs == 32:
                             # The recorder's own shape: clusters of 32,
                             # 1,000,064 rays, one bounce a launch.
                             result = {"max_abs_err": err, "ms": ms,
                                       "plain_ms": plain_ms, **k5_bound,
+                                      "all_pairs_bound_ms": all_pairs,
                                       "library_ms": None}
                 log(line)
                 st = rc._sort_state_by_keys(kern, rc._compaction_keys(kern))
-    assert len(errs) == 8 and max(errs) == 0.0, errs
+                if step == 1:  # 14 more bounces through the kernel
+                    for _ in range(14):
+                        st = tc.trace_traverse(st, rows, boxes, scal, params,
+                                               1)
+                        st = rc._sort_state_by_keys(
+                            st, rc._compaction_keys(st))
+    assert len(errs) == 12 and max(errs) == 0.0, errs
     posed_traverse_check()
     return result
 

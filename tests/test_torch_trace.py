@@ -223,3 +223,42 @@ def test_trace_round_rejects_bad_inputs():
     meta = [x.to("meta") for x in (state, rows, scal)]
     with pytest.raises(ValueError, match="no trace kernel for device meta"):
         rc.trace_round(*meta, params, 1)
+
+
+def test_trace_round_routes_by_row_count():
+    """Every scene of the rows route (fewer than 512 triangles) takes K1's
+    one-chunk branch; more rows than one chunk holds take the multi-chunk
+    branch; a negative count raises."""
+    assert rc.k1_branch(0) == rc.k1_branch(16) == "one_chunk"
+    assert rc.k1_branch(rc.K1_CHUNK_ROWS) == "one_chunk"
+    assert rc.k1_branch(rc.K1_CHUNK_ROWS + 1) == "multi_chunk"
+    assert rc.k1_branch(19856) == "multi_chunk"  # the office, every row
+    # the rows route's largest scene, trimmed to whole blocks of 16 rows
+    from audiorenderingv2_tpu_torch import tuned
+    assert rc.k1_branch(-(-(tuned.CLUSTER_THRESHOLD - 1) // 16) * 16) \
+        == "one_chunk"
+    with pytest.raises(ValueError, match="row count"):
+        rc.k1_branch(-1)
+
+
+def test_trace_round_rejects_bad_rows_and_poses():
+    """The wrapper refuses rows of the wrong width, scalar rows of the wrong
+    shape and pose batches that do not tile the state, before it picks a
+    branch or a device."""
+    _, sct, _ = _setup("box")
+    params = _tparams(ar.TraceParams(sample_rate=SR, ir_length=SR))
+    rows = rc.pack_tris_rows(sct)
+    state = rc.init_state(torch.from_numpy(_dirs(256, 0)), torch.zeros(3),
+                          1.0, 256)
+    with pytest.raises(ValueError, match="tris must be"):
+        rc.trace_round(state, rows[:, :16].contiguous(), torch.zeros(16),
+                       params, 1)
+    with pytest.raises(ValueError, match="scal must be"):
+        rc.trace_round(state, rows, torch.zeros(12), params, 1)
+    with pytest.raises(ValueError, match="do not make"):
+        rc.trace_round(state, rows, torch.zeros((3, 16)), params, 1, 128)
+    with pytest.raises(ValueError, match="multiple of 128"):
+        rc.trace_round(state, rows, torch.zeros((4, 16)), params, 1, 64)
+    before = rc.launches, rc.posed_launches
+    rc.trace_round(state, rows, torch.zeros((2, 16)), params, 1, 128)
+    assert (rc.launches, rc.posed_launches) == before  # the CPU: no kernel

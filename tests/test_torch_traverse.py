@@ -19,6 +19,9 @@ from audiorenderingv2_tpu_torch.core import tracer as t_tracer
 from audiorenderingv2_tpu_torch.ops import raytrace_cuda as rc
 from audiorenderingv2_tpu_torch.ops import schedule_cuda as sc_cuda
 from audiorenderingv2_tpu_torch.ops import traverse_cuda as tc
+from test_torch_schedule import (SPECIAL, ico_boxes, office,
+                                 office_after_one_bounce, rays_state,
+                                 seeded_rays, superboxes)
 
 torch.set_num_threads(1)
 
@@ -277,8 +280,8 @@ def test_traverse_wrapper_rejects_bad_inputs():
         tc.trace_traverse(state, rows, boxes, scal, params,
                           visits=torch.zeros(2))
     with pytest.raises(ValueError, match="bytes of shared memory"):
-        tc.trace_traverse(state, torch.zeros((12000 * 16, 24)),
-                          torch.zeros((12000, 8)), scal, params)
+        tc.trace_traverse(state, torch.zeros((16000 * 16, 24)),
+                          torch.zeros((16000, 8)), scal, params)
     meta = [x.to("meta") for x in (state, rows, boxes, scal)]
     with pytest.raises(ValueError, match="no trace kernel for device"):
         tc.trace_traverse(*meta, params)
@@ -337,3 +340,164 @@ def test_renderer_with_explicit_opts_clusters_at_128_and_matches_jax():
                          opts=t_tracer.TracerOptions(backend="autograd"),
                          device="cpu", **kw)
     assert auto.sc.cluster_boxes is None
+
+
+# ------------------------------------------------------------------ (g)
+# The kernel's two passes, modelled in plain PyTorch: pass 1 tests the
+# superbox of each group of 32 clusters before the group's children, pass 2
+# sorts the reached clusters once and visits them in that order.
+
+
+def two_level_entries(state: torch.Tensor, boxes: torch.Tensor,
+                      alive: torch.Tensor) -> torch.Tensor:
+    """Pass 1 as the kernel runs it: a lane's entry into a child counts only
+    when some alive lane of its warp (32 rays) reaches the child's
+    superbox; a tile's entry is the least over its lanes, inf when none
+    counts."""
+    s = state.reshape(state.shape[0], -1, 128)
+    k, c = s.shape[1], boxes.shape[0]
+    live = alive.view(k, 1, 128)
+    entry, child = sc_cuda.slab_pass(s, boxes)
+    sup = sc_cuda.slab_pass(s, superboxes(boxes))[1] & live
+    warp_sup = sup.view(k, -1, 4, 32).any(dim=3)            # [k, G, 4]
+    group = torch.arange(c) // 32
+    reach = warp_sup[:, group, :].repeat_interleave(32, dim=2)
+    ok = child & live & reach
+    return torch.where(ok, entry, float("inf")).amin(dim=2)
+
+
+def sorted_visit_model(state: torch.Tensor, rows: torch.Tensor,
+                       boxes: torch.Tensor, alive: torch.Tensor):
+    """Pass 2 as the kernel runs it: per tile one stable sort of the
+    clusters by entry (ties to the lowest id), visited in that order while
+    some alive ray has the cluster's entry below its best hit. Returns (the
+    clusters each tile visits, in order; best t [N]; best row [N])."""
+    n = state.shape[1]
+    n_tiles, c = n // 128, boxes.shape[0]
+    cs = rows.shape[0] // c
+    entry = two_level_entries(state, boxes, alive)
+    order_e, order_id = torch.sort(entry, dim=1, stable=True)
+    rows_c = rows.view(c, cs, rows.shape[1])
+    ray = [state[col].view(n_tiles, 128)
+           for col in range(rc._C_PX, rc._C_VZ + 1)]
+    alive_t = alive.view(n_tiles, 128)
+    best_t = torch.full((n_tiles, 128), float("inf"))
+    best_i = torch.zeros((n_tiles, 128), dtype=torch.int64)
+    going = torch.ones(n_tiles, dtype=torch.bool)
+    seqs = [[] for _ in range(n_tiles)]
+    for k in range(c):
+        tn = order_e[:, k]
+        going &= (alive_t & (tn[:, None] < best_t)).any(dim=1)
+        act = torch.nonzero(going).squeeze(1)
+        if act.numel() == 0:
+            break
+        cl = order_id[act, k]
+        t, i = tc._nearest_hit_tiles([x[act] for x in ray], rows_c[cl])
+        better = alive_t[act] & (t < best_t[act])
+        best_t[act] = torch.where(better, t, best_t[act])
+        best_i[act] = torch.where(better, i + (cl * cs)[:, None], best_i[act])
+        for a, cid in zip(act.tolist(), cl.tolist()):
+            seqs[a].append(cid)
+    return seqs, best_t.view(n), best_i.view(n)
+
+
+def traverse_with_sequence(state, rows, boxes, alive, monkeypatch):
+    """``_traverse`` (the plain version) with the clusters each tile
+    visits, in order, read off the entries it marks visited."""
+    log = []
+
+    class Marked(torch.Tensor):
+        def __setitem__(self, idx, value):
+            log.append(tuple(x.clone() for x in idx))
+            super().__setitem__(idx, value)
+
+    real = tc._tile_entries
+    monkeypatch.setattr(tc, "_tile_entries",
+                        lambda *a: real(*a).as_subclass(Marked))
+    visits = torch.zeros(state.shape[1] // 128, dtype=torch.int32)
+    best_t, best_i = tc._traverse(state, rows, boxes, alive, visits)
+    seqs = [[] for _ in range(state.shape[1] // 128)]
+    for act, ca in log:
+        for a, cid in zip(act.tolist(), ca.tolist()):
+            seqs[a].append(cid)
+    return seqs, visits, torch.as_tensor(best_t), torch.as_tensor(best_i)
+
+
+def _assert_same_traversal(state, rows, boxes, alive, monkeypatch):
+    want_seq, visits, want_t, want_i = traverse_with_sequence(
+        state, rows, boxes, alive, monkeypatch)
+    seqs, best_t, best_i = sorted_visit_model(state, rows, boxes, alive)
+    assert seqs == want_seq
+    assert [len(s) for s in seqs] == visits.tolist()
+    assert torch.equal(best_t[alive], want_t[alive])
+    assert torch.equal(best_i[alive], want_i[alive])
+    return seqs
+
+
+@pytest.mark.parametrize("cs", [32, 128])
+def test_sorted_visit_order_matches_traverse_on_office(cs, monkeypatch):
+    """The office after one bounce and the dir72 sort (16,384 rays)."""
+    from audiorenderingv2_tpu_torch import accel
+
+    state = office_after_one_bounce()
+    if cs == 32:
+        _, rows, boxes = office()
+    else:
+        sorted_scene, clusters = accel.prepare_scene(tt.office_scene(20000),
+                                                     cluster_size=cs)
+        rows, boxes = rc.pack_tris_clusters(t_tracer.scene_to_arrays(
+            sorted_scene, 128, clusters=clusters))
+    alive = state[rc._C_DONE] == 0.0
+    seqs = _assert_same_traversal(state, rows, boxes, alive, monkeypatch)
+    n_visits = [len(s) for s in seqs]
+    assert 0 < float(np.mean(n_visits)) < boxes.shape[0] / 4
+
+
+def test_sorted_visit_order_with_ties_and_zero_entries(monkeypatch):
+    """Clusters with the same box (equal entries, visited in id order) and
+    rays starting inside boxes (entry +0 into every box around them)."""
+    sc, sct = _clustered(32)
+    rows, boxes = rc.pack_tris_clusters(sct)
+    boxes = boxes.clone()
+    boxes[1] = boxes[0]
+    boxes[5] = boxes[4] = boxes[3]
+    rng = np.random.default_rng(4)
+    n = 512
+    b = boxes.numpy()
+    pick = b[rng.integers(0, 6, n)]
+    p = (pick[:, 0:3] + rng.random((n, 3)) * (pick[:, 3:6] - pick[:, 0:3]))
+    p[n // 2:] = rng.normal(size=(n // 2, 3)) * 2.0
+    state = rays_state(p.astype(np.float32), _dirs(n, 6))
+    alive = torch.ones(n, dtype=torch.bool)
+    alive[::7] = False
+    entry = two_level_entries(state, boxes, alive)
+    assert bool((entry == 0.0).sum(dim=1).ge(2).any())  # +0 ties
+    assert torch.equal(entry[:, 1], entry[:, 0])
+    assert bool(torch.isfinite(entry[:, 0]).any())
+    _assert_same_traversal(state, rows, boxes, alive, monkeypatch)
+
+
+@pytest.mark.parametrize("which", ["office", "ico"])
+@pytest.mark.parametrize("seed", [0, 1])
+def test_two_level_entries_equal_all_pairs(which, seed):
+    """Pass 1's entries equal the all-pairs entries of ``_tile_entries``:
+    every alive ray that reaches a box reaches its superbox, with direction
+    components 0, +-1e-20 and +-1e-21, origins on box faces and padding
+    boxes among the clusters; dead lanes reach nothing."""
+    boxes = (office()[0] if which == "office" else ico_boxes()).contiguous()
+    assert int((boxes[:, 6] == 0).sum()) > 0
+    p, v = seeded_rays(boxes, seed)
+    assert set(np.float32(SPECIAL).tolist()) <= set(v.ravel().tolist())
+    state = rays_state(p, v)
+    alive = torch.from_numpy(np.random.default_rng(seed).random(
+        state.shape[1]) < 0.8)
+    alive[:64] = True
+    want = tc._tile_entries(state, boxes, alive)
+    got = two_level_entries(state, boxes, alive)
+    assert torch.equal(got, want)
+    s = state.reshape(16, -1, 128)
+    child = sc_cuda.slab_pass(s, boxes)[1]
+    sup = sc_cuda.slab_pass(s, superboxes(boxes))[1]
+    missed = child & ~sup[:, torch.arange(boxes.shape[0]) // 32, :]
+    assert not bool(missed.any())
+    assert int(torch.isfinite(want).sum()) > 20
