@@ -1,5 +1,5 @@
-// What K1 (trace_round.cu), K2 (trace_sched.cu), K5 (trace_traverse.cu), K6
-// (trace_group.cu) and K7 (trace_round_v1.cu) share: the state, scalar and
+// What K1 and K7 (trace_round.cu), K2 (trace_sched.cu), K5
+// (trace_traverse.cu) and K6 (trace_group.cu) share: the state, scalar and
 // triangle-row layouts, one ray's state in registers, the Moller-Trumbore
 // search over triangle rows (read as 17 scalars, or as float4 with rows
 // unrolled: K1, K2 and K5), the bounce tail, and the bulk copies on
@@ -60,9 +60,9 @@ __device__ __forceinline__ int evw_col(int b) {
 
 // Where the tail finds the normal and the absorptions of the triangle a ray
 // bounced off: rows indexed by the triangle, in global memory (K2, K5 and
-// K1's multi-chunk branch) or staged whole in shared memory (K1's one-chunk
-// branch). K6 and K7 keep them in tables of their own layouts and bring
-// their own.
+// K1's multi-chunk branch) or staged in shared memory (the one-chunk branch
+// of K1 and K7). K6, and K7's multi-chunk branch, keep them in tables of
+// their own layouts and bring their own.
 struct RowAttrs {
   const float* tris;
   __device__ float normal(int tri, int axis) const {
@@ -72,12 +72,6 @@ struct RowAttrs {
     return tris[(long long)tri * kNR + R_ABS + band];
   }
 };
-
-// Block-wide copy of `n_floats` floats into shared memory.
-__device__ __forceinline__ void load_rows(float* dst, const float* src,
-                                          int n_floats) {
-  for (int k = threadIdx.x; k < n_floats; k += blockDim.x) dst[k] = src[k];
-}
 
 // One pose's scalar row, read once per thread.
 struct Scalars {

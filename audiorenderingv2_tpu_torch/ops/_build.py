@@ -25,6 +25,8 @@ import subprocess
 import time
 from pathlib import Path
 
+import torch
+
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG / "_build"
@@ -153,3 +155,13 @@ def check(err: int, name: str) -> None:
     if err != 0:
         msg = library().ar2_error_string(err).decode()
         raise RuntimeError(f"{name}: CUDA error {err} ({msg})")
+
+
+def stream(device: torch.device) -> int:
+    """The handle of PyTorch's current CUDA stream on ``device``, for a C
+    entry point. It is read raw, as PyTorch's own generated kernels read
+    it: building a ``torch.cuda.Stream`` to read it cost the host 3.4-6.0
+    us a call beside an H100, the raw read 0.2 us
+    (``benchmarks/torch_trace_ab.py``, ``bwd`` phase), at shapes where the
+    kernel itself takes 20-60 us."""
+    return torch._C._cuda_getCurrentRawStream(device.index)

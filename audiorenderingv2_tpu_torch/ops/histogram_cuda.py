@@ -16,6 +16,9 @@ K3-bwd (the second entry point of the same source) is the gather
 ``g_w[e] = g[bins[e]]``, 0 where ``bins[e]`` is out of range: the backward
 of the TPU version's custom VJP (``histogram_pallas.py:124-143``). It has no
 atomics and equals its plain version, ``histogram_bwd_plain``, bit for bit.
+At one band its pace is the gather's: where at least half of ``g`` fits,
+each SM's block copies that part into shared memory and gathers it from
+there; at 4 and 8 bands a row is a 16-byte gather and store.
 ``core/binning.py`` joins the two in a ``torch.autograd.Function``.
 
 ``histogram_sum_banded`` and ``histogram_bwd`` launch their kernels for a
@@ -79,10 +82,9 @@ def histogram_sum_banded(bins: torch.Tensor, weights: torch.Tensor,
     lib = _build.library()
     out = torch.zeros((n_bins, weights.shape[1]), dtype=torch.float32,
                       device=bins.device)
-    stream = torch.cuda.current_stream(bins.device).cuda_stream
     err = lib.ar2_histogram(bins.data_ptr(), weights.data_ptr(),
                             bins.shape[0], n_bins, weights.shape[1],
-                            out.data_ptr(), stream)
+                            out.data_ptr(), _build.stream(bins.device))
     launches += 1
     _build.check(err, "ar2_histogram")
     return out
@@ -102,8 +104,11 @@ def histogram_bwd(bins: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     """K3-bwd: the gradient of ``histogram_sum_banded`` with respect to its
     weights, given the gradient ``g`` f32 [n_bins, n_bands] of its result:
     ``g_w[e, b] = g[bins[e], b]``, 0 for an out-of-range bin. Returns f32
-    [E, n_bands] on the input's device."""
+    [E, n_bands] on the input's device. The checks read each property once:
+    at the gradient path's shapes the host's path into the launch (15-25 us
+    beside an H100) takes about as long as the kernel."""
     global bwd_launches
+    dev = bins.device
     if bins.dtype != torch.int32 or g.dtype != torch.float32:
         raise TypeError(f"histogram_bwd needs int32 bins and a float32 "
                         f"gradient, got {bins.dtype} and {g.dtype}")
@@ -111,21 +116,19 @@ def histogram_bwd(bins: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"histogram_bwd needs bins [E] and a gradient "
                          f"[n_bins, n_bands], got {tuple(bins.shape)} and "
                          f"{tuple(g.shape)}")
-    if bins.device != g.device:
-        raise ValueError(f"bins on {bins.device}, gradient on {g.device}")
+    if g.device != dev:
+        raise ValueError(f"bins on {dev}, gradient on {g.device}")
     if not (bins.is_contiguous() and g.is_contiguous()):
         raise ValueError("histogram_bwd needs contiguous bins and gradient")
-    if bins.device.type == "cpu":
+    if dev.type == "cpu":
         return histogram_bwd_plain(bins, g)
-    if bins.device.type != "cuda":
-        raise ValueError(f"no histogram kernel for device {bins.device}")
-    lib = _build.library()
-    g_w = torch.empty((bins.shape[0], g.shape[1]), dtype=torch.float32,
-                      device=bins.device)
-    stream = torch.cuda.current_stream(bins.device).cuda_stream
-    err = lib.ar2_histogram_bwd(bins.data_ptr(), g.data_ptr(), bins.shape[0],
-                                g.shape[0], g.shape[1], g_w.data_ptr(),
-                                stream)
+    if dev.type != "cuda":
+        raise ValueError(f"no histogram kernel for device {dev}")
+    n_events, (n_bins, n_bands) = bins.shape[0], g.shape
+    g_w = g.new_empty((n_events, n_bands))
+    err = _build.library().ar2_histogram_bwd(
+        bins.data_ptr(), g.data_ptr(), n_events, n_bins, n_bands,
+        g_w.data_ptr(), _build.stream(dev))
     bwd_launches += 1
     _build.check(err, "ar2_histogram_bwd")
     return g_w

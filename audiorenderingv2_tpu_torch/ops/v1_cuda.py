@@ -9,15 +9,18 @@ hit with the lowest index on ties; the receiver sphere before the surface;
 columns 13-15 (RAYID, LTRI, RECVD) written as zeros: version 1 records no
 topology.
 
-``trace_round_v1`` launches ``csrc/trace_round_v1.cu`` for a CUDA tensor and
-runs ``trace_round_v1_plain`` for a CPU tensor. The TPU kernel holds a tile
-of rays in sublanes and sweeps 128-triangle lane chunks; the CUDA kernel
-gives each ray a thread that reads its 64-byte row as four 16-byte loads,
-keeps it in registers for the round and leaves when the ray is done, with
-the triangle table staged in shared memory (every thread of a warp reads
-the same triangle, a broadcast). What bounds it is FP32 throughput in the
-search, about 40 operations per ray and triangle, over all T padded
-triangles: a 12-triangle room costs 128 tests a bounce.
+``trace_round_v1`` launches ``ar2_trace_round_v1`` of
+``csrc/trace_round.cu`` for a CUDA tensor and runs ``trace_round_v1_plain``
+for a CPU tensor. The TPU kernel holds a tile of rays in sublanes and sweeps
+128-triangle lane chunks. On the card K7 is K1's kernel over these layouts:
+each block transposes the table into K1's triangle rows in shared memory up
+to the last valid column (a 12-triangle room in 128 columns tests 12), the
+test reads a row as four float4 broadcasts, and a round of more than 32
+bounces runs on a persistent grid whose lanes take the warp's next ray when
+theirs ends; a ray reads and writes its 64-byte row as four 16-byte loads
+and stores. A table of more than ``V1_CHUNK_COLS`` columns takes the
+block-synchronous branch (:func:`v1_branch`). What bounds it is FP32
+throughput in the search, about 40 operations per ray and valid triangle.
 """
 from __future__ import annotations
 
@@ -35,9 +38,25 @@ _V_ABS, _V_VAL = 15, 16
 _NCOLS = 16
 
 
+# Columns K7 stages at once: K1's chunk (kChunk, csrc/trace_round.cu).
+V1_CHUNK_COLS = rc.K1_CHUNK_ROWS
+
+
+def v1_branch(n_cols: int) -> str:
+    """The branch of K7 that a table of ``n_cols`` columns takes:
+    ``"one_chunk"`` up to V1_CHUNK_COLS (the table staged once a block as
+    K1's rows up to its last valid column; a lane whose ray ends takes the
+    warp's next one, on a persistent grid in rounds of more than 32
+    bounces); ``"multi_chunk"`` above (the columns staged in chunks, blocks
+    in step)."""
+    if n_cols < 0:
+        raise ValueError(f"a column count is >= 0, got {n_cols}")
+    return "one_chunk" if n_cols <= V1_CHUNK_COLS else "multi_chunk"
+
+
 def _table_as_rows(tris: torch.Tensor) -> torch.Tensor:
     """The [17, T] table in K1's row layout [T, 24], which the plain search
-    and the shared bounce tail read."""
+    and the shared bounce tail read (the kernel stages the same rows)."""
     rows = torch.zeros((tris.shape[1], rc._NR), dtype=torch.float32,
                        device=tris.device)
     rows[:, :rc._R_VAL] = tris[:_V_ABS].T
@@ -108,10 +127,10 @@ def trace_round_v1(state: torch.Tensor, tris: torch.Tensor,
     if state.device.type != "cuda":
         raise ValueError(f"no trace kernel for device {state.device}")
     lib = _build.library()
-    stream = torch.cuda.current_stream(state.device).cuda_stream
     err = lib.ar2_trace_round_v1(
         state.data_ptr(), state.shape[0], tris.data_ptr(), tris.shape[1],
-        scal.data_ptr(), int(round_budget), params.max_bounces, stream)
+        scal.data_ptr(), int(round_budget), params.max_bounces,
+        _build.stream(state.device))
     trace_round_v1_launches += 1
     _build.check(err, "ar2_trace_round_v1")
     return state

@@ -1,14 +1,18 @@
-"""A/B of the PyTorch port's K1, K1-pose and K5 on one NVIDIA GPU.
+"""A/B of the PyTorch port's K1, K1-pose, K7, K5 and K3-bwd on one NVIDIA
+GPU.
 
-K1 (csrc/trace_round.cu), K1 with a scalar row per pose and K5
-(csrc/trace_traverse.cu) of this checkout against those of another
-checkout of the repository (for example the parent commit, unpacked with
-``git archive``), and against variants compiled from copies of the sources,
-each held bit for bit against the kernel's plain PyTorch version on the
-same state; K2 (csrc/trace_sched.cu) of both checkouts beside them.
+K1 and K7 (csrc/trace_round.cu: K7 is K1's kernels over the version-1
+layouts), K1 with a scalar row per pose and K5 (csrc/trace_traverse.cu) of
+this checkout against those of another checkout of the repository (for
+example the parent commit, unpacked with ``git archive``), and against
+variants compiled from copies of the sources, each held bit for bit against
+the kernel's plain PyTorch version on the same state; K2
+(csrc/trace_sched.cu) of both checkouts beside them; K3-bwd
+(csrc/histogram.cu) of both beside probes of its limit and index_select.
 
     python3 benchmarks/torch_trace_ab.py --parent DIR [--rays N]
-                                         [--out FILE]
+        [--phases k1,k1_pose,k7,k5,k2,render,bwd,e2e] [--paths P,...]
+        [--out FILE]
 
 States (1,000,064 rays unless ``--rays``):
 
@@ -20,6 +24,11 @@ States (1,000,064 rays unless ``--rays``):
            warp's bounces over 32 times its longest ray's)
   K1-pose  the multi-pose demo's box, 8 poses x 1,000,064 rays: round 1 (8
            bounces) and round 2 (32)
+  K7       the same box as the [17, 128] table, row-major state, through
+           version 1's rounds (6, 12, 24, 58) with the row partition
+           between them; the 320-triangle icosphere padded to 512 columns
+           (rounds 1-2); the 1,280-triangle icosphere (the multi-chunk
+           branch; round 1 at 65,536 rays); K1 on the same state beside it
   K5       the office (19,852 triangles) in clusters of 32 and of 128, one
            bounce from the start state and from the state after one bounce
            and the dir72 sort; visits per tile
@@ -27,11 +36,10 @@ States (1,000,064 rays unless ``--rays``):
            and the sort, after 16 bounces
 
 Variants (each its own library, built under the package's ``_build/`` from
-a copy of one source; the committed sources are not touched):
+a copy of one source; the committed sources are not touched; a K1 variant
+changes K7 alike):
 
-  K1  parent_f4      the other checkout's kernel with the float4 test, 16
-                     rows unrolled
-      tree_scalar    this tree's kernel with Ray::intersect (17 scalars)
+  K1  tree_scalar    this tree's kernel with Ray::intersect (17 scalars)
       tree_unroll1   this tree's float4 test, not unrolled
       tree_ilp       the float4 test in steps of 4 rows: their divisors,
                      then the 4 divisions, then the rest, then the fold
@@ -48,10 +56,10 @@ a copy of one source; the committed sources are not touched):
       tree_refill8   the persistent grid, idle lanes refilled only once 8
                      of them wait (or all)
       tree_lb8       __launch_bounds__(128, 8): at most 64 registers
-      tree_const     rows read from a __constant__ copy (warp-uniform
-                     operands) instead of shared memory
       tree_2x        the test run twice a bounce (the second result
                      discarded): tree_2x - tree is the test's time
+  K7  tree_all_rows, tree_scalar, tree_grid_all (each undoes one lever of
+      K7's redesign: the trim, the float4 test, the persistent grid)
   K5  tree_all_pairs pass 1 without the superboxes: every box tested
       tree_rescan    this tree's pass 1, then the parent's pass 2: a block
                      reduction over every cluster before each visit, rows
@@ -64,16 +72,22 @@ a copy of one source; the committed sources are not touched):
                      registers
       tree_scalar    Ray::intersect on the staged rows
   K2  tree_ilp       K2 with tree_ilp's test
+  K3-bwd probes      the one-event-a-thread kernel with one suspect taken
+                     out: ``contiguous`` (a contiguous read of g for the
+                     gather), ``stores`` (nothing read), ``bins_only``
+                     (nothing written), ``four`` (4 events a thread)
 
 Times are CUDA-event medians of 7 launches after one warm-up, in two passes
 (forward and reverse order of the libraries). Then, alone: the office render
 with explicit options (K5 in clusters of 128) in subprocesses of the other
 checkout and of this one (other, this, this, other; median of 7 renders
-each), K3-bwd against ``index_select`` at 1 band, 4 bands and the posed
-shape, 9 repeats of each (medians of 20), and the paths a user runs end to
-end in processes of both checkouts, three pairs (``e2e_phase``). Prints
-one JSON line (and writes it to ``--out``); exits non-zero without a CUDA
-device.
+each); K3-bwd against ``index_select`` at 1 band, 4 bands, the posed shape,
+E = 4k + 3 and a bins[1:] view, 9 repeats of one-call medians of 20, with
+device times of 20 calls back to back and the host's time a call
+(``histogram_bwd_phase``); and the paths a user runs end to end, each in a
+process of its own per checkout, three pairs (``e2e_phase``; ``--paths``
+picks some). Prints one JSON line (and writes it to ``--out``); exits
+non-zero without a CUDA device.
 """
 from __future__ import annotations
 
@@ -114,11 +128,8 @@ OFFICE_TRIS, OFFICE_BOUNCES, OFFICE_RECEIVER = 20000, 32, (6.0, 1.0, -8.0)
 
 _K1_CALL = ("        r.template intersect_f4<kUnroll>(s_rows, n_test, 0, "
             "best_t, best_i);")
-_K1_PARENT_CALL = ("      if (alive) r.intersect(s_rows, rows, c0, best_t, "
-                   "best_i);")
-_K1_KERNEL = ("template <int LB>\n__global__ void __launch_bounds__(kThreads)"
+_K1_KERNEL = ("template <class L>\n__global__ void __launch_bounds__(kThreads)"
               "\ntrace_rows_kernel(")
-_K1_LAUNCH = "  trace_rows_kernel<LB><<<(unsigned)(persist ? resident : want),"
 _K1_PERSIST = ("  const bool persist = budget > kPersistBudget && resident < "
                "want;")
 _K5_KERNEL = ("template <int LB>\n__global__ void __launch_bounds__(kThreads)"
@@ -174,52 +185,6 @@ __device__ __forceinline__ void intersect_ilp(const Ray<LB>& r,
   }
 }
 
-'''
-
-# Ray::intersect over rows in a __constant__ copy, kUnroll rows unrolled.
-_K1_CONST = '''__constant__ float c_rows[kChunk * kNR];
-
-template <int LB>
-__device__ __forceinline__ void intersect_const(const Ray<LB>& r, int n_rows,
-                                                float& best_t, int& best_i) {
-  for (int t0 = 0; t0 < n_rows; t0 += kUnroll)
-#pragma unroll
-  for (int t = t0; t < t0 + kUnroll; ++t) {
-    const float* w = c_rows + t * kNR;
-    const float nd = r.vx * w[R_PNX] + r.vy * w[R_PNY] + r.vz * w[R_PNZ];
-    const float no =
-        r.px * w[R_PNX] + r.py * w[R_PNY] + r.pz * w[R_PNZ] + w[R_PD];
-    const bool safe = fabsf(nd) > kSafeDen;
-    const float tt = -no / (safe ? nd : 1.0f);
-    const float ou =
-        r.px * w[R_AUX] + r.py * w[R_AUY] + r.pz * w[R_AUZ] + w[R_AUO];
-    const float du = r.vx * w[R_AUX] + r.vy * w[R_AUY] + r.vz * w[R_AUZ];
-    const float u = ou + tt * du;
-    const float ov =
-        r.px * w[R_AVX] + r.py * w[R_AVY] + r.pz * w[R_AVZ] + w[R_AVO];
-    const float dv = r.vx * w[R_AVX] + r.vy * w[R_AVY] + r.vz * w[R_AVZ];
-    const float v = ov + tt * dv;
-    const bool ok = safe && tt > kTMin && u >= -kBaryEps &&
-                    v >= -kBaryEps && u + v <= 1.0f + kBaryEps &&
-                    w[R_VAL] > 0.f;
-    if (ok && tt < best_t) {
-      best_t = tt;
-      best_i = t;
-    }
-  }
-}
-
-'''
-_K1_CONST_COPY = '''  {
-    void* sym = nullptr;
-    const size_t used = sizeof(float) * kNR * n_tris;
-    const size_t pad = sizeof(float) * kNR * padded_rows(n_tris) - used;
-    if (cudaMemcpyToSymbolAsync(c_rows, tris, used, 0,
-                                cudaMemcpyDeviceToDevice, stream) ||
-        cudaGetSymbolAddress(&sym, c_rows) ||
-        (pad && cudaMemsetAsync((char*)sym + used, 0, pad, stream)))
-      return (int)cudaErrorInvalidValue;
-  }
 '''
 
 _K5_SUPER = '''        if (!__any_sync(kFull,
@@ -302,7 +267,8 @@ _K5_RESCAN = '''    float best_t = CUDART_INF_F;
       const float tn_k = __uint_as_float((unsigned)(kmin >> 32));
       if (!(tn_k < __uint_as_float(fmax))) break;
       const int c = (int)(kmin & 0xffffffffu);
-      load_rows(s_rows, rows + (long long)c * cs * kNR, cs * kNR);
+      for (int k = tid; k < cs * kNR; k += kThreads)
+        s_rows[k] = rows[(long long)c * cs * kNR + k];
       if (tid == 0) s_key[c] = ((unsigned long long)kInfBits << 32) | c;
       __syncthreads();
       if (alive) r.intersect(s_rows, cs, c * cs, best_t, best_i);
@@ -317,7 +283,9 @@ def _replace(src: str, old: str, new: str) -> str:
     return src.replace(old, new)
 
 
-def k1_variants(tree: str, parent: str) -> dict[str, str]:
+def k1_variants(tree: str) -> dict[str, str]:
+    """Variants of trace_round.cu. K7 is the same kernels over its own
+    layouts, so each variant changes K7 as it changes K1."""
     twice = "      if (can_cont) {\n" + _K1_CALL + '''
         float bt2 = CUDART_INF_F;
         int bi2 = -1;
@@ -325,9 +293,6 @@ def k1_variants(tree: str, parent: str) -> dict[str, str]:
         if (bt2 < 0.f) best_i = bi2;  // never: the second result unused
       }'''
     return {
-        "parent_f4": _replace(parent, _K1_PARENT_CALL,
-                              "      if (alive) r.template intersect_f4<16>("
-                              "s_rows, rows, c0, best_t, best_i);"),
         "tree_scalar": _replace(tree, _K1_CALL,
                                 "        r.intersect(s_rows, n_test, 0, "
                                 "best_t, best_i);"),
@@ -338,9 +303,9 @@ def k1_variants(tree: str, parent: str) -> dict[str, str]:
                              "s_rows, n_test, 0, best_t, best_i);"),
         "tree_all_rows": _replace(
             tree, "  const int n_test = padded_rows(s_last + 1);",
-            "  const int n_test = padded_rows(n_tris);"),
+            "  const int n_test = padded_rows(lay.n_tris);"),
         "tree_global_tail": _replace(tree, "  const RowAttrs staged{s_rows};",
-                                     "  const RowAttrs staged{tris};"),
+                                     "  const auto staged = lay.attrs();"),
         "tree_grid_all": _replace(tree, _K1_PERSIST,
                                   "  const bool persist = false && resident "
                                   "< want;"),
@@ -355,10 +320,6 @@ def k1_variants(tree: str, parent: str) -> dict[str, str]:
             "break;"),
         "tree_lb8": _replace(tree, _K1_KERNEL, _K1_KERNEL.replace(
             "(kThreads)", "(kThreads, 8)")),
-        "tree_const": _replace(_replace(
-            _replace(tree, _K1_KERNEL, _K1_CONST + _K1_KERNEL), _K1_CALL,
-            "        intersect_const(r, n_test, best_t, best_i);"),
-            _K1_LAUNCH, _K1_CONST_COPY + _K1_LAUNCH),
         "tree_2x": _replace(tree, "      if (can_cont)\n" + _K1_CALL, twice),
     }
 
@@ -455,14 +416,15 @@ def ptxas_lines(log: str, kernel: str) -> list[str]:
 # ------------------------------------------------------------------ timing
 
 def time_libs(libs: dict, call, state: torch.Tensor, plain: torch.Tensor,
-              check=True) -> dict[str, list[float]]:
-    """Every library's output against ``plain`` bit for bit (``check``),
-    then its CUDA-event median in a forward and a reverse pass."""
+              check=True, ray_dim: int = 1) -> dict[str, list[float]]:
+    """Every library's output against ``plain`` bit for bit (``check``;
+    rays along ``ray_dim``), then its CUDA-event median in a forward and a
+    reverse pass."""
     for who, lib in libs.items():
         if check:
             got = call(lib, state.clone())
             torch.cuda.synchronize()
-            n_diff = int((got != plain).any(dim=0).sum())
+            n_diff = int((got != plain).any(dim=1 - ray_dim).sum())
             assert n_diff == 0, f"{who}: {n_diff} rays differ from plain"
     times: dict[str, list[float]] = {}
     order = list(libs.items())
@@ -598,6 +560,87 @@ def k1_pose_phase(libs, n: int) -> dict:
               + "; ".join(f"{w} {v[0]:.3f}/{v[1]:.3f}"
                           for w, v in times.items()), flush=True)
         state = rc._partition_alive_first(plain, p)
+    return out
+
+
+def k7_phase(libs, n: int) -> dict:
+    """K7 of every library against its plain version, bit for bit, and K1
+    (this tree's) on the same state: the box through the version-1
+    schedule's rounds (6, 12, 24, 58) with the row partition between them,
+    the icosphere of 320 triangles padded to 512 columns (rounds 1-2), and
+    the 1,280-triangle icosphere (the multi-chunk branch, round 1, 65,536
+    rays)."""
+    from audiorenderingv2_tpu_torch import constants, testing
+    from audiorenderingv2_tpu_torch.core import tracer
+    from audiorenderingv2_tpu_torch.core.params import TraceParams
+    from audiorenderingv2_tpu_torch.ops import raytrace_cuda as rc
+    from audiorenderingv2_tpu_torch.ops import v1_cuda
+
+    dev = torch.device("cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+    params = TraceParams(sample_rate=SR, ir_length=IR_SECONDS * SR,
+                         base_power=3.62, max_bounces=MAX_BOUNCES,
+                         hrtf_absorption_rate=0.9)
+    emitter = torch.zeros(3, device=dev)
+    ico = testing.icosphere(radius=6.0, subdivisions=2)
+    out = {}
+    for name, mesh, pad_to, rays, budgets in (
+            ("box", testing.box_room(ROOM), None, n,
+             rc._round_schedule(MAX_BOUNCES)),
+            ("ico512", ico, 512, n, (6, 12)),
+            ("ico1280", testing.icosphere(radius=6.0, subdivisions=3), None,
+             65536, (6,))):
+        sc = tracer.scene_to_arrays(testing.scene_from_arrays(
+            *mesh, ABSORPTION), 128, device=dev)
+        if pad_to is not None:
+            extra = pad_to - sc.valid.shape[0]
+            sc = sc._replace(**{
+                k: torch.cat([x, x.new_zeros((extra,) + tuple(x.shape[1:]))])
+                for k, x in sc._asdict().items() if x is not None})
+        tris = rc.pack_tris_v1(sc)
+        rows = rc.pack_tris_rows(sc)
+        n_valid = int((tris[16] > 0).sum())
+        e0 = params.base_power / (rays * constants.SPHERE_VOLUME)
+        scal = rc.scalars(emitter, torch.tensor(RECEIVER, device=dev), 30.0,
+                          e0, params)
+        state = rc.init_state(torch.from_numpy(unit_dirs(rays, 11)).to(dev),
+                              emitter, e0, -(-rays // 128) * 128)
+        state_rows = state.T.contiguous()
+        for k, budget in enumerate(budgets):
+            def call(lib, s, budget=budget):
+                err = lib.ar2_trace_round_v1(
+                    s.data_ptr(), s.shape[0], tris.data_ptr(), tris.shape[1],
+                    scal.data_ptr(), budget, params.max_bounces, stream)
+                assert err == 0, err
+                return s
+
+            plain = v1_cuda.trace_round_v1_plain(state_rows.clone(), tris,
+                                                 scal, params, budget)
+            tests, use = round_work(state, plain.T)
+            times = time_libs(libs, call, state_rows, plain, ray_dim=0)
+            k1_ms = median_ms(lambda s: rc.trace_round(s, rows, scal, params,
+                                                       budget), 7,
+                              setup=lambda: (state.clone(),))
+            row = {"columns": tris.shape[1], "valid": n_valid,
+                   "budget": budget, "rays": state.shape[1],
+                   "alive_before": int((state[rc._C_DONE] == 0).sum()),
+                   "tests": tests * n_valid,
+                   "lane_use_one_ray_a_thread": use,
+                   "branch": v1_cuda.v1_branch(tris.shape[1]),
+                   "bound_ms": bound_ms(2 * state.numel() * 4
+                                        + (tris.numel() + scal.numel()) * 4,
+                                        tests * n_valid * TRI_TEST_OPS),
+                   "k1_ms": k1_ms, "ms": times}
+            out[f"{name}_round{k + 1}"] = row
+            print(f"K7 {name} round {k + 1} ({budget} bounces, "
+                  f"{row['alive_before']} alive, {tris.shape[1]} columns, "
+                  f"{n_valid} valid): {row['tests']:.4g} tests, bound "
+                  f"{row['bound_ms']:.4f} ms, lane use {use:.3f}; K1 "
+                  f"{k1_ms:.3f}; " + "; ".join(
+                      f"{w} {v[0]:.3f}/{v[1]:.3f}" for w, v in times.items()),
+                  flush=True)
+            state_rows = rc._partition_alive_first(plain, ray_dim=0)
+            state = state_rows.T.contiguous()
     return out
 
 
@@ -768,17 +811,19 @@ def render_phase(parent: Path) -> dict:
 
 
 _E2E = r"""
-import json, sys, time
+import contextlib, io, json, re, sys, tempfile, time
+from pathlib import Path
 sys.path.insert(0, sys.argv[1])
 import numpy as np, torch
-from audiorenderingv2_tpu_torch import accel, multi, testing
+from audiorenderingv2_tpu_torch import accel, cli, multi, testing
 from audiorenderingv2_tpu_torch.core import tracer
 from audiorenderingv2_tpu_torch.core.params import TraceParams
 from audiorenderingv2_tpu_torch.core.tracer import TracerOptions
 from audiorenderingv2_tpu_torch.diff import replay
+from audiorenderingv2_tpu_torch.io import wav
 from audiorenderingv2_tpu_torch.ops import raytrace_cuda as rc
 from audiorenderingv2_tpu_torch.renderer import AudioRenderer
-dev, n = sys.argv[2], int(sys.argv[3])
+path, dev, n = sys.argv[2], sys.argv[3], int(sys.argv[4])
 
 def sync():
     if dev == "cuda":
@@ -803,100 +848,353 @@ def renderer(scene, bounces, receiver, opts):
     r.set_receiver(receiver, 0.0)
     return r
 
-out = {}
-box = testing.scene_from_arrays(*testing.box_room((14.0, 9.0, 11.0)), 0.3)
-out["box_render"] = median_ms(renderer(box, 100, (2.5, 1.5, 2.0),
-                                       None).render, 7)
-demo = testing.scene_from_arrays(*testing.box_room((18.0, 10.0, 14.0)), 0.25)
-sc = tracer.scene_to_arrays(demo, 128, device=dev)
-rows, _ = rc.pack_scene(sc, 1)
-params = TraceParams(sample_rate=16000, ir_length=32000, base_power=3.62,
-                     max_bounces=40, hrtf_absorption_rate=0.9)
-em = np.array([[-5.0, 0.0, -4.0], [6.0, 1.0, 5.0]], np.float32)
-li = np.stack([np.linspace(-6.0, 6.0, 4), np.zeros(4),
-               np.linspace(4.0, -4.0, 4)], axis=1).astype(np.float32)
-yaw = np.linspace(0.0, 270.0, 4).astype(np.float32)
-out["matrix_2x4"] = median_ms(lambda: multi.render_ir_matrix(
-    sc, 0, em, li, yaw, n, params, TracerOptions(round_budgets=(8, 32)),
-    pair_batch=8, rows=rows), 5)
-office = testing.office_scene(20000)
-out["office_render"] = median_ms(renderer(office, 32, (6.0, 1.0, -8.0),
-                                          None).render, 5)
-out["office_explicit"] = median_ms(renderer(office, 32, (6.0, 1.0, -8.0),
-                                            TracerOptions()).render, 5)
-ss, cl = accel.prepare_scene(office, cluster_size=32)
-scc = tracer.scene_to_arrays(ss, 128, device=dev, clusters=cl)
-crows, cboxes = rc.pack_tris_clusters(scc)
-d = np.random.default_rng(0).normal(size=(n, 3))
-d = torch.from_numpy((d / np.linalg.norm(d, axis=1, keepdims=True))
-                     .astype(np.float32)).to(dev)
-rparams = TraceParams(sample_rate=16000, ir_length=32000, base_power=3.62,
-                      max_bounces=32, energy_threshold=0.0)
-for name, opts in (("record_schedule", TracerOptions(schedule=True)),
-                   ("record_k5", TracerOptions())):
-    out[name] = median_ms(lambda: replay.record_paths_kernels(
+def experimentation(flags):
+    # The CLI's experimentation mode on the box config, --rounds 10: its
+    # median render (ms) as it prints it.
+    side = round(n ** (1 / 3))
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        testing.write_box_obj(tmp / "room.obj", (14.0, 9.0, 11.0),
+                              material="walls")
+        t = np.arange(5 * 16000) / 16000
+        wav.write_wav(tmp / "dry.wav", (0.3 * np.sin(2 * np.pi * 300 * t))
+                      [None, :].astype(np.float32), 16000)
+        cfg = {
+            "renderer_parameters": {"ir_length_in_seconds": 2},
+            "scene_parameters": {
+                "mono": False, "audio_file_path": "dry.wav",
+                "scene_file_path": "room.obj",
+                "initial_emitter_pos": {"x": 0.0, "y": 0.0, "z": 0.0},
+                "initial_receiver_pos": {"x": 2.5, "y": 1.5, "z": 2.0}},
+            "pathtracer_parameters": {
+                "base_power": 3.62, "rays": {"x": side, "y": side,
+                                             "z": side},
+                "ray_energy_threshold": 0.0, "ray_max_bounces": 100,
+                "hrtf_absorption_rate": 0.9,
+                "materials": [{"name": "walls", "mat_absorption": 0.3}]}}
+        (tmp / "config.json").write_text(json.dumps(cfg))
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            code = cli.main([str(tmp / "config.json"), "experimentation",
+                             "--rounds", "10", "--device", dev, *flags])
+    assert code == 0, out.getvalue()
+    return float(re.search(r"median render time: ([0-9.]+) ms",
+                           out.getvalue()).group(1))
+
+def matrix_2x4():
+    demo = testing.scene_from_arrays(*testing.box_room((18.0, 10.0, 14.0)),
+                                     0.25)
+    sc = tracer.scene_to_arrays(demo, 128, device=dev)
+    rows, _ = rc.pack_scene(sc, 1)
+    params = TraceParams(sample_rate=16000, ir_length=32000,
+                         base_power=3.62, max_bounces=40,
+                         hrtf_absorption_rate=0.9)
+    em = np.array([[-5.0, 0.0, -4.0], [6.0, 1.0, 5.0]], np.float32)
+    li = np.stack([np.linspace(-6.0, 6.0, 4), np.zeros(4),
+                   np.linspace(4.0, -4.0, 4)], axis=1).astype(np.float32)
+    yaw = np.linspace(0.0, 270.0, 4).astype(np.float32)
+    return median_ms(lambda: multi.render_ir_matrix(
+        sc, 0, em, li, yaw, n, params, TracerOptions(round_budgets=(8, 32)),
+        pair_batch=8, rows=rows), 5)
+
+def record(opts):
+    office = testing.office_scene(20000)
+    ss, cl = accel.prepare_scene(office, cluster_size=32)
+    scc = tracer.scene_to_arrays(ss, 128, device=dev, clusters=cl)
+    crows, cboxes = rc.pack_tris_clusters(scc)
+    d = np.random.default_rng(0).normal(size=(n, 3))
+    d = torch.from_numpy((d / np.linalg.norm(d, axis=1, keepdims=True))
+                         .astype(np.float32)).to(dev)
+    rparams = TraceParams(sample_rate=16000, ir_length=32000,
+                          base_power=3.62, max_bounces=32,
+                          energy_threshold=0.0)
+    return median_ms(lambda: replay.record_paths_kernels(
         scc, d, (0.0, 0.0, 0.0), (6.0, 1.0, -8.0), 0.0, rparams, opts,
         rows=crows, boxes=cboxes), 3)
-print(json.dumps(out))
+
+box = lambda: testing.scene_from_arrays(*testing.box_room((14.0, 9.0, 11.0)),
+                                        0.3)
+office = lambda: testing.office_scene(20000)
+paths = {
+    "box_render": lambda: median_ms(renderer(box(), 100, (2.5, 1.5, 2.0),
+                                             None).render, 7),
+    "matrix_2x4": matrix_2x4,
+    "office_render": lambda: median_ms(renderer(
+        office(), 32, (6.0, 1.0, -8.0), None).render, 5),
+    "office_explicit": lambda: median_ms(renderer(
+        office(), 32, (6.0, 1.0, -8.0), TracerOptions()).render, 5),
+    "record_schedule": lambda: record(TracerOptions(schedule=True)),
+    "record_k5": lambda: record(TracerOptions()),
+    "exp_default": lambda: experimentation([]),
+    "exp_group": lambda: experimentation(["--layout", "group"]),
+    "exp_v1": lambda: experimentation(["--kernel-version", "1"]),
+}
+print(json.dumps({path: paths[path]()}))
 """
 
+E2E_PATHS = ("box_render", "matrix_2x4", "office_render", "office_explicit",
+             "record_schedule", "record_k5", "exp_default", "exp_group",
+             "exp_v1")
 
-def e2e_phase(parent: Path, pairs: int = 3, device: str = "cuda",
-              n: int = 1_000_000) -> dict:
+
+def e2e_phase(parent: Path, paths=E2E_PATHS, pairs: int = 3,
+              device: str = "cuda", n: int = 1_000_000) -> dict:
     """The paths a user runs, each in a process of its own per checkout, in
     pairs that alternate which side runs first (other, this, this, other,
     ...): the box render (1M rays x 100 bounces, median of 7), the 2 x 4 x
     1M-ray matrix, the office render (auto options: the schedule and K2)
-    and with explicit options (K5), and the path recording of the office
-    (1M x 32) with the schedule and with K5 (medians of 5, 5, 5, 3, 3;
-    host clock around synchronised calls, one warm-up each)."""
+    and with explicit options (K5), the path recording of the office (1M x
+    32) with the schedule and with K5 (medians of 5, 5, 5, 3, 3; host clock
+    around synchronised calls, one warm-up each), and the CLI's
+    experimentation mode on the box config (1M rays x 100 bounces, 10
+    rounds after a warm-up: the median render it prints) with default
+    options, ``--layout group`` and ``--kernel-version 1``."""
     out: dict[str, dict[str, list]] = {}
     for i in range(pairs):
         order = (("parent", parent), ("tree", REPO))
-        for who, root in (order if i % 2 == 0 else order[::-1]):
-            res = subprocess.run(
-                [sys.executable, "-c", _E2E, str(root), device, str(n)],
-                capture_output=True, text=True, timeout=900, cwd=str(root))
-            if res.returncode:
-                raise RuntimeError(f"end to end in {root} failed:\n"
-                                   f"{res.stderr}")
-            for metric, ms in json.loads(res.stdout.splitlines()[-1]).items():
-                out.setdefault(metric, {}).setdefault(who, []).append(ms)
-            print(f"end to end ({who}): " + ", ".join(
-                f"{m} {v[who][-1]:.3f}" for m, v in out.items()), flush=True)
+        for path in paths:
+            for who, root in (order if i % 2 == 0 else order[::-1]):
+                res = subprocess.run(
+                    [sys.executable, "-c", _E2E, str(root), path, device,
+                     str(n)],
+                    capture_output=True, text=True, timeout=900,
+                    cwd=str(root))
+                if res.returncode:
+                    raise RuntimeError(f"{path} in {root} failed:\n"
+                                       f"{res.stderr}")
+                ms = json.loads(res.stdout.splitlines()[-1])[path]
+                out.setdefault(path, {}).setdefault(who, []).append(ms)
+                print(f"end to end, pair {i + 1}, {path} ({who}): {ms:.3f} "
+                      f"ms", flush=True)
     return out
 
 
-def histogram_bwd_phase(n: int) -> dict:
+# Probes of K3-bwd's limit: its one-event-a-thread kernel (histogram.cu
+# before the redesign) with one suspect taken out each. Each
+# reads what the kernel reads and writes what it writes, but for the part
+# named.
+_BWD_PROBES = r"""
+#include <climits>
+#include <cuda_runtime.h>
+namespace {
+// The gather replaced by a contiguous read of g: no scattered sectors.
+__global__ void contiguous(const int* __restrict__ bins,
+                           const float* __restrict__ g, long long n,
+                           int n_bins, int nb, float* __restrict__ g_w) {
+  const long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (e >= n) return;
+  const int b = bins[e];
+  const bool in_range = b >= 0 && b < n_bins;
+  const float* src = g + (e % n_bins) * nb;
+  float* dst = g_w + e * nb;
+  for (int k = 0; k < nb; ++k) dst[k] = in_range ? src[k] : 0.0f;
+}
+// Stores only: g_w written, nothing read.
+__global__ void stores(const int* __restrict__ bins,
+                       const float* __restrict__ g, long long n, int n_bins,
+                       int nb, float* __restrict__ g_w) {
+  const long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (e >= n) return;
+  float* dst = g_w + e * nb;
+  for (int k = 0; k < nb; ++k) dst[k] = 0.0f;
+}
+// The bins read, nothing written (no bin is INT_MIN).
+__global__ void bins_only(const int* __restrict__ bins,
+                          const float* __restrict__ g, long long n,
+                          int n_bins, int nb, float* __restrict__ g_w) {
+  const long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (e < n && bins[e] == INT_MIN) g_w[0] = 1.0f;
+}
+// The parent's kernel with 4 consecutive events a thread.
+__global__ void four(const int* __restrict__ bins,
+                     const float* __restrict__ g, long long n, int n_bins,
+                     int nb, float* __restrict__ g_w) {
+  const long long e0 = 4 * ((long long)blockIdx.x * blockDim.x +
+                            threadIdx.x);
+  int b[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) b[j] = e0 + j < n ? bins[e0 + j] : -1;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    if (e0 + j >= n) break;
+    const bool in_range = b[j] >= 0 && b[j] < n_bins;
+    const float* src = g + (long long)(in_range ? b[j] : 0) * nb;
+    float* dst = g_w + (e0 + j) * nb;
+    for (int k = 0; k < nb; ++k) dst[k] = in_range ? src[k] : 0.0f;
+  }
+}
+}  // namespace
+extern "C" int probe(int which, const int* bins, const float* g,
+                     long long n, int n_bins, int nb, float* g_w,
+                     void* stream) {
+  const int threads = 256;
+  const long long per = which == 3 ? 4 : 1;
+  const unsigned blocks = (unsigned)((n + per * threads - 1) /
+                                     (per * threads));
+  cudaStream_t s = (cudaStream_t)stream;
+  if (which == 0) contiguous<<<blocks, threads, 0, s>>>(bins, g, n, n_bins, nb, g_w);
+  if (which == 1) stores<<<blocks, threads, 0, s>>>(bins, g, n, n_bins, nb, g_w);
+  if (which == 2) bins_only<<<blocks, threads, 0, s>>>(bins, g, n, n_bins, nb, g_w);
+  if (which == 3) four<<<blocks, threads, 0, s>>>(bins, g, n, n_bins, nb, g_w);
+  return (int)cudaGetLastError();
+}
+"""
+BWD_PROBES = ("contiguous", "stores", "bins_only", "four")
+
+
+def build_probes(build, out_dir: Path) -> ctypes.CDLL:
+    out_dir.mkdir(parents=True, exist_ok=True)
+    cu = out_dir / "bwd_probes.cu"
+    cu.write_text(_BWD_PROBES)
+    res = subprocess.run([build._nvcc(), *build.NVCC_FLAGS, "-shared", "-o",
+                          str(out_dir / "libbwd_probes.so"), str(cu)],
+                         capture_output=True, text=True)
+    if res.returncode:
+        raise RuntimeError(f"nvcc failed on the probes:\n{res.stdout}"
+                           f"{res.stderr}")
+    lib = ctypes.CDLL(str(out_dir / "libbwd_probes.so"))
+    P, LL, I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+    lib.probe.argtypes = (I, P, P, LL, I, I, P, P)
+    lib.probe.restype = I
+    return lib
+
+
+def stream_ms(fn, launches: int = 20, reps: int = 7) -> float:
+    """Device time of one call: ``launches`` calls back to back between two
+    events, over their count (the host's per-call work overlaps the
+    device's), median of ``reps``."""
+    fn()
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(launches):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / launches)
+    return float(np.median(times))
+
+
+def host_us(fn, calls: int = 200) -> float:
+    """Host microseconds a call, enqueue only (no synchronisation inside)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    t = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return t / calls * 1e6
+
+
+def histogram_bwd_phase(n: int, parent_lib, probes) -> dict:
+    """K3-bwd at the gradient path's shapes (1 band, 4 bands, posed), 30%
+    of the bins out of range, and at 1 band with E = 4k + 3 and a bins[1:]
+    view. Per shape: the wrapper and index_select on the zero-padded
+    gradient, one call between two events (what chip_smoke.py times: the
+    host's path into the launch included), 9 repeats of medians of 20; then
+    device times (``stream_ms``) of this tree's kernel and the parent's
+    through their C entry points, of the probes and of ``index_select(...,
+    out=)``, and the host's time a call of the wrapper, of the C entry
+    point and of index_select. Every output is checked against the plain
+    version first."""
+    from audiorenderingv2_tpu_torch.ops import _build
     from audiorenderingv2_tpu_torch.ops import histogram_cuda as hc
 
+    lib = _build.library()
+    stream = torch.cuda.current_stream().cuda_stream
     n_pad = -(-n // 128) * 128
-    shapes = {"1 band": (4 * n_pad, 2 * IR_SECONDS * SR, 1),
-              "4 bands": (4 * n_pad, 2 * IR_SECONDS * SR, 4),
-              "posed": (8 * n_pad, 8 * 2 * IR_SECONDS * SR, 1)}
+    shapes = {"1 band": (4 * n_pad, 2 * IR_SECONDS * SR, 1, 0),
+              "4 bands": (4 * n_pad, 2 * IR_SECONDS * SR, 4, 0),
+              "posed": (8 * n_pad, 8 * 2 * IR_SECONDS * SR, 1, 0),
+              "1 band, E = 4k + 3": (4 * n_pad + 3, 2 * IR_SECONDS * SR, 1,
+                                     0),
+              "1 band, bins[1:]": (4 * n_pad + 1, 2 * IR_SECONDS * SR, 1,
+                                   1)}
     rng = np.random.default_rng(17)
     out = {}
-    for name, (n_events, n_bins, n_bands) in shapes.items():
+    for name, (n_all, n_bins, n_bands, skip) in shapes.items():
         bins = rng.integers(-n_bins // 8, n_bins + n_bins // 8,
-                            size=n_events).astype(np.int32)
-        b_d = torch.from_numpy(bins).cuda()
+                            size=n_all).astype(np.int32)
+        bins[::97] = n_bins
+        b_d = torch.from_numpy(bins).cuda()[skip:]
+        n_events = b_d.shape[0]
         g = torch.from_numpy(rng.standard_normal(
             (n_bins, n_bands)).astype(np.float32)).cuda()
         keep = (b_d >= 0) & (b_d < n_bins)
         g_pad = torch.cat([g, torch.zeros((1, n_bands), device="cuda")])
         idx = torch.where(keep, b_d, n_bins).long()
-        assert torch.equal(g_pad.index_select(0, idx),
-                           hc.histogram_bwd(b_d, g))
-        kern, lib = [], []
+        plain = hc.histogram_bwd_plain(b_d, g)
+        assert torch.equal(g_pad.index_select(0, idx), plain)
+        assert torch.equal(hc.histogram_bwd(b_d, g), plain)
+        buf = torch.empty_like(plain)
+
+        def raw(which_lib):
+            def call():
+                err = which_lib.ar2_histogram_bwd(
+                    b_d.data_ptr(), g.data_ptr(), n_events, n_bins, n_bands,
+                    buf.data_ptr(), stream)
+                assert err == 0, err
+            return call
+
+        for who, which_lib in (("tree", lib), ("parent", parent_lib)):
+            buf.fill_(float("nan"))
+            raw(which_lib)()
+            assert torch.equal(buf, plain), f"K3-bwd {who}, {name}"
+        kern, lib_t = [], []
         for _ in range(9):
             kern.append(median_ms(lambda: hc.histogram_bwd(b_d, g), 20))
-            lib.append(median_ms(lambda: g_pad.index_select(0, idx), 20))
-        out[name] = {"kernel_ms": kern, "index_select_ms": lib}
-        print(f"K3-bwd {name}: kernel median {np.median(kern):.4f} ms "
-              f"(range {min(kern):.4f}-{max(kern):.4f}), index_select "
-              f"{np.median(lib):.4f} ({min(lib):.4f}-{max(lib):.4f})",
-              flush=True)
+            lib_t.append(median_ms(lambda: g_pad.index_select(0, idx), 20))
+        device = {"tree": stream_ms(raw(lib)),
+                  "parent": stream_ms(raw(parent_lib)),
+                  "index_select": stream_ms(lambda: torch.index_select(
+                      g_pad, 0, idx, out=buf))}
+        for k, probe in enumerate(BWD_PROBES):
+            def call(k=k):
+                err = probes.probe(k, b_d.data_ptr(), g.data_ptr(), n_events,
+                                   n_bins, n_bands, buf.data_ptr(), stream)
+                assert err == 0, err
+            device[f"probe_{probe}"] = stream_ms(call)
+        dev = b_d.device
+        host = {"wrapper": host_us(lambda: hc.histogram_bwd(b_d, g)),
+                "c_entry": host_us(raw(lib)),
+                "index_select": host_us(lambda: g_pad.index_select(0, idx)),
+                # the wrapper's parts
+                "checks": host_us(lambda: (
+                    b_d.dtype != torch.int32 or g.dtype != torch.float32,
+                    b_d.dim() != 1 or g.dim() != 2, g.device != dev,
+                    b_d.is_contiguous() and g.is_contiguous(),
+                    dev.type == "cpu")),
+                "new_empty": host_us(lambda: g.new_empty(plain.shape)),
+                "current_stream": host_us(
+                    lambda: torch.cuda.current_stream(dev).cuda_stream),
+                "library": host_us(_build.library)}
+        if hasattr(torch._C, "_cuda_getCurrentRawStream"):
+            host["raw_stream"] = host_us(
+                lambda: torch._C._cuda_getCurrentRawStream(dev.index))
+        bound = (b_d.numel() * 4 + g.numel() * 4 + plain.numel() * 4) \
+            / HBM_BYTES_PER_S * 1e3
+        out[name] = {"events": n_events, "bins": n_bins, "bands": n_bands,
+                     "bound_ms": bound, "kernel_ms": kern,
+                     "index_select_ms": lib_t, "device_ms": device,
+                     "host_us": host}
+        print(f"K3-bwd {name} ({n_events} x {n_bands} from {n_bins} bins; "
+              f"bound {bound:.4f} ms): wrapper, one call, median "
+              f"{np.median(kern):.4f} ms (range {min(kern):.4f}-"
+              f"{max(kern):.4f}), index_select {np.median(lib_t):.4f} "
+              f"({min(lib_t):.4f}-{max(lib_t):.4f}); device ms " + ", ".join(
+                  f"{k} {v:.4f}" for k, v in device.items())
+              + "; host us a call " + ", ".join(
+                  f"{k} {v:.1f}" for k, v in host.items()), flush=True)
     return out
+
+
+# The variants each phase compares (beside the two checkouts).
+K7_VARIANTS = ("tree_all_rows", "tree_scalar", "tree_grid_all")
+POSE_VARIANTS = ("tree_ilp", "tree_lb8", "tree_persist_all", "tree_refill8")
 
 
 def main() -> int:
@@ -906,10 +1204,15 @@ def main() -> int:
     ap.add_argument("--rays", type=int, default=1_000_000)
     ap.add_argument("--out", type=Path,
                     help="also write the JSON line to this file")
-    ap.add_argument("--phases", default="k1,k1_pose,k5,k2,render,bwd,e2e",
+    ap.add_argument("--phases", default="k1,k1_pose,k7,k5,k2,render,bwd,e2e",
                     help="comma-separated subset of the phases to run")
+    ap.add_argument("--paths", default=",".join(E2E_PATHS),
+                    help="comma-separated subset of the e2e phase's paths")
     args = ap.parse_args()
     phases = set(args.phases.split(","))
+    paths = args.paths.split(",")
+    if not set(paths) <= set(E2E_PATHS):
+        ap.error(f"--paths: not among {E2E_PATHS}: {args.paths}")
     if not torch.cuda.is_available():
         print("torch_trace_ab: no CUDA device", file=sys.stderr)
         return 2
@@ -923,20 +1226,23 @@ def main() -> int:
     parent_dir = args.parent.resolve()
     parent_build = load_build_module(parent_dir, "parent_build")
     base = {"parent": parent_build.library(), "tree": _build.library()}
-    def src(root: Path, name: str) -> str:
-        return (root / "audiorenderingv2_tpu_torch" / "csrc" /
-                name).read_text()
+
+    def src(name: str) -> str:
+        return (_build.CSRC / name).read_text()
 
     out_dir = _build.BUILD_ROOT / "trace_ab_variants"
-    k1_src = k1_variants(src(REPO, "trace_round.cu"),
-                         src(parent_dir, "trace_round.cu"))
-    k5_src = k5_variants(src(REPO, "trace_traverse.cu"))
-    k2_src = k2_variants(src(REPO, "trace_sched.cu"))
-    variants = build_variants(
-        _build, {**{f"k1_{k}": v for k, v in k1_src.items()},
-                 **{f"k5_{k}": v for k, v in k5_src.items()},
-                 **{f"k2_{k}": v for k, v in k2_src.items()}},
-        _build.CSRC, out_dir)
+    sources = {}
+    if phases & {"k1", "k1_pose", "k7"}:
+        sources.update({f"k1_{k}": v for k, v in
+                        k1_variants(src("trace_round.cu")).items()})
+    if "k5" in phases:
+        sources.update({f"k5_{k}": v for k, v in
+                        k5_variants(src("trace_traverse.cu")).items()})
+    if "k2" in phases:
+        sources.update({f"k2_{k}": v for k, v in
+                        k2_variants(src("trace_sched.cu")).items()})
+    variants = build_variants(_build, sources, _build.CSRC, out_dir)
+    probes = build_probes(_build, out_dir) if "bwd" in phases else None
     print(f"built {len(variants)} variants and both checkouts in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     kernel_of = {"k1": "trace_r", "k5": "trace_traverse",
@@ -946,27 +1252,26 @@ def main() -> int:
             for name in variants}
     tree_log = (_build.build_dir() / "build.log").read_text()
     regs["tree"] = ptxas_lines(tree_log, "trace_r") + ptxas_lines(
-        tree_log, "trace_traverse")
+        tree_log, "trace_traverse") + ptxas_lines(tree_log, "histogram_bwd")
     for name, lines in regs.items():
         print(f"ptxas {name}: " + " | ".join(lines), flush=True)
 
-    k1_libs = {**base, **{k[3:]: v for k, v in variants.items()
-                          if k.startswith("k1_")}}
-    k5_libs = {**base, **{k[3:]: v for k, v in variants.items()
-                          if k.startswith("k5_")}}
-    k2_libs = {**base, **{k[3:]: v for k, v in variants.items()
-                          if k.startswith("k2_")}}
+    def libs_of(prefix: str, keep=None) -> dict:
+        return {**base, **{k[3:]: v for k, v in variants.items()
+                           if k.startswith(prefix)
+                           and (keep is None or k[3:] in keep)}}
+
     result = {"device": card, "rays": args.rays, "ptxas": regs}
-    pose_libs = {k: v for k, v in k1_libs.items()
-                 if k in ("parent", "tree", "parent_f4", "tree_ilp",
-                          "tree_lb8", "tree_persist_all", "tree_refill8")}
-    runs = {"k1": lambda: k1_phase(k1_libs, args.rays),
-            "k1_pose": lambda: k1_pose_phase(pose_libs, args.rays),
-            "k5": lambda: k5_phase(k5_libs, args.rays),
-            "k2": lambda: k2_phase(k2_libs, args.rays),
+    runs = {"k1": lambda: k1_phase(libs_of("k1_"), args.rays),
+            "k1_pose": lambda: k1_pose_phase(libs_of("k1_", POSE_VARIANTS),
+                                             args.rays),
+            "k7": lambda: k7_phase(libs_of("k1_", K7_VARIANTS), args.rays),
+            "k5": lambda: k5_phase(libs_of("k5_"), args.rays),
+            "k2": lambda: k2_phase(libs_of("k2_"), args.rays),
             "render": lambda: render_phase(parent_dir),
-            "e2e": lambda: e2e_phase(parent_dir),
-            "bwd": lambda: histogram_bwd_phase(args.rays)}
+            "bwd": lambda: histogram_bwd_phase(args.rays, base["parent"],
+                                               probes),
+            "e2e": lambda: e2e_phase(parent_dir, paths)}
     for name, run in runs.items():
         if name in phases:
             result[name] = run()

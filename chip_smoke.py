@@ -88,7 +88,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    its filterbank convolution against the CPU's; times;
 13. K3-bwd, the histogram's backward gather, against its plain version and
    against index_select, bit for bit, at the soft stereo IR's shape
-   (4,000,256 events, 64,000 bins; 1 and 4 bands) and the posed
+   (4,000,256 events, 64,000 bins; 1, 4 and 8 bands; E = 4k + 2 and
+   4k + 3; a bins[1:] view, not 16-byte aligned) and the posed
    histogram's (8,000,512 events, 512,000 bins), out-of-range bins among
    them; the autograd Function's gradient against autograd's through
    index_add_; times of the three;
@@ -130,11 +131,15 @@ Phases, in order; any failure raises and the script exits non-zero:
    2 x 4 x 1M-ray matrix through K6 (render_ir_matrix with
    layout="group"), the launch counts read around it, against the rows
    matrix;
-19. K7, the version-1 kernel, against its plain version, bit for bit: the
-   box (128 columns) and the icosphere padded to 512 columns, 65,536 and
-   1,000,064 rays, budgets 6 and 12, and a 1,280-triangle icosphere (the
-   block-synchronous branch) at 65,536 rays; columns 13-15 zero; then K7
-   against K1 on the same start state (columns 0-12); times;
+19. K7, the version-1 kernel (K1's kernels over the version-1 layouts),
+   against its plain version, bit for bit, through version 1's rounds
+   (6, 12, 24, 58; the last on the persistent grid) with the row partition
+   between them: the box (128 columns) and the icosphere padded to 512
+   columns at 65,536 and 1,000,064 rays, the same icosphere with every
+   third valid flag zeroed (invalid columns inside the table) and a
+   1,280-triangle icosphere (the block-synchronous branch) at 65,536 rays;
+   columns 13-15 zero; columns 0-12 against K1 on the same state; each
+   round's times beside K1's;
 20. the manual-options path as a user runs it: the CLI's experimentation
    mode on the box config at 1M rays x 100 bounces, --rounds 10, with
    default options, with --layout group and with --kernel-version 1, the
@@ -162,8 +167,11 @@ three states under "states", as K2's; K5 on its visited clusters' triangle
 tests and a slab test of each superbox, every box's slab test under
 "all_pairs_bound_ms"; K6 is bound on K1's 40 operations a
 test, with the product as it issues it under "issued_bound_ms", and K7 on
-the valid triangles, with its padded columns under "padded_bound_ms"), what
-bounds it, and the time of one PyTorch call that computes the same function where
+the valid triangles, with its padded columns under "padded_bound_ms"; K7's
+budget-6 round of the box, with each of version 1's rounds under
+"budgets", the icosphere's under "icosphere_512" and the 1,280-triangle
+icosphere's under "multi_chunk", K1's time on the same state beside each),
+what bounds it, and the time of one PyTorch call that computes the same function where
 there is one. Last, the result line. With no CUDA device the script exits
 non-zero and prints no result.
 """
@@ -1757,18 +1765,29 @@ def phase_histogram_bwd() -> dict:
     from audiorenderingv2_tpu_torch.ops import histogram_cuda as hc
 
     n_pad = -(-N_RAYS // 128) * 128
-    shapes = [("soft stereo IR", 4 * n_pad, 2 * IR_SECONDS * SR, 1),
-              ("soft stereo IR", 4 * n_pad, 2 * IR_SECONDS * SR, 4),
-              ("posed histogram", 8 * n_pad, 8 * 2 * IR_SECONDS * SR, 1)]
+    ir_bins = 2 * IR_SECONDS * SR
+    # (what, events, bins, bands, events dropped from the front: a view
+    # that starts 4 bytes into its storage)
+    shapes = [("soft stereo IR", 4 * n_pad, ir_bins, 1, 0),
+              ("soft stereo IR", 4 * n_pad, ir_bins, 4, 0),
+              ("soft stereo IR, E = 4k + 3", 4 * n_pad + 3, ir_bins, 1, 0),
+              ("soft stereo IR, a bins[1:] view (E = 4k + 1)",
+               4 * n_pad + 2, ir_bins, 1, 1),
+              ("soft stereo IR, E = 4k + 2", 4 * n_pad + 2, ir_bins, 4, 0),
+              ("soft stereo IR, 8 bands", 4 * n_pad, ir_bins, 8, 0),
+              ("posed histogram", 8 * n_pad, 8 * ir_bins, 1, 0)]
     rng = np.random.default_rng(17)
     result = None
-    for what, n_events, n_bins, n_bands in shapes:
+    for what, n_all, n_bins, n_bands, skip in shapes:
         # A fifth of the bins out of range on either side, the sentinel
         # n_bins (what an inactive deposit carries) among them.
         bins = rng.integers(-n_bins // 8, n_bins + n_bins // 8,
-                            size=n_events).astype(np.int32)
+                            size=n_all).astype(np.int32)
         bins[::97] = n_bins
-        b_d = torch.from_numpy(bins).cuda()
+        b_d = torch.from_numpy(bins).cuda()[skip:]
+        n_events = b_d.shape[0]
+        assert b_d.is_contiguous() and (b_d.data_ptr() % 16 != 0) == (
+            skip > 0)
         g = torch.from_numpy(rng.standard_normal(
             (n_bins, n_bands)).astype(np.float32)).cuda()
         kern = hc.histogram_bwd(b_d, g)
@@ -2596,29 +2615,44 @@ def phase_group() -> tuple[dict, dict, dict]:
 
 
 def phase_v1() -> dict:
-    """K7 against its plain version and against K1; returns its JSON
-    numbers (the box, 1,000,064 rays, budget 6)."""
+    """K7 against its plain version and against K1 through version 1's
+    rounds; returns its JSON numbers (the box, 1,000,064 rays, budget 6,
+    every round's under "budgets", the icosphere's under "icosphere_512",
+    the multi-chunk branch's under "multi_chunk")."""
     from audiorenderingv2_tpu_torch import testing
     from audiorenderingv2_tpu_torch.ops import raytrace_cuda as rc
     from audiorenderingv2_tpu_torch.ops import v1_cuda
 
     params = _box_params()
+    schedule = rc._round_schedule(MAX_BOUNCES)
+    assert schedule == [6, 12, 24, 58], schedule
     ico = testing.icosphere(radius=6.0, subdivisions=2)
+    ico_sc = _scene_arrays(ico, pad_to=512)
+    # The icosphere's table with every third of its valid flags zeroed:
+    # invalid columns before the last valid one, not only trailing ones.
+    mid_valid = ico_sc.valid.clone()
+    mid_valid[:320:3] = 0.0
     entry = None
-    for scene_name, mesh, pad_to, sizes in (
-            ("box", testing.box_room(ROOM), None, (65536, N_RAYS)),
-            ("icosphere (320 triangles)", ico, 512, (65536, N_RAYS)),
-            ("icosphere (1,280 triangles, two shared-memory chunks)",
-             testing.icosphere(radius=6.0, subdivisions=3), None, (65536,))):
-        sc = _scene_arrays(mesh, pad_to=pad_to)
+    times = {"budgets": {}, "icosphere_512": {}, "multi_chunk": {}}
+    for scene_name, sc, sizes in (
+            ("box", _scene_arrays(testing.box_room(ROOM)), (65536, N_RAYS)),
+            ("icosphere (320 triangles)", ico_sc, (65536, N_RAYS)),
+            ("icosphere, every third valid flag zeroed",
+             ico_sc._replace(valid=mid_valid), (65536,)),
+            ("icosphere (1,280 triangles, multi-chunk)",
+             _scene_arrays(testing.icosphere(radius=6.0, subdivisions=3)),
+             (65536,))):
         tris = rc.pack_tris_v1(sc)
         rows = rc.pack_tris_rows(sc)
+        branch = v1_cuda.v1_branch(tris.shape[1])
+        assert branch == ("multi_chunk" if "multi" in scene_name
+                          else "one_chunk"), (scene_name, branch)
         for n in sizes:
             state, scal = _start_state(n, params)
             state_rows = state.T.contiguous()
-            for budget in (6, 12):
-                what = (f"K7, {scene_name}, {tris.shape[1]} columns, "
-                        f"{state.shape[1]} rays, budget {budget}")
+            for budget in schedule:
+                what = (f"K7, {scene_name}, {tris.shape[1]} columns "
+                        f"({branch}), {state.shape[1]} rays, budget {budget}")
                 kern = v1_cuda.trace_round_v1(state_rows.clone(), tris, scal,
                                               params, budget)
                 plain = v1_cuda.trace_round_v1_plain(
@@ -2629,37 +2663,53 @@ def phase_v1() -> dict:
                 assert not kern[:, 13:].any(), f"{what}: columns 13-15"
                 assert torch.equal(kern[:, :13], k1[:13].T), \
                     f"{what}: columns 0-12 differ from K1's"
-                ms = median_ms(lambda s: v1_cuda.trace_round_v1(
-                    s, tris, scal, params, budget), 5,
-                    setup=lambda: (state_rows.clone(),))
-                k1_ms = median_ms(lambda s: rc.trace_round(
-                    s, rows, scal, params, budget), 5,
-                    setup=lambda: (state.clone(),))
-                log(f"{what}: bit-identical to the plain version; columns "
-                    f"13-15 zero; columns 0-12 bit-identical to K1's; "
-                    f"kernel {ms:.3f} ms, K1 over {rows.shape[0]} rows "
-                    f"{k1_ms:.3f} ms")
-                if (scene_name, n, budget) == ("box", N_RAYS, 6):
-                    plain_ms = median_ms(
-                        lambda s: v1_cuda.trace_round_v1_plain(
-                            s, tris, scal, params, budget), 2,
+                msg = (f"{what}: bit-identical to the plain version; columns "
+                       f"13-15 zero; columns 0-12 bit-identical to K1's")
+                if n == N_RAYS or "multi" in scene_name:
+                    ms = median_ms(lambda s: v1_cuda.trace_round_v1(
+                        s, tris, scal, params, budget), 5,
                         setup=lambda: (state_rows.clone(),))
+                    k1_ms = median_ms(lambda s: rc.trace_round(
+                        s, rows, scal, params, budget), 5,
+                        setup=lambda: (state.clone(),))
                     n_valid = int((tris[16] > 0).sum())
                     searches = round_tests(state, k1)
                     b = bound(2 * nbytes(state_rows) + nbytes(tris, scal),
                               searches * n_valid * TRI_TEST_OPS)
                     padded = bound(0, searches * tris.shape[1]
                                    * TRI_TEST_OPS)["bound_ms"]
-                    log(f"{what}: plain {plain_ms:.3f} ms; "
-                        f"{searches * n_valid:.4g} tests of the {n_valid} "
-                        f"valid triangles, bound {b['bound_ms']:.4f} ms by "
-                        f"{b['bound_by']} (over all {tris.shape[1]} padded "
-                        f"columns, as the kernel runs them: {padded:.4f} "
-                        f"ms)")
-                    entry = {"max_abs_err": err, "ms": ms,
-                             "plain_ms": plain_ms, **b, "library_ms": None,
-                             "k1_ms": k1_ms, "padded_bound_ms": padded}
-    return entry
+                    t = {"ms": ms, "k1_ms": k1_ms, **b,
+                         "padded_bound_ms": padded,
+                         "alive": int((state[rc._C_DONE] == 0).sum())}
+                    key = str(budget)
+                    if scene_name == "box":
+                        times["budgets"][key] = t
+                    elif "multi" in scene_name:
+                        times["multi_chunk"][key] = t
+                    else:
+                        times["icosphere_512"][key] = t
+                    msg += (f"; kernel {ms:.3f} ms, K1 over {rows.shape[0]} "
+                            f"rows {k1_ms:.3f} ms; {searches * n_valid:.4g} "
+                            f"tests of the {n_valid} valid triangles, bound "
+                            f"{b['bound_ms']:.4f} ms by {b['bound_by']} "
+                            f"(over all {tris.shape[1]} columns: "
+                            f"{padded:.4f} ms)")
+                    if (scene_name, n, budget) == ("box", N_RAYS, 6):
+                        plain_ms = median_ms(
+                            lambda s: v1_cuda.trace_round_v1_plain(
+                                s, tris, scal, params, budget), 2,
+                            setup=lambda: (state_rows.clone(),))
+                        msg += f"; plain {plain_ms:.3f} ms"
+                        entry = {"max_abs_err": err, "ms": ms,
+                                 "plain_ms": plain_ms, **b,
+                                 "library_ms": None, "k1_ms": k1_ms,
+                                 "padded_bound_ms": padded}
+                log(msg)
+                # the next round starts from this one's state, partitioned
+                # alive first as the version-1 rounds do
+                state_rows = rc._partition_alive_first(kern, ray_dim=0)
+                state = state_rows.T.contiguous()
+    return {**entry, **times}
 
 
 def phase_experimentation() -> dict:
@@ -2840,7 +2890,7 @@ def main() -> int:
          "launches": k6_posed_launches["trace_round_group_posed"],
          **k6_posed},
         {"name": "trace_round_v1", "route": "cuda",
-         "source": "audiorenderingv2_tpu_torch/csrc/trace_round_v1.cu",
+         "source": "audiorenderingv2_tpu_torch/csrc/trace_round.cu",
          "replaces": "audiorenderingv2_tpu/ops/raytrace_pallas.py:452",
          "launches": manual["v1"]["trace_round_v1"], **k7},
     ]

@@ -432,8 +432,8 @@ def test_build_dir_follows_shared_header(tmp_path, monkeypatch):
     monkeypatch.setattr(_build, "CSRC", tmp_path)
     assert {p.name for p in _build.sources()} == {
         "histogram.cu", "init_state.cu", "tile_schedule.cu",
-        "trace_group.cu", "trace_round.cu", "trace_round_v1.cu",
-        "trace_sched.cu", "trace_traverse.cu"}
+        "trace_group.cu", "trace_round.cu", "trace_sched.cu",
+        "trace_traverse.cu"}
     before = _build.build_dir()
     header = tmp_path / "trace_common.cuh"
     header.write_text(header.read_text() + "\n")

@@ -120,3 +120,33 @@ def test_histogram_wrapper_checks():
         histogram_cuda.histogram_sum_banded(bins.to("meta"), w.to("meta"), 8)
     with pytest.raises(ValueError, match="weight rows"):
         t_binning.histogram_sum_banded(bins, w[:3], 8)
+
+
+@pytest.mark.parametrize("view", [False, True])
+@pytest.mark.parametrize("rem", [1, 2, 3])
+@pytest.mark.parametrize("n_bands", [1, 4, 8])
+def test_bwd_plain_equals_jax_bwd(n_bands, rem, view):
+    """K3-bwd's plain version (and the wrapper on the CPU) against the JAX
+    custom VJP's backward, bit for bit: E = 4k + rem events (the kernel
+    takes 4 a thread and the rest one a thread), out-of-range bins on both
+    sides and the sentinel n_bins among them, and a ``bins[1:]`` view that
+    starts 4 bytes into its storage (the kernel's unaligned path)."""
+    n_bins = 700
+    e = 4 * 1500 + rem
+    rng = np.random.default_rng(10 * n_bands + rem)
+    bins = rng.integers(-n_bins // 5, n_bins + n_bins // 5,
+                        size=e + view).astype(np.int32)
+    bins[::37] = n_bins
+    g = rng.standard_normal((n_bins, n_bands)).astype(np.float32)
+    b_t = torch.from_numpy(bins)[int(view):]
+    assert b_t.is_contiguous() and b_t.shape == (e,)
+    _, ref = histogram_pallas._bwd(n_bins, True, jnp.asarray(bins[view:]),
+                                   jnp.asarray(g))
+    ref = np.asarray(ref)
+    plain = histogram_cuda.histogram_bwd_plain(b_t, torch.from_numpy(g))
+    assert plain.shape == ref.shape == (e, n_bands)
+    np.testing.assert_array_equal(plain.numpy(), ref)
+    np.testing.assert_array_equal(
+        histogram_cuda.histogram_bwd(b_t, torch.from_numpy(g)).numpy(), ref)
+    out = (bins[view:] < 0) | (bins[view:] >= n_bins)
+    assert out.sum() > e // 10 and not ref[out].any()

@@ -29,6 +29,10 @@ SCENES = {
             [1.5, 0.5, -1.0], 384),                 # 320 -> 384 columns
     "ico512": (lambda: jt.icosphere(radius=6.0, subdivisions=2),
                [1.5, 0.5, -1.0], 512),              # four 128-column chunks
+    # the same with every third valid flag zeroed: invalid columns inside
+    # the table, not only after its last valid one
+    "ico512_mid": (lambda: jt.icosphere(radius=6.0, subdivisions=2),
+                   [1.5, 0.5, -1.0], 512),
 }
 
 
@@ -45,6 +49,8 @@ def _setup(name, absorption=0.3):
     sc = sc._replace(**{
         k: jnp.pad(x, ((0, extra),) + ((0, 0),) * (x.ndim - 1))
         for k, x in sc._asdict().items() if x is not None})
+    if name.endswith("_mid"):
+        sc = sc._replace(valid=sc.valid.at[:t.shape[0]:3].set(0.0))
     return sc, convert.scene_arrays_from_jax(_np(sc)), np.asarray(
         rec, np.float32)
 
@@ -74,6 +80,73 @@ def test_pack_tris_v1_equals_jax(name, n_cols):
     assert torch.equal(got[16], sct.valid)
     packed, boxes = rc.pack_scene(sct, version=1)
     assert boxes is None and torch.equal(packed, got)
+
+
+@pytest.mark.parametrize("name", sorted(SCENES))
+def test_table_as_rows_equals_k1_rows(name):
+    """The rows K7 stages from its table are K1's rows: ``_table_as_rows``
+    of the [17, T] table equals ``pack_tris_rows`` (trimmed past the last
+    valid triangle), and the table's later columns are all invalid."""
+    _, sct, _ = _setup(name)
+    rows = rc.pack_tris_rows(sct)
+    staged = v1_cuda._table_as_rows(rc.pack_tris_v1(sct))
+    assert torch.equal(staged[:rows.shape[0]], rows)
+    assert not (staged[rows.shape[0]:, rc._R_VAL] > 0).any()
+    if name.endswith("_mid"):
+        assert not (rows[:-1:3, rc._R_VAL] > 0).any()
+
+
+def _cut_after_last_valid(tris: torch.Tensor) -> torch.Tensor:
+    return tris[:, :int(torch.nonzero(tris[16] > 0).max()) + 1].contiguous()
+
+
+@pytest.mark.parametrize("budget", [6, 12])
+@pytest.mark.parametrize("name", ["box", "ico512", "ico512_mid"])
+def test_plain_over_the_cut_table_equals_untrimmed(name, budget):
+    """K7 stops its search at the last valid column. That is exact: the
+    plain version over the table cut right after that column equals the
+    plain version over the whole table bit for bit, from the start state
+    and from the state after a round and the partition."""
+    _, sct, rec = _setup(name)
+    params = convert.trace_params_from_jax(ar.TraceParams(
+        sample_rate=SR, ir_length=SR, base_power=3.62, max_bounces=30))
+    n = 768
+    e0 = params.base_power / (n * constants.SPHERE_VOLUME)
+    tris = rc.pack_tris_v1(sct)
+    cut = _cut_after_last_valid(tris)
+    assert cut.shape[1] < tris.shape[1]
+    state = rc.init_state(torch.from_numpy(_dirs(n, 6)), torch.zeros(3), e0,
+                          n).T.contiguous()
+    scal = rc.scalars(torch.zeros(3), torch.from_numpy(rec), 25.0, e0,
+                      params)
+    for _ in range(2):
+        full = v1_cuda.trace_round_v1_plain(state.clone(), tris, scal, params,
+                                            budget)
+        trimmed = v1_cuda.trace_round_v1_plain(state.clone(), cut, scal,
+                                               params, budget)
+        assert torch.equal(full, trimmed)
+        assert (full[:, rc._C_DEPTH] > state[:, rc._C_DEPTH]).any()
+        state = rc._partition_alive_first(full, ray_dim=0)
+
+
+@pytest.mark.parametrize("n_cols,branch", [
+    (0, "one_chunk"), (128, "one_chunk"),        # the box's table
+    (v1_cuda.V1_CHUNK_COLS, "one_chunk"),        # the icosphere at 512
+    (v1_cuda.V1_CHUNK_COLS + 128, "multi_chunk"),
+    (1280, "multi_chunk"),                       # 1,280-triangle icosphere
+    (19968, "multi_chunk"),                      # the office, never clustered
+    (-1, None),
+])
+def test_v1_branch_routes_by_column_count(n_cols, branch):
+    """Tables up to K1's chunk take the one-chunk branch (staged once a
+    block, the persistent grid in long rounds), larger ones the
+    block-synchronous branch; a negative count raises."""
+    assert v1_cuda.V1_CHUNK_COLS == rc.K1_CHUNK_ROWS
+    if branch is None:
+        with pytest.raises(ValueError, match="column count"):
+            v1_cuda.v1_branch(n_cols)
+    else:
+        assert v1_cuda.v1_branch(n_cols) == branch
 
 
 def test_pack_tris_v1_errors():
