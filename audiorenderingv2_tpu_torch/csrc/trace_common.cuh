@@ -2,8 +2,9 @@
 // (trace_traverse.cu) and K6 (trace_group.cu) share: the state, scalar and
 // triangle-row layouts, one ray's state in registers, the Moller-Trumbore
 // search over triangle rows (read as 17 scalars, or as float4 with rows
-// unrolled: K1, K2 and K5), the bounce tail, and the bulk copies on
-// mbarriers that K2 (a ring of them) and K5 stage cluster rows with.
+// unrolled: K1, K2 and K5), the bounce tail, the hand-out of rays to the
+// lanes of a warp (K1, K7 and K6), and the bulk copies on mbarriers that K2
+// (a ring of them) and K5 stage cluster rows with.
 //
 // The tail is the TPU kernel's (audiorenderingv2_tpu/ops/
 // raytrace_pallas_v2.py:_trace_round_kernel_v2, :692-747): the analytic
@@ -106,6 +107,18 @@ struct Ray {
       en[b] = used ? st[en_col<LB>(b) * n + ray] : 0.f;
       ew[b] = used ? st[evw_col<LB>(b) * n + ray] : 0.f;
     }
+  }
+
+  // Load `ray` and return true, or, for a ray done on entry, clear its LTRI
+  // and return false (the round-start writes of K1's and K6's layout).
+  __device__ bool take(float* st, long long n, long long ray, int n_bands) {
+    if (st[C_DONE * n + ray] != 0.f) {
+      st[C_LTRI * n + ray] = 0.f;
+      return false;
+    }
+    *this = Ray<LB>();
+    load(st, n, ray, true, n_bands);
+    return true;
   }
 
   __device__ void store(float* st, long long n, long long ray,
@@ -267,6 +280,47 @@ struct Ray {
       depth = depth + 1.0f;
     }
     if (running && (receiver || miss || !can_cont)) done = 1.f;
+  }
+};
+
+// How K1 (and K7) and K6 hand rays to a warp: warp w of W takes groups w,
+// w + W, w + 2W, ... of 2^group_log2 consecutive rays, and a lane whose ray
+// has ended takes the warp's next one. The state is warp-uniform; every
+// lane of the warp calls refill.
+constexpr unsigned kAllLanes = 0xffffffffu;
+
+struct RayHandout {
+  long long n, warp, n_warps, n_groups, group_mask;
+  int group_log2;
+  unsigned below;       // the lanes under this one
+  long long taken = 0;  // rays this warp has handed out
+  bool exhausted;
+
+  __device__ RayHandout(long long n_rays, long long warp_id,
+                        long long warps, int log2_group, int lane)
+      : n(n_rays), warp(warp_id), n_warps(warps),
+        n_groups(((n_rays - 1) >> log2_group) + 1),
+        group_mask((1ll << log2_group) - 1), group_log2(log2_group),
+        below((1u << lane) - 1u), exhausted(warp_id >= n_groups) {}
+
+  // Idle lanes (ray < 0) take the warp's next rays, in order, until none
+  // is idle or the warp's share is spent. take(cand) loads ray cand and
+  // returns true, or, for a ray done on entry, makes its round-start
+  // writes and returns false, and the lane takes the next one.
+  template <class Take>
+  __device__ __forceinline__ void refill(long long& ray, Take&& take) {
+    while (!exhausted) {
+      const unsigned need = __ballot_sync(kAllLanes, ray < 0);
+      if (need == 0u) break;
+      if (ray < 0) {
+        const long long j = taken + __popc(need & below);
+        const long long group = warp + (j >> group_log2) * n_warps;
+        const long long cand = (group << group_log2) + (j & group_mask);
+        if (group < n_groups && cand < n && take(cand)) ray = cand;
+      }
+      taken += __popc(need);
+      exhausted = warp + (taken >> group_log2) * n_warps >= n_groups;
+    }
   }
 };
 

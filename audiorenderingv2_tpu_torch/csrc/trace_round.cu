@@ -41,18 +41,19 @@
 // bounced-off triangle's normal and absorptions from the staged rows. Rays
 // come to a warp in groups of consecutive rays: warp w of W takes groups w,
 // w + W, w + 2W, ..., and a lane whose ray ends (done, or its budget spent)
-// stores it and takes the warp's next ray. A round of at most
-// kPersistBudget bounces gets a warp per 32 rays, one group each, so a lane
-// that ends early idles, as one ray a thread would. A longer round runs on
-// a persistent grid (the blocks that stay resident) with groups of 8 rays
-// (one 32-byte sector a column; in K7's rows, 512 contiguous bytes), so
-// that lanes stay busy until the warp's share runs out instead of waiting
-// on the warp's longest ray: in the box render's 68-bounce round one ray a
-// thread keeps 57% of the lanes busy. In short rounds, where few lanes
-// idle, the refills' scattered loads and the uneven shares cost more than
-// they save. Each ray still runs its own bounces with the same arithmetic,
-// so its result does not change. A ray that is done on entry only gets its
-// round-start writes: K1 clears LTRI, K7 zeroes columns 13-15.
+// stores it and takes the warp's next ray (RayHandout, trace_common.cuh).
+// A round of at most kPersistBudget bounces gets a warp per 32 rays, one
+// group each, so a lane that ends early idles, as one ray a thread would.
+// A longer round runs on a persistent grid (the blocks that stay resident)
+// with groups of 8 rays (one 32-byte sector a column; in K7's rows, 512
+// contiguous bytes), so that lanes stay busy until the warp's share runs
+// out instead of waiting on the warp's longest ray: in the box render's
+// 68-bounce round one ray a thread keeps 57% of the lanes busy. In short
+// rounds, where few lanes idle, the refills' scattered loads and the uneven
+// shares cost more than they save. Each ray still runs its own bounces with
+// the same arithmetic, so its result does not change. A ray that is done on
+// entry only gets its round-start writes: K1 clears LTRI, K7 zeroes columns
+// 13-15.
 //
 // A larger scene (the baseline of K1 over every row of a clustered scene;
 // a version-1 table of more than kChunk columns, which version 1 never
@@ -121,13 +122,7 @@ struct ColumnsRows {
   // Load `ray` into r and return true, or, for a ray done on entry, clear
   // its LTRI and return false.
   __device__ bool take(Ray<LB>& r, long long ray) const {
-    if (st[C_DONE * n + ray] != 0.f) {
-      st[C_LTRI * n + ray] = 0.f;
-      return false;
-    }
-    r = Ray<LB>();
-    load(r, ray, true);
-    return true;
+    return r.take(st, n, ray, n_bands);
   }
 };
 
@@ -239,42 +234,25 @@ trace_rows_kernel(L lay, const float* __restrict__ scal,
   __syncthreads();
   const RowAttrs staged{s_rows};
 
-  const long long n = lay.n;
-  const long long warp = ((long long)blockIdx.x * kThreads + tid) >> 5;
-  const long long n_warps = (long long)gridDim.x * kWarps;
   // The warp's rays come in groups of 2^group_log2 consecutive rays:
   // groups w, w + W, w + 2W, ... of W warps.
-  const long long n_groups = ((n - 1) >> group_log2) + 1;
-  const long long group_mask = (1ll << group_log2) - 1;
-  const unsigned below = (1u << lane) - 1u;
+  RayHandout hand(lay.n, ((long long)blockIdx.x * kThreads + tid) >> 5,
+                  (long long)gridDim.x * kWarps, group_log2, lane);
   const float fmax_b = (float)max_bounces;
-  long long taken = 0;  // rays this warp has handed out, warp-uniform
-  bool exhausted = warp >= n_groups;
   long long ray = -1;   // this lane's ray; -1 while the lane is idle
   int bounces = 0;      // bounces of that ray in this round
   Ray<LB> r;
   Scalars sc(scal);
 
   while (true) {
-    // Idle lanes take the warp's next rays, in order; a ray that is done
-    // on entry only gets its round-start writes, and its lane takes the
-    // next one.
-    while (!exhausted) {
-      const unsigned need = __ballot_sync(kFull, ray < 0);
-      if (need == 0u) break;
-      if (ray < 0) {
-        const long long j = taken + __popc(need & below);
-        const long long group = warp + (j >> group_log2) * n_warps;
-        const long long cand = (group << group_log2) + (j & group_mask);
-        if (group < n_groups && cand < n && lay.take(r, cand)) {
-          ray = cand;
-          bounces = 0;
-          sc = Scalars(scal + (ray / rays_per_pose) * kNScal);
-        }
-      }
-      taken += __popc(need);
-      exhausted = warp + (taken >> group_log2) * n_warps >= n_groups;
-    }
+    // Idle lanes take the warp's next rays; a ray that is done on entry
+    // only gets its round-start writes, and its lane takes the next one.
+    hand.refill(ray, [&](long long cand) {
+      if (!lay.take(r, cand)) return false;
+      bounces = 0;
+      sc = Scalars(scal + (cand / rays_per_pose) * kNScal);
+      return true;
+    });
     if (!__any_sync(kFull, ray >= 0)) break;
     if (ray >= 0) {
       const bool can_cont = r.can_continue(sc, lay.n_bands, fmax_b);

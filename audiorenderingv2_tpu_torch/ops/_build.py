@@ -61,10 +61,13 @@ _SIGNATURES = {
     # stream
     "ar2_trace_traverse": (_P, _LL, _I, _P, _I, _P, _I, _P, _I, _LL, _I, _I,
                            _I, _I, _P, _P),
-    # state, n, ncols, coeffs, attrs, n_groups, attr_cols, scal, n_poses,
-    # rays_per_pose, n_bands, layout_bands, budget, max_bounces, high, stream
+    # state, n, ncols, table (coeffs, or their B fragments with high),
+    # attrs, n_groups, attr_cols, scal, n_poses, rays_per_pose, n_bands,
+    # layout_bands, budget, max_bounces, high, stream
     "ar2_trace_group": (_P, _LL, _I, _P, _P, _I, _I, _P, _I, _LL, _I, _I, _I,
                         _I, _I, _P),
+    # state, n, ncols, frags, n_groups, out, stream
+    "ar2_group_probe": (_P, _LL, _I, _P, _I, _P, _P),
     # state, n, tris, n_tris, scal, budget, max_bounces, stream
     "ar2_trace_round_v1": (_P, _LL, _P, _I, _P, _I, _I, _P),
 }

@@ -1,5 +1,5 @@
-"""A/B of the PyTorch port's K1, K1-pose, K7, K5 and K3-bwd on one NVIDIA
-GPU.
+"""A/B of the PyTorch port's K1, K1-pose, K7, K5, K6 and K3-bwd on one
+NVIDIA GPU.
 
 K1 and K7 (csrc/trace_round.cu: K7 is K1's kernels over the version-1
 layouts), K1 with a scalar row per pose and K5 (csrc/trace_traverse.cu) of
@@ -11,7 +11,7 @@ the kernel's plain PyTorch version on the same state; K2
 (csrc/histogram.cu) of both beside probes of its limit and index_select.
 
     python3 benchmarks/torch_trace_ab.py --parent DIR [--rays N]
-        [--phases k1,k1_pose,k7,k5,k2,render,bwd,e2e] [--paths P,...]
+        [--phases k1,k1_pose,k7,k5,k2,k6,render,bwd,e2e] [--paths P,...]
         [--out FILE]
 
 States (1,000,064 rays unless ``--rays``):
@@ -34,6 +34,12 @@ States (1,000,064 rays unless ``--rays``):
            and the dir72 sort; visits per tile
   K2       the office in clusters of 32: round 1 unsorted, after one bounce
            and the sort, after 16 bounces
+  K6       (csrc/trace_group.cu) both precisions: the box through the
+           group route's rounds (6, 12, 24, 58) at 1 and 4 bands, its
+           8-bounce round from the start state, the 320-triangle icosphere
+           (40 groups, 8 bounces), the multi-pose demo's box (8 poses x
+           1,000,064 rays, 8 bounces); "highest" bit for bit against its
+           plain version, "high" on chip_smoke.py's bar; K1 beside each
 
 Variants (each its own library, built under the package's ``_build/`` from
 a copy of one source; the committed sources are not touched; a K1 variant
@@ -72,6 +78,23 @@ changes K7 alike):
                      registers
       tree_scalar    Ray::intersect on the staged rows
   K2  tree_ilp       K2 with tree_ilp's test
+  K6  tree_unfolded  "highest" with the ray's packed 1 and 0 multiplied in
+      tree_scalar    coefficient rows read as 8 scalar loads (volatile, so
+                     that they are not merged) instead of two float4
+      tree_chunk16   one chunk of at most 16 groups (the icosphere's 40
+                     then run the chunked kernel)
+      tree_grid_all  one warp per 32 rays in every round
+      tree_fp32_high "high" on the FP32 units (the 20 terms in the plain
+                     version's order, read from the B fragments) instead of
+                     mma.sync
+      tree_div_each  one IEEE division a test, each with its own branch to
+                     the slow path, instead of four side by side
+      tree_lb3       __launch_bounds__(256, 3): at most 80 registers
+      tree_highest_lb3
+                     the same for "highest" only
+      probe_approx_div, probe_no_test
+                     probes, timed only: test4's divisions as __fdividef;
+                     the test replaced by a fold of the quantities
   K3-bwd probes      the one-event-a-thread kernel with one suspect taken
                      out: ``contiguous`` (a contiguous read of g for the
                      gather), ``stores`` (nothing read), ``bins_only``
@@ -283,8 +306,16 @@ def _replace(src: str, old: str, new: str) -> str:
     return src.replace(old, new)
 
 
-def k1_variants(tree: str) -> dict[str, str]:
-    """Variants of trace_round.cu. K7 is the same kernels over its own
+def _with_header(tree: str, header: str) -> str:
+    """``tree`` with ``header`` (trace_common.cuh's text, edited) in place of
+    its include: a variant of what the header holds, for this source only."""
+    return _replace(tree, '#include "trace_common.cuh"\n',
+                    _replace(header, "#pragma once\n", ""))
+
+
+def k1_variants(tree: str, header: str) -> dict[str, str]:
+    """Variants of trace_round.cu (and of the ray hand-out it takes from
+    trace_common.cuh, ``header``). K7 is the same kernels over its own
     layouts, so each variant changes K7 as it changes K1."""
     twice = "      if (can_cont) {\n" + _K1_CALL + '''
         float bt2 = CUDART_INF_F;
@@ -314,10 +345,10 @@ def k1_variants(tree: str) -> dict[str, str]:
                                      "want;"),
         "tree_chunk32": _replace(tree, "max_bounces, persist ? 3 : 5);",
                                  "max_bounces, 5);"),
-        "tree_refill8": _replace(
-            tree, "      if (need == 0u) break;",
-            "      if (need == 0u || (__popc(need) < 8 && need != kFull)) "
-            "break;"),
+        "tree_refill8": _with_header(tree, _replace(
+            header, "      if (need == 0u) break;",
+            "      if (need == 0u || (__popc(need) < 8 && need != kAllLanes))"
+            " break;")),
         "tree_lb8": _replace(tree, _K1_KERNEL, _K1_KERNEL.replace(
             "(kThreads)", "(kThreads, 8)")),
         "tree_2x": _replace(tree, "      if (can_cont)\n" + _K1_CALL, twice),
@@ -369,6 +400,137 @@ def k2_variants(tree: str) -> dict[str, str]:
         _replace(tree, _K2_KERNEL, _ILP + _K2_KERNEL), _K2_CALL,
         "      intersect_ilp<4>(r, s_rows + s * stage_floats, cs, "
         "list[1 + k] * cs, best_t, best_i);")}
+
+
+_K6_HIGH = """    if (HIGH) {
+      if (__any_sync(kFull, can_cont)) {
+        float bt[4] = {CUDART_INF_F, CUDART_INF_F, CUDART_INF_F,
+                       CUDART_INF_F};
+        int bi[4] = {-1, -1, -1, -1};
+        uint32_t a[2][4];
+        put_ray(s_a, lane, r, can_cont);
+        get_a(s_a, lane, a);
+        search_mma(s_tab, s_valid, n_test, 0, a, lane, bt, bi);
+        own_hit(bt, bi, lane, best_t, best_i);
+      }
+    } else if (can_cont) {"""
+_K6_KERNEL = "// ---------------------------------------------------------------- kernels"
+_K6_KERNEL_BOUNDS = ("__global__ void __launch_bounds__(kBlock, 2)\n"
+                     "trace_group_kernel(")
+_K6_TEST4 = "  bool safe[4], exact = true;"
+_K6_DIV_FAST = ("    tt[j] = div_fast(num[j], den[j]);\n"
+                "    exact = exact & div_fast_exact(num[j], den[j]);\n")
+_K6_HIGHEST = "// ---------------------------------------------------------------- HIGHEST"
+# test4's body replaced by a fold of each candidate's quantities: what the
+# search costs without K1's test (a probe: its hits are not the function's)
+_K6_NO_TEST = """#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const float s = q[0][j] + q[1][j] + q[2][j] + q[3][j] + q[4][j] + q[5][j];
+    if (s < bt[r[j]]) {
+      bt[r[j]] = s;
+      bi[r[j]] = tri[j];
+    }
+  }
+}
+
+"""
+# "high" on the FP32 units: the 20 terms in the plain version's order (so
+# its bits), the coefficients read from the B fragments (a triangle's 8
+# words of a quantity as two uint4).
+_K6_FP32_HIGH = """__device__ __forceinline__ float bf_lo(uint32_t w) {
+  return __uint_as_float(w << 16);
+}
+__device__ __forceinline__ float bf_hi(uint32_t w) {
+  return __uint_as_float(w & 0xffff0000u);
+}
+__device__ __forceinline__ float quantity_high(const uint4* f,
+                                               const float (&ph)[6],
+                                               const float (&pl)[6]) {
+  const uint4 x = f[0], y = f[1];
+  const float ch[7] = {bf_lo(x.x), bf_hi(x.x), bf_lo(x.z), bf_hi(x.z),
+                       bf_lo(y.x), bf_hi(y.x), bf_lo(y.z)};
+  const float cl[7] = {bf_lo(x.y), bf_hi(x.y), bf_lo(x.w), bf_hi(x.w),
+                       bf_lo(y.y), bf_hi(y.y), bf_lo(y.w)};
+  float a = ch[0] * ph[0], b = ch[0] * pl[0], c = cl[0] * ph[0];
+#pragma unroll
+  for (int k = 1; k < 6; ++k) {
+    a = a + ch[k] * ph[k];
+    b = b + ch[k] * pl[k];
+    c = c + cl[k] * ph[k];
+  }
+  return (a + ch[6] + b) + (c + cl[6]);
+}
+template <int LB>
+__device__ __forceinline__ void search_f32_high(const Ray<LB>& r,
+                                                const uint32_t* s_tab,
+                                                const float* s_valid,
+                                                int groups, float& best_t,
+                                                int& best_i) {
+  const float p[6] = {r.px, r.py, r.pz, r.vx, r.vy, r.vz};
+  float ph[6], pl[6];
+#pragma unroll
+  for (int k = 0; k < 6; ++k) {
+    ph[k] = bf16_round(p[k]);
+    pl[k] = bf16_round(p[k] - ph[k]);
+  }
+  const uint4* f = reinterpret_cast<const uint4*>(s_tab);
+  const int same[4] = {0, 0, 0, 0};
+  for (int t0 = 0; t0 < groups * kGroup; t0 += 4) {
+    float q[kNQ][4], valid[4];
+    int tri[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int t = t0 + j;
+      const uint4* row = f + (t >> 3) * kNQ * 16 + 2 * (t & 7);
+#pragma unroll
+      for (int k = 0; k < kNQ; ++k)
+        q[k][j] = quantity_high(row + 16 * k, ph, pl);
+      valid[j] = s_valid[t];
+      tri[j] = t;
+    }
+    test4(q, valid, tri, same, &best_t, &best_i);
+  }
+}
+
+"""
+
+
+def k6_variants(tree: str) -> dict[str, str]:
+    """Variants of trace_group.cu, each undoing one lever of K6's
+    redesign."""
+    return {
+        "tree_unfolded": _replace(tree, "  return acc + b.z;\n",
+                                  "  acc = acc + b.z * 1.0f;\n"
+                                  "  return acc + b.w * 0.0f;\n"),
+        "tree_scalar": _replace(
+            tree, "  const float4 a = row[0], b = row[1];\n",
+            "  const volatile float* f = reinterpret_cast<const float*>(row);"
+            "\n  const float4 a = make_float4(f[0], f[1], f[2], f[3]);\n"
+            "  const float4 b = make_float4(f[4], f[5], f[6], f[7]);\n"),
+        "tree_chunk16": _replace(tree, "constexpr int kMaxGroups = 64;",
+                                 "constexpr int kMaxGroups = 16;"),
+        "tree_grid_all": _replace(
+            tree, "  const bool persist = budget > kPersistBudget && "
+            "resident < want;",
+            "  const bool persist = false && resident < want;"),
+        "tree_div_each": _replace(tree, _K6_DIV_FAST,
+                                  "    tt[j] = num[j] / den[j];\n"),
+        "tree_highest_lb3": _replace(
+            tree, _K6_KERNEL_BOUNDS,
+            _K6_KERNEL_BOUNDS.replace("(kBlock, 2)", "(kBlock, HIGH ? 2 : 3)")),
+        "tree_lb3": _replace(tree, _K6_KERNEL_BOUNDS, _K6_KERNEL_BOUNDS.replace(
+            "(kBlock, 2)", "(kBlock, 3)")),
+        # probes: not the kernel's function, timed only
+        "probe_approx_div": _replace(
+            tree, _K6_DIV_FAST, "    tt[j] = __fdividef(num[j], den[j]);\n"),
+        "probe_no_test": tree[:tree.index(_K6_TEST4)] + _K6_NO_TEST
+        + tree[tree.index(_K6_HIGHEST):],
+        "tree_fp32_high": _replace(_replace(
+            tree, _K6_KERNEL, _K6_FP32_HIGH + _K6_KERNEL), _K6_HIGH,
+            "    if (HIGH && can_cont) {\n"
+            "      search_f32_high(r, s_tab, s_valid, n_test, best_t, "
+            "best_i);\n    } else if (!HIGH && can_cont) {"),
+    }
 
 
 def build_variants(build, sources: dict[str, str], csrc: Path,
@@ -641,6 +803,142 @@ def k7_phase(libs, n: int) -> dict:
                   flush=True)
             state_rows = rc._partition_alive_first(plain, ray_dim=0)
             state = state_rows.T.contiguous()
+    return out
+
+
+K6_PROBES = ("probe_approx_div", "probe_no_test")
+K6_VARIANTS = {"highest": ("tree_unfolded", "tree_scalar", "tree_chunk16",
+                           "tree_grid_all", "tree_div_each",
+                           "tree_highest_lb3", *K6_PROBES),
+               "high": ("tree_chunk16", "tree_grid_all", "tree_div_each",
+                        "tree_lb3", "tree_fp32_high", *K6_PROBES)}
+
+
+def k6_phase(libs, n: int) -> dict:
+    """K6 of both checkouts and of the variants at both precisions: the box
+    through the group route's rounds (6, 12, 24, 58, the row partition
+    between them) at 1 and 4 bands, its 8-bounce round from the start
+    state, the 320-triangle icosphere (40 groups, 8 bounces) and the
+    multi-pose demo's box (8 poses x 1,000,064 rays, 8 bounces). "highest"
+    bit for bit against its plain version; "high" on chip_smoke.py's bar
+    (the FP32 variant bit for bit); K1 on the same state beside each."""
+    import chip_smoke as cs
+    from audiorenderingv2_tpu_torch import constants, testing
+    from audiorenderingv2_tpu_torch.core import sampling, tracer
+    from audiorenderingv2_tpu_torch.core.params import TraceParams
+    from audiorenderingv2_tpu_torch.ops import group_cuda as gc
+    from audiorenderingv2_tpu_torch.ops import raytrace_cuda as rc
+
+    dev = torch.device("cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+    out = {}
+
+    def run(name, state, scal, params, packed, rows, budget, n_poses=1):
+        coeffs, attrs = packed
+        frags = gc.b_fragments(coeffs)
+        rpp = state.shape[1] // n_poses
+        n_valid = int((attrs[:, 3 + params.n_bands] > 0).sum())
+        row = {"budget": budget, "rays": state.shape[1],
+               "alive_before": int((state[rc._C_DONE] == 0).sum())}
+        k1 = rc.trace_round(state.clone(), rows, scal, params, budget, rpp)
+        row["k1_ms"] = median_ms(lambda s: rc.trace_round(
+            s, rows, scal, params, budget, rpp), 7,
+            setup=lambda: (state.clone(),))
+        searches = cs.round_tests(state, k1)
+        row["bound_ms"] = bound_ms(0, searches * n_valid * TRI_TEST_OPS)
+        row["high_bound_ms"] = cs._group_bound("high", 0, searches
+                                               * n_valid)["bound_ms"]
+        for precision, keep in K6_VARIANTS.items():
+            high = precision == "high"
+            plain = gc.trace_round_group_plain(state.clone(), coeffs, attrs,
+                                               scal, params, budget, rpp,
+                                               precision)
+            these = {w: lib for w, lib in libs.items()
+                     if w in ("parent", "tree") or w in keep}
+
+            def call(who, lib, s):
+                table = frags if high and who != "parent" else coeffs
+                err = lib.ar2_trace_group(
+                    s.data_ptr(), s.shape[1], s.shape[0], table.data_ptr(),
+                    attrs.data_ptr(), coeffs.shape[0] // 48, attrs.shape[1],
+                    scal.data_ptr(), n_poses, rpp, params.n_bands,
+                    rc.layout_bands(params.n_bands), budget,
+                    params.max_bounces, int(high), stream)
+                assert err == 0, err
+                return s
+
+            checks = {}
+            for who, lib in these.items():
+                got = call(who, lib, state.clone())
+                torch.cuda.synchronize()
+                n_diff = int((got != plain).any(dim=0).sum())
+                if who in K6_PROBES:
+                    checks[who] = f"probe: {n_diff} rays differ"
+                elif high and who != "tree_fp32_high":
+                    checks[who] = cs.assert_high_bar(got, plain,
+                                                     f"{name} {who}", k1,
+                                                     budget)
+                else:
+                    assert n_diff == 0, f"{name} {precision} {who}: {n_diff}"
+                    checks[who] = "bit-identical"
+            times: dict[str, list[float]] = {}
+            order = list(these.items())
+            for pass_order in (order, order[::-1]):
+                for who, lib in pass_order:
+                    times.setdefault(who, []).append(median_ms(
+                        lambda s, who=who, lib=lib: call(who, lib, s), 7,
+                        setup=lambda: (state.clone(),)))
+            row[precision] = {"ms": times, "checks": checks}
+            print(f"K6 {precision} {name} ({budget} bounces, "
+                  f"{row['alive_before']} alive): K1 {row['k1_ms']:.3f}, "
+                  f"bound {row['bound_ms' if not high else 'high_bound_ms']:.4f}"
+                  "; " + "; ".join(f"{w} {v[0]:.3f}/{v[1]:.3f}"
+                                   for w, v in times.items()), flush=True)
+        out[name] = row
+        return k1
+
+    emitter = torch.zeros(3, device=dev)
+    receiver = torch.tensor(RECEIVER, device=dev)
+    for n_bands in (1, 4):
+        params = TraceParams(sample_rate=SR, ir_length=IR_SECONDS * SR,
+                             base_power=3.62, max_bounces=MAX_BOUNCES,
+                             hrtf_absorption_rate=0.9, n_bands=n_bands)
+        for mesh_name, mesh in (("box", testing.box_room(ROOM)),
+                                ("ico", testing.icosphere(6.0, 2))):
+            if mesh_name == "ico" and n_bands > 1:
+                continue
+            sc = cs._scene_arrays(mesh, n_bands)
+            packed = rc.pack_tris_group(sc, n_bands)
+            rows = rc.pack_tris_rows(sc, n_bands)
+            e0 = params.base_power / (n * constants.SPHERE_VOLUME)
+            scal = rc.scalars(emitter, receiver, 30.0, e0, params)
+            start = rc.init_state(torch.from_numpy(unit_dirs(n, 11)).to(dev),
+                                  emitter, e0, -(-n // 128) * 128, n_bands)
+            run(f"{mesh_name}_{n_bands}b_round8", start, scal, params, packed,
+                rows, 8)
+            if mesh_name == "ico":
+                continue
+            state = start
+            for budget in rc._round_schedule(MAX_BOUNCES):
+                k1 = run(f"box_{n_bands}b_budget{budget}", state, scal,
+                         params, packed, rows, budget)
+                state = rc._partition_alive_first(k1)
+    # the multi-pose demo's box, 8 poses
+    p, n_pad = 8, -(-n // 128) * 128
+    params = TraceParams(sample_rate=SR, ir_length=IR_SECONDS * SR,
+                         base_power=3.62, max_bounces=MULTI_BOUNCES,
+                         hrtf_absorption_rate=0.9)
+    sc = tracer.scene_to_arrays(testing.scene_from_arrays(
+        *testing.box_room(MULTI_ROOM), MULTI_ABSORPTION), 128, device=dev)
+    em = torch.from_numpy(np.repeat(MULTI_EMITTERS, 4, axis=0)).to(dev)
+    rcv = torch.from_numpy(np.tile(MULTI_LISTENERS, (2, 1))).to(dev)
+    yaw = torch.from_numpy(np.tile(MULTI_YAWS, 2)).to(dev)
+    e0 = params.base_power / (n * constants.SPHERE_VOLUME)
+    dirs = torch.stack([sampling.sample_directions(
+        n, sampling.pose_generator(0, i, dev), dev) for i in range(p)])
+    run("posed_round8", rc.init_state(dirs, em, e0, n_pad),
+        rc.scalars(em, rcv, yaw, e0, params), params, rc.pack_tris_group(sc),
+        rc.pack_tris_rows(sc), 8, n_poses=p)
     return out
 
 
@@ -927,6 +1225,8 @@ paths = {
     "record_k5": lambda: record(TracerOptions()),
     "exp_default": lambda: experimentation([]),
     "exp_group": lambda: experimentation(["--layout", "group"]),
+    "exp_group_high": lambda: experimentation(["--layout", "group",
+                                               "--precision", "high"]),
     "exp_v1": lambda: experimentation(["--kernel-version", "1"]),
 }
 print(json.dumps({path: paths[path]()}))
@@ -934,7 +1234,7 @@ print(json.dumps({path: paths[path]()}))
 
 E2E_PATHS = ("box_render", "matrix_2x4", "office_render", "office_explicit",
              "record_schedule", "record_k5", "exp_default", "exp_group",
-             "exp_v1")
+             "exp_group_high", "exp_v1")
 
 
 def e2e_phase(parent: Path, paths=E2E_PATHS, pairs: int = 3,
@@ -948,7 +1248,8 @@ def e2e_phase(parent: Path, paths=E2E_PATHS, pairs: int = 3,
     around synchronised calls, one warm-up each), and the CLI's
     experimentation mode on the box config (1M rays x 100 bounces, 10
     rounds after a warm-up: the median render it prints) with default
-    options, ``--layout group`` and ``--kernel-version 1``."""
+    options, ``--layout group`` (also with ``--precision high``) and
+    ``--kernel-version 1``."""
     out: dict[str, dict[str, list]] = {}
     for i in range(pairs):
         order = (("parent", parent), ("tree", REPO))
@@ -1204,7 +1505,8 @@ def main() -> int:
     ap.add_argument("--rays", type=int, default=1_000_000)
     ap.add_argument("--out", type=Path,
                     help="also write the JSON line to this file")
-    ap.add_argument("--phases", default="k1,k1_pose,k7,k5,k2,render,bwd,e2e",
+    ap.add_argument("--phases",
+                    default="k1,k1_pose,k7,k5,k2,k6,render,bwd,e2e",
                     help="comma-separated subset of the phases to run")
     ap.add_argument("--paths", default=",".join(E2E_PATHS),
                     help="comma-separated subset of the e2e phase's paths")
@@ -1234,25 +1536,30 @@ def main() -> int:
     sources = {}
     if phases & {"k1", "k1_pose", "k7"}:
         sources.update({f"k1_{k}": v for k, v in
-                        k1_variants(src("trace_round.cu")).items()})
+                        k1_variants(src("trace_round.cu"),
+                                    src("trace_common.cuh")).items()})
     if "k5" in phases:
         sources.update({f"k5_{k}": v for k, v in
                         k5_variants(src("trace_traverse.cu")).items()})
     if "k2" in phases:
         sources.update({f"k2_{k}": v for k, v in
                         k2_variants(src("trace_sched.cu")).items()})
+    if "k6" in phases:
+        sources.update({f"k6_{k}": v for k, v in
+                        k6_variants(src("trace_group.cu")).items()})
     variants = build_variants(_build, sources, _build.CSRC, out_dir)
     probes = build_probes(_build, out_dir) if "bwd" in phases else None
     print(f"built {len(variants)} variants and both checkouts in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     kernel_of = {"k1": "trace_r", "k5": "trace_traverse",
-                 "k2": "trace_sched"}
+                 "k2": "trace_sched", "k6": "trace_group"}
     regs = {name: ptxas_lines((out_dir / f"{name}.log").read_text(),
                               kernel_of[name[:2]])
             for name in variants}
     tree_log = (_build.build_dir() / "build.log").read_text()
     regs["tree"] = ptxas_lines(tree_log, "trace_r") + ptxas_lines(
-        tree_log, "trace_traverse") + ptxas_lines(tree_log, "histogram_bwd")
+        tree_log, "trace_traverse") + ptxas_lines(
+        tree_log, "histogram_bwd") + ptxas_lines(tree_log, "trace_group")
     for name, lines in regs.items():
         print(f"ptxas {name}: " + " | ".join(lines), flush=True)
 
@@ -1268,6 +1575,7 @@ def main() -> int:
             "k7": lambda: k7_phase(libs_of("k1_", K7_VARIANTS), args.rays),
             "k5": lambda: k5_phase(libs_of("k5_"), args.rays),
             "k2": lambda: k2_phase(libs_of("k2_"), args.rays),
+            "k6": lambda: k6_phase(libs_of("k6_"), args.rays),
             "render": lambda: render_phase(parent_dir),
             "bwd": lambda: histogram_bwd_phase(args.rays, base["parent"],
                                                probes),

@@ -121,16 +121,27 @@ Phases, in order; any failure raises and the script exits non-zero:
    steps of the full method on 3 receivers): absorption within 0.08, the
    emitter within 0.5 m.
 
-18. K6, the group-layout kernel, against its plain version on the card, bit
-   for bit: the box, 65,536 and 1,000,064 rays, an 8-bounce round from the
-   start state, 1 and 4 bands, "highest" and "high"; the 320-triangle
-   icosphere (40 groups: the multi-chunk branch) at 65,536 rays; with one
-   scalar row per pose at the demo matrix's shape (8 x 1,000,064 rays), also
-   against single-pose launches; then K6 ("highest") against K1 on the same
-   state, every column; times of K6, K1 and the plain version; then the
-   2 x 4 x 1M-ray matrix through K6 (render_ir_matrix with
-   layout="group"), the launch counts read around it, against the rows
-   matrix;
+18. K6, the group-layout kernel: its SASS (cuobjdump -sass: HMMA in every
+   "high" kernel and the probe, in no "highest" one); the probe of its
+   "high" product (the tensor cores' 48 quantities a group) against the
+   float64 sum of the same terms, within 2^-20 of their magnitudes' sum,
+   and the plain "high" beside it; then K6 against its plain version on
+   the card after an 8-bounce round from the start state: the box at
+   65,536 and 1,000,064 rays and 1, 4 and 8 bands, the 320-triangle
+   icosphere (40 groups) at 1 and 4 bands and the 1,280-triangle one (160
+   groups: the chunked kernel) at 65,536 rays; "highest" bit for bit and
+   equal to K1 on the same state, "high" on its bar (PERF.md: at least
+   99.9% of the rays on the plain version's path, 99.5% also within 1e-4
+   relative in every column, every ray on that path within 1e-2) and
+   against K1 (99% on K1's path, within 1e-2); the box through the route's
+   rounds (6, 12, 24, 58) at 1,000,064 rays, both precisions beside K1,
+   with the partition between them ("high" on the same bar in the rounds
+   of 6 and 12, in those of 24 and 58 on the plain "high"'s own spread
+   from f32 where that is wider); with one scalar row per pose at the demo matrix's shape (8 x
+   1,000,064 rays), both precisions, also against single-pose launches;
+   times of K6, K1 and the plain version; then the 2 x 4 x 1M-ray matrix
+   through K6 (render_ir_matrix with layout="group"), the launch counts
+   read around it, against the rows matrix;
 19. K7, the version-1 kernel (K1's kernels over the version-1 layouts),
    against its plain version, bit for bit, through version 1's rounds
    (6, 12, 24, 58; the last on the persistent grid) with the row partition
@@ -142,11 +153,12 @@ Phases, in order; any failure raises and the script exits non-zero:
    round's times beside K1's;
 20. the manual-options path as a user runs it: the CLI's experimentation
    mode on the box config at 1M rays x 100 bounces, --rounds 10, with
-   default options, with --layout group and with --kernel-version 1, the
-   launch counts read around each run and the three summaries printed;
-   round 0's IR of each manual route against the default route's (per-ear
-   energy within 1e-3, relative L1 < 1e-2); then a native_rng render with
-   the group layout (K4 then K6) against the same render with rows.
+   default options, with --layout group (and with --precision high) and
+   with --kernel-version 1, the launch counts read around each run and the
+   summaries printed; round 0's IR of each manual route against the
+   default route's (per-ear energy within 1e-3, relative L1 < 1e-2); then
+   a native_rng render with the group layout (K4 then K6) against the same
+   render with rows.
 
 Then one JSON line of the kernels: name, route, source, the TPU kernel it
 replaces, launches on its main path (the export of phase 5; for K6 and K7
@@ -166,7 +178,11 @@ all-pairs slab-test count under "all_pairs_bound_ms" and its times at the
 three states under "states", as K2's; K5 on its visited clusters' triangle
 tests and a slab test of each superbox, every box's slab test under
 "all_pairs_bound_ms"; K6 is bound on K1's 40 operations a
-test, with the product as it issues it under "issued_bound_ms", and K7 on
+test ("high": the test's 7 FP32 operations at 67 TFLOP/s plus its
+product's 240 at the bf16 rate, 989 TFLOP/s, K1's bound under
+"k1_bound_ms"), with what it issues under "issued_bound_ms", K1's time on
+the same state under "k1_ms" and the route's four rounds under "rounds";
+K7 on
 the valid triangles, with its padded columns under "padded_bound_ms"; K7's
 budget-6 round of the box, with each of version 1's rounds under
 "budgets", the icosphere's under "icosphere_512" and the 1,280-triangle
@@ -180,6 +196,8 @@ from __future__ import annotations
 import dataclasses
 import functools
 import json
+import math
+import re
 import subprocess
 import sys
 import tempfile
@@ -229,11 +247,36 @@ HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
 TRI_TEST_OPS = 40   # FP32 operations of one ray-triangle test (intersect)
 SLAB_TEST_OPS = 23  # of one ray-box slab test (tile_schedule)
-GROUP_TEST_OPS = 103  # of one ray-triangle test as K6 issues it: 48
-#                       eight-term sums per group of 8 (2 * 48 * 8 / 8 = 96
-#                       a triangle, its zeros included) plus the test's 7.
-#                       The function is K1's test, so K6 is bound at
-#                       TRI_TEST_OPS; this count gives "issued_bound_ms"
+GROUP_TEST_OPS = 79  # of one ray-triangle test as K6 "highest" issues it:
+#                      six quantities of 6 products and 6 adds (the ray's 1
+#                      and 0 folded, the packing's zeros included) plus the
+#                      test's 7. The function is K1's test, so "highest" is
+#                      bound at TRI_TEST_OPS; this count gives
+#                      "issued_bound_ms"
+# K6 "high": the test's FP32 operations after the quantities (the negation,
+# the division, u, v, u + v), and the product's operations on the tensor
+# cores: 20 non-zero terms a quantity (240 a test), 24 as issued (288: a
+# k16 and a k8 step a quantity).
+GROUP_HIGH_FP32_OPS = 7
+GROUP_HIGH_MMA_OPS = 240
+GROUP_HIGH_MMA_AS_RUN = 288
+BF16_OPS_PER_S = 989e12  # dense bf16 on the tensor cores (data sheet)
+# K6 "high" against its plain version, whose f32 sums run in index order
+# where the tensor cores add in their own (PERF.md): at least
+# HIGH_BAR_ON_PATH of the rays on the plain version's path (LTRI, DEPTH,
+# DONE, RECVD, EVE equal), at least HIGH_BAR_WITHIN of them also within
+# HIGH_BAR_REL (relative to max(|x|, 1)) in every other column, and every
+# ray on that path within HIGH_BAR_REL_ALL. In rounds of HIGH_BAR_OWN_FROM
+# bounces and more (the route's rounds of 24 and 58), where a ray's
+# differences grow bounce by bounce and the plain "high" itself is further
+# than that from K1's f32 on the same state, the kernel may be as far from
+# the plain "high" as the plain "high" is from f32: the bar there is the
+# precision's own spread, no tighter.
+HIGH_BAR_ON_PATH = 0.999
+HIGH_BAR_WITHIN = 0.995
+HIGH_BAR_REL = 1e-4
+HIGH_BAR_REL_ALL = 1e-2
+HIGH_BAR_OWN_FROM = 24
 INIT_RAY_OPS = 150  # integer + FP32 operations of K4 per ray (10 Philox
 #                     rounds, the sphere mapping, sinf, cosf)
 
@@ -2431,14 +2474,15 @@ def _start_state(n: int, params, n_bands: int = 1):
 
 def _scene_arrays(mesh, n_bands: int = 1, pad_to: int | None = None):
     """Scene arrays on the card of a (vertices, triangles) mesh, absorption
-    0.3 or the banded phases' per band; ``pad_to`` appends all-zero padding
+    0.3 or the banded phases' per band (8 bands: 0.1 to 0.6); ``pad_to`` appends all-zero padding
     triangles up to that count."""
     from audiorenderingv2_tpu_torch import testing
     from audiorenderingv2_tpu_torch.core import tracer
 
+    per_band = (BANDED_ABSORPTION[:n_bands] if n_bands <= 4
+                else np.linspace(0.1, 0.6, n_bands))
     absorb = ABSORPTION if n_bands == 1 else np.tile(
-        np.asarray(BANDED_ABSORPTION[:n_bands], np.float32),
-        (mesh[1].shape[0], 1))
+        np.asarray(per_band, np.float32), (mesh[1].shape[0], 1))
     sc = tracer.scene_to_arrays(testing.scene_from_arrays(*mesh, absorb),
                                 128, device="cuda")
     if pad_to is not None:
@@ -2447,6 +2491,124 @@ def _scene_arrays(mesh, n_bands: int = 1, pad_to: int | None = None):
             k: torch.cat([x, x.new_zeros((extra,) + tuple(x.shape[1:]))])
             for k, x in sc._asdict().items() if x is not None})
     return sc
+
+
+def _group_bound(precision: str, n_bytes: float, tests: int) -> dict:
+    """K6's bound: "highest" on K1's 40 FP32 operations a test; "high" on
+    the test's FP32 operations beside the tensor cores (the product at the
+    bf16 rate plus the rest at the FP32 rate), or the bytes."""
+    if precision == "highest":
+        return bound(n_bytes, tests * TRI_TEST_OPS)
+    by_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    by_ops = tests * (GROUP_HIGH_FP32_OPS / FP32_OPS_PER_S
+                      + GROUP_HIGH_MMA_OPS / BF16_OPS_PER_S) * 1e3
+    return {"bound_ms": max(by_bytes, by_ops),
+            "bound_by": "bytes" if by_bytes >= by_ops else "operations"}
+
+
+def _group_issued_ms(precision: str, slots: int) -> float:
+    """The bound at what K6 issues: every triangle slot it tests (up to the
+    last valid triangle, whole groups with "high"), the product as run."""
+    if precision == "highest":
+        return slots * GROUP_TEST_OPS / FP32_OPS_PER_S * 1e3
+    return slots * (GROUP_HIGH_FP32_OPS / FP32_OPS_PER_S
+                    + GROUP_HIGH_MMA_AS_RUN / BF16_OPS_PER_S) * 1e3
+
+
+def _group_slots(attrs: torch.Tensor, n_bands: int, precision: str) -> int:
+    """Triangle slots K6 tests a ray-bounce: up to the last valid triangle,
+    rounded up to 4 ("highest") or to its group of 8 ("high")."""
+    valid = torch.nonzero(attrs[:, 3 + n_bands] > 0)
+    last = int(valid.max()) if valid.numel() else -1
+    step = 4 if precision == "highest" else 8
+    return (last + step) // step * step
+
+
+def _path_spread(kern: torch.Tensor, plain: torch.Tensor) -> dict:
+    """The share of rays of ``kern`` on ``plain``'s path (LTRI, DEPTH, DONE,
+    RECVD, EVE equal), the share also within HIGH_BAR_REL (relative to
+    max(|x|, 1)) in every column, the largest relative difference on it."""
+    from audiorenderingv2_tpu_torch.ops import raytrace_cuda as rc
+
+    flags = [rc._C_LTRI, rc._C_DEPTH, rc._C_DONE, rc._C_RECVD, rc._C_EVE]
+    same = (kern[flags] == plain[flags]).all(dim=0)
+    rel = (kern - plain).abs() / plain.abs().clamp(min=1.0)
+    within = same & (rel <= HIGH_BAR_REL).all(dim=0)
+    return {"on_path": float(same.float().mean()),
+            "within": float(within.float().mean()),
+            "worst_rel": float(rel[:, same].max()) if bool(same.any())
+            else math.inf}
+
+
+def assert_high_bar(kern: torch.Tensor, plain: torch.Tensor, what: str,
+                    k1: torch.Tensor, budget: int) -> dict:
+    """K6 "high" against its plain version after a round of ``budget``
+    bounces, on the bar above; ``k1`` is K1's f32 round on the same state,
+    which gives the plain "high"'s own spread."""
+    assert torch.isfinite(kern).all(), f"{what}: not finite"
+    got = _path_spread(kern, plain)
+    own = _path_spread(plain, k1)
+    got["plain_vs_f32"] = own
+    bar = {"on_path": HIGH_BAR_ON_PATH, "within": HIGH_BAR_WITHIN,
+           "worst_rel": HIGH_BAR_REL_ALL}
+    if budget >= HIGH_BAR_OWN_FROM:
+        bar = {"on_path": min(bar["on_path"], own["on_path"]),
+               "within": min(bar["within"], own["within"]),
+               "worst_rel": max(bar["worst_rel"], own["worst_rel"])}
+    got["bar"] = bar
+    assert got["on_path"] >= bar["on_path"], (what, got)
+    assert got["within"] >= bar["within"], (what, got)
+    assert got["worst_rel"] <= bar["worst_rel"], (what, got)
+    return got
+
+
+def assert_probe_bar(state: torch.Tensor, coeffs: torch.Tensor,
+                     what: str) -> dict:
+    """The probe: every quantity of K6's tensor-core product, and of the
+    plain "high", within 2^-20 of the sum of its 20 terms' magnitudes of
+    their float64 sum."""
+    from audiorenderingv2_tpu_torch.ops import group_cuda as gc
+
+    kern = gc.products_high(state, coeffs)
+    plain = gc.products_plain(state, coeffs)
+    ref, mag = gc.high_terms_f64(state, coeffs)
+    out = {}
+    for who, q in (("kernel", kern), ("plain", plain)):
+        err = (q.double() - ref).abs()
+        assert bool((err <= 2.0 ** -20 * mag).all()), (what, who)
+        out[who] = float((err / mag.clamp(min=1e-300)).max()) * 2.0 ** 20
+    out["equal_to_plain"] = float((kern == plain).float().mean())
+    return out
+
+
+def log_group_sass() -> None:
+    """`cuobjdump -sass` of the built library: every "high" K6 kernel (and
+    the probe) issues HMMA, no "highest" one does."""
+    from audiorenderingv2_tpu_torch.ops import _build
+
+    tool = Path(_build._nvcc()).parent / "cuobjdump"
+    sass = subprocess.run([str(tool), "-sass", str(_build.build())],
+                          capture_output=True, text=True, timeout=300,
+                          check=True).stdout
+    seen = {}
+    for fn in re.split(r"\n\s*Function : ", sass)[1:]:
+        name = re.search(r"(trace_group_kernel|trace_group_chunks_kernel|"
+                         r"group_probe_kernel)(?:ILi(\d)ELb([01])E)?",
+                         fn.split("\n", 1)[0])
+        if name is None:
+            continue
+        lines = [line for line in fn.splitlines() if "HMMA" in line]
+        ops = sorted({w.rstrip(";") for line in lines for w in line.split()
+                      if w.startswith("HMMA")})
+        high = name.group(3) != "0"  # the probe, or a "high" kernel
+        assert bool(lines) == high, (name.group(0), len(lines))
+        key = name.group(1) + (f"<{name.group(2)}, "
+                               f"{'high' if high else 'highest'}>"
+                               if name.group(2) else "")
+        seen[key] = (len(lines), ops)
+    assert len(seen) == 13, seen
+    log("K6 SASS (cuobjdump -sass): " + "; ".join(
+        f"{k} {c} x {'/'.join(o) or '-'}" for k, (c, o) in seen.items()))
 
 
 def phase_group() -> tuple[dict, dict, dict]:
@@ -2459,19 +2621,32 @@ def phase_group() -> tuple[dict, dict, dict]:
     from audiorenderingv2_tpu_torch.ops import raytrace_cuda as rc
 
     dev = torch.device("cuda")
+    log_group_sass()
     budget = 8
-    entry = {}
+    entry = {"highest": {}, "high": {}}
     ico = testing.icosphere(radius=6.0, subdivisions=2)
-    for scene_name, mesh, sizes in (
-            ("box", testing.box_room(ROOM), (65536, N_RAYS)),
-            ("icosphere (320 triangles, 40 groups)", ico, (65536,))):
-        for n_bands in (1, 4):
+    for scene_name, mesh, sizes, bands in (
+            ("box", testing.box_room(ROOM), (65536, N_RAYS), (1, 4, 8)),
+            ("icosphere (320 triangles, 40 groups)", ico, (65536,), (1, 4)),
+            ("icosphere (1,280 triangles, 160 groups: the chunked kernel)",
+             testing.icosphere(radius=6.0, subdivisions=3), (65536,), (1,))):
+        for n_bands in bands:
             sc = _scene_arrays(mesh, n_bands)
             params = _box_params(n_bands)
             coeffs, attrs = rc.pack_tris_group(sc, n_bands)
             rows = rc.pack_tris_rows(sc, n_bands)
             for n in sizes:
                 state, scal = _start_state(n, params, n_bands)
+                if n == 65536:
+                    probe = assert_probe_bar(state[:, :8192].contiguous(),
+                                             coeffs, scene_name)
+                    log(f"K6 probe, {scene_name}, {n_bands} band(s), 8,192 "
+                        f"rays: the tensor-core product within "
+                        f"{probe['kernel']:.3f} x 2^-20, the plain 'high' "
+                        f"within {probe['plain']:.3f} x 2^-20 of the sum of "
+                        f"the terms' magnitudes of the float64 sum; "
+                        f"{probe['equal_to_plain']:.4f} of the quantities "
+                        f"equal to the plain version's")
                 k1 = rc.trace_round(state.clone(), rows, scal, params, budget)
                 for precision in ("highest", "high"):
                     what = (f"K6 {precision}, {scene_name}, {n_bands} "
@@ -2483,12 +2658,25 @@ def phase_group() -> tuple[dict, dict, dict]:
                         state.clone(), coeffs, attrs, scal, params, budget,
                         precision=precision)
                     torch.cuda.synchronize()
-                    err = _assert_same_bits(kern, plain, what)
                     differ = int((kern != k1).any(dim=0).sum())
                     if precision == "highest":
-                        # the packing's zeros add exactly: K1's bits
+                        err = _assert_same_bits(kern, plain, what)
+                        # the folded product is K1's arithmetic: its bits
                         assert differ == 0, (what, differ)
+                        against = "bit-identical to the plain version"
                     else:
+                        bar = assert_high_bar(kern, plain, what, k1,
+                                              budget)
+                        err = float((kern - plain).abs().max())
+                        own = bar["plain_vs_f32"]
+                        against = (f"against the plain version "
+                                   f"{bar['on_path']:.6f} on its path, "
+                                   f"{bar['within']:.6f} within "
+                                   f"{HIGH_BAR_REL:g}, the worst on its path "
+                                   f"{bar['worst_rel']:.2e} (the plain "
+                                   f"'high' against K1: {own['on_path']:.6f}"
+                                   f", {own['within']:.6f}, "
+                                   f"{own['worst_rel']:.2e})")
                         # the rays whose path is K1's: same triangle,
                         # depth, end, receiver entry and ear
                         flags = [rc._C_LTRI, rc._C_DEPTH, rc._C_DONE,
@@ -2499,91 +2687,65 @@ def phase_group() -> tuple[dict, dict, dict]:
                                      / k1[:, same].abs().clamp(min=1.0))
                                     .max())
                         assert frac > 0.99 and rel < 1e-2, (what, frac, rel)
+                        against += (f"; {frac:.6f} of the rays on K1's "
+                                    f"path, those within {rel:.2e} of K1")
                     log(f"{what}, {budget}-bounce round, "
-                        f"{coeffs.shape[0] // 48} group(s): bit-identical "
-                        f"to the plain version in every column; {differ} "
-                        f"rays differ from K1 in some bit"
-                        + ("" if precision == "highest" else
-                           f", {frac:.6f} of the rays on K1's path, those "
-                           f"within {rel:.2e} of K1 (relative to max(|x|, "
-                           f"1))"))
+                        f"{coeffs.shape[0] // 48} group(s): {against}; "
+                        f"{differ} rays differ from K1 in some bit")
                     if (scene_name, n_bands, n) == ("box", 1, N_RAYS):
-                        ms = median_ms(
-                            lambda s: gc.trace_round_group(
-                                s, coeffs, attrs, scal, params, budget,
-                                precision=precision), 5,
-                            setup=lambda: (state.clone(),))
-                        plain_ms = median_ms(
-                            lambda s: gc.trace_round_group_plain(
-                                s, coeffs, attrs, scal, params, budget,
-                                precision=precision), 2,
-                            setup=lambda: (state.clone(),))
-                        k1_ms = median_ms(
-                            lambda s: rc.trace_round(s, rows, scal, params,
-                                                     budget), 5,
-                            setup=lambda: (state.clone(),))
-                        n_valid = int((attrs[:, 3 + n_bands] > 0).sum())
-                        tests = round_tests(state, kern) * n_valid
-                        # The function is K1's ray-triangle test; the
-                        # product as issued (its zeros, and the three
-                        # products of "high") is counted beside it.
-                        ops = GROUP_TEST_OPS * (3 if precision == "high"
-                                                else 1)
-                        b = bound(2 * nbytes(state)
-                                  + nbytes(coeffs, attrs, scal),
-                                  tests * TRI_TEST_OPS)
-                        issued = bound(0, tests * ops)["bound_ms"]
-                        log(f"{what}: kernel {ms:.3f} ms, plain "
-                            f"{plain_ms:.3f} ms, K1 on the same state "
-                            f"{k1_ms:.3f} ms; {tests:.4g} tests of "
-                            f"{n_valid} valid triangles at {TRI_TEST_OPS} "
-                            f"operations, bound {b['bound_ms']:.4f} ms by "
-                            f"{b['bound_by']} (at the {ops} operations the "
-                            f"kernel issues a test: {issued:.4f} ms)")
-                        entry[precision] = {
-                            "max_abs_err": err, "ms": ms,
-                            "plain_ms": plain_ms, **b, "library_ms": None,
-                            "k1_ms": k1_ms, "issued_bound_ms": issued}
+                        entry[precision] = _time_group(
+                            precision, state, scal, coeffs, attrs, rows,
+                            params, budget, kern, err)
+        if scene_name == "box":
+            params = _box_params(1)
+            sc = _scene_arrays(mesh, 1)
+            entry["rounds"] = _group_rounds(
+                rc.pack_tris_group(sc), rc.pack_tris_rows(sc), params)
 
     # One scalar row per pose, at the demo matrix's shape.
     p, n_pad = 8, -(-N_RAYS // 128) * 128
     params = _multi_params()
     sc = tracer.scene_to_arrays(_multi_box(1), 128, device=dev)
     coeffs, attrs = rc.pack_tris_group(sc)
+    rows = rc.pack_tris_rows(sc)
     em, rcv, yaw = _multi_poses(dev)
     e0 = params.base_power / (N_RAYS * constants.SPHERE_VOLUME)
     state = rc.init_state(_pose_directions(0, p, N_RAYS, dev), em, e0, n_pad)
     scal = rc.scalars(em, rcv, yaw, e0, params)
-    kern = gc.trace_round_group(state.clone(), coeffs, attrs, scal, params,
-                                budget, n_pad)
-    plain = gc.trace_round_group_plain(state.clone(), coeffs, attrs, scal,
-                                       params, budget, n_pad)
-    torch.cuda.synchronize()
-    err = _assert_same_bits(kern, plain, "posed K6")
-    for i in range(p):
-        seg = slice(i * n_pad, (i + 1) * n_pad)
-        one = gc.trace_round_group(state[:, seg].contiguous(), coeffs, attrs,
-                                   scal[i].contiguous(), params, budget)
-        assert torch.equal(one, kern[:, seg]), \
-            f"posed K6, pose {i} differs from a single-pose launch"
-    ms = median_ms(lambda s: gc.trace_round_group(s, coeffs, attrs, scal,
-                                                  params, budget, n_pad), 3,
-                   setup=lambda: (state.clone(),))
-    plain_ms = median_ms(
-        lambda s: gc.trace_round_group_plain(s, coeffs, attrs, scal, params,
-                                             budget, n_pad), 1,
-        setup=lambda: (state.clone(),))
-    n_valid = int((attrs[:, 4] > 0).sum())
-    tests = round_tests(state, kern) * n_valid
-    posed = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-             **bound(2 * nbytes(state) + nbytes(coeffs, attrs, scal),
-                     tests * TRI_TEST_OPS), "library_ms": None,
-             "issued_bound_ms": bound(0, tests * GROUP_TEST_OPS)["bound_ms"]}
-    log(f"K6-pose, the demo's box, {p} poses x {n_pad} rays, scal [8, 16], "
-        f"{budget}-bounce round: bit-identical to the plain version and, "
-        f"per pose, to single-pose launches; kernel {ms:.3f} ms, plain "
-        f"{plain_ms:.3f} ms, bound {posed['bound_ms']:.4f} ms by "
-        f"{posed['bound_by']} (as issued: {posed['issued_bound_ms']:.4f} ms)")
+    k1 = rc.trace_round(state.clone(), rows, scal, params, budget, n_pad)
+    posed = {}
+    for precision in ("highest", "high"):
+        what = f"posed K6 {precision}"
+        kern = gc.trace_round_group(state.clone(), coeffs, attrs, scal,
+                                    params, budget, n_pad, precision)
+        plain = gc.trace_round_group_plain(state.clone(), coeffs, attrs,
+                                           scal, params, budget, n_pad,
+                                           precision)
+        torch.cuda.synchronize()
+        if precision == "highest":
+            err = _assert_same_bits(kern, plain, what)
+            assert torch.equal(kern, k1), f"{what} differs from K1"
+        else:
+            bar = assert_high_bar(kern, plain, what, k1, budget)
+            err = float((kern - plain).abs().max())
+        for i in range(p):
+            seg = slice(i * n_pad, (i + 1) * n_pad)
+            one = gc.trace_round_group(state[:, seg].contiguous(), coeffs,
+                                       attrs, scal[i].contiguous(), params,
+                                       budget, precision=precision)
+            assert torch.equal(one, kern[:, seg]), \
+                f"{what}, pose {i} differs from a single-pose launch"
+        posed[precision] = _time_group(precision, state, scal, coeffs, attrs,
+                                       rows, params, budget, kern, err,
+                                       n_pad, reps=3)
+        log(f"K6-pose {precision}, the demo's box, {p} poses x {n_pad} rays, "
+            f"scal [8, 16], {budget}-bounce round: "
+            + ("bit-identical to the plain version and to K1"
+               if precision == "highest" else
+               f"against the plain version {bar['within']:.6f} within "
+               f"{HIGH_BAR_REL:g}, the worst on its path "
+               f"{bar['worst_rel']:.2e}")
+            + "; per pose equal to single-pose launches")
 
     # The matrix through K6 against the matrix through K1.
     opts = tracer.TracerOptions(round_budgets=MULTI_BUDGETS, layout="group")
@@ -2608,10 +2770,102 @@ def phase_group() -> tuple[dict, dict, dict]:
         f"{np.abs(irs - rows_irs).max():.3e} (relative L1 "
         f"{np.abs(irs - rows_irs).sum() / np.abs(rows_irs).sum():.3e}); "
         f"{group_ms:.3f} ms (median of 3, host clock)")
-    entry["highest"]["high"] = {k: entry["high"][k]
-                                for k in ("ms", "plain_ms", "bound_ms",
-                                          "bound_by", "issued_bound_ms")}
-    return entry["highest"], posed, launches
+    keep = ("ms", "plain_ms", "bound_ms", "bound_by", "k1_ms",
+            "issued_bound_ms")
+    out = {**entry["highest"], "rounds": entry["rounds"],
+           "high": {k: entry["high"][k] for k in keep}}
+    posed_out = {**posed["highest"],
+                 "high": {k: posed["high"][k] for k in keep}}
+    return out, posed_out, launches
+
+
+def _time_group(precision, state, scal, coeffs, attrs, rows, params, budget,
+                kern, err, rays_per_pose=None, reps=5) -> dict:
+    """K6's, its plain version's and K1's times on ``state``, with the
+    bounds of the round ``kern`` ran."""
+    from audiorenderingv2_tpu_torch.ops import group_cuda as gc
+    from audiorenderingv2_tpu_torch.ops import raytrace_cuda as rc
+
+    ms = median_ms(lambda s: gc.trace_round_group(
+        s, coeffs, attrs, scal, params, budget, rays_per_pose, precision),
+        reps, setup=lambda: (state.clone(),))
+    plain_ms = median_ms(lambda s: gc.trace_round_group_plain(
+        s, coeffs, attrs, scal, params, budget, rays_per_pose, precision),
+        1 if rays_per_pose else 2, setup=lambda: (state.clone(),))
+    k1_ms = median_ms(lambda s: rc.trace_round(s, rows, scal, params, budget,
+                                               rays_per_pose), reps,
+                      setup=lambda: (state.clone(),))
+    n_bands = params.n_bands
+    n_valid = int((attrs[:, 3 + n_bands] > 0).sum())
+    searches = round_tests(state, kern)
+    b = _group_bound(precision, 2 * nbytes(state)
+                     + nbytes(coeffs, attrs, scal), searches * n_valid)
+    issued = _group_issued_ms(precision, searches * _group_slots(
+        attrs, n_bands, precision))
+    log(f"K6 {precision}, {state.shape[1]} rays, {budget}-bounce round: "
+        f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, K1 on the same state "
+        f"{k1_ms:.3f} ms; {searches * n_valid:.4g} tests of {n_valid} valid "
+        f"triangles, bound {b['bound_ms']:.4f} ms by {b['bound_by']} (K1's, "
+        f"{TRI_TEST_OPS} FP32 operations a test: "
+        f"{bound(0, searches * n_valid * TRI_TEST_OPS)['bound_ms']:.4f} ms; "
+        f"as issued: {issued:.4f} ms)")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **b,
+            "library_ms": None, "k1_ms": k1_ms,
+            "k1_bound_ms": bound(0, searches * n_valid
+                                 * TRI_TEST_OPS)["bound_ms"],
+            "issued_bound_ms": issued}
+
+
+def _group_rounds(packed, rows, params) -> dict:
+    """The box through the group route's rounds (6, 12, 24, 58: the
+    schedule of explicit options) with the alive-first partition between
+    them, 1,000,064 rays: each round's K6 times at both precisions beside
+    K1's on the same state, "highest" bit-identical to K1 and "high" on the
+    bar of its plain version."""
+    from audiorenderingv2_tpu_torch.ops import group_cuda as gc
+    from audiorenderingv2_tpu_torch.ops import raytrace_cuda as rc
+
+    coeffs, attrs = packed
+    state, scal = _start_state(N_RAYS, params)
+    out = {}
+    for budget in rc._round_schedule(MAX_BOUNCES):
+        row = {"budget": budget}
+        k1 = rc.trace_round(state.clone(), rows, scal, params, budget)
+        row["k1_ms"] = median_ms(lambda s: rc.trace_round(
+            s, rows, scal, params, budget), 5, setup=lambda: (state.clone(),))
+        for precision in ("highest", "high"):
+            kern = gc.trace_round_group(state.clone(), coeffs, attrs, scal,
+                                        params, budget, precision=precision)
+            torch.cuda.synchronize()
+            if precision == "highest":
+                assert torch.equal(kern, k1), f"K6 round {budget} differs"
+            else:
+                plain = gc.trace_round_group_plain(
+                    state.clone(), coeffs, attrs, scal, params, budget,
+                    precision="high")
+                row["high_bar"] = assert_high_bar(
+                    kern, plain, f"K6 high, round {budget}", k1, budget)
+            row[precision + "_ms"] = median_ms(
+                lambda s: gc.trace_round_group(s, coeffs, attrs, scal, params,
+                                               budget, precision=precision),
+                5, setup=lambda: (state.clone(),))
+        searches = round_tests(state, k1)
+        n_valid = int((attrs[:, 4] > 0).sum())
+        row["bound_ms"] = bound(0, searches * n_valid
+                                * TRI_TEST_OPS)["bound_ms"]
+        row["high_bound_ms"] = _group_bound("high", 0,
+                                            searches * n_valid)["bound_ms"]
+        out[f"budget{budget}"] = row
+        log(f"K6 on the box's route, round of {budget} bounces "
+            f"({int((state[rc._C_DONE] == 0).sum())} rays alive): highest "
+            f"{row['highest_ms']:.3f} ms (bit-identical to K1), high "
+            f"{row['high_ms']:.3f} ms ({row['high_bar']['within']:.6f} "
+            f"within {HIGH_BAR_REL:g} of its plain version, bar "
+            f"{row['high_bar']['bar']['within']:.6f}), K1 "
+            f"{row['k1_ms']:.3f} ms; bound {row['bound_ms']:.4f} / "
+            f"{row['high_bound_ms']:.4f} ms")
+        state = rc._partition_alive_first(k1)
+    return out
 
 
 def phase_v1() -> dict:
@@ -2714,8 +2968,8 @@ def phase_v1() -> dict:
 
 def phase_experimentation() -> dict:
     """The CLI's experimentation mode on the box with default options, with
-    the group layout and with version 1; returns the launches of each
-    run."""
+    the group layout (at both precisions) and with version 1; returns the
+    launches of each run."""
     import contextlib
     import io
 
@@ -2726,6 +2980,8 @@ def phase_experimentation() -> dict:
     rounds = 10
     routes = {"default": ([], None),
               "group": (["--layout", "group"], TracerOptions(layout="group")),
+              "group_high": (["--layout", "group", "--precision", "high"],
+                             TracerOptions(layout="group", precision="high")),
               "v1": (["--kernel-version", "1"], TracerOptions(version=1))}
     launches, irs = {}, {}
     with tempfile.TemporaryDirectory() as tmp:
@@ -2758,17 +3014,19 @@ def phase_experimentation() -> dict:
             irs[name] = ctx.renderer.render(
                 experiment.round_generator(0, 0, "cuda")).copy()
     renders = rounds + 1  # one warm-up
-    d, g, v = launches["default"], launches["group"], launches["v1"]
+    d, v = launches["default"], launches["v1"]
     assert d["trace_round"] == 3 * renders and d["histogram"] == renders, d
     assert d["trace_round_group"] == d["trace_round_v1"] == 0, d
     # explicit options take the default schedule (6, 12, 24, 58)
-    assert g["trace_round_group"] == 4 * renders and g["trace_round"] == 0, g
+    for g in (launches["group"], launches["group_high"]):
+        assert g["trace_round_group"] == 4 * renders, g
+        assert g["trace_round"] == 0 and g["histogram"] == renders, g
     assert v["trace_round_v1"] == 4 * renders and v["trace_round"] == 0, v
-    assert g["histogram"] == v["histogram"] == renders
+    assert v["histogram"] == renders
     base = irs["default"]
     assert base.shape == (2, IR_SECONDS * SR) and np.isfinite(base).all()
     assert np.all((base > 0).sum(axis=1) >= 200)
-    for name in ("group", "v1"):
+    for name in ("group", "group_high", "v1"):
         testing.assert_ir_close(irs[name], base, exact=False)
         log(f"experimentation, round 0's IR with {name} options against the "
             f"default route's: passes assert_ir_close(exact=False); per-ear "

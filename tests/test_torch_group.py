@@ -476,3 +476,283 @@ def test_recorder_takes_the_group_layout():
         t_tracer.TracerOptions(layout="group", version=1))
     assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
     assert int((a[0] >= 0).sum()) > 300
+
+
+# ------------------------------------------ the tensor-core form ("high")
+#
+# K6 "high" runs its product on the tensor cores (csrc/trace_group.cu), which
+# no CPU test can run. What is tested here is what surrounds it: the B
+# fragments the wrapper packs, a model of the m16n8k16 / m16n8k8 fragment
+# layouts (PTX ISA, "Matrix Fragments for mma.m16n8k16 / m16n8k8", .bf16)
+# applied to the kernel's A words and B fragments, and a model of the quad
+# reduction that gives each ray its nearest hit.
+
+def _bf16_words(lo_half: np.ndarray, hi_half: np.ndarray) -> np.ndarray:
+    """Two bf16-exact f32 arrays as one uint32 word each, the first in the
+    low 16 bits (``bf16x2`` in the kernel)."""
+    lo = lo_half.astype(np.float32).view(np.uint32) >> 16
+    hi = hi_half.astype(np.float32).view(np.uint32) >> 16
+    return (lo | (hi << 16)).astype(np.uint32)
+
+
+def _unpack(words: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """uint32 words -> (low bf16, high bf16) as f32."""
+    w = words.astype(np.uint32)
+    return ((w << 16).view(np.float32), (w & 0xFFFF0000).view(np.float32))
+
+
+def _a_words(state: torch.Tensor) -> np.ndarray:
+    """The kernel's ``put_ray``: each ray's split as 8 words [8, N]."""
+    ph, pl = (np.stack([x.numpy() for x in part])
+              for part in gc._ray_rows(state, True))
+    one, zero = np.ones_like(ph[0]), np.zeros_like(ph[0])
+    return np.stack([_bf16_words(ph[0], ph[1]), _bf16_words(ph[2], ph[3]),
+                     _bf16_words(ph[4], ph[5]), _bf16_words(one, zero),
+                     _bf16_words(pl[0], pl[1]), _bf16_words(pl[2], pl[3]),
+                     _bf16_words(pl[4], pl[5]), _bf16_words(zero, zero)])
+
+
+def _mma_model(words: np.ndarray, frags: np.ndarray) -> np.ndarray:
+    """The probe's output [N, G, 6, 8] from the lanes' fragment registers,
+    placed into the A, B and C matrices by the PTX ISA's rules (gid =
+    lane // 4, t = lane % 4): A (16 x 16, row-major) a0 row gid, a1 row gid
+    + 8, a2 / a3 the same rows 8 columns on, each at columns 2t, 2t + 1;
+    B (16 x 8) b0 rows 2t, 2t + 1 and b1 8 rows on, column gid; m16n8k8
+    takes a0, a1 and b0; C c0, c1 row gid and c2, c3 row gid + 8, columns
+    2t, 2t + 1. Each product is summed in f32 in k order."""
+    n = words.shape[1]
+    g_count = frags.shape[0]
+    out = np.zeros((n, g_count, 6, 8), np.float32)
+    lanes = np.arange(32)
+    gid, t = lanes // 4, lanes % 4
+    for w0 in range(0, n, 32):
+        for m in range(2):
+            rows = w0 + 16 * m
+            # each lane's A registers, from the warp's word table
+            regs = [words[t, rows + gid], words[t, rows + gid + 8],
+                    words[4 + t, rows + gid], words[4 + t, rows + gid + 8]]
+            a16 = np.zeros((16, 16), np.float32)
+            for j, (r_off, c_off) in enumerate(((0, 0), (8, 0), (0, 8),
+                                                (8, 8))):
+                lo, hi = _unpack(regs[j])
+                a16[gid + r_off, 2 * t + c_off] = lo
+                a16[gid + r_off, 2 * t + 1 + c_off] = hi
+            for g in range(g_count):
+                for q in range(6):
+                    b_hi, b_lo = frags[g, q, :, 0], frags[g, q, :, 1]
+                    b16 = np.zeros((16, 8), np.float32)
+                    b8 = np.zeros((8, 8), np.float32)
+                    for reg, k_off, mat in ((b_hi, 0, b16), (b_hi, 8, b16),
+                                            (b_lo, 0, b8)):
+                        lo, hi = _unpack(reg)
+                        mat[2 * t + k_off, gid] = lo
+                        mat[2 * t + 1 + k_off, gid] = hi
+                    d = np.zeros((16, 8), np.float32)
+                    for k in range(16):
+                        d = d + a16[:, k:k + 1] * b16[k:k + 1, :]
+                    for k in range(8):
+                        d = d + a16[:, k:k + 1] * b8[k:k + 1, :]
+                    # the accumulators as the lanes hold them
+                    for c in range(4):
+                        r = gid + 8 * (c // 2)
+                        col = 2 * t + c % 2
+                        out[rows + r, g, q, col] = d[r, col]
+    return out
+
+
+def _random_coeffs(groups: int, seed: int) -> torch.Tensor:
+    """Coefficients with no structural zeros: the kernel takes any table."""
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy((rng.normal(size=(groups * 48, 8))
+                             * rng.choice([0.01, 1.0, 30.0],
+                                          size=(groups * 48, 1)))
+                            .astype(np.float32))
+
+
+@pytest.mark.parametrize("source", ["box", "ico", "random"])
+def test_b_fragments_unpack_to_the_bf16_split(source):
+    """Word 0 of [g, q, lane] holds the high parts, word 1 the low parts of
+    coefficients 2t, 2t + 1 of coefficient row g * 48 + q * 8 + lane // 4,
+    bit for bit as ``_split_bf16`` gives them; coefficient 7 is 0."""
+    if source == "random":
+        coeffs = _random_coeffs(3, 0)
+    else:
+        coeffs = rc.pack_tris_group(_setup(source)[1])[0]
+    frags = gc.b_fragments(coeffs).numpy()
+    g = coeffs.shape[0] // 48
+    assert frags.shape == (g, 6, 32, 2) and frags.dtype == np.int32
+    hi, lo = (x.numpy().reshape(g, 6, 8, 8)
+              for x in gc._split_bf16(coeffs))
+    for word, table in ((0, hi), (1, lo)):
+        low, high = _unpack(frags[..., word].reshape(g, 6, 8, 4))
+        got = np.stack([low, high], axis=-1).reshape(g, 6, 8, 8)
+        want = table.copy()
+        want[..., 7] = 0.0
+        np.testing.assert_array_equal(got.view(np.uint32),
+                                      want.view(np.uint32))
+
+
+@pytest.mark.parametrize("n_bands,source", [(1, "box"), (4, "box"),
+                                            (8, "box"), (1, "random")])
+def test_fragment_model_gives_the_three_product_sum(n_bands, source):
+    """The packed A words and B fragments, through the PTX fragment
+    layouts, give every quantity within 2^-20 of the sum of its 20 terms'
+    magnitudes of the float64 sum, as the plain version does; random rays
+    from random origins, a state of ``n_bands`` bands."""
+    _, sct, _ = _setup("box", n_bands)
+    coeffs = (rc.pack_tris_group(sct, n_bands)[0] if source == "box"
+              else _random_coeffs(2, 1))
+    rng = np.random.default_rng(n_bands)
+    n = 64
+    state = rc.init_state(torch.from_numpy(_dirs(n, 7 + n_bands)),
+                          torch.zeros(3), 1.0, n, n_bands)
+    state[rc._C_PX:rc._C_PZ + 1] = torch.from_numpy(
+        rng.uniform(-6.0, 6.0, size=(3, n)).astype(np.float32))
+    got = _mma_model(_a_words(state), gc.b_fragments(coeffs).numpy())
+    ref, mag = (x.numpy() for x in gc.high_terms_f64(state, coeffs))
+    bar = 2.0 ** -20 * mag
+    assert np.all(np.abs(got - ref) <= bar)
+    plain = gc.products_plain(state, coeffs).numpy()
+    assert np.all(np.abs(plain - ref) <= bar)
+    assert np.abs(got - plain).max() > 0 or source == "box"
+    assert np.abs(ref).max() > 1.0  # the terms are not all zero
+
+
+def _quad_hits(t: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """A model of the "high" search and ``own_hit`` for one warp: ``t``
+    [32 rays, T] (inf where a triangle is missed). Lane (gid, t4) holds
+    rays 8r + gid and triangles 8g + 2 t4, + 1 in index order with a strict
+    `<`; then the quad's xor-1 and xor-2 exchanges keep the lower (t, index)
+    and ray L takes lane 4 (L % 8) + L // 8's value r = t4."""
+    n_tris = t.shape[1]
+    bt = np.full((32, 4), np.inf)
+    bi = np.full((32, 4), -1)
+    for lane in range(32):
+        gid, t4 = lane // 4, lane % 4
+        for g in range(n_tris // 8):
+            for j in range(2):
+                tri = 8 * g + 2 * t4 + j
+                for r in range(4):
+                    if t[8 * r + gid, tri] < bt[lane, r]:
+                        bt[lane, r], bi[lane, r] = t[8 * r + gid, tri], tri
+    for off in (1, 2):
+        ot, oi = bt[np.arange(32) ^ off], bi[np.arange(32) ^ off]
+        take = (ot < bt) | ((ot == bt) & (oi < bi))
+        bt, bi = np.where(take, ot, bt), np.where(take, oi, bi)
+    lanes = np.arange(32)
+    src = 4 * (lanes % 8) + lanes // 8
+    return bt[src, src % 4], bi[src, src % 4]
+
+
+def test_quad_reduction_keeps_the_lowest_index_on_equal_t():
+    """Equal hit distances on triangles held by different lanes of a quad,
+    by one lane, and in different groups: each ray gets the lowest index, as
+    the plain version's index-order `<` gives it; a ray that misses keeps
+    (inf, -1)."""
+    rng = np.random.default_rng(3)
+    t = rng.choice([1.0, 2.0, 3.0, np.inf], size=(32, 24))
+    t[5] = np.inf                        # a miss
+    t[6, [23, 3, 2, 17]] = 0.5           # ties across lanes and groups
+    t[7, [9, 8]] = 0.25                  # a tie within one lane
+    t[8, :] = 4.0
+    t[8, [20, 11]] = 0.75                # the later lane of the quad first
+    got_t, got_i = _quad_hits(t)
+    want_i = np.argmin(t, axis=1)        # numpy: the first minimum
+    want_t = t[np.arange(32), want_i]
+    want_i = np.where(np.isinf(want_t), -1, want_i)
+    np.testing.assert_array_equal(got_t, want_t)
+    np.testing.assert_array_equal(got_i, want_i)
+    assert (got_i[6], got_i[7], got_i[8], got_i[5]) == (2, 8, 11, -1)
+
+
+def test_products_high_on_the_cpu_is_the_plain_product():
+    """The probe's wrapper: a CPU tensor takes the plain version and
+    launches nothing; it refuses what its kernel does not take."""
+    _, sct, _ = _setup("ico")
+    coeffs = rc.pack_tris_group(sct)[0]
+    state = rc.init_state(torch.from_numpy(_dirs(100, 0)), torch.zeros(3),
+                          1.0, 128)
+    gc.group_probe_launches = 0
+    got = gc.products_high(state, coeffs)
+    assert got.shape == (128, 40, 6, 8) and gc.group_probe_launches == 0
+    assert torch.equal(got, gc.products_plain(state, coeffs))
+    with pytest.raises(ValueError, match="coeffs must be"):
+        gc.products_high(state, coeffs[:40].contiguous())
+    with pytest.raises(ValueError, match="contiguous float32"):
+        gc.products_high(state.double(), coeffs)
+    with pytest.raises(ValueError, match="no probe kernel for device meta"):
+        gc.products_high(state.to("meta"), coeffs.to("meta"))
+
+
+def test_fragment_cache_follows_the_coefficients():
+    """The fragments are made once per coefficient tensor and made again
+    when that tensor changes in place."""
+    coeffs = _random_coeffs(2, 4)
+    first = gc._fragments_of(coeffs)
+    assert gc._fragments_of(coeffs) is first
+    coeffs.mul_(2.0)
+    again = gc._fragments_of(coeffs)
+    assert again is not first
+    assert torch.equal(again, gc.b_fragments(coeffs))
+    assert torch.equal(gc._fragments_of(coeffs.clone()), again)
+
+
+@pytest.mark.parametrize("name,n_bands", [("box", 1), ("box", 4), ("box", 8),
+                                          ("ico", 4)])
+def test_folded_plain_round_equals_k1_bit_for_bit(name, n_bands):
+    """The plain "highest" with the ray's packed 1 and 0 folded equals K1's
+    plain round in every column, at 1, 4 and 8 bands, and its quantities
+    equal K1's direct forms where they are not zero."""
+    _, sct, rec = _setup(name, n_bands)
+    params = convert.trace_params_from_jax(ar.TraceParams(
+        sample_rate=SR, ir_length=SR, base_power=3.62, max_bounces=20,
+        n_bands=n_bands))
+    n = 512
+    e0 = params.base_power / (n * constants.SPHERE_VOLUME)
+    state = rc.init_state(torch.from_numpy(_dirs(n, 8)), torch.zeros(3), e0,
+                          n, n_bands)
+    scal = rc.scalars(torch.zeros(3), torch.from_numpy(rec), 25.0, e0,
+                      params)
+    rows = rc.trace_round(state.clone(), rc.pack_tris_rows(sct, n_bands),
+                          scal, params, 8)
+    coeffs, attrs = rc.pack_tris_group(sct, n_bands)
+    group = gc.trace_round_group(state.clone(), coeffs, attrs, scal, params,
+                                 8)
+    assert torch.equal(group, rows)
+    q = gc.products_plain(state, coeffs, "highest")  # [N, G, 6, 8]
+    r = rc.pack_tris_rows(sct, n_bands)[:q.shape[1] * 8]
+    p, v = state[rc._C_PX:rc._C_PZ + 1], state[rc._C_VX:rc._C_VZ + 1]
+    nd = v[0][:, None] * r[:, rc._R_PNX] + v[1][:, None] * r[:, rc._R_PNY] \
+        + v[2][:, None] * r[:, rc._R_PNZ]
+    no = p[0][:, None] * r[:, rc._R_PNX] + p[1][:, None] * r[:, rc._R_PNY] \
+        + p[2][:, None] * r[:, rc._R_PNZ] + r[:, rc._R_PD]
+    for k, direct in ((0, no), (1, nd)):
+        got = q[:, :, k, :].reshape(n, -1)
+        assert torch.equal(got, direct)
+
+
+def test_group_round_past_one_chunk_equals_k1():
+    """An ops-level table of 160 groups (past the 64 the kernel stages at
+    once; the chunked kernel on the card) through the plain "highest":
+    K1's bits; and "high" on K1's path for nearly every ray."""
+    v, t = tt.icosphere(radius=6.0, subdivisions=3)  # 1280 triangles
+    sct = t_tracer.scene_to_arrays(tt.scene_from_arrays(v, t, 0.3), 128)
+    params = convert.trace_params_from_jax(ar.TraceParams(
+        sample_rate=SR, ir_length=SR, base_power=3.62, max_bounces=20))
+    n = 256
+    e0 = params.base_power / (n * constants.SPHERE_VOLUME)
+    state = rc.init_state(torch.from_numpy(_dirs(n, 9)), torch.zeros(3), e0,
+                          n)
+    scal = rc.scalars(torch.zeros(3), torch.tensor([1.0, 0.5, -1.0]), 0.0,
+                      e0, params)
+    coeffs, attrs = rc.pack_tris_group(sct)
+    assert coeffs.shape[0] // 48 == 160
+    rows = rc.trace_round(state.clone(), rc.pack_tris_rows(sct), scal,
+                          params, 3)
+    assert torch.equal(gc.trace_round_group(state.clone(), coeffs, attrs,
+                                            scal, params, 3), rows)
+    high = gc.trace_round_group(state.clone(), coeffs, attrs, scal, params,
+                                3, precision="high")
+    same = (high[rc._C_LTRI] == rows[rc._C_LTRI]) \
+        & (high[rc._C_DEPTH] == rows[rc._C_DEPTH])
+    assert float(same.float().mean()) > 0.99
