@@ -23,8 +23,16 @@
 // Design. One thread per ray; each of the ncols column writes is coalesced
 // across the warp. What bounds it on Hopper is the one write of ncols x
 // n_pad x 4 bytes (64 MB at 1M rays and one band); the ~150 integer and
-// floating operations per ray are far under that. sinf and cosf are the
-// only steps that are not exactly rounded.
+// floating operations per ray are far under that, and the kernel runs at
+// 1.15x that bound (0.0220-0.0223 ms device time at 1,000,064 rays and one
+// band on an H100; benchmarks/torch_trace_ab.py, `init` phase). Wider
+// stores did not pay there: 4 consecutive rays a thread with one 16-byte
+// store a column took 0.0246-0.0249 ms, 2 rays with 8-byte stores
+// 0.0241-0.0243, 4 rays on a grid capped at 2 or 32 blocks an SM or not
+// at all 0.0234-0.0247, and a block's [ncols, 512 rays] tile written
+// from shared memory by bulk copies (cp.async.bulk) 0.0252.
+// sincosf gives the direction's sine and cosine from one range reduction;
+// they are the only steps that are not exactly rounded.
 
 #include <cuda_runtime.h>
 
@@ -74,6 +82,8 @@ init_state_kernel(float* __restrict__ st, long long n_pad, long long n_real,
   const float theta = 6.283185307179586f * u1;
   const float cos_phi = 2.0f * u2 - 1.0f;
   const float sin_phi = sqrtf(fmaxf(0.0f, 1.0f - cos_phi * cos_phi));
+  float sin_t, cos_t;
+  sincosf(theta, &sin_t, &cos_t);
   const bool real = ray < n_real;
   const float e0 = real ? scal[S_E0] : 0.0f;
 
@@ -85,8 +95,8 @@ init_state_kernel(float* __restrict__ st, long long n_pad, long long n_real,
   v[C_PX] = scal[S_EMX];
   v[C_PY] = scal[S_EMY];
   v[C_PZ] = scal[S_EMZ];
-  v[C_VX] = sin_phi * cosf(theta);
-  v[C_VY] = sin_phi * sinf(theta);
+  v[C_VX] = sin_phi * cos_t;
+  v[C_VY] = sin_phi * sin_t;
   v[C_VZ] = cos_phi;
   v[C_DONE] = real ? 0.0f : 1.0f;
   v[C_RAYID] = (float)ray;

@@ -46,6 +46,10 @@ _SIGNATURES = {
                         _P),
     # bins, weights, n_events, n_bins, n_bands, out, stream
     "ar2_histogram": (_P, _P, _LL, _I, _I, _P, _P),
+    # bin_f, weights, ear, n_poses, per_pose, n_bands, ir_length, is_mono,
+    # delay, scale, out, stream
+    "ar2_histogram_binned": (_P, _P, _P, _I, _LL, _I, _I, _I, _I,
+                             ctypes.c_float, _P, _P),
     # bins, g, n_events, n_bins, n_bands, g_w, stream
     "ar2_histogram_bwd": (_P, _P, _LL, _I, _I, _P, _P),
     # state, n, boxes, n_clusters, sched, width, stream

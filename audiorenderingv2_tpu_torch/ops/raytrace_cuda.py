@@ -419,13 +419,12 @@ def init_state_native(scal: torch.Tensor, n_pad: int, n_real: int,
         return init_state_native_plain(scal, n_pad, n_real, n_bands)
     if scal.device.type != "cuda":
         raise ValueError(f"no init kernel for device {scal.device}")
-    lib = _build.library()
-    state = torch.empty((state_ncols(n_bands), n_pad), dtype=torch.float32,
+    ncols = state_ncols(n_bands)
+    state = torch.empty((ncols, n_pad), dtype=torch.float32,
                         device=scal.device)
-    stream = torch.cuda.current_stream(scal.device).cuda_stream
-    err = lib.ar2_init_state(state.data_ptr(), n_pad, state.shape[0], n_real,
-                             scal.data_ptr(), n_bands, layout_bands(n_bands),
-                             stream)
+    err = _build.library().ar2_init_state(
+        state.data_ptr(), n_pad, ncols, n_real, scal.data_ptr(), n_bands,
+        layout_bands(n_bands), _build.stream(scal.device))
     init_launches += 1
     _build.check(err, "ar2_init_state")
     return state
@@ -767,13 +766,11 @@ def trace_round(state: torch.Tensor, tris: torch.Tensor, scal: torch.Tensor,
                                  int(round_budget), rays_per_pose)
     if state.device.type != "cuda":
         raise ValueError(f"no trace kernel for device {state.device}")
-    lib = _build.library()
-    stream = torch.cuda.current_stream(state.device).cuda_stream
-    err = lib.ar2_trace_round(
+    err = _build.library().ar2_trace_round(
         state.data_ptr(), state.shape[1], state.shape[0], tris.data_ptr(),
         tris.shape[0], scal.data_ptr(), n_poses, rays_per_pose,
         params.n_bands, layout_bands(params.n_bands), int(round_budget),
-        params.max_bounces, stream)
+        params.max_bounces, _build.stream(state.device))
     if scal.dim() == 2:
         posed_launches += 1
     else:
@@ -876,6 +873,15 @@ def _trace_events_v1(tris: torch.Tensor, directions: torch.Tensor,
             state[:, _C_EVE].to(torch.int32))
 
 
+def _event_weights(state: torch.Tensor, n_bands: int) -> torch.Tensor:
+    """The event-weight rows of ``state`` [ncols, ...], band-major: for one
+    band a view of its row (the events' weights need no copy), else the
+    band columns gathered."""
+    if n_bands == 1:
+        return state[_C_EVW:_C_EVW + 1]
+    return state[band_cols(n_bands)[1]]
+
+
 def trace_events(tris, directions: torch.Tensor | None,
                  emitter: torch.Tensor, receiver_pos: torch.Tensor,
                  receiver_yaw_deg, params: TraceParams,
@@ -939,8 +945,8 @@ def trace_events(tris, directions: torch.Tensor | None,
     state = _run_rounds(state, tris, boxes, scal, params, budgets, compact,
                         schedule=schedule, layout=layout,
                         precision=precision)
-    evw_cols = band_cols(params.n_bands)[1]
-    return (state[_C_EVB].contiguous(), state[evw_cols].T.contiguous(),
+    return (state[_C_EVB].contiguous(),
+            _event_weights(state, params.n_bands).T.contiguous(),
             state[_C_EVE].to(torch.int32))
 
 
@@ -989,7 +995,7 @@ def trace_events_pose_batch(tris, directions: torch.Tensor,
                         n_poses=p, schedule=schedule, layout=layout,
                         precision=precision)
     state = state.view(-1, p, n_pad)
-    evw_cols = band_cols(params.n_bands)[1]
     return (state[_C_EVB].contiguous(),
-            state[evw_cols].permute(1, 2, 0).contiguous(),
+            _event_weights(state, params.n_bands).permute(1, 2, 0)
+            .contiguous(),
             state[_C_EVE].to(torch.int32))

@@ -145,15 +145,13 @@ def tile_schedule(state: torch.Tensor, boxes: torch.Tensor) -> torch.Tensor:
     if state.device.type != "cuda":
         raise ValueError(f"no schedule kernel for device {state.device}")
     _check_aligned(boxes=boxes)
-    lib = _build.library()
     n_tiles = state.shape[1] // _TILE
     width = schedule_width(boxes.shape[0])
     out = torch.empty((n_tiles, width), dtype=torch.int32,
                       device=state.device)
-    stream = torch.cuda.current_stream(state.device).cuda_stream
-    err = lib.ar2_tile_schedule(state.data_ptr(), state.shape[1],
-                                boxes.data_ptr(), boxes.shape[0],
-                                out.data_ptr(), width, stream)
+    err = _build.library().ar2_tile_schedule(
+        state.data_ptr(), state.shape[1], boxes.data_ptr(), boxes.shape[0],
+        out.data_ptr(), width, _build.stream(state.device))
     tile_schedule_launches += 1
     _build.check(err, "ar2_tile_schedule")
     return out
@@ -248,13 +246,12 @@ def trace_round_sched(state: torch.Tensor, rows: torch.Tensor,
     if state.device.type != "cuda":
         raise ValueError(f"no trace kernel for device {state.device}")
     _check_aligned(rows=rows)
-    lib = _build.library()
-    stream = torch.cuda.current_stream(state.device).cuda_stream
-    err = lib.ar2_trace_sched(
+    err = _build.library().ar2_trace_sched(
         state.data_ptr(), state.shape[1], state.shape[0], rows.data_ptr(),
         rows.shape[0] // boxes.shape[0], sched.data_ptr(), sched.shape[1],
         scal.data_ptr(), n_poses, rays_per_pose, params.n_bands,
-        rc.layout_bands(params.n_bands), params.max_bounces, stream)
+        rc.layout_bands(params.n_bands), params.max_bounces,
+        _build.stream(state.device))
     if scal.dim() == 2:
         trace_round_sched_posed_launches += 1
     else:

@@ -219,15 +219,13 @@ def trace_traverse(state: torch.Tensor, rows: torch.Tensor,
     if state.device.type != "cuda":
         raise ValueError(f"no trace kernel for device {state.device}")
     sc._check_aligned(rows=rows, boxes=boxes)
-    lib = _build.library()
-    stream = torch.cuda.current_stream(state.device).cuda_stream
-    err = lib.ar2_trace_traverse(
+    err = _build.library().ar2_trace_traverse(
         state.data_ptr(), state.shape[1], state.shape[0], rows.data_ptr(),
         rows.shape[0] // boxes.shape[0], boxes.data_ptr(), boxes.shape[0],
         scal.data_ptr(), n_poses, rays_per_pose, params.n_bands,
         rc.layout_bands(params.n_bands), int(round_budget),
         params.max_bounces, None if visits is None else visits.data_ptr(),
-        stream)
+        _build.stream(state.device))
     trace_traverse_launches += 1
     _build.check(err, "ar2_trace_traverse")
     return state

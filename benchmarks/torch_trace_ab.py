@@ -1,5 +1,5 @@
-"""A/B of the PyTorch port's K1, K1-pose, K7, K5, K6 and K3-bwd on one
-NVIDIA GPU.
+"""A/B of the PyTorch port's K1, K1-pose, K7, K5, K6, K3, K3-bwd and K4 on
+one NVIDIA GPU.
 
 K1 and K7 (csrc/trace_round.cu: K7 is K1's kernels over the version-1
 layouts), K1 with a scalar row per pose and K5 (csrc/trace_traverse.cu) of
@@ -8,10 +8,12 @@ example the parent commit, unpacked with ``git archive``), and against
 variants compiled from copies of the sources, each held bit for bit against
 the kernel's plain PyTorch version on the same state; K2
 (csrc/trace_sched.cu) of both checkouts beside them; K3-bwd
-(csrc/histogram.cu) of both beside probes of its limit and index_select.
+(csrc/histogram.cu) of both beside probes of its limit and index_select;
+K3, the hard-binning stage and K4 (csrc/init_state.cu) as each checkout's
+wrappers run them, and every library's C entries beside lever variants.
 
     python3 benchmarks/torch_trace_ab.py --parent DIR [--rays N]
-        [--phases k1,k1_pose,k7,k5,k2,k6,render,bwd,e2e] [--paths P,...]
+        [--phases k1,k1_pose,k7,k5,k2,k6,render,bwd,hist,init,e2e] [--paths P,...]
         [--out FILE]
 
 States (1,000,064 rays unless ``--rays``):
@@ -99,6 +101,15 @@ changes K7 alike):
                      out: ``contiguous`` (a contiguous read of g for the
                      gather), ``stores`` (nothing read), ``bins_only``
                      (nothing written), ``four`` (4 events a thread)
+  K3  tree_scalar    one event a thread, scalar loads and atomics, at every
+                     band count and in the hard-binning entry
+      tree_one_band_scalar
+                     the same at one band only
+      tree_quad_items1, tree_quad_items4, tree_row_items4
+                     1 or 4 quads of events a thread at one band (not 2),
+                     4 events a thread at 4 and 8 bands (not 1)
+  (the K3 and K4 designs measured and not kept are in
+  benchmarks/torch_hist_init_probes.py)
 
 Times are CUDA-event medians of 7 launches after one warm-up, in two passes
 (forward and reverse order of the libraries). Then, alone: the office render
@@ -107,7 +118,12 @@ checkout and of this one (other, this, this, other; median of 7 renders
 each); K3-bwd against ``index_select`` at 1 band, 4 bands, the posed shape,
 E = 4k + 3 and a bins[1:] view, 9 repeats of one-call medians of 20, with
 device times of 20 calls back to back and the host's time a call
-(``histogram_bwd_phase``); and the paths a user runs end to end, each in a
+(``histogram_bwd_phase``); K3, the hard-binning stage and K4 (``hist``,
+``init``: ``hist_init_phase`` in a process per checkout, other, this,
+this, other, then ``hist_levers`` over the C entries of both checkouts
+and the variants of ``hist_variants``, ``init_levers`` over both
+checkouts', device times from 20 calls in one CUDA graph); and the
+paths a user runs end to end, each in a
 process of its own per checkout, three pairs (``e2e_phase``; ``--paths``
 picks some). Prints one JSON line (and writes it to ``--out``); exits
 non-zero without a CUDA device.
@@ -1210,6 +1226,45 @@ def record(opts):
         scc, d, (0.0, 0.0, 0.0), (6.0, 1.0, -8.0), 0.0, rparams, opts,
         rows=crows, boxes=cboxes), 3)
 
+def replay_step(grad):
+    # The gradient step's replay (chip_smoke.py phase 16): paths recorded
+    # once (office, schedule), then the hard-binning replay of them, under
+    # no_grad (median of 7) or with the backward of an MSE (median of 5).
+    from audiorenderingv2_tpu_torch.diff.inverse import \
+        with_material_absorption
+    office = testing.office_scene(20000)
+    ss, cl = accel.prepare_scene(office, cluster_size=32)
+    scc = tracer.scene_to_arrays(ss, 128, device=dev, clusters=cl)
+    crows, cboxes = rc.pack_tris_clusters(scc)
+    d = np.random.default_rng(0).normal(size=(n, 3))
+    d = torch.from_numpy((d / np.linalg.norm(d, axis=1, keepdims=True))
+                         .astype(np.float32)).to(dev)
+    rparams = TraceParams(sample_rate=16000, ir_length=32000,
+                          base_power=3.62, max_bounces=32,
+                          energy_threshold=0.0)
+    ids, recv = replay.record_paths_kernels(
+        scc, d, (0.0, 0.0, 0.0), (6.0, 1.0, -8.0), 0.0, rparams,
+        TracerOptions(schedule=True), rows=crows, boxes=cboxes)
+    mat_ids = torch.zeros(scc.plane_n.shape[0], dtype=torch.long,
+                          device=dev)
+    logits = torch.zeros(1, device=dev, requires_grad=True)
+
+    def ir():
+        sc_t = with_material_absorption(scc, mat_ids, torch.sigmoid(logits))
+        return replay.render_ir_replay(sc_t, ids, recv, d, (0.0, 0.0, 0.0),
+                                       (6.0, 1.0, -8.0), 0.0, rparams,
+                                       soft_binning=False)
+    if not grad:
+        with torch.no_grad():
+            return median_ms(ir, 7)
+    with torch.no_grad():
+        target = ir() * 0.9
+
+    def step():
+        logits.grad = None
+        (torch.mean((ir() - target) ** 2) * 1e12).backward()
+    return median_ms(step, 5)
+
 box = lambda: testing.scene_from_arrays(*testing.box_room((14.0, 9.0, 11.0)),
                                         0.3)
 office = lambda: testing.office_scene(20000)
@@ -1228,13 +1283,15 @@ paths = {
     "exp_group_high": lambda: experimentation(["--layout", "group",
                                                "--precision", "high"]),
     "exp_v1": lambda: experimentation(["--kernel-version", "1"]),
+    "replay": lambda: replay_step(False),
+    "replay_grad": lambda: replay_step(True),
 }
 print(json.dumps({path: paths[path]()}))
 """
 
 E2E_PATHS = ("box_render", "matrix_2x4", "office_render", "office_explicit",
              "record_schedule", "record_k5", "exp_default", "exp_group",
-             "exp_group_high", "exp_v1")
+             "exp_group_high", "exp_v1", "replay", "replay_grad")
 
 
 def e2e_phase(parent: Path, paths=E2E_PATHS, pairs: int = 3,
@@ -1249,7 +1306,9 @@ def e2e_phase(parent: Path, paths=E2E_PATHS, pairs: int = 3,
     experimentation mode on the box config (1M rays x 100 bounces, 10
     rounds after a warm-up: the median render it prints) with default
     options, ``--layout group`` (also with ``--precision high``) and
-    ``--kernel-version 1``."""
+    ``--kernel-version 1``; the gradient step's replay of recorded office
+    paths (1M x 32, hard binning) alone (median of 7) and with its
+    backward (median of 5)."""
     out: dict[str, dict[str, list]] = {}
     for i in range(pairs):
         order = (("parent", parent), ("tree", REPO))
@@ -1493,6 +1552,569 @@ def histogram_bwd_phase(n: int, parent_lib, probes) -> dict:
     return out
 
 
+# K3 and K4 as a checkout's own wrappers run them, in a process of its own
+# (the hist and init phases). It prints one JSON line; it runs on any
+# checkout of the port: the fused hard-binning entry
+# (histogram_cuda.histogram_binned) is timed where it exists.
+_HIST_INIT = r"""
+import json, sys, time
+sys.path.insert(0, sys.argv[1])
+import numpy as np, torch
+from audiorenderingv2_tpu_torch import testing
+from audiorenderingv2_tpu_torch.core import tracer
+from audiorenderingv2_tpu_torch.core.params import TraceParams
+from audiorenderingv2_tpu_torch.ops import histogram_cuda as hc
+from audiorenderingv2_tpu_torch.ops import raytrace_cuda as rc
+phase, n = sys.argv[2], int(sys.argv[3])
+dev = torch.device("cuda")
+SR, NB = 16000, 32000
+n_pad = -(-n // 128) * 128
+
+def one_call_ms(fn, reps=20):
+    # What chip_smoke.py times: one call between two events, the host's
+    # path into the launch included; median of reps after a warm-up.
+    fn()
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record(); fn(); b.record()
+        torch.cuda.synchronize()
+        times.append(a.elapsed_time(b))
+    return float(np.median(times))
+
+def graph_ms(fn, calls=20, reps=7):
+    # Device time of one call: `calls` calls captured in one CUDA graph,
+    # the replay between two events over the count; median of reps.
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(calls):
+            fn()
+    g.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record(); g.replay(); b.record()
+        torch.cuda.synchronize()
+        times.append(a.elapsed_time(b) / calls)
+    del g
+    return float(np.median(times))
+
+def host_us(fn, calls=200):
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    t = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return t / calls * 1e6
+
+def wall_ms(fn, reps):
+    fn()
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times))
+
+def profile_launches(fn):
+    # Device-side records (kernels and memsets) of one call under
+    # torch.profiler, and their names.
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    return len(names), sorted(set(names))
+
+def timings(call, library=None):
+    row = {"ms": one_call_ms(call), "device_ms": graph_ms(call),
+           "host_us": host_us(call)}
+    if library is not None:
+        row["library_ms"] = one_call_ms(library)
+        row["library_device_ms"] = graph_ms(library)
+    return row
+
+def flat_and_library(bins, w, n_bins):
+    keep = (bins >= 0) & (bins < n_bins)
+    idx, wk = bins[keep].long(), w[keep].contiguous()
+    out = torch.zeros((n_bins, w.shape[1]), device=dev)
+    return lambda: out.index_add_(0, idx, wk)
+
+def synthetic(n_events, n_bins, n_bands, seed):
+    # chip_smoke.py's phase 3 inputs: uniform bins, 30% out of range.
+    rng = np.random.default_rng(seed)
+    bins = rng.integers(0, n_bins, size=n_events)
+    out = rng.random(n_events) < 0.3
+    bins[out] = np.where(rng.random(out.sum()) < 0.5,
+                         -rng.integers(1, 1000, size=out.sum()),
+                         n_bins + rng.integers(0, 1000, size=out.sum()))
+    w = (rng.random((n_events, n_bands)) * 2e-9).astype(np.float32)
+    return (torch.from_numpy(bins.astype(np.int32)).to(dev),
+            torch.from_numpy(w).to(dev))
+
+def unit_dirs(k, seed):
+    d = np.random.default_rng(seed).normal(size=(k, 3))
+    return torch.from_numpy((d / np.linalg.norm(d, axis=1, keepdims=True))
+                            .astype(np.float32)).to(dev)
+
+def same_ear_flat(ev_bin_f, ev_w, ev_ear, nb):
+    # The flat bins the two-step stage hands K3 (one pose at a time).
+    p = ev_bin_f.shape[0]
+    active = torch.any(ev_w != 0.0, dim=-1)
+    b = torch.round(ev_bin_f).to(torch.int32)
+    pose = torch.arange(p, dtype=torch.int32, device=dev)[:, None]
+    flat = torch.where(active & (b >= 0) & (b < nb),
+                       (pose * 2 + ev_ear.to(torch.int32)) * nb + b,
+                       p * 2 * nb)
+    return flat.reshape(-1), ev_w.reshape(-1, ev_w.shape[-1]), p * 2 * nb
+
+def box_events(n_bands):
+    absorb = 0.3 if n_bands == 1 else np.tile(
+        np.asarray((0.1, 0.25, 0.4, 0.6, 0.2, 0.3, 0.5, 0.7)[:n_bands],
+                   np.float32), (12, 1))
+    scene = testing.scene_from_arrays(*testing.box_room((14.0, 9.0, 11.0)),
+                                      absorb)
+    sc = tracer.scene_to_arrays(scene, 128, device=dev)
+    params = TraceParams(sample_rate=SR, ir_length=NB, base_power=3.62,
+                         max_bounces=100, hrtf_absorption_rate=0.9,
+                         n_bands=n_bands)
+    rows, _ = rc.pack_scene(sc, n_bands)
+    ev = rc.trace_events(rows, unit_dirs(n, 5), torch.zeros(3, device=dev),
+                         torch.tensor((2.5, 1.5, 2.0), device=dev), 0.0,
+                         params)
+    return tuple(x[None] for x in ev), params
+
+def matrix_events():
+    demo = testing.scene_from_arrays(*testing.box_room((18.0, 10.0, 14.0)),
+                                     0.25)
+    sc = tracer.scene_to_arrays(demo, 128, device=dev)
+    rows, _ = rc.pack_scene(sc, 1)
+    params = TraceParams(sample_rate=SR, ir_length=NB, base_power=3.62,
+                         max_bounces=40, hrtf_absorption_rate=0.9)
+    em = np.array([[-5.0, 0.0, -4.0], [6.0, 1.0, 5.0]], np.float32)
+    li = np.stack([np.linspace(-6.0, 6.0, 4), np.zeros(4),
+                   np.linspace(4.0, -4.0, 4)], axis=1).astype(np.float32)
+    yaw = np.linspace(0.0, 270.0, 4).astype(np.float32)
+    dirs = torch.stack([unit_dirs(n, 40 + i) for i in range(8)])
+    ev = rc.trace_events_pose_batch(
+        rows, dirs, torch.from_numpy(np.repeat(em, 4, axis=0)).to(dev),
+        torch.from_numpy(np.tile(li, (2, 1))).to(dev),
+        torch.from_numpy(np.tile(yaw, 2)).to(dev), params,
+        round_budgets=(8, 32))
+    return ev, params
+
+out = {"phase": phase}
+if phase == "hist":
+    res = {}
+    for name, (e, nbins, nbands, seed) in {
+            "1 band": (n_pad, 2 * NB, 1, 3), "4 bands": (n_pad, 2 * NB, 4, 4),
+            "8 bands": (n_pad, 2 * NB, 8, 8),
+            "posed": (8 * n_pad, 16 * NB, 1, 6)}.items():
+        bins, w = synthetic(e, nbins, nbands, seed)
+        res[name] = timings(
+            lambda: hc.histogram_sum_banded(bins, w, nbins),
+            flat_and_library(bins, w, nbins))
+        res[name]["bound_ms"] = (bins.numel() * 4 + w.numel() * 4
+                                 + nbins * nbands * 4) / 3.35e12 * 1e3
+    # K3 on the box render's own events (1,000,064 rays x 100 bounces).
+    for nbands in (1, 4, 8):
+        ev, params = box_events(nbands)
+        flat, w, nbins = same_ear_flat(*ev, NB)
+        key = "box events" if nbands == 1 else f"box events, {nbands} bands"
+        res[key] = timings(lambda: hc.histogram_sum_banded(flat, w, nbins),
+                           flat_and_library(flat, w, nbins))
+        kept = flat[flat < nbins]
+        counts = torch.bincount(kept, minlength=nbins)
+        res[key].update(
+            events_in_range=int(kept.numel()),
+            busiest_32=int(counts.topk(32).values.sum()),
+            busiest_bin=int(counts.max()), occupied=int((counts > 0).sum()),
+            bound_ms=(flat.numel() * 4 + w.numel() * 4 + nbins * nbands * 4)
+            / 3.35e12 * 1e3)
+        stage = lambda: tracer._histogram_from_events_posed(*ev, params)
+        launches, names = profile_launches(stage)
+        res[key]["stage"] = {"ms": one_call_ms(stage), "launches": launches,
+                             "kernels": names}
+        if hasattr(hc, "histogram_binned"):
+            res[key]["binned"] = timings(lambda: hc.histogram_binned(
+                *ev, NB, False, params.cross_ear_delay,
+                params.hrtf_absorption_rate))
+    ev, params = matrix_events()
+    stage = lambda: tracer._histogram_from_events_posed(*ev, params)
+    launches, names = profile_launches(stage)
+    flat, w, nbins = same_ear_flat(*ev, NB)
+    res["matrix events"] = timings(
+        lambda: hc.histogram_sum_banded(flat, w, nbins),
+        flat_and_library(flat, w, nbins))
+    res["matrix events"]["stage"] = {"ms": one_call_ms(stage),
+                                     "launches": launches, "kernels": names}
+    if hasattr(hc, "histogram_binned"):
+        res["matrix events"]["binned"] = timings(lambda: hc.histogram_binned(
+            *ev, NB, False, params.cross_ear_delay,
+            params.hrtf_absorption_rate))
+    from audiorenderingv2_tpu_torch import multi
+    from audiorenderingv2_tpu_torch.renderer import AudioRenderer
+    demo = testing.scene_from_arrays(*testing.box_room((18.0, 10.0, 14.0)),
+                                     0.25)
+    sc = tracer.scene_to_arrays(demo, 128, device=dev)
+    rows, _ = rc.pack_scene(sc, 1)
+    em = np.array([[-5.0, 0.0, -4.0], [6.0, 1.0, 5.0]], np.float32)
+    li = np.stack([np.linspace(-6.0, 6.0, 4), np.zeros(4),
+                   np.linspace(4.0, -4.0, 4)], axis=1).astype(np.float32)
+    yaw = np.linspace(0.0, 270.0, 4).astype(np.float32)
+    res["matrix events"]["matrix_ms"] = wall_ms(
+        lambda: multi.render_ir_matrix(
+            sc, 0, em, li, yaw, n, params,
+            tracer.TracerOptions(round_budgets=(8, 32)), pair_batch=8,
+            rows=rows), 5)
+    r = AudioRenderer(testing.scene_from_arrays(
+        *testing.box_room((14.0, 9.0, 11.0)), 0.3), 2, SR, n,
+        base_power=3.62, max_bounces=100, hrtf_absorption_rate=0.9,
+        device=dev)
+    r.set_emitter_pos((0.0, 0.0, 0.0))
+    r.set_receiver((2.5, 1.5, 2.0), 0.0)
+    res["box events"]["render_ms"] = wall_ms(r.render, 7)
+    out["hist"] = res
+else:
+    res = {}
+    params = TraceParams(sample_rate=SR, ir_length=NB, base_power=3.62,
+                         max_bounces=100)
+    for nbands in (1, 4):
+        scal = rc.scalars(torch.zeros(3, device=dev),
+                          torch.tensor((2.5, 1.5, 2.0), device=dev), 0.0,
+                          1e-6, params).clone()
+        scal[14] = 1234.0
+        call = lambda: rc.init_state_native(scal, n_pad, n, nbands)
+        res[f"{nbands} band(s)"] = timings(call)
+        res[f"{nbands} band(s)"]["bound_ms"] = (
+            rc.state_ncols(nbands) * n_pad * 4 / 3.35e12 * 1e3)
+    # The host's time a call of the wrappers that take the stream handle.
+    from audiorenderingv2_tpu_torch import accel
+    from audiorenderingv2_tpu_torch.ops import schedule_cuda as sc_
+    from audiorenderingv2_tpu_torch.ops import traverse_cuda as tc
+    host = {}
+    box = tracer.scene_to_arrays(testing.scene_from_arrays(
+        *testing.box_room((14.0, 9.0, 11.0)), 0.3), 128, device=dev)
+    brows, _ = rc.pack_scene(box, 1)
+    k = 65536
+    em = torch.zeros(3, device=dev)
+    scal = rc.scalars(em, torch.tensor((2.5, 1.5, 2.0), device=dev), 0.0,
+                      1e-6, params)
+    done = rc.init_state(unit_dirs(k, 1), em, 1e-6, k)
+    done[rc._C_DONE] = 1.0
+    host["K1"] = host_us(lambda: rc.trace_round(done, brows, scal, params, 8))
+    seeded = scal.clone()
+    seeded[14] = 7.0
+    host["K4"] = host_us(lambda: rc.init_state_native(seeded, k, k))
+    ss, cl = accel.prepare_scene(testing.office_scene(20000), cluster_size=32)
+    orows, oboxes = rc.pack_tris_clusters(tracer.scene_to_arrays(
+        ss, 128, device=dev, clusters=cl))
+    oparams = TraceParams(sample_rate=SR, ir_length=NB, base_power=3.62,
+                          max_bounces=32)
+    oscal = rc.scalars(em, torch.tensor((6.0, 1.0, -8.0), device=dev), 0.0,
+                       1e-6, oparams)
+    ost = rc.init_state(unit_dirs(k, 2), em, 1e-6, k)
+    sched = sc_.tile_schedule(ost, oboxes)
+    host["schedule"] = host_us(lambda: sc_.tile_schedule(ost, oboxes))
+    host["K2"] = host_us(lambda: sc_.trace_round_sched(
+        ost, orows, oboxes, sched, oscal, oparams))
+    host["K5"] = host_us(lambda: tc.trace_traverse(
+        ost, orows, oboxes, oscal, oparams))
+    host["current_stream"] = host_us(
+        lambda: torch.cuda.current_stream(dev).cuda_stream)
+    host["raw_stream"] = host_us(
+        lambda: torch._C._cuda_getCurrentRawStream(dev.index or 0))
+    res["host_us"] = host
+    out["init"] = res
+print(json.dumps(out))
+"""
+
+
+def graph_ms(fn, calls: int = 20, reps: int = 7) -> float:
+    """Device time of one ``fn()``: ``calls`` calls in one CUDA graph, the
+    replay between two events over ``calls``, median of ``reps``."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / calls)
+    return float(np.median(times))
+
+
+def _raw_stream() -> int:
+    return torch._C._cuda_getCurrentRawStream(torch.cuda.current_device())
+
+
+def _close(got: torch.Tensor, want: torch.Tensor, what: str) -> None:
+    tiny = float(np.finfo(np.float32).tiny)
+    bad = int(((got - want).abs() > 1e-4 * want.abs() + tiny).sum())
+    assert bad == 0 and not got[want == 0].any(), f"{what}: {bad} bins off"
+
+
+def hist_levers(libs: dict, n: int) -> dict:
+    """K3's C entries of every library (this tree, the parent, the
+    variants of ``hist_variants``), device time of 20 calls in a CUDA graph
+    (``graph_ms``; the parent's flat-bin entry after a zero fill of its
+    output, as its wrapper did), forward and reverse order: the flat-bin
+    entry at 1, 4 and 8 bands and at the posed shape (8 x 1,000,064 events
+    into 512,000 bins) on uniform bins, and at the box render's own flat
+    bins; the hard-binning entry on the box render's events (1 and 4
+    bands, stereo) and on the 2 x 4 matrix's. Each output is checked
+    against the plain version first."""
+    from audiorenderingv2_tpu_torch import testing, tuned
+    from audiorenderingv2_tpu_torch.core import tracer
+    from audiorenderingv2_tpu_torch.core.params import TraceParams
+    from audiorenderingv2_tpu_torch.ops import histogram_cuda as hc
+    from audiorenderingv2_tpu_torch.ops import raytrace_cuda as rc
+
+    dev = torch.device("cuda")
+    nb = IR_SECONDS * SR
+    n_pad = -(-n // 128) * 128
+    rng = np.random.default_rng(3)
+    cases = {}
+    for bands, poses in ((1, 1), (4, 1), (8, 1), (1, 8)):
+        n_bins = 2 * nb * poses
+        bins = rng.integers(-n_bins // 8, n_bins + n_bins // 8,
+                            size=n_pad * poses).astype(np.int32)
+        w = (rng.random((n_pad * poses, bands)) * 2e-9).astype(np.float32)
+        name = f"flat {bands}" if poses == 1 else "flat posed"
+        cases[name] = ("flat", torch.from_numpy(bins).to(dev),
+                       torch.from_numpy(w).to(dev), n_bins)
+    scene = testing.scene_from_arrays(*testing.box_room((14.0, 9.0, 11.0)),
+                                      0.3)
+    sc = tracer.scene_to_arrays(scene, 128, device=dev)
+    for bands in (1, 4):
+        params = TraceParams(sample_rate=SR, ir_length=nb, base_power=3.62,
+                             max_bounces=100, hrtf_absorption_rate=0.9,
+                             n_bands=bands)
+        rows, _ = rc.pack_scene(sc, bands)
+        ev = tuple(x[None] for x in rc.trace_events(
+            rows, torch.from_numpy(unit_dirs(n, 5)).to(dev),
+            torch.zeros(3, device=dev),
+            torch.tensor((2.5, 1.5, 2.0), device=dev), 0.0, params,
+            round_budgets=tuned.round_budgets_for(100)))
+        cases[f"box binned {bands}"] = ("binned", ev, params)
+        if bands == 1:
+            b = torch.round(ev[0]).to(torch.int32)
+            active = (ev[1] != 0).any(dim=-1)
+            flat = torch.where(active & (b >= 0) & (b < nb),
+                               ev[2] * nb + b, 2 * nb).reshape(-1)
+            cases["box flat 1"] = ("flat", flat, ev[1].reshape(-1, 1),
+                                   2 * nb)
+    demo = testing.scene_from_arrays(*testing.box_room((18.0, 10.0, 14.0)),
+                                     0.25)
+    msc = tracer.scene_to_arrays(demo, 128, device=dev)
+    mparams = TraceParams(sample_rate=SR, ir_length=nb, base_power=3.62,
+                          max_bounces=40, hrtf_absorption_rate=0.9)
+    mev = rc.trace_events_pose_batch(
+        rc.pack_scene(msc, 1)[0],
+        torch.stack([torch.from_numpy(unit_dirs(n, 40 + i)).to(dev)
+                     for i in range(8)]),
+        torch.from_numpy(np.repeat(MULTI_EMITTERS, 4, axis=0)).to(dev),
+        torch.from_numpy(np.tile(MULTI_LISTENERS, (2, 1))).to(dev),
+        torch.from_numpy(np.tile(MULTI_YAWS, 2)).to(dev), mparams,
+        round_budgets=MULTI_BUDGETS)
+    cases["matrix binned 1"] = ("binned", mev, mparams)
+
+    def call_of(lib, who, case, out):
+        # One output buffer for every library of a case: on an H100 two
+        # libraries with the same one-band kernel differed by 11% with a
+        # buffer each, by 1% with one.
+        if case[0] == "flat":
+            _, bins, w, n_bins = case
+
+            def call():
+                if who == "parent":
+                    out.zero_()
+                err = lib.ar2_histogram(bins.data_ptr(), w.data_ptr(),
+                                        bins.shape[0], n_bins, w.shape[1],
+                                        out.data_ptr(), _raw_stream())
+                assert err == 0, err
+                return out
+            return call
+        if not hasattr(lib, "ar2_histogram_binned"):
+            return None
+        _, (bf, w, ear), params = case
+
+        def call():
+            err = lib.ar2_histogram_binned(
+                bf.data_ptr(), w.data_ptr(), ear.data_ptr(), bf.shape[0],
+                bf.shape[1], w.shape[2], nb, 0, params.cross_ear_delay,
+                1.0 - params.hrtf_absorption_rate, out.data_ptr(),
+                _raw_stream())
+            assert err == 0, err
+            return out
+        return call
+
+    out = {}
+    for name, case in cases.items():
+        if case[0] == "flat":
+            want = hc.histogram_plain(case[1], case[2], case[3])
+        else:
+            _, ev, params = case
+            want = hc.histogram_binned_plain(
+                *ev, nb, False, params.cross_ear_delay,
+                params.hrtf_absorption_rate)
+        out_buf = torch.empty_like(want)
+        calls = {who: call_of(lib, who, case, out_buf)
+                 for who, lib in libs.items()}
+        calls = {who: c for who, c in calls.items() if c is not None}
+        for who, call in calls.items():
+            got = call().clone()
+            torch.cuda.synchronize()
+            _close(got.reshape(want.shape), want, f"{name}, {who}")
+        times: dict[str, list[float]] = {}
+        order = list(calls.items())
+        for pass_order in (order, order[::-1]):
+            for who, call in pass_order:
+                times.setdefault(who, []).append(graph_ms(call))
+        out[name] = times
+        print(f"K3 levers, {name} (device ms, forward / reverse): " + "; ".join(
+            f"{w} {v[0]:.4f}/{v[1]:.4f}" for w, v in times.items()),
+            flush=True)
+    return out
+
+
+def init_levers(libs: dict, n: int) -> dict:
+    """K4's C entry of every library in ``libs`` at 1, 4 and 8 bands,
+    device time as ``hist_levers``; each output checked against the plain
+    version first (exactly rounded columns bit for bit, VX / VY within
+    2e-7)."""
+    from audiorenderingv2_tpu_torch.ops import raytrace_cuda as rc
+
+    dev = torch.device("cuda")
+    n_pad = -(-n // 128) * 128
+    scal = torch.zeros(16, device=dev)
+    scal[0:3] = torch.tensor([0.5, -1.0, 2.0])
+    scal[rc._S_E0] = 1e-6
+    scal[rc._S_PAD14] = 4242421.0
+    out = {}
+    for bands in (1, 4, 8):
+        ncols = rc.state_ncols(bands)
+        plain = rc.init_state_native_plain(scal, n_pad, n, bands)
+        state = torch.empty((ncols, n_pad), device=dev)
+        calls = {}
+        for who, lib in libs.items():
+            def call(lib=lib):
+                err = lib.ar2_init_state(state.data_ptr(), n_pad, ncols, n,
+                                         scal.data_ptr(), bands,
+                                         rc.layout_bands(bands),
+                                         _raw_stream())
+                assert err == 0, err
+                return state
+            got = call().clone()
+            torch.cuda.synchronize()
+            exact = [c for c in range(ncols) if c not in (3, 4)]
+            assert torch.equal(got[exact], plain[exact]), who
+            assert float((got - plain).abs().max()) <= 2e-7, who
+            calls[who] = call
+        times: dict[str, list[float]] = {}
+        order = list(calls.items())
+        for pass_order in (order, order[::-1]):
+            for who, call in pass_order:
+                times.setdefault(who, []).append(graph_ms(call))
+        out[f"{bands} band(s)"] = times
+        print(f"K4 levers, {bands} band(s) (device ms, forward / reverse): "
+              + "; ".join(f"{w} {v[0]:.4f}/{v[1]:.4f}"
+                          for w, v in times.items()), flush=True)
+    return out
+
+
+def hist_init_phase(parent: Path, phase: str, n: int) -> dict:
+    """K3 (``hist``) or K4 (``init``) as each checkout's wrappers run them,
+    in a process of its own per checkout: other, this, this, other. K3 at
+    1, 4 and 8 bands and posed on chip_smoke.py's synthetic bins and at
+    the box render's own events (1, 4, 8 bands; with the count of events
+    in the 32 busiest bins), beside ``index_add_`` alone over the in-range
+    events (the filtering outside the timed window); the hard-binning stage
+    of one box render and of the 2 x 4 x 1M matrix (its launches under
+    torch.profiler, its time, the render's and the matrix's time); the
+    fused entry where the checkout has it. K4 at 1 and 4 bands, and the
+    host's time a call of the wrappers that take the stream handle. Each
+    row: ``ms`` one call between two events (median of 20), ``device_ms``
+    20 calls in one CUDA graph over 20 (median of 7 replays), ``host_us``
+    the host's time a call."""
+    out: dict[str, list] = {}
+    for who, root in (("parent", parent), ("tree", REPO), ("tree", REPO),
+                      ("parent", parent)):
+        res = subprocess.run([sys.executable, "-c", _HIST_INIT, str(root),
+                              phase, str(n)], capture_output=True, text=True,
+                             timeout=900, cwd=str(root))
+        if res.returncode:
+            raise RuntimeError(f"{phase} in {root} failed:\n{res.stderr}")
+        got = json.loads(res.stdout.splitlines()[-1])[phase]
+        out.setdefault(who, []).append(got)
+        print(f"{phase} ({who}): {json.dumps(got)}", flush=True)
+    return out
+
+
+def hist_variants(tree: str) -> dict[str, str]:
+    """Copies of csrc/histogram.cu, each undoing one lever of K3's forward
+    redesign, or trying one: ``tree_scalar`` one event a thread with scalar
+    loads and atomics at every band count (no vector loads or reductions),
+    also in the hard-binning stage; ``tree_one_band_scalar`` the same at
+    one band only (4 and 8 bands keep their vector path);
+    ``tree_quad_items1``, ``tree_quad_items4`` one or 4 quads of events a
+    thread at one band instead of 2; ``tree_row_items4`` 4 events a
+    thread at 4 and 8 bands instead of 1."""
+    out = {
+        "tree_scalar": _replace(_replace(
+            tree, "  const bool aligned = aligned16(bins, weights, out);",
+            "  const bool aligned = false;"),
+            "  const bool aligned = aligned16(bin_f, w, ear, h.out);",
+            "  const bool aligned = false;"),
+        "tree_quad_items1": _replace(
+            tree, "constexpr int kQuadItems = 2;",
+            "constexpr int kQuadItems = 1;"),
+        "tree_quad_items4": _replace(
+            tree, "constexpr int kQuadItems = 2;",
+            "constexpr int kQuadItems = 4;"),
+        "tree_row_items4": _replace(
+            tree, "constexpr int kRowItems = 1;",
+            "constexpr int kRowItems = 4;"),
+        "tree_one_band_scalar": _replace(_replace(
+            tree, "  if (aligned && n_bands == 1) {",
+            "  if (false) {"),
+            "  if (aligned && n_bands == 1 && per_pose % 4 == 0) {",
+            "  if (false) {"),
+    }
+    return out
+
+
 # The variants each phase compares (beside the two checkouts).
 K7_VARIANTS = ("tree_all_rows", "tree_scalar", "tree_grid_all")
 POSE_VARIANTS = ("tree_ilp", "tree_lb8", "tree_persist_all", "tree_refill8")
@@ -1506,7 +2128,7 @@ def main() -> int:
     ap.add_argument("--out", type=Path,
                     help="also write the JSON line to this file")
     ap.add_argument("--phases",
-                    default="k1,k1_pose,k7,k5,k2,k6,render,bwd,e2e",
+                    default="k1,k1_pose,k7,k5,k2,k6,render,bwd,hist,init,e2e",
                     help="comma-separated subset of the phases to run")
     ap.add_argument("--paths", default=",".join(E2E_PATHS),
                     help="comma-separated subset of the e2e phase's paths")
@@ -1547,19 +2169,24 @@ def main() -> int:
     if "k6" in phases:
         sources.update({f"k6_{k}": v for k, v in
                         k6_variants(src("trace_group.cu")).items()})
+    if "hist" in phases:
+        sources.update({f"k3_{k}": v for k, v in
+                        hist_variants(src("histogram.cu")).items()})
     variants = build_variants(_build, sources, _build.CSRC, out_dir)
     probes = build_probes(_build, out_dir) if "bwd" in phases else None
     print(f"built {len(variants)} variants and both checkouts in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     kernel_of = {"k1": "trace_r", "k5": "trace_traverse",
-                 "k2": "trace_sched", "k6": "trace_group"}
+                 "k2": "trace_sched", "k6": "trace_group", "k3": "histogram"}
     regs = {name: ptxas_lines((out_dir / f"{name}.log").read_text(),
                               kernel_of[name[:2]])
             for name in variants}
     tree_log = (_build.build_dir() / "build.log").read_text()
     regs["tree"] = ptxas_lines(tree_log, "trace_r") + ptxas_lines(
         tree_log, "trace_traverse") + ptxas_lines(
-        tree_log, "histogram_bwd") + ptxas_lines(tree_log, "trace_group")
+        tree_log, "histogram") + ptxas_lines(tree_log, "binned") \
+        + ptxas_lines(tree_log, "init_state") + ptxas_lines(
+        tree_log, "trace_group")
     for name, lines in regs.items():
         print(f"ptxas {name}: " + " | ".join(lines), flush=True)
 
@@ -1579,6 +2206,12 @@ def main() -> int:
             "render": lambda: render_phase(parent_dir),
             "bwd": lambda: histogram_bwd_phase(args.rays, base["parent"],
                                                probes),
+            "hist": lambda: {
+                "checkouts": hist_init_phase(parent_dir, "hist", args.rays),
+                "levers": hist_levers(libs_of("k3_"), args.rays)},
+            "init": lambda: {
+                "checkouts": hist_init_phase(parent_dir, "init", args.rays),
+                "levers": init_levers(base, args.rays)},
             "e2e": lambda: e2e_phase(parent_dir, paths)}
     for name, run in runs.items():
         if name in phases:

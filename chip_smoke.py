@@ -8,9 +8,16 @@ Phases, in order; any failure raises and the script exits non-zero:
 
 1. device: the card's name and power limit (nvidia-smi);
 2. build: compile csrc/*.cu with nvcc (timed);
-3. K3, the histogram kernel, against its plain version (index_add_) and a
-   float64 reference, on 1M seeded events (30% out of range) at 1 and 4
-   bands; times of both;
+3. K3, the histogram kernel (its flat-bin entry), against its plain
+   version (index_add_) and a float64 reference, on 1M seeded events (30%
+   out of range) at 1, 4 and 8 bands; its time a call and on the device
+   (20 calls in one CUDA graph), the plain version's and index_add_'s
+   alone. After phase 4, on the box render's own events (1,000,064 rays x
+   100 bounces at 1, 4 and 8 bands): K3 on their flat bins, and the
+   hard-binning stage in one launch (the fused entry) against the PyTorch
+   stage (same-ear sum, cross-ear shift), stereo and mono, each against
+   a float64 sum of the same deposits (1e-4 a bin, no stray bin); the
+   same times;
 4. K1, the bounce-round kernel, against its plain version on the card, bit
    for bit in every state column: 100 bounces in one round at 64k rays;
    the export path's round budgets (8, 24, 68) with the alive-first
@@ -57,19 +64,22 @@ Phases, in order; any failure raises and the script exits non-zero:
 9. K4, the state-initialising kernel with in-kernel Philox directions, at
    1,000,064 rays (1,000,000 real) and 1 and 4 bands against its plain
    version: every exactly rounded column bit-equal (VZ carries the second
-   word's 24 bits), VX and VY (through sinf, cosf) within 2e-7; times;
+   word's 24 bits), VX and VY (through sincosf) within 2e-7; its time a
+   call and on the device;
 10. the multi-pose path as a user runs it, the configuration of
    examples/demo_6_multipose.py: an 18 x 10 x 14 m box, 2 sources x 4
    listeners, 1,000,000 rays a pair, 40 bounces in rounds (8, 32), a 2 s IR
    at 16 kHz, render_ir_matrix at pair_batch=8 (one launch of 8M rays per
    round) and mix_sources of two 2 s signals, the launch counts read around
-   it: the posed K1 ran, the single-pose K1 did not; one pair against a
-   single render_ir of that pair; K3 as the posed histogram launches it
-   (8,000,512 events, 512,000 flat bins) against its plain version and a
-   float64 sum; times of the fused matrix, of pair_batch=1 and of the mix.
+   it: the posed K1 and the fused hard-binning entry ran, the single-pose
+   K1 and K3 did not; one pair against a single render_ir of that pair;
+   the hard-binning stage at the matrix's events (8,000,512 events,
+   512,000 flat bins) as in phase 3, K3 on its flat bins beside it; times
+   of the fused matrix, of pair_batch=1 and of the mix.
    Then the large-scene form: the office, 1 source x 4 listeners, 250,000
    rays a pair, 32 bounces, fused (schedule + posed K2), against a single
-   render, and K3 at its events; the same matrix with default options (no
+   render, and the stage at its events; the same matrix with default
+   options (no
    schedule: one render_ir through K5 per pair) against the fused one, and
    its time beside it;
 11. a native_rng render (K4) of the box at 1M rays x 100 bounces through
@@ -81,8 +91,10 @@ Phases, in order; any failure raises and the script exits non-zero:
 12. a banded scene (4 bands, wall absorption 0.1 / 0.25 / 0.4 / 0.6): the
    demo's 2 x 4 x 1M-ray matrix and its mix through the filterbank, with
    the checks of phase 10 (launch counts, one pair against a single
-   render, K3 at 4 bands) and the mix on the card against the mix on the
-   CPU; then a banded export as a user runs it (config.json ->
+   render, the stage at 4 bands) and the mix on the card against the mix
+   on the CPU; the banded office matrix's histogram (1 x 4 x 250,000 rays
+   at 4 bands through the posed schedule and K2, then the stage); then a
+   banded export as a user runs it (config.json ->
    load_context -> export_audio, 1M rays, 100 bounces), its trace against
    the CPU plain path on 64k shared directions in every (ear, band) and
    its filterbank convolution against the CPU's; times;
@@ -161,12 +173,14 @@ Phases, in order; any failure raises and the script exits non-zero:
    render with rows.
 
 Then one JSON line of the kernels: name, route, source, the TPU kernel it
-replaces, launches on its main path (the export of phase 5; for K6 and K7
+replaces, launches on its main path (the export of phase 5, whose IR is
+the fused hard-binning entry's, and for K3's flat-bin entry the office fit
+of phase 17, which bins softly; for K6 and K7
 the experimentation runs of phase 20, for the posed K6 the matrix of phase
 18; for the
 clustered route's kernels that of phase 7; for the posed kernels and the
-posed histogram the matrices of phase 10, for the 4-band posed K1 that of
-phase 12; for K4 the render of phase 11; for K3-bwd the office fit of phase
+posed histogram the matrices of phase 10 (for the posed histogram its fused hard-binning entry), for the
+4-band posed K1 that of phase 12; for K4 the render of phase 11; for K3-bwd the office fit of phase
 17; for K5 the recording without the schedule of phase 15), max abs error,
 ms, plain ms (for K1 those of the export's first round, rounds 2 and 3
 under "round2" and "round3" with their tests; for the posed K1 those of
@@ -188,7 +202,12 @@ budget-6 round of the box, with each of version 1's rounds under
 "budgets", the icosphere's under "icosphere_512" and the 1,280-triangle
 icosphere's under "multi_chunk", K1's time on the same state beside each),
 what bounds it, and the time of one PyTorch call that computes the same function where
-there is one. Last, the result line. With no CUDA device the script exits
+there is one (K3: index_add_ over the in-range events; the hard-binning
+entry: index_add_ over its deposits, made beforehand). K3, the
+hard-binning entry and K4 also give "device_ms", the device time of one
+call (20 calls in one CUDA graph); their other shapes stand under
+"bands4", "bands8", "box_events", "flat" and "cases". Last, the result
+line. With no CUDA device the script exits
 non-zero and prints no result.
 """
 from __future__ import annotations
@@ -329,6 +348,44 @@ def median_ms(fn, reps: int, setup=lambda: ()) -> float:
     return float(np.median(times))
 
 
+def device_ms(fn, calls: int = 20, reps: int = 7) -> float:
+    """Device time of one ``fn()``: ``calls`` calls captured in one CUDA
+    graph, the replay between two events over ``calls``, median of
+    ``reps`` (the host's path into each launch is not in the window)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / calls)
+    return float(np.median(times))
+
+
+def index_add_call(bins: torch.Tensor, weights: torch.Tensor, n_bins: int):
+    """One ``index_add_`` over the in-range events, the filtering done here,
+    outside any timed window: K3's library yardstick."""
+    keep = (bins >= 0) & (bins < n_bins)
+    idx, w = bins[keep].long(), weights[keep].contiguous()
+    out = torch.zeros((n_bins, weights.shape[1]), dtype=torch.float32,
+                      device=weights.device)
+    return lambda: out.index_add_(0, idx, w)
+
+
 def unit_dirs(n: int, seed: int) -> np.ndarray:
     d = np.random.default_rng(seed).normal(size=(n, 3))
     return (d / np.linalg.norm(d, axis=1, keepdims=True)).astype(np.float32)
@@ -370,6 +427,9 @@ def phase_build() -> None:
 
 
 def phase_histogram() -> dict:
+    """K3's flat-bin entry on 1M seeded events (30% out of range) at 1, 4
+    and 8 bands against its plain version and a float64 sum; returns the
+    1-band numbers with the 4- and 8-band ones under "bands4", "bands8"."""
     from audiorenderingv2_tpu_torch.ops import histogram_cuda as hc
 
     n_bins = 2 * IR_SECONDS * SR
@@ -382,7 +442,7 @@ def phase_histogram() -> dict:
                          n_bins + rng.integers(0, 1000, size=out.sum()))
     bins = bins.astype(np.int32)
     result = {}
-    for n_bands in (1, 4):
+    for n_bands in (1, 4, 8):
         w = (rng.random((n_events, n_bands)) * 2e-9).astype(np.float32)
         b_d = torch.from_numpy(bins).cuda()
         w_d = torch.from_numpy(w).cuda()
@@ -400,24 +460,29 @@ def phase_histogram() -> dict:
         rel_kp = np.abs(k_np[occ] - p_np[occ]) / np.abs(p_np[occ])
         err = float(np.abs(k_np - p_np).max())
         # atomics add in a run-dependent order: a few ulp over ~11 terms
-        assert rel_kp.max() < 1e-5, ("K3 vs plain", rel_kp.max())
+        assert rel_kp.max() < 1e-5, ("K3 vs plain", n_bands, rel_kp.max())
         assert np.median(rel_k) < 1e-6 and np.median(rel_p) < 1e-6, \
             ("K3 vs float64", np.median(rel_k), np.median(rel_p))
         assert not np.any(k_np[~occ]), "K3 wrote a bin no event maps to"
-        ms = median_ms(lambda: hc.histogram_sum_banded(b_d, w_d, n_bins), 20)
+        call = lambda: hc.histogram_sum_banded(b_d, w_d, n_bins)  # noqa: E731
+        library = index_add_call(b_d, w_d, n_bins)
+        ms, dev_ms = median_ms(call, 20), device_ms(call)
         plain_ms = median_ms(lambda: hc.histogram_plain(b_d, w_d, n_bins),
                              20)
+        library_ms = median_ms(library, 20)
         log(f"K3 histogram, {n_events} events x {n_bands} band(s) -> "
-            f"{n_bins} bins: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms; "
-            f"max abs err vs plain {err:.3e}, median rel err vs float64 "
-            f"{np.median(rel_k):.3e}")
+            f"{n_bins} bins: kernel {ms:.4f} ms a call, {dev_ms:.4f} ms "
+            f"device (CUDA graph of 20), plain {plain_ms:.4f} ms, "
+            f"index_add_ alone {library_ms:.4f} ms; max abs err vs plain "
+            f"{err:.3e}, median rel err vs float64 {np.median(rel_k):.3e}")
         # Bytes: bins and weights read, the accumulator written; one add
-        # per kept event and band. The plain version is the library call.
+        # per kept event and band.
         result[n_bands] = {
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "max_abs_err": err, "ms": ms, "device_ms": dev_ms,
+            "plain_ms": plain_ms,
             **bound(nbytes(b_d, w_d, kern), int(keep.sum()) * n_bands),
-            "library_ms": plain_ms}
-    return result[1]
+            "library_ms": library_ms}
+    return {**result[1], "bands4": result[4], "bands8": result[8]}
 
 
 def _box_scene():
@@ -553,6 +618,7 @@ def _reset_launches() -> None:
     from audiorenderingv2_tpu_torch.ops import v1_cuda as v1
 
     rc.launches = rc.posed_launches = rc.init_launches = hc.launches = 0
+    hc.binned_launches = 0
     sc.tile_schedule_launches = sc.trace_round_sched_launches = 0
     sc.trace_round_sched_posed_launches = 0
     hc.bwd_launches = tc.trace_traverse_launches = 0
@@ -571,6 +637,7 @@ def _read_launches() -> dict:
     return {"trace_round": rc.launches,
             "trace_round_posed": rc.posed_launches,
             "init_state": rc.init_launches, "histogram": hc.launches,
+            "histogram_binned": hc.binned_launches,
             "histogram_bwd": hc.bwd_launches,
             "tile_schedule": sc.tile_schedule_launches,
             "trace_round_sched": sc.trace_round_sched_launches,
@@ -629,8 +696,9 @@ def phase_export() -> dict:
         launches = _read_launches()
         log(f"export: {wall:.2f} s wall (first call, scene load included); "
             f"launches {launches}")
-        assert launches["trace_round"] > 0 and launches["histogram"] > 0, \
-            launches
+        assert launches["trace_round"] > 0, launches
+        assert launches["histogram_binned"] > 0, launches
+        assert launches["histogram"] == 0, launches
         assert launches["trace_round_posed"] == launches["init_state"] == 0
 
         audio = wav.read_wav(out_path)
@@ -1070,7 +1138,7 @@ def phase_office_export() -> dict:
         assert launches["trace_round"] == 0, launches
         assert launches["tile_schedule"] == OFFICE_BOUNCES, launches
         assert launches["trace_round_sched"] == OFFICE_BOUNCES, launches
-        assert launches["histogram"] > 0, launches
+        assert launches["histogram_binned"] > 0, launches
         assert r.boxes is not None
         audio = wav.read_wav(Path(tmp) / "office.wav")
         assert audio.n_channels == 2 and audio.sample_rate == SR
@@ -1102,7 +1170,8 @@ def phase_office_export() -> dict:
         ml = _read_launches()
         assert ml["trace_traverse"] == OFFICE_BOUNCES, ml
         assert ml["trace_round"] == ml["tile_schedule"] == 0, ml
-        assert ml["trace_round_sched"] == 0 and ml["histogram"] == 1, ml
+        assert ml["trace_round_sched"] == 0, ml
+        assert ml["histogram_binned"] == 1 and ml["histogram"] == 0, ml
         assert np.isfinite(ir_m).all() and np.all((ir_m > 0).sum(axis=1)
                                                   >= 200)
         # Its energy against the clustered export's (other directions: the
@@ -1354,8 +1423,8 @@ def phase_init() -> dict:
         same = [int((kern[c] == plain[c]).sum()) for c in inexact]
         norm = kern[rc._C_VX:rc._C_VZ + 1].norm(dim=0)
         assert float((norm - 1).abs().max()) < 1e-6
-        ms = median_ms(lambda: rc.init_state_native(scal, n_pad, n, n_bands),
-                       20)
+        call = lambda: rc.init_state_native(scal, n_pad, n, n_bands)  # noqa
+        ms, dev_ms = median_ms(call, 20), device_ms(call)
         plain_ms = median_ms(
             lambda: rc.init_state_native_plain(scal, n_pad, n, n_bands), 5)
         k4_bound = bound(nbytes(scal, kern), n_pad * INIT_RAY_OPS)
@@ -1363,13 +1432,14 @@ def phase_init() -> dict:
             f"{kern.shape[0]} columns: every exactly rounded column equals "
             f"the plain version's (VZ: the Philox words agree); VX, VY max "
             f"abs err {err:.3e} (bar 2e-7), {same[0]} and {same[1]} of "
-            f"{n_pad} bit-identical; kernel {ms:.4f} ms, plain "
+            f"{n_pad} bit-identical; kernel {ms:.4f} ms a call, "
+            f"{dev_ms:.4f} ms device (CUDA graph of 20), plain "
             f"{plain_ms:.3f} ms, bound {k4_bound['bound_ms']:.4f} ms by "
             f"{k4_bound['bound_by']}")
         result[n_bands] = {"max_abs_err": err, "ms": ms,
-                           "plain_ms": plain_ms, **k4_bound,
-                           "library_ms": None}
-    return result[1]
+                           "device_ms": dev_ms, "plain_ms": plain_ms,
+                           **k4_bound, "library_ms": None}
+    return {**result[1], "bands4": result[4]}
 
 
 def wall_ms(fn, reps: int) -> float:
@@ -1386,67 +1456,216 @@ def wall_ms(fn, reps: int) -> float:
     return float(np.median(times))
 
 
-def posed_histogram_check(ev_bin_f, ev_w, ev_ear, params, what: str) -> dict:
-    """K3 as the posed histogram launches it (flat bin = (pose * 2 + ear) *
-    ir_length + bin) on a matrix's own events: the kernel against its plain
-    version (index_add_) on the flat bins the function hands it, both
-    against a float64 sum, and the finished IRs with the kernel against
-    those with the plain version in its place. Returns the JSON entry's
-    numbers.
+def binned_deposits64(ev_bin_f, ev_w, ev_ear, params):
+    """Every deposit of the hard-binning stage, on the card: (flat row
+    int64 [D] of the [P * 2 * ir_length, n_bands] histogram, weight float64
+    [D, n_bands]). Same ear at round(bin_f) (half to even), and unless mono
+    (1 - hrtf) times the weight at the other ear, ``delay`` bins later or
+    at the same bin past the IR's end; inactive and out-of-range events
+    deposit nothing."""
+    nb, delay = params.ir_length, params.cross_ear_delay
+    p = ev_bin_f.shape[0]
+    b = torch.round(ev_bin_f)
+    keep = (ev_w != 0).any(dim=-1) & (b >= 0) & (b < nb)
+    bi = b.long()[keep]
+    ear = (ev_ear != 0).long()[keep]
+    pose = torch.arange(p, device=ev_bin_f.device)[:, None].expand(
+        ev_bin_f.shape)[keep]
+    w = ev_w[keep].double()
+    rows, weights = [(pose * 2 + ear) * nb + bi], [w]
+    if not params.is_mono:
+        scale = float(np.float32(1.0 - params.hrtf_absorption_rate))
+        rows.append((pose * 2 + 1 - ear) * nb
+                    + torch.where(bi + delay < nb, bi + delay, bi))
+        weights.append(scale * ev_w[keep].float().double())
+    return torch.cat(rows), torch.cat(weights)
 
+
+def subnormal_counts(rows: torch.Tensor, weights: torch.Tensor,
+                     shape) -> torch.Tensor:
+    """Per bin of a histogram of ``shape`` [n_rows, n_bands], the count of
+    its deposits (``rows`` [D], ``weights`` [D, n_bands]) whose weight is
+    a float32 subnormal: the card's f32 atomics (RED.F32.FTZ) flush those
+    to zero, so each may be missing from the bin."""
+    tiny = float(np.finfo(np.float32).tiny)
+    sub = ((weights != 0) & (weights.abs() < tiny)).double()
+    return torch.zeros(shape, dtype=torch.float64,
+                       device=weights.device).index_add_(0, rows, sub)
+
+
+def _assert_deposit_bar(got: torch.Tensor, ref: torch.Tensor, n_sub,
+                        what: str) -> float:
+    """Each bin of ``got`` within 1e-4 of the float64 sum ``ref`` of the
+    same deposits, relative, plus float32's smallest normal number for
+    each subnormal deposit of the bin (``n_sub``: the late bins of a band
+    absorbing 60% a bounce sum weights of 1e-39 after ~100 bounces, which
+    the f32 atomics flush); a bin no deposit maps to (ref 0) exactly 0.
     The early bins of an IR sum thousands of events, in an order that
-    differs from run to run in both versions (atomics), so the bar per bin
-    is 1e-4 of the float64 sum."""
-    from audiorenderingv2_tpu_torch.core import binning, tracer
+    differs from run to run (atomics). Returns the worst relative error
+    over the bins without a subnormal deposit."""
+    tiny = float(np.finfo(np.float32).tiny)
+    diff = (got.double() - ref).abs()
+    bad = int((diff > 1e-4 * ref.abs() + n_sub * tiny).sum())
+    assert bad == 0, f"{what}: {bad} bins off the float64 sum"
+    assert not got[ref == 0].any(), f"{what}: a bin no deposit maps to"
+    normal = (ref != 0) & (n_sub == 0)
+    return float((diff[normal] / ref[normal].abs()).max())
+
+
+def flat_histogram_check(flat, weights, n_bins, what: str) -> dict:
+    """K3's flat-bin entry on a render's own flat bins against its plain
+    version and a float64 sum (bar 1e-4 a bin); times beside index_add_
+    alone, and the events in the 32 busiest bins."""
     from audiorenderingv2_tpu_torch.ops import histogram_cuda as hc
 
-    seen = []
-    real = binning.histogram_sum_banded
-
-    def spy(bins, weights, n_bins):
-        seen.append((bins, weights, n_bins))
-        return real(bins, weights, n_bins)
-
-    try:
-        binning.histogram_sum_banded = spy
-        irs_k = tracer._histogram_from_events_posed(ev_bin_f, ev_w, ev_ear,
-                                                    params)
-        binning.histogram_sum_banded = hc.histogram_plain
-        irs_p = tracer._histogram_from_events_posed(ev_bin_f, ev_w, ev_ear,
-                                                    params)
-    finally:
-        binning.histogram_sum_banded = real
-    assert len(seen) == 1, f"{what}: {len(seen)} histogram calls"
-    bins, weights, n_bins = seen[0]
-    kern = hc.histogram_sum_banded(bins, weights, n_bins)
-    plain = hc.histogram_plain(bins, weights, n_bins)
-    keep = (bins >= 0) & (bins < n_bins)
+    kern = hc.histogram_sum_banded(flat, weights, n_bins)
+    plain = hc.histogram_plain(flat, weights, n_bins)
+    keep = (flat >= 0) & (flat < n_bins)
+    rows, w64 = flat[keep].long(), weights[keep].double()
     ref = torch.zeros(kern.shape, dtype=torch.float64, device=kern.device)
-    ref.index_add_(0, bins[keep].long(), weights[keep].double())
-    torch.cuda.synchronize()
-    occ = ref > 0
-    rel_k = float(((kern - ref).abs()[occ] / ref[occ]).max())
-    rel_p = float(((plain - ref).abs()[occ] / ref[occ]).max())
-    err = float((kern - plain).abs().max())
-    assert rel_k < 1e-4 and rel_p < 1e-4, (what, rel_k, rel_p)
-    assert not kern[~occ].any(), f"{what}: K3 wrote a bin no event maps to"
-    ir_err = float((irs_k - irs_p).abs().max() / irs_p.abs().max())
-    assert irs_k.shape == irs_p.shape and ir_err < 1e-4, (what, ir_err)
-    ms = median_ms(lambda: hc.histogram_sum_banded(bins, weights, n_bins),
-                   10)
-    plain_ms = median_ms(lambda: hc.histogram_plain(bins, weights, n_bins),
+    ref.index_add_(0, rows, w64)
+    n_sub = subnormal_counts(rows, w64, kern.shape)
+    rel_k = _assert_deposit_bar(kern, ref, n_sub, f"K3, {what}")
+    rel_p = _assert_deposit_bar(plain, ref, n_sub, f"plain K3, {what}")
+    busiest = int(torch.bincount(flat[keep], minlength=n_bins)
+                  .topk(32).values.sum())
+    call = lambda: hc.histogram_sum_banded(flat, weights, n_bins)  # noqa
+    ms, dev_ms = median_ms(call, 20), device_ms(call)
+    plain_ms = median_ms(lambda: hc.histogram_plain(flat, weights, n_bins),
                          10)
+    library_ms = median_ms(index_add_call(flat, weights, n_bins), 20)
     n_adds = int((keep & (weights != 0).any(dim=1)).sum()) * weights.shape[1]
-    k3_bound = bound(nbytes(bins, weights, kern), n_adds)
-    log(f"K3 posed histogram, {what}: {bins.shape[0]} events x "
-        f"{weights.shape[1]} band(s) -> {n_bins} flat bins, {int(keep.sum())}"
-        f" in range: kernel within {rel_k:.3e} of the float64 sum per bin, "
-        f"plain within {rel_p:.3e} (bar 1e-4); max abs err vs plain "
-        f"{err:.3e}; the IRs differ by {ir_err:.3e} of their peak; kernel "
-        f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+    k3_bound = bound(nbytes(flat, weights, kern), n_adds)
+    err = float((kern - plain).abs().max())
+    log(f"K3 flat bins, {what}: {flat.shape[0]} events x "
+        f"{weights.shape[1]} band(s) -> {n_bins} bins, {int(keep.sum())} "
+        f"in range, {busiest} in the 32 busiest bins: kernel within "
+        f"{rel_k:.3e} of the float64 sum per bin, plain {rel_p:.3e} (bar "
+        f"1e-4); kernel {ms:.4f} ms a call, {dev_ms:.4f} ms device, plain "
+        f"{plain_ms:.4f} ms, index_add_ alone {library_ms:.4f} ms, bound "
         f"{k3_bound['bound_ms']:.4f} ms by {k3_bound['bound_by']}")
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **k3_bound,
-            "library_ms": plain_ms}
+    return {"max_abs_err": err, "ms": ms, "device_ms": dev_ms,
+            "plain_ms": plain_ms, **k3_bound, "library_ms": library_ms,
+            "busiest_32": busiest}
+
+
+def binned_check(ev_bin_f, ev_w, ev_ear, params, what: str,
+                 flat_too: bool = True) -> dict:
+    """The hard-binning stage on a render's own events (``ev_*`` [P, E]):
+    the fused entry (``histogram_binned``) and the PyTorch stage with
+    index_add_ (``histogram_binned_plain``), each against a float64 sum of
+    the same deposits (bar 1e-4 a bin, no stray bin); the IRs the tracer
+    returns from them; then, with ``flat_too``, K3's flat-bin entry on the
+    stage's same-ear flat bins (``flat_histogram_check``). Returns the
+    fused entry's numbers (K3's under "flat"). Times: the fused entry a
+    call and on the device, the PyTorch stage (its plain version), and
+    index_add_ alone over the same deposits (its library yardstick)."""
+    from audiorenderingv2_tpu_torch.core import tracer
+    from audiorenderingv2_tpu_torch.ops import histogram_cuda as hc
+
+    stage = (params.ir_length, params.is_mono, params.cross_ear_delay,
+             params.hrtf_absorption_rate)
+    n_bands = ev_w.shape[-1]
+    kern = hc.histogram_binned(ev_bin_f, ev_w, ev_ear, *stage)
+    plain = hc.histogram_binned_plain(ev_bin_f, ev_w, ev_ear, *stage)
+    rows, w64 = binned_deposits64(ev_bin_f, ev_w, ev_ear, params)
+    n_rows = kern.shape[0] * 2 * params.ir_length
+    ref = torch.zeros((n_rows, n_bands), dtype=torch.float64,
+                      device=kern.device).index_add_(0, rows, w64)
+    n_sub = subnormal_counts(rows, w64, ref.shape)
+    rel_k = _assert_deposit_bar(kern.reshape(n_rows, n_bands), ref, n_sub,
+                                f"fused stage, {what}")
+    rel_p = _assert_deposit_bar(plain.reshape(n_rows, n_bands), ref, n_sub,
+                                f"PyTorch stage, {what}")
+    irs = tracer._histogram_from_events_posed(ev_bin_f, ev_w, ev_ear, params)
+    want = plain if n_bands > 1 else plain[..., 0]
+    if n_bands > 1:
+        want = want.permute(0, 1, 3, 2)
+    assert irs.shape == want.shape, (what, irs.shape, want.shape)
+    ir_err = float((irs - want).abs().max() / want.abs().max())
+    assert ir_err < 1e-4, (what, ir_err)
+    call = lambda: hc.histogram_binned(ev_bin_f, ev_w, ev_ear, *stage)  # noqa
+    ms, dev_ms = median_ms(call, 20), device_ms(call)
+    plain_ms = median_ms(
+        lambda: hc.histogram_binned_plain(ev_bin_f, ev_w, ev_ear, *stage), 10)
+    library_ms = median_ms(
+        index_add_call(rows, w64.float(), n_rows), 20)
+    # Bytes: the events read once, the IRs written once; one add a deposit
+    # and band.
+    k_bound = bound(nbytes(ev_bin_f, ev_w, ev_ear, kern),
+                    rows.shape[0] * n_bands)
+    err = float((kern - plain).abs().max())
+    log(f"hard binning, {what}: {ev_bin_f.numel()} events x {n_bands} "
+        f"band(s), {rows.shape[0]} deposits ({int(n_sub.sum())} subnormal, "
+        f"in {int((n_sub > 0).sum())} bins) -> {tuple(kern.shape)}: fused "
+        f"entry within {rel_k:.3e} of the float64 sum per bin, PyTorch stage "
+        f"{rel_p:.3e} (bar 1e-4), no stray bin; the tracer's IRs within "
+        f"{ir_err:.3e} of the stage's peak; fused {ms:.4f} ms a call, "
+        f"{dev_ms:.4f} ms device (CUDA graph of 20), PyTorch stage "
+        f"{plain_ms:.4f} ms, index_add_ of the deposits alone "
+        f"{library_ms:.4f} ms, bound {k_bound['bound_ms']:.4f} ms by "
+        f"{k_bound['bound_by']}")
+    row = {"max_abs_err": err, "ms": ms, "device_ms": dev_ms,
+           "plain_ms": plain_ms, **k_bound, "library_ms": library_ms}
+    if flat_too:
+        nb = params.ir_length
+        b = torch.round(ev_bin_f).to(torch.int32)
+        pose = torch.arange(ev_bin_f.shape[0], dtype=torch.int32,
+                            device=b.device)[:, None]
+        active = (ev_w != 0).any(dim=-1)
+        n_bins = ev_bin_f.shape[0] * 2 * nb
+        flat = torch.where(active & (b >= 0) & (b < nb),
+                           (pose * 2 + ev_ear.to(torch.int32)) * nb + b,
+                           n_bins)
+        row["flat"] = flat_histogram_check(
+            flat.reshape(-1), ev_w.reshape(-1, n_bands).contiguous(), n_bins,
+            what)
+    return row
+
+
+def box_events(n_bands: int):
+    """The box render's own events at 1,000,064 rays x 100 bounces (its
+    round budgets; walls absorbing per band with ``n_bands`` > 1), as
+    ``trace_events`` returns them, with a pose axis: (ev_bin_f [1, E],
+    ev_w [1, E, n_bands], ev_ear int32 [1, E]), and its params."""
+    from audiorenderingv2_tpu_torch import testing, tuned
+    from audiorenderingv2_tpu_torch.core import tracer
+    from audiorenderingv2_tpu_torch.ops import raytrace_cuda as rc
+
+    dev = torch.device("cuda")
+    v, t = testing.box_room(ROOM)
+    absorb = ABSORPTION if n_bands == 1 else np.tile(
+        np.asarray((0.1, 0.25, 0.4, 0.6, 0.2, 0.3, 0.5, 0.7)[:n_bands],
+                   np.float32), (t.shape[0], 1))
+    sc = tracer.scene_to_arrays(testing.scene_from_arrays(v, t, absorb), 128,
+                                device=dev)
+    params = _box_params(n_bands)
+    rows, _ = rc.pack_scene(sc, n_bands)
+    ev = rc.trace_events(
+        rows, torch.from_numpy(unit_dirs(N_RAYS, 61)).to(dev),
+        torch.tensor(EMITTER, device=dev), torch.tensor(RECEIVER, device=dev),
+        0.0, params, round_budgets=tuned.round_budgets_for(MAX_BOUNCES))
+    return tuple(x[None] for x in ev), params
+
+
+def phase_box_events() -> tuple[dict, dict]:
+    """K3 and the hard-binning stage on the box render's own events (1, 4
+    and 8 bands; stereo and mono). Returns (K3's numbers on those events, the fused
+    entry's numbers: 1 band stereo, the other cases under their names)."""
+    result, flat = {}, {}
+    for n_bands in (1, 4, 8):
+        ev, params = box_events(n_bands)
+        for mono in (False, True):
+            p = dataclasses.replace(params, is_mono=mono)
+            name = f"{n_bands} band(s), {'mono' if mono else 'stereo'}"
+            row = binned_check(*ev, p, f"box render's events, {name}",
+                               flat_too=not mono)
+            if not mono:
+                flat[n_bands] = row.pop("flat")
+            result[name] = row
+    k3 = {**flat[1], "bands4": flat[4], "bands8": flat[8]}
+    first = result.pop("1 band(s), stereo")
+    return k3, {**first, "cases": result}
 
 
 def _dry_signals():
@@ -1492,7 +1711,8 @@ def box_matrix(n_bands: int):
         f"launches {launches}; peak device memory {peak:.0f} MiB")
     assert launches["trace_round_posed"] == len(MULTI_BUDGETS), launches
     assert launches["trace_round"] == 0, launches
-    assert launches["histogram"] == 1, launches
+    assert launches["histogram_binned"] == 1, launches
+    assert launches["histogram"] == 0, launches
     assert irs.shape == (2, 4, 2) + band_shape + (IR_SECONDS * SR,)
     assert np.isfinite(irs).all()
     nz = (irs > 0).sum(axis=-1)
@@ -1518,8 +1738,7 @@ def box_matrix(n_bands: int):
     ev = rc.trace_events_pose_batch(
         rows, _pose_directions(0, 8, N_RAYS, dev), em, rcv, yaw, params,
         round_budgets=MULTI_BUDGETS)
-    k3 = posed_histogram_check(*ev, params,
-                               f"2 x 4 matrix, {n_bands} band(s)")
+    k3 = binned_check(*ev, params, f"2 x 4 matrix, {n_bands} band(s)")
     return sc, rows, params, opts, irs, launches, k3
 
 
@@ -1598,7 +1817,7 @@ def phase_multipose() -> tuple[dict, dict]:
     assert olaunches["tile_schedule"] == OFFICE_BOUNCES, olaunches
     assert olaunches["trace_round_sched"] == 0, olaunches
     assert olaunches["trace_round"] == olaunches["trace_round_posed"] == 0
-    assert olaunches["histogram"] == 1, olaunches
+    assert olaunches["histogram_binned"] == 1, olaunches
     assert oirs.shape == (1, 4, 2, IR_SECONDS * SR)
     assert np.isfinite(oirs).all() and (oirs > 0).sum(axis=-1).min() >= 200
     osingle = tracer.render_ir(
@@ -1625,7 +1844,7 @@ def phase_multipose() -> tuple[dict, dict]:
     assert dlaunches["trace_traverse"] == 4 * OFFICE_BOUNCES, dlaunches
     assert dlaunches["trace_round_sched_posed"] == 0, dlaunches
     assert dlaunches["tile_schedule"] == dlaunches["trace_round"] == 0
-    assert dlaunches["histogram"] == 4, dlaunches
+    assert dlaunches["histogram_binned"] == 4, dlaunches
     testing.assert_ir_close(dirs_[0].reshape(-1, dirs_.shape[-1]),
                             oirs[0].reshape(-1, oirs.shape[-1]), exact=False)
     ddefault_ms = wall_ms(lambda: multi.render_ir_matrix(
@@ -1641,9 +1860,9 @@ def phase_multipose() -> tuple[dict, dict]:
         torch.from_numpy(OFFICE_LISTENERS).to(dev),
         torch.from_numpy(MULTI_YAWS).to(dev), oparams, boxes=oboxes,
         schedule=True)
-    posed_histogram_check(*oev, oparams, "office 1 x 4 matrix")
+    binned_check(*oev, oparams, "office 1 x 4 matrix")
     return ({"trace_round_posed": launches["trace_round_posed"],
-             "histogram_posed": launches["histogram"],
+             "histogram_posed": launches["histogram_binned"],
              "trace_round_sched_posed": olaunches["trace_round_sched_posed"]},
             k3)
 
@@ -1656,6 +1875,7 @@ def phase_banded() -> dict:
     from audiorenderingv2_tpu_torch.core import tracer
     from audiorenderingv2_tpu_torch.io import wav
     from audiorenderingv2_tpu_torch.ops import filterbank
+    from audiorenderingv2_tpu_torch.ops import raytrace_cuda as rc
 
     n_bands = len(BANDED_ABSORPTION)
     sc, rows, params, opts, irs, launches, _ = box_matrix(n_bands)
@@ -1689,7 +1909,8 @@ def phase_banded() -> dict:
         log(f"banded export: launches {xl}")
         assert r.params.n_bands == n_bands and r.boxes is None
         assert xl["trace_round"] == len(r.opts.round_budgets), xl
-        assert xl["histogram"] == 1 and xl["trace_round_posed"] == 0, xl
+        assert xl["histogram_binned"] == 1, xl
+        assert xl["trace_round_posed"] == 0, xl
         audio = wav.read_wav(Path(tmp) / "banded.wav")
         assert audio.n_channels == 2 and audio.sample_rate == SR
         assert audio.n_frames == 5 * SR and np.isfinite(audio.samples).all()
@@ -1729,6 +1950,20 @@ def phase_banded() -> dict:
             f"{conv_err:.3e} of its peak of the CPU's (bar 1e-4); render "
             f"{render_ms:.3f} ms (median of 5), banded convolve of the 5 s "
             f"signal {conv_ms:.3f} ms")
+
+    # The banded office matrix's histogram: its 1 x 4 x 250,000 rays
+    # through the posed schedule and K2 at 4 bands (the office's one
+    # absorption in every band), then the hard-binning stage.
+    dev = torch.device("cuda")
+    orows, oboxes = _office_packed(32, n_bands)
+    oev = rc.trace_events_pose_batch(
+        orows, _pose_directions(1, 4, OFFICE_MATRIX_RAYS, dev),
+        torch.zeros((4, 3), device=dev),
+        torch.from_numpy(OFFICE_LISTENERS).to(dev),
+        torch.from_numpy(MULTI_YAWS).to(dev), _office_params(n_bands),
+        boxes=oboxes, schedule=True)
+    binned_check(*oev, _office_params(n_bands),
+                 f"office 1 x 4 matrix, {n_bands} bands")
     return {"trace_round_posed_4band": launches["trace_round_posed"]}
 
 
@@ -3015,14 +3250,16 @@ def phase_experimentation() -> dict:
                 experiment.round_generator(0, 0, "cuda")).copy()
     renders = rounds + 1  # one warm-up
     d, v = launches["default"], launches["v1"]
-    assert d["trace_round"] == 3 * renders and d["histogram"] == renders, d
+    assert d["trace_round"] == 3 * renders, d
+    assert d["histogram_binned"] == renders, d
     assert d["trace_round_group"] == d["trace_round_v1"] == 0, d
     # explicit options take the default schedule (6, 12, 24, 58)
     for g in (launches["group"], launches["group_high"]):
         assert g["trace_round_group"] == 4 * renders, g
-        assert g["trace_round"] == 0 and g["histogram"] == renders, g
+        assert g["trace_round"] == 0, g
+        assert g["histogram_binned"] == renders, g
     assert v["trace_round_v1"] == 4 * renders and v["trace_round"] == 0, v
-    assert v["histogram"] == renders
+    assert v["histogram_binned"] == renders
     base = irs["default"]
     assert base.shape == (2, IR_SECONDS * SR) and np.isfinite(base).all()
     assert np.all((base > 0).sum(axis=1) >= 200)
@@ -3073,6 +3310,8 @@ def main() -> int:
     phase_build()
     k3 = phase_histogram()
     k1 = phase_trace()
+    k3_box, binned = phase_box_events()
+    k3["box_events"] = k3_box
     launches = phase_export()
     cluster = phase_cluster_kernels()
     office = phase_office_export()
@@ -3097,7 +3336,11 @@ def main() -> int:
         {"name": "histogram", "route": "cuda",
          "source": "audiorenderingv2_tpu_torch/csrc/histogram.cu",
          "replaces": "audiorenderingv2_tpu/ops/histogram_pallas.py:59",
-         "launches": launches["histogram"], **k3},
+         "launches": fit_launches["histogram"], **k3},
+        {"name": "histogram_binned", "route": "cuda",
+         "source": "audiorenderingv2_tpu_torch/csrc/histogram.cu",
+         "replaces": "audiorenderingv2_tpu/ops/histogram_pallas.py:59",
+         "launches": launches["histogram_binned"], **binned},
         {"name": "trace_round_sched", "route": "cuda",
          "source": "audiorenderingv2_tpu_torch/csrc/trace_sched.cu",
          "replaces": "audiorenderingv2_tpu/ops/raytrace_pallas_v2.py:501",

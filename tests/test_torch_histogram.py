@@ -150,3 +150,164 @@ def test_bwd_plain_equals_jax_bwd(n_bands, rem, view):
         histogram_cuda.histogram_bwd(b_t, torch.from_numpy(g)).numpy(), ref)
     out = (bins[view:] < 0) | (bins[view:] >= n_bins)
     assert out.sum() > e // 10 and not ref[out].any()
+
+
+def _hard_events(p, e, nb, n_bands, delay, seed):
+    """Pose-batched events for the hard-binning stage: arrival bins across
+    [-5, nb + 20) (out of range on both sides), a tenth at exact halves
+    (round half to even), a tenth in the last ``delay`` bins (the cross-ear
+    bin overflows), 30% inactive (every band zero), some active events with
+    a zero band, ears 0 and 1."""
+    rng = np.random.default_rng(seed)
+    bin_f = rng.uniform(-5, nb + 20, size=(p, e)).astype(np.float32)
+    halves = rng.random((p, e)) < 0.1
+    bin_f[halves] = rng.integers(-2, nb + 2, size=halves.sum()) + 0.5
+    tail = rng.random((p, e)) < 0.1
+    bin_f[tail] = rng.uniform(nb - delay - 1, nb - 0.5, size=tail.sum())
+    w = (rng.random((p, e, n_bands)) * 1e-4).astype(np.float32)
+    w[rng.random((p, e)) < 0.3] = 0.0
+    if n_bands > 1:
+        w[rng.random((p, e)) < 0.1, 0] = 0.0
+    ear = rng.integers(0, 2, size=(p, e)).astype(np.int32)
+    return bin_f, w, ear
+
+
+@pytest.mark.parametrize("p", [1, 3])
+@pytest.mark.parametrize("n_bands", [1, 4, 8])
+@pytest.mark.parametrize("mono", [False, True])
+def test_hard_binning_plain_route_matches_jax(mono, n_bands, p):
+    """The hard-binning stage as the port runs it on a CPU tensor (the
+    fused entry's plain route) against the JAX function on its CPU
+    histogram, pose by pose (the sort path, hence the file's tolerance):
+    stereo and mono, 1, 4 and 8 bands, events at exact halves, in the last
+    ``delay`` bins, out of range, inactive, and P > 1."""
+    nb = 3000
+    params = ar.TraceParams(sample_rate=8000, ir_length=nb,
+                            hrtf_absorption_rate=0.8, is_mono=mono,
+                            n_bands=n_bands)
+    delay = params.cross_ear_delay
+    bin_f, w, ear = _hard_events(p, 2000, nb, n_bands, delay,
+                                 seed=100 * n_bands + 10 * p + mono)
+    got = t_tracer._histogram_from_events_posed(
+        torch.from_numpy(bin_f), torch.from_numpy(w), torch.from_numpy(ear),
+        convert.trace_params_from_jax(params)).numpy()
+    if p == 1:
+        ref = np.asarray(j_tracer._histogram_from_events(
+            jnp.asarray(bin_f[0]), jnp.asarray(w[0]), jnp.asarray(ear[0]),
+            params, False, use_pallas_hist=False))[None]
+    else:
+        ref = np.asarray(j_tracer._histogram_from_events_posed(
+            jnp.asarray(bin_f), jnp.asarray(w), jnp.asarray(ear), params,
+            use_pallas_hist=False))
+    assert got.shape == ref.shape
+    np.testing.assert_allclose(got, ref, rtol=1e-5,
+                               atol=2 * _sort_path_atol(w.reshape(-1,
+                                                                  n_bands)))
+    assert delay > 0 and ref.sum() > 0
+    # the overflow fallback and the halves were exercised
+    b = np.rint(bin_f)
+    assert ((b >= nb - delay) & (b < nb)).sum() > 50
+    assert (bin_f == np.floor(bin_f) + 0.5).sum() > 50
+
+
+def _deposit_model(bin_f, w, ear, nb, mono, delay, scale):
+    """The fused kernel's rule, event by event in float64: an active event
+    (a non-zero band) whose rint bin is in [0, nb) adds w at (pose, ear, b)
+    and, unless mono, the float32 product scale * w at (pose, 1 - ear,
+    b + delay), or at b when b + delay >= nb."""
+    p, e, n_bands = w.shape
+    out = np.zeros((p, 2, nb, n_bands))
+    b = np.rint(bin_f)
+    keep = (w != 0).any(axis=-1) & (b >= 0) & (b < nb)
+    pose = np.broadcast_to(np.arange(p)[:, None], (p, e))[keep]
+    side, bi, wk = ear[keep] != 0, b[keep].astype(np.int64), w[keep]
+    np.add.at(out, (pose, side.astype(int), bi), wk.astype(np.float64))
+    if not mono:
+        cb = np.where(bi + delay < nb, bi + delay, bi)
+        cross = (np.float32(scale) * wk).astype(np.float64)
+        np.add.at(out, (pose, 1 - side.astype(int), cb), cross)
+    return out
+
+
+@pytest.mark.parametrize("delay", [0, 7, 3010])
+@pytest.mark.parametrize("n_bands", [1, 4])
+@pytest.mark.parametrize("mono", [False, True])
+def test_deposit_rule_equals_the_two_step_stage(mono, n_bands, delay):
+    """A numpy model of the fused kernel's per-event rule (two deposits an
+    event) against the two-step PyTorch stage (same-ear sum, then the
+    cross-ear shift of the finished histogram): the shift's overflow
+    fallback is the per-event b + delay >= nb -> b, for a delay of 0, inside
+    the IR and past its end. Sums in another order: rtol 1e-5."""
+    nb, p = 500, 2
+    bin_f, w, ear = _hard_events(p, 3000, nb, n_bands, max(delay, 10),
+                                 seed=7 * delay + n_bands + mono)
+    hrtf = 0.9
+    got = histogram_cuda.histogram_binned(
+        torch.from_numpy(bin_f), torch.from_numpy(w), torch.from_numpy(ear),
+        nb, mono, delay, hrtf)
+    want = _deposit_model(bin_f, w, ear, nb, mono, delay,
+                          np.float32(1.0 - hrtf))
+    assert got.shape == (p, 2, nb, n_bands) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-12)
+    assert not got.numpy()[want == 0].any()  # no bin without a deposit
+    assert want.sum() > 0
+
+
+def test_hard_binning_gradient_takes_the_two_step_stage():
+    """With weights that need a gradient the stage runs through the
+    differentiable K3 (forward K3, backward K3-bwd): d(sum(R * hist)) / dw
+    of a kept event is R at its same-ear bin plus (1 - hrtf) times R at its
+    cross-ear bin, and 0 for a dropped event."""
+    nb, hrtf = 400, 0.8
+    tparams = convert.trace_params_from_jax(ar.TraceParams(
+        sample_rate=8000, ir_length=nb, hrtf_absorption_rate=hrtf))
+    delay = tparams.cross_ear_delay
+    assert delay > 0
+    bin_f, w, ear = _hard_events(2, 1500, nb, 1, delay, seed=5)
+    w_t = torch.from_numpy(w).requires_grad_(True)
+    ir = t_tracer._histogram_from_events_posed(
+        torch.from_numpy(bin_f), w_t, torch.from_numpy(ear), tparams)
+    r = torch.from_numpy(np.random.default_rng(6).standard_normal(
+        ir.shape).astype(np.float32))
+    (ir * r).sum().backward()
+    rn = r.numpy()
+    b = np.rint(bin_f)
+    keep = (w[..., 0] != 0) & (b >= 0) & (b < nb)
+    bi = np.clip(b, 0, nb - 1).astype(int)
+    pose = np.broadcast_to(np.arange(2)[:, None], bin_f.shape)
+    cb = np.where(bi + delay < nb, bi + delay, bi)
+    want = rn[pose, ear, bi] + np.float32(1 - hrtf) * rn[pose, 1 - ear, cb]
+    got = w_t.grad.numpy()[..., 0]
+    np.testing.assert_allclose(got[keep], want[keep], rtol=1e-5, atol=1e-6)
+    assert not got[~keep].any()
+    assert keep.sum() > 1000 and (~keep).sum() > 100
+
+
+def test_histogram_binned_checks():
+    """The fused entry's wrapper checks before it dispatches; on the CPU it
+    runs the plain version and launches nothing."""
+    f = torch.zeros(2, 8)
+    w = torch.ones(2, 8, 1)
+    ear = torch.zeros(2, 8, dtype=torch.int32)
+    args = (100, False, 3, 0.9)
+    with pytest.raises(TypeError, match="float32 arrival bins"):
+        histogram_cuda.histogram_binned(f.double(), w, ear, *args)
+    with pytest.raises(TypeError, match="int32 ears"):
+        histogram_cuda.histogram_binned(f, w, ear.long(), *args)
+    with pytest.raises(TypeError, match="int32 ears"):
+        histogram_cuda.histogram_binned(f, w, ear.float(), *args)
+    with pytest.raises(ValueError, match=r"ev_w \[P, E, n_bands\]"):
+        histogram_cuda.histogram_binned(f, w[:, :5], ear, *args)
+    with pytest.raises(ValueError, match=r"ev_w \[P, E, n_bands\]"):
+        histogram_cuda.histogram_binned(f[0], w[0], ear[0], *args)
+    with pytest.raises(ValueError, match="contiguous"):
+        histogram_cuda.histogram_binned(f.T.contiguous().T, w, ear, *args)
+    with pytest.raises(ValueError, match="delay >= 0"):
+        histogram_cuda.histogram_binned(f, w, ear, 100, False, -1, 0.9)
+    with pytest.raises(ValueError, match="no histogram kernel"):
+        histogram_cuda.histogram_binned(f.to("meta"), w.to("meta"),
+                                        ear.to("meta"), *args)
+    before = histogram_cuda.binned_launches
+    out = histogram_cuda.histogram_binned(f, w, ear, *args)
+    assert out.shape == (2, 2, 100, 1)
+    assert histogram_cuda.binned_launches == before
