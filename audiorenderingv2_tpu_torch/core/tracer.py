@@ -372,13 +372,14 @@ def _start_state(dirs_block, energy0, emitter, n_bands: int) -> _RayState:
 
 def _trace_block(dirs_block, energy0, sc, emitter, rec_center, yaw_rad,
                  params: TraceParams, opts: TracerOptions):
-    """Trace one block of rays to the end; returns its event slots."""
+    """Trace one block of rays to the end; returns its event slots and
+    each ray's completed bounces."""
     state = _start_state(dirs_block, energy0, emitter, params.n_bands)
     for _ in range(params.max_bounces):
         if opts.early_exit and bool(state.done.all()):
             break
         state, _ = _bounce_step(state, sc, rec_center, yaw_rad, params, opts)
-    return state.ev_bin_f, state.ev_w, state.ev_ear
+    return state.ev_bin_f, state.ev_w, state.ev_ear, state.depth
 
 
 def _trace_events_autograd(sc: SceneArrays, directions, emitter, rec_center,
@@ -386,8 +387,8 @@ def _trace_events_autograd(sc: SceneArrays, directions, emitter, rec_center,
                            opts: TracerOptions, n_total_rays: int | None):
     """The event slots of ``directions`` [N, 3] through the autograd
     backend, block by block: (ev_bin_f [N], ev_w [N, n_bands], ev_ear
-    int32 [N]). A tail block is padded with zero directions of zero
-    energy."""
+    int32 [N], depth int32 [N], each ray's completed bounces). A tail block
+    is padded with zero directions of zero energy."""
     from torch.utils.checkpoint import checkpoint
 
     n = directions.shape[0]
@@ -411,7 +412,7 @@ def _trace_events_autograd(sc: SceneArrays, directions, emitter, rec_center,
             outs.append(checkpoint(block_fn, d, e, use_reentrant=False))
         else:
             outs.append(block_fn(d, e))
-    return tuple(torch.cat([o[k] for o in outs])[:n] for k in range(3))
+    return tuple(torch.cat([o[k] for o in outs])[:n] for k in range(4))
 
 
 def _soft_slots(bin_f: torch.Tensor, active: torch.Tensor, n_bins: int):
@@ -547,12 +548,23 @@ def _kernels_only(opts: TracerOptions, what: str) -> None:
                          f"backend={opts.backend!r} form")
 
 
+def _ir_from_events(events, params: TraceParams, opts: TracerOptions,
+                    with_stats: bool):
+    """The IR of ``events`` (ev_bin_f, ev_w, ev_ear[, depth]), and with
+    ``with_stats`` also ``{"bounces": depth as f32}``."""
+    ir = _histogram_from_events(*events[:3], params, opts.soft_binning)
+    if not with_stats:
+        return ir
+    return ir, {"bounces": events[3].to(torch.float32)}
+
+
 def trace_ir(sc: SceneArrays, directions: torch.Tensor, emitter,
              receiver_pos, receiver_yaw_deg: float, params: TraceParams,
              opts: TracerOptions = TracerOptions(),
              n_total_rays: int | None = None,
              rows: torch.Tensor | None = None,
-             boxes: torch.Tensor | None = None) -> torch.Tensor:
+             boxes: torch.Tensor | None = None,
+             with_stats: bool = False):
     """Trace ``directions`` [N, 3] and return the stereo IR histogram on
     the scene's device: f32 [2, ir_length], or [2, n_bands, ir_length]
     when ``params.n_bands > 1``. Mono folding is the renderer's job.
@@ -570,26 +582,31 @@ def trace_ir(sc: SceneArrays, directions: torch.Tensor, emitter,
     ``emitter``, ``receiver_pos`` and the scene's tensors may require
     gradients (with ``opts.soft_binning`` the arrival time has one too);
     ``rows`` and ``boxes`` are not used. An unknown backend is refused when
-    the options are made."""
+    the options are made.
+
+    ``with_stats`` returns ``(ir, {"bounces": f32})`` instead: each ray's
+    completed bounces, the useful-work count. The kernels give it for the
+    padded state, [N rounded up to 128], in the order the state ends in
+    (the alive-first partition and the coherent sort permute the rays;
+    padding rays count 0); the autograd backend for the N rays in order."""
     from ..ops import raytrace_cuda
 
     dev = sc.device
     directions = directions.to(device=dev, dtype=torch.float32)
     if not runs_kernels(opts, params):
-        ev = _trace_events_autograd(
+        events = _trace_events_autograd(
             sc, directions, _as_vec(emitter, dev), _as_vec(receiver_pos, dev),
             receiver_yaw_deg, params, opts, n_total_rays)
-        return _histogram_from_events(*ev, params, opts.soft_binning)
+        return _ir_from_events(events, params, opts, with_stats)
     rows, boxes = packed_scene(sc, params, rows, boxes, opts)
-    ev_bin_f, ev_w, ev_ear = raytrace_cuda.trace_events(
+    events = raytrace_cuda.trace_events(
         rows, directions.contiguous(),
         _as_vec(emitter, dev), _as_vec(receiver_pos, dev),
         float(receiver_yaw_deg), params, n_total_rays=n_total_rays,
         compact=opts.compact, round_budgets=opts.round_budgets, boxes=boxes,
         schedule=opts.schedule, layout=opts.layout, version=opts.version,
-        precision=opts.precision)
-    return _histogram_from_events(ev_bin_f, ev_w, ev_ear, params,
-                                  opts.soft_binning)
+        precision=opts.precision, return_depth=with_stats)
+    return _ir_from_events(events, params, opts, with_stats)
 
 
 def render_ir(sc: SceneArrays, generator: torch.Generator, n_rays: int,
@@ -597,9 +614,11 @@ def render_ir(sc: SceneArrays, generator: torch.Generator, n_rays: int,
               params: TraceParams, opts: TracerOptions = TracerOptions(),
               n_total_rays: int | None = None,
               rows: torch.Tensor | None = None,
-              boxes: torch.Tensor | None = None) -> torch.Tensor:
+              boxes: torch.Tensor | None = None,
+              with_stats: bool = False):
     """Sample ``n_rays`` directions from ``generator`` on the scene's
-    device and trace them (``rows``, ``boxes`` as in :func:`trace_ir`).
+    device and trace them (``rows``, ``boxes``, ``with_stats`` as in
+    :func:`trace_ir`).
 
     With ``opts.native_rng`` the generator gives only a seed (an integer
     below 2^23, which survives its f32 scalar slot exactly) and K4
@@ -615,18 +634,17 @@ def render_ir(sc: SceneArrays, generator: torch.Generator, n_rays: int,
         _kernels_only(opts, "native_rng")
         rows, boxes = packed_scene(sc, params, rows, boxes, opts)
         seed = torch.randint(0, 2**23, (), generator=generator, device=dev)
-        ev_bin_f, ev_w, ev_ear = raytrace_cuda.trace_events(
+        events = raytrace_cuda.trace_events(
             rows, None, _as_vec(emitter, dev), _as_vec(receiver_pos, dev),
             float(receiver_yaw_deg), params, n_total_rays=n_total_rays,
             compact=opts.compact, round_budgets=opts.round_budgets,
             boxes=boxes, n_rays=n_rays, native_rng_seed=seed,
             schedule=opts.schedule, layout=opts.layout,
-            precision=opts.precision)
-        return _histogram_from_events(ev_bin_f, ev_w, ev_ear, params,
-                                      opts.soft_binning)
+            precision=opts.precision, return_depth=with_stats)
+        return _ir_from_events(events, params, opts, with_stats)
     dirs = sampling.sample_directions(n_rays, generator, dev)
     return trace_ir(sc, dirs, emitter, receiver_pos, receiver_yaw_deg,
-                    params, opts, n_total_rays, rows, boxes)
+                    params, opts, n_total_rays, rows, boxes, with_stats)
 
 
 def render_ir_pose_batch(sc: SceneArrays, seed: int, n_rays: int, emitters,

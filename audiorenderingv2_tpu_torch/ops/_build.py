@@ -22,6 +22,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
@@ -116,32 +117,40 @@ def _run_all(cmds: list[list[str]]) -> tuple[str, bool]:
     return log + f"# {time.perf_counter() - t0:.2f} s\n", ok
 
 
+# One build at a time in a process: its object files are named by the pid,
+# and the first launch may come from a render worker's thread
+# (``streaming.AsyncRenderWorker``) while the main thread launches too.
+_BUILD_LOCK = threading.Lock()
+
+
 def build() -> Path:
     """Compile the library if it is not built yet; return its path. The
     compiler's output (registers, shared memory, spills per kernel) is kept
-    beside it in ``build.log``."""
-    out_dir = build_dir()
-    lib = out_dir / LIB_NAME
-    if lib.exists():
+    beside it in ``build.log``. Threads of one process build in turn;
+    processes each build under their own names and the last rename wins."""
+    with _BUILD_LOCK:
+        out_dir = build_dir()
+        lib = out_dir / LIB_NAME
+        if lib.exists():
+            return lib
+        out_dir.mkdir(parents=True, exist_ok=True)
+        tag = os.getpid()
+        objs = [out_dir / f"{src.stem}.{tag}.o" for src in sources()]
+        log, ok = _run_all([[_nvcc(), *NVCC_FLAGS, "-c", "-o", str(obj),
+                             str(src)] for src, obj in zip(sources(), objs)])
+        tmp = out_dir / f"{LIB_NAME}.{tag}.tmp"
+        if ok:
+            link_log, ok = _run_all([[_nvcc(), *ARCH, "-shared", "-o",
+                                      str(tmp), *map(str, objs)]])
+            log += link_log
+        (out_dir / "build.log").write_text(log)
+        for obj in objs:
+            obj.unlink(missing_ok=True)
+        if not ok:
+            tmp.unlink(missing_ok=True)
+            raise RuntimeError(f"nvcc failed:\n{log}")
+        os.replace(tmp, lib)  # atomic: a loader never sees half a file
         return lib
-    out_dir.mkdir(parents=True, exist_ok=True)
-    tag = os.getpid()
-    objs = [out_dir / f"{src.stem}.{tag}.o" for src in sources()]
-    log, ok = _run_all([[_nvcc(), *NVCC_FLAGS, "-c", "-o", str(obj),
-                         str(src)] for src, obj in zip(sources(), objs)])
-    tmp = out_dir / f"{LIB_NAME}.{tag}.tmp"
-    if ok:
-        link_log, ok = _run_all([[_nvcc(), *ARCH, "-shared", "-o", str(tmp),
-                                  *map(str, objs)]])
-        log += link_log
-    (out_dir / "build.log").write_text(log)
-    for obj in objs:
-        obj.unlink(missing_ok=True)
-    if not ok:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed:\n{log}")
-    os.replace(tmp, lib)  # atomic: a concurrent loader never sees half a file
-    return lib
 
 
 @functools.cache

@@ -15,6 +15,8 @@ them outside any Pallas kernel:
   own IRs (the filterbank's bands, the listeners of ``multi.mix_sources``).
 * ``convolve_live``: one circular convolution at ir_length, same x2 scale.
 * ``interleave_stereo``: LRLR interleave.
+* ``convolve_linear``: a true linear convolution through one zero-padded
+  FFT, with no time aliasing and no scale.
 """
 from __future__ import annotations
 
@@ -53,6 +55,9 @@ def convolve_file_multi(samples: torch.Tensor, irs: torch.Tensor,
         raise ValueError("ir_length must be a multiple of sample_rate")
     k = ir_length // sample_rate
     n_seconds = length // sample_rate
+    if n_seconds == 0:  # no whole second: silence, as in the JAX package
+        return torch.zeros((n_sig, n_ch, length), dtype=torch.float32,
+                           device=irs.device)
     segs = samples[:, :n_seconds * sample_rate].reshape(
         n_sig, n_seconds, sample_rate)
     segs = torch.nn.functional.pad(segs, (0, ir_length - sample_rate))
@@ -91,3 +96,21 @@ def convolve_live(block: torch.Tensor, ir_stereo: torch.Tensor,
 def interleave_stereo(left: torch.Tensor, right: torch.Tensor) -> torch.Tensor:
     """[n], [n] -> [2n] interleaved LRLR."""
     return torch.stack([left, right], dim=-1).reshape(-1)
+
+
+def convolve_linear(samples: torch.Tensor, ir: torch.Tensor,
+                    out_length: int | None = None) -> torch.Tensor:
+    """Linear convolution of ``samples`` [L] with ``ir`` [K] through one FFT
+    of the next power of two >= L + K - 1 (no time aliasing), on the IR's
+    device; returns f32 [out_length], by default L + K - 1, truncated or
+    zero-padded to it."""
+    ir = torch.as_tensor(ir, dtype=torch.float32)
+    samples = torch.as_tensor(samples, dtype=torch.float32, device=ir.device)
+    full = samples.shape[0] + ir.shape[0] - 1
+    nfft = 1 << (full - 1).bit_length()
+    y = torch.fft.irfft(torch.fft.rfft(samples, n=nfft)
+                        * torch.fft.rfft(ir, n=nfft), n=nfft)[:full]
+    if out_length is not None:
+        y = (y[:out_length] if full >= out_length
+             else torch.nn.functional.pad(y, (0, out_length - full)))
+    return y

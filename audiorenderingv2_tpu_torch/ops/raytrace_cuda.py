@@ -857,7 +857,7 @@ def _no_boxes_in_groups(layout: str, boxes: torch.Tensor | None) -> None:
 def _trace_events_v1(tris: torch.Tensor, directions: torch.Tensor,
                      emitter: torch.Tensor, scal: torch.Tensor, e0: float,
                      n_pad: int, params: TraceParams, budgets: list[int],
-                     compact: bool):
+                     compact: bool, return_depth: bool):
     """The rounds of version 1: K7 over a row-major state [n_pad, 16] that
     stays row-major from the first round to the last, the alive-first
     partition between rounds a gather of rows."""
@@ -868,9 +868,10 @@ def _trace_events_v1(tris: torch.Tensor, directions: torch.Tensor,
         state = v1_cuda.trace_round_v1(state, tris, scal, params, budget)
         if compact and k + 1 < len(budgets):
             state = _partition_alive_first(state, ray_dim=0)
-    return (state[:, _C_EVB].contiguous(),
-            state[:, _C_EVW:_C_EVW + 1].contiguous(),
-            state[:, _C_EVE].to(torch.int32))
+    events = (state[:, _C_EVB].contiguous(),
+              state[:, _C_EVW:_C_EVW + 1].contiguous(),
+              state[:, _C_EVE].to(torch.int32))
+    return events + (state[:, _C_DEPTH].clone(),) if return_depth else events
 
 
 def _event_weights(state: torch.Tensor, n_bands: int) -> torch.Tensor:
@@ -891,7 +892,8 @@ def trace_events(tris, directions: torch.Tensor | None,
                  n_rays: int | None = None,
                  native_rng_seed: torch.Tensor | None = None,
                  schedule: bool = False, layout: str = "rows",
-                 version: int = 2, precision: str = "highest"):
+                 version: int = 2, precision: str = "highest",
+                 return_depth: bool = False):
     """Trace ``directions`` [N, 3] in bounce rounds.
 
     ``tris``, ``boxes``: from :func:`pack_scene` under the same ``layout``
@@ -917,7 +919,9 @@ def trace_events(tris, directions: torch.Tensor | None,
     ``native_rng_seed``, a 0-dim integer tensor below 2^23 on the device.
 
     Returns the event slots (ev_bin_f f32 [n_pad], ev_w f32 [n_pad,
-    n_bands], ev_ear int32 [n_pad]); padding rays carry zero weight.
+    n_bands], ev_ear int32 [n_pad]); padding rays carry zero weight. With
+    ``return_depth`` also the final state's depth row, f32 [n_pad]: each
+    ray's completed bounces, in the order of the other slots.
     """
     if directions is None and (version != 2 or native_rng_seed is None
                                or n_rays is None):
@@ -935,7 +939,7 @@ def trace_events(tris, directions: torch.Tensor | None,
     scal = scalars(emitter, receiver_pos, receiver_yaw_deg, e0, params)
     if version == 1:
         return _trace_events_v1(tris, directions, emitter, scal, e0, n_pad,
-                                params, budgets, compact)
+                                params, budgets, compact, return_depth)
     if directions is None:
         seeded = scal.clone()
         seeded[_S_PAD14] = native_rng_seed.to(torch.float32)
@@ -945,9 +949,10 @@ def trace_events(tris, directions: torch.Tensor | None,
     state = _run_rounds(state, tris, boxes, scal, params, budgets, compact,
                         schedule=schedule, layout=layout,
                         precision=precision)
-    return (state[_C_EVB].contiguous(),
-            _event_weights(state, params.n_bands).T.contiguous(),
-            state[_C_EVE].to(torch.int32))
+    events = (state[_C_EVB].contiguous(),
+              _event_weights(state, params.n_bands).T.contiguous(),
+              state[_C_EVE].to(torch.int32))
+    return events + (state[_C_DEPTH].clone(),) if return_depth else events
 
 
 def trace_events_pose_batch(tris, directions: torch.Tensor,

@@ -9,14 +9,16 @@ on the device for the convolutions.
 A scene with per-band absorption ([T, n_bands]) switches the whole pipeline
 to per-band IRs and filterbank auralization (``ops/filterbank.py``).
 
-Not ported yet (ROADMAP.md): the live-input convolution of the streaming
-layer (Queue 1 item 10).
+Public surface as in the JAX package: ``render``, ``convolve_audio_file``,
+``convolve_live_input`` (the live path of ``streaming.LiveConvolver``), the
+setters and ``full_render_cycle``.
 """
 from __future__ import annotations
 
 import dataclasses
 import os
 import threading
+import time
 
 import numpy as np
 import torch
@@ -27,6 +29,7 @@ from .core.tracer import (TracerOptions, packed_scene, render_ir,
                           scene_to_arrays)
 from .ops import convolve, filterbank
 from .scene import Scene
+from .utils.logging import get_logger
 
 
 class AudioRenderer:
@@ -217,12 +220,14 @@ class AudioRenderer:
         as soon as a CUDA device has the work queued."""
         return float(self.convolve_audio_file_device(samples).sum())
 
-    def convolve_audio_file(self, samples: np.ndarray) -> np.ndarray:
-        """Convolve a full signal with the current IR: overlap-add per 1 s
-        segment, output truncated to the input length. Returns float32
+    def convolve_audio_file(self, samples) -> np.ndarray:
+        """Convolve a full signal (an array, or a tensor on any device,
+        which moves to the renderer's) with the current IR: overlap-add per
+        1 s segment, output truncated to the input length. Returns float32
         [2, L] on the host."""
-        out = self.convolve_audio_file_device(
-            np.asarray(samples, np.float32)).cpu().numpy()
+        if not isinstance(samples, torch.Tensor):
+            samples = np.asarray(samples, np.float32)
+        out = self.convolve_audio_file_device(samples).cpu().numpy()
         if self.write_output_to_file_flag:
             for name, channel in (("left", out[0]), ("right", out[1])):
                 np.savetxt(os.path.join(self.dump_dir,
@@ -231,12 +236,55 @@ class AudioRenderer:
             self.write_output_to_file_flag = False
         return out
 
+    def convolve_live_input(self, block, ring_buffer) -> None:
+        """Convolve one live input block [n_frames] with the current IR and
+        add it to ``ring_buffer`` (``streaming.RingBuffer`` or
+        ``native.NativeRingBuffer``; convoluteLiveInput,
+        AudioRenderer.cpp:593-660). The block is zero-padded to ir_length on
+        the IR's device and circularly convolved with both ears (through the
+        filterbank for a banded IR); the LRLR interleave of the two comes to
+        the host in one copy, [2 * ir_length] f32, for the ring's
+        accumulate."""
+        if self._ir_dev is None:
+            raise RuntimeError("render() an IR first")
+        n = self.params.ir_length
+        block = torch.as_tensor(block, dtype=torch.float32,
+                                device=self._ir_dev.device)
+        if block.shape[0] > n:
+            raise ValueError("live block longer than the IR")
+        padded = torch.nn.functional.pad(block, (0, n - block.shape[0]))
+        if self._ir_dev.dim() == 3:
+            out = filterbank.convolve_live_banded(
+                padded, self._ir_dev, self.params.sample_rate,
+                self.band_edges)
+        else:
+            out = convolve.convolve_live(padded, self._ir_dev)
+        ring_buffer.add(convolve.interleave_stereo(out[0], out[1])
+                        .cpu().numpy())
+
     # ---------------------------------------------------------- full cycle
     def full_render_cycle(self, receiver_pos, receiver_yaw_deg: float,
-                          samples: np.ndarray) -> np.ndarray:
+                          samples) -> np.ndarray:
         """Move the listener, re-render, convolve; returns the stereo
-        output [2, L]."""
+        output [2, L] on the host. ``samples``: an array, or a tensor on
+        any device (``streaming.Auralizer`` stages it once on the
+        renderer's).
+
+        Emits one ``full_render_cycle`` record through ``utils.logging``
+        (silent until configured): ``render_ms``, fenced by ``render``'s
+        copy of the IR to the host, and ``convolve_ms``, fenced by the
+        output's."""
         with self.lock:
+            t0 = time.perf_counter()
             self.set_receiver(receiver_pos, receiver_yaw_deg)
             self.render()
-            return self.convolve_audio_file(samples)
+            t_render = time.perf_counter() - t0
+            out = self.convolve_audio_file(samples)
+            get_logger().event(
+                "full_render_cycle",
+                render_ms=round(t_render * 1e3, 3),
+                convolve_ms=round((time.perf_counter() - t0 - t_render)
+                                  * 1e3, 3),
+                receiver=list(np.asarray(receiver_pos, dtype=float)),
+                yaw_deg=float(receiver_yaw_deg))
+            return out

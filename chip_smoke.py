@@ -170,7 +170,27 @@ Phases, in order; any failure raises and the script exits non-zero:
    summaries printed; round 0's IR of each manual route against the
    default route's (per-ear energy within 1e-3, relative L1 < 1e-2); then
    a native_rng render with the group layout (K4 then K6) against the same
-   render with rows.
+   render with rows;
+21. the reference's default application, the CLI's main mode, as a user
+   runs it on the box config (1M rays x 100 bounces, a 2 s IR, the 5 s
+   signal, the 9-key half orbit), its full_render_cycle records logged:
+   K1 and the hard-binning entry ran, the renders fell at the poses the
+   same policy gives on the host alone, the WAV is stereo, 5 s, finite,
+   peak 1 within 1e-3; median render and convolve ms; at the first and
+   last rendered poses trace_ir(with_stats=True) on 65,536 shared
+   directions on the card against the CPU plain path (the IR on
+   assert_ir_close(exact=False), the bounce sums within 1e-3 and at most
+   0.5% of the sorted counts differing). Then the live duplex path on the
+   box and on the office (1M rays x 32 bounces): an AsyncRenderWorker
+   re-rendering while a LiveConvolver streams 60 blocks of 512 frames,
+   paced at their 32 ms, into the native engine (built with g++ from
+   native/), a re-render asked every 20 blocks: every block finite, every
+   silenced block all zeros, at least 2 re-renders, underruns within the
+   silenced blocks' ticks; block latency median and p99, blocks silenced
+   for each re-render; one live block against the CPU on the same IR
+   (relative L2 1e-5), and the same for the 4-band box through
+   convolve_live_banded; last render_ir(with_stats=True) on the box and
+   the office at 1M rays: the bounce sum, rays/s.
 
 Then one JSON line of the kernels: name, route, source, the TPU kernel it
 replaces, launches on its main path (the export of phase 5, whose IR is
@@ -178,7 +198,11 @@ the fused hard-binning entry's, and for K3's flat-bin entry the office fit
 of phase 17, which bins softly; for K6 and K7
 the experimentation runs of phase 20, for the posed K6 the matrix of phase
 18; for the
-clustered route's kernels that of phase 7; for the posed kernels and the
+clustered route's kernels that of phase 7; K1, the hard-binning entry, the
+schedule and K2 also give the launches of phase 21's runs,
+"main_mode_launches" (the main mode) and "live_launches" (the live duplex
+runs: the box's for K1, the office's for the schedule and K2, both for the
+hard-binning entry); for the posed kernels and the
 posed histogram the matrices of phase 10 (for the posed histogram its fused hard-binning entry), for the
 4-band posed K1 that of phase 12; for K4 the render of phase 11; for K3-bwd the office fit of phase
 17; for K5 the recording without the schedule of phase 15), max abs error,
@@ -3295,6 +3319,306 @@ def phase_experimentation() -> dict:
     return launches
 
 
+# The live path of phase 21: blocks of 512 frames (32 ms at 16 kHz), paced
+# at that period like an audio callback, a re-render requested every 20.
+LIVE_BLOCK = 512
+LIVE_BLOCKS = 60
+LIVE_RERENDER_EVERY = 20
+LIVE_BAR = 1e-5          # relative L2 of a live block, card against the CPU
+STATS_DIFFER_SHARE = 5e-3  # bounce counts: sorted positions that may differ
+
+
+def _rel_l2(got, want) -> float:
+    return float(np.linalg.norm(got - want) / np.linalg.norm(want))
+
+
+def _expected_renders(cfg: Path) -> list:
+    """The poses at which the main mode re-renders, from its trajectory and
+    policy run on the host alone (both deterministic): the Auralizer's walk
+    in 0.25 s chunks of the 5 s signal."""
+    from audiorenderingv2_tpu_torch import cli, config, streaming
+
+    c = config.load_config(cfg)
+    traj = streaming.ListenerTrajectory(cli.default_trajectory(
+        c.scene.initial_receiver_pos, c.scene.initial_emitter_pos, 5.0))
+    policy = streaming.ReRenderPolicy(
+        distance_threshold=c.renderer.re_render_distance_threshold,
+        angle_threshold=c.renderer.re_render_angle_threshold)
+    poses = []
+    for start in range(0, 5 * SR, int(round(0.25 * SR))):
+        pos, yaw = traj.at(start / SR)
+        if policy.should_render(start / SR, pos, yaw):  # fires first
+            poses.append(([float(x) for x in pos], float(yaw)))
+    return poses
+
+
+def _card_against_cpu(r, scene, receiver, yaw, what: str) -> dict:
+    """65,536 shared directions through ``trace_ir(with_stats=True)`` on the
+    card and on the CPU plain path at one pose: the IRs on the export's bar
+    (assert_ir_close(exact=False)); the bounce counts with sums within 1e-3
+    relative and at most STATS_DIFFER_SHARE of the sorted positions
+    differing (a grazing hit sends a ray another way, here as between any
+    two float orders). Returns the counts' comparison."""
+    from audiorenderingv2_tpu_torch import testing
+    from audiorenderingv2_tpu_torch.core import tracer
+
+    d = unit_dirs(65536, 21)
+    args = (r.emitter_pos, np.asarray(receiver, np.float32), yaw, r.params,
+            r.opts)
+    ir_gpu, st_gpu = tracer.trace_ir(r.sc, torch.from_numpy(d).cuda(), *args,
+                                     with_stats=True)
+    ir_cpu, st_cpu = tracer.trace_ir(tracer.scene_to_arrays(scene),
+                                     torch.from_numpy(d), *args,
+                                     with_stats=True)
+    testing.assert_ir_close(ir_gpu.cpu().numpy(), ir_cpu.numpy(),
+                            exact=False)
+    a = np.sort(st_gpu["bounces"].cpu().numpy())
+    b = np.sort(st_cpu["bounces"].numpy())
+    differ = int((a != b).sum())
+    sums = (float(a.astype(np.float64).sum()), float(b.astype(np.float64)
+                                                     .sum()))
+    assert a.shape == b.shape == (65536,), (a.shape, b.shape)
+    assert abs(sums[0] - sums[1]) <= 1e-3 * sums[1], sums
+    assert differ <= STATS_DIFFER_SHARE * a.size, differ
+    log(f"{what}: 65536 shared directions, card against the CPU plain path: "
+        f"IR passes assert_ir_close(exact=False); bounce sums {sums[0]:.0f} "
+        f"/ {sums[1]:.0f}, sorted counts differing at {differ} of 65536 "
+        f"positions (bar {STATS_DIFFER_SHARE:.1%}, sums within 1e-3)")
+    return {"sum_card": sums[0], "sum_cpu": sums[1], "differ": differ}
+
+
+def _live_block_check(r, block: np.ndarray, what: str) -> float:
+    """One live block through ``convolve_live_input`` on the card against
+    ``convolve_live`` (or ``convolve_live_banded``) on the CPU with the same
+    IR copied to the host: relative L2 of the interleaved output."""
+    from audiorenderingv2_tpu_torch import streaming
+    from audiorenderingv2_tpu_torch.ops import convolve, filterbank
+
+    n = r.params.ir_length
+    ring = streaming.RingBuffer(2 * n + 1)
+    r.convolve_live_input(block, ring)
+    got = ring.get_and_reset(2 * n)
+    ir = r.ir_device.cpu()
+    padded = torch.nn.functional.pad(torch.from_numpy(block),
+                                     (0, n - block.shape[0]))
+    if ir.dim() == 3:
+        out = filterbank.convolve_live_banded(padded, ir, r.params.sample_rate,
+                                              r.band_edges)
+    else:
+        out = convolve.convolve_live(padded, ir)
+    want = convolve.interleave_stereo(out[0], out[1]).double().numpy()
+    rel = _rel_l2(got, want)
+    assert rel <= LIVE_BAR, (what, rel)
+    ring2 = streaming.RingBuffer(2 * n + 1)
+    ms = median_ms(lambda: r.convolve_live_input(block, ring2), 20)
+    log(f"{what}: one {block.shape[0]}-frame live block through "
+        f"convolve_live_input on the card against the CPU on the same IR: "
+        f"relative L2 {rel:.3e} (bar {LIVE_BAR:.0e}); {ms:.3f} ms a block "
+        f"(median of 20, the host copy included)")
+    return rel
+
+
+def _live_duplex(name: str, r, poses, tmp: Path) -> dict:
+    """The live path on the card: an AsyncRenderWorker re-rendering while a
+    LiveConvolver streams LIVE_BLOCKS blocks into the native engine, paced
+    at the block period; a re-render requested every LIVE_RERENDER_EVERY
+    blocks. Returns its launches, renders, silenced blocks and latency."""
+    from audiorenderingv2_tpu_torch import native, streaming
+    from audiorenderingv2_tpu_torch.utils import logging as arlog
+
+    r.render()
+    period = LIVE_BLOCK / SR
+    mic = (0.1 * np.random.default_rng(3).standard_normal(
+        LIVE_BLOCK * LIVE_BLOCKS)).astype(np.float32)
+    engine = native.NativeAudioEngine(
+        str(tmp / f"{name}.f64"), ring_capacity=1 << 20, sample_rate=SR,
+        channels=2, frames_per_buffer=256, realtime=False)
+    log_path = tmp / f"{name}_live.jsonl"
+    arlog.configure(path=str(log_path))
+    worker = streaming.AsyncRenderWorker(r, samples=None)
+    conv = streaming.LiveConvolver(r, volume=1.0, render_guard=worker)
+    lat, marks, outs = [], [], []
+    _reset_launches()
+    try:
+        t_next = time.perf_counter()
+        for i in range(LIVE_BLOCKS):
+            if i % LIVE_RERENDER_EVERY == LIVE_RERENDER_EVERY // 2:
+                marks.append(conv.silenced_blocks)
+                worker.request(*poses[len(marks) % len(poses)])
+            before = conv.silenced_blocks
+            t0 = time.perf_counter()
+            out = conv.process_block(mic[i * LIVE_BLOCK:(i + 1) * LIVE_BLOCK])
+            lat.append((time.perf_counter() - t0) * 1e3)
+            assert out.shape == (2 * LIVE_BLOCK,) and np.isfinite(out).all()
+            if conv.silenced_blocks > before:
+                assert not out.any(), "a silenced block carried sound"
+            outs.append(out)
+            engine.add(out)
+            engine.drain_ticks(LIVE_BLOCK // 256)
+            t_next += period
+            time.sleep(max(0.0, t_next - time.perf_counter()))
+        worker.wait_idle(timeout=300)
+        torch.cuda.synchronize()
+        launches = _read_launches()
+        renders = worker.renders
+        underruns, streamed = engine.underruns, engine.frames_streamed
+    finally:
+        worker.close()
+        engine.close()
+        arlog.configure()
+    silenced = np.diff(marks + [conv.silenced_blocks]).tolist()
+    inter = np.concatenate(outs)
+    assert renders >= 2, renders
+    assert (inter != 0).any()
+    assert underruns <= conv.silenced_blocks * (LIVE_BLOCK // 256), \
+        (underruns, conv.silenced_blocks)
+    assert streamed == LIVE_BLOCKS * LIVE_BLOCK, streamed
+    recs = [json.loads(x) for x in log_path.read_text().splitlines()]
+    render_ms = [x["render_ms"] for x in recs if x["event"] == "live_rerender"]
+    assert len(render_ms) == renders, (render_ms, renders)
+    log(f"live duplex, {name} ({r.n_rays} rays, {r.params.max_bounces} "
+        f"bounces): {LIVE_BLOCKS} blocks of {LIVE_BLOCK} frames paced at "
+        f"{period * 1e3:.1f} ms; block latency median "
+        f"{np.median(lat):.3f} ms, p99 {np.percentile(lat, 99):.3f} ms, max "
+        f"{max(lat):.3f} ms against the {period * 1e3:.1f} ms period; "
+        f"{renders} re-renders on the worker thread, render_ms {render_ms}; "
+        f"blocks silenced for each re-render {silenced}; engine underruns "
+        f"{underruns} (<= silenced x {LIVE_BLOCK // 256} ticks), "
+        f"{streamed} frames streamed; launches {launches}")
+    return {"launches": launches, "renders": renders, "silenced": silenced,
+            "lat_median_ms": float(np.median(lat)),
+            "lat_p99_ms": float(np.percentile(lat, 99))}
+
+
+def phase_main_mode() -> dict:
+    """The reference's default application on the card: the CLI's main mode
+    on the box config, the live duplex path on the box and the office,
+    convolve_live_banded, and render_ir(with_stats=True). Returns the
+    launches of the main mode and of the two live runs."""
+    from audiorenderingv2_tpu_torch import cli, context, testing
+    from audiorenderingv2_tpu_torch.core import tracer
+    from audiorenderingv2_tpu_torch.io import wav
+    from audiorenderingv2_tpu_torch.renderer import AudioRenderer
+    from audiorenderingv2_tpu_torch.utils import logging as arlog
+
+    result = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        testing.write_box_obj(tmp / "room.obj", ROOM, material="walls")
+        cfg = _write_inputs(tmp)
+
+        # 1. The main mode as a user runs it, its renders logged.
+        out_path, log_path = tmp / "main.wav", tmp / "main.jsonl"
+        arlog.configure(path=str(log_path))
+        _reset_launches()
+        t0 = time.perf_counter()
+        try:
+            code = cli.main([str(cfg), "main", str(out_path), "--device",
+                             "cuda"])
+            torch.cuda.synchronize()
+        finally:
+            arlog.configure()
+        wall = time.perf_counter() - t0
+        launches = result["main"] = _read_launches()
+        assert code == 0, code
+        assert launches["trace_round"] > 0, launches
+        assert launches["histogram_binned"] > 0, launches
+        audio = wav.read_wav(out_path)
+        assert audio.n_channels == 2 and audio.sample_rate == SR
+        assert audio.n_frames == 5 * SR and np.isfinite(audio.samples).all()
+        peak = float(np.abs(audio.samples).max())
+        assert abs(peak - 1.0) < 1e-3, peak
+        cycles = [json.loads(x) for x in log_path.read_text().splitlines()]
+        cycles = [x for x in cycles if x["event"] == "full_render_cycle"]
+        expected = _expected_renders(cfg)
+        got = [(x["receiver"], x["yaw_deg"]) for x in cycles]
+        assert len(got) == len(expected), (len(got), len(expected))
+        for (gp, gy), (ep, ey) in zip(got, expected):
+            assert np.allclose(gp, ep, atol=1e-6) and abs(gy - ey) < 1e-6, \
+                (gp, gy, ep, ey)
+        assert launches["trace_round"] == 3 * len(cycles), launches
+        assert launches["histogram_binned"] == len(cycles), launches
+        render_ms = [x["render_ms"] for x in cycles]
+        conv_ms = [x["convolve_ms"] for x in cycles]
+        log(f"main mode ({N_RAYS} rays, {MAX_BOUNCES} bounces, 5 s signal, "
+            f"the 9-key half orbit): {wall:.2f} s wall (scene load and first "
+            f"call included); {len(cycles)} renders at the poses the policy "
+            f"gives on the host alone; full_render_cycle median render_ms "
+            f"{np.median(render_ms):.3f} (all {render_ms}), convolve_ms "
+            f"{np.median(conv_ms):.3f}; WAV stereo {SR} Hz, "
+            f"{audio.n_frames} frames, peak {peak}; launches {launches}")
+
+        # The card against the CPU at the first and last rendered poses.
+        ctx = context.load_context(cfg, device="cuda")
+        r = ctx.renderer
+        for k, (pos, yaw) in ((0, got[0]), (-1, got[-1])):
+            stats = _card_against_cpu(r, ctx.scene, pos, yaw,
+                                      f"main mode, render {k % len(got)}")
+        result["stats_check"] = stats
+
+        # 2. The live duplex path: the box, then the office.
+        box_poses = [(RECEIVER, 0.0), ((-2.5, 1.5, -2.0), 45.0),
+                     ((3.0, 0.5, -3.0), 120.0)]
+        r.set_receiver(RECEIVER, 0.0)
+        r.render()
+        block = (0.1 * np.random.default_rng(4).standard_normal(
+            LIVE_BLOCK)).astype(np.float32)
+        _live_block_check(r, block, "live block, box")
+        result["live_box"] = _live_duplex("box", r, box_poses, tmp)
+        office = AudioRenderer(
+            testing.office_scene(OFFICE_TRIS), IR_SECONDS, SR, N_RAYS,
+            base_power=3.62, max_bounces=OFFICE_BOUNCES,
+            hrtf_absorption_rate=0.9, device="cuda")
+        office.set_emitter_pos(EMITTER)
+        office.set_receiver(OFFICE_RECEIVER, 0.0)
+        office_poses = [(tuple(p), 30.0 * i)
+                        for i, p in enumerate(OFFICE_LISTENERS[:3])]
+        result["live_office"] = _live_duplex("office", office, office_poses,
+                                             tmp)
+        lb, lo = result["live_box"]["launches"], result["live_office"][
+            "launches"]
+        assert lb["trace_round"] == 3 * result["live_box"]["renders"], lb
+        assert lb["histogram_binned"] == result["live_box"]["renders"], lb
+        assert lo["trace_round"] == 0, lo
+        assert lo["trace_round_sched"] == OFFICE_BOUNCES * \
+            result["live_office"]["renders"], lo
+        assert lo["tile_schedule"] == lo["trace_round_sched"], lo
+
+        # 3. convolve_live_banded: the 4-band box of phase 12.
+        band_dir = tmp / "banded"
+        band_dir.mkdir()
+        testing.write_box_obj(band_dir / "room.obj", ROOM, material="walls")
+        banded = context.load_context(
+            _write_inputs(band_dir, absorption=list(BANDED_ABSORPTION)),
+            device="cuda").renderer
+        assert banded.render().shape == (2, len(BANDED_ABSORPTION),
+                                         IR_SECONDS * SR)
+        result["banded_rel"] = _live_block_check(
+            banded, block, "live block, 4-band box (convolve_live_banded)")
+
+        # 4. render_ir(with_stats=True) at full width, box and office.
+        for name, rr in (("box", r), ("office", office)):
+            def run(rr=rr):
+                return tracer.render_ir(
+                    rr.sc, rr.generator, rr.n_rays, rr.emitter_pos,
+                    rr.receiver_pos, rr.receiver_yaw_deg, rr.params,
+                    rr.opts, rows=rr.rows, boxes=rr.boxes, with_stats=True)
+            ir, stats = run()
+            b = stats["bounces"]
+            assert b.shape[0] == -(-rr.n_rays // 128) * 128, b.shape
+            total = float(b.double().sum())
+            assert torch.isfinite(ir).all() and total > rr.n_rays
+            assert float(b.max()) <= rr.params.max_bounces
+            ms = median_ms(run, 3)
+            result[f"stats_{name}"] = {"bounces": total, "ms": ms}
+            log(f"render_ir(with_stats=True), {name} ({rr.n_rays} rays, "
+                f"{rr.params.max_bounces} bounces): bounce sum {total:.0f} "
+                f"({total / rr.n_rays:.2f} a ray); {ms:.3f} ms (CUDA events, "
+                f"median of 3): {rr.n_rays / ms * 1e3:.4e} rays/s, "
+                f"{total / ms * 1e3:.4e} bounces/s")
+    return result
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; the port's "
@@ -3328,11 +3652,14 @@ def main() -> int:
     k6, k6_posed, k6_posed_launches = phase_group()
     k7 = phase_v1()
     manual = phase_experimentation()
+    live = phase_main_mode()
     kernels = [
         {"name": "trace_round", "route": "cuda",
          "source": "audiorenderingv2_tpu_torch/csrc/trace_round.cu",
          "replaces": "audiorenderingv2_tpu/ops/raytrace_pallas_v2.py:799",
-         "launches": launches["trace_round"], **k1},
+         "launches": launches["trace_round"],
+         "main_mode_launches": live["main"]["trace_round"],
+         "live_launches": live["live_box"]["launches"]["trace_round"], **k1},
         {"name": "histogram", "route": "cuda",
          "source": "audiorenderingv2_tpu_torch/csrc/histogram.cu",
          "replaces": "audiorenderingv2_tpu/ops/histogram_pallas.py:59",
@@ -3340,16 +3667,23 @@ def main() -> int:
         {"name": "histogram_binned", "route": "cuda",
          "source": "audiorenderingv2_tpu_torch/csrc/histogram.cu",
          "replaces": "audiorenderingv2_tpu/ops/histogram_pallas.py:59",
-         "launches": launches["histogram_binned"], **binned},
+         "launches": launches["histogram_binned"],
+         "main_mode_launches": live["main"]["histogram_binned"],
+         "live_launches": (live["live_box"]["launches"]["histogram_binned"]
+                           + live["live_office"]["launches"]
+                           ["histogram_binned"]), **binned},
         {"name": "trace_round_sched", "route": "cuda",
          "source": "audiorenderingv2_tpu_torch/csrc/trace_sched.cu",
          "replaces": "audiorenderingv2_tpu/ops/raytrace_pallas_v2.py:501",
          "launches": office["trace_round_sched"],
+         "live_launches": live["live_office"]["launches"]["trace_round_sched"],
          **cluster["trace_round_sched"]},
         {"name": "tile_schedule", "route": "cuda",
          "source": "audiorenderingv2_tpu_torch/csrc/tile_schedule.cu",
          "replaces": "audiorenderingv2_tpu/ops/raytrace_pallas_v2.py:1103",
-         "launches": office["tile_schedule"], **cluster["tile_schedule"]},
+         "launches": office["tile_schedule"],
+         "live_launches": live["live_office"]["launches"]["tile_schedule"],
+         **cluster["tile_schedule"]},
         {"name": "trace_round_posed", "route": "cuda",
          "source": "audiorenderingv2_tpu_torch/csrc/trace_round.cu",
          "replaces": "audiorenderingv2_tpu/ops/raytrace_pallas_v2.py:887",

@@ -29,10 +29,11 @@ def _close(got, ref):
 
 
 @pytest.mark.parametrize("seconds,ir_seconds", [(5.5, 2), (3.0, 1),
-                                                (1.5, 3)])
+                                                (1.5, 3), (0.5, 2)])
 def test_convolve_file_stereo_matches(seconds, ir_seconds):
     """Overlap-add with the x2 scale and the per-segment aliasing; the tail
-    past the last whole second is zero in both."""
+    past the last whole second is zero in both (a signal shorter than one
+    second is all tail)."""
     x, ir = _signal_and_ir(seconds, ir_seconds, seed=ir_seconds)
     ref = j_conv.convolve_file_stereo(jnp.asarray(x), jnp.asarray(ir), SR)
     got = t_conv.convolve_file_stereo(torch.from_numpy(x),
@@ -69,3 +70,20 @@ def test_interleave_stereo_matches():
         got, np.asarray(j_conv.interleave_stereo(jnp.asarray(left),
                                                  jnp.asarray(right))))
     np.testing.assert_array_equal(got[0::2], left)
+
+
+@pytest.mark.parametrize("seconds,ir_seconds,out_length", [
+    (2.5, 1, None), (1.0, 2, 1000), (0.3, 1, 5000)])
+def test_convolve_linear_matches(seconds, ir_seconds, out_length):
+    """One zero-padded FFT, truncated or padded to ``out_length``: against
+    the JAX function and a float64 ``np.convolve`` (1e-5 of the peak)."""
+    x, ir = _signal_and_ir(seconds, ir_seconds, seed=7)
+    ref = j_conv.convolve_linear(jnp.asarray(x), jnp.asarray(ir[0]),
+                                 out_length=out_length)
+    got = t_conv.convolve_linear(torch.from_numpy(x), torch.from_numpy(ir[0]),
+                                 out_length=out_length).numpy()
+    _close(got, ref)
+    exact = np.convolve(x.astype(np.float64), ir[0].astype(np.float64))
+    n = got.shape[0]
+    want = np.pad(exact, (0, max(0, n - exact.shape[0])))[:n]
+    np.testing.assert_allclose(got, want, atol=1e-5 * np.abs(want).max())

@@ -198,9 +198,13 @@ def test_cli_options_reach_the_renderer(tmp_path, monkeypatch):
     with pytest.raises(SystemExit):
         cli.main([str(cfg), "export", str(tmp_path / "o.wav"), "--device",
                   "cpu", "--layout", "group"])
-    for mode in ("main", "walkthrough"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1"):
-            cli.main([str(cfg), mode])
+    # main renders on --device through the same context; walkthrough loads
+    # only the config and the scene, so it builds no context at all
+    assert cli.main([str(cfg), "main", str(tmp_path / "m.wav"), "--device",
+                     "cpu", "--duration", "0.5"]) == 0
+    assert cli.main([str(cfg), "walkthrough",
+                     str(tmp_path / "w.html")]) == 0
+    assert seen[4:] == [(None, "cpu")]
 
 
 def test_cli_experimentation_live_config_skips_the_convolution(tmp_path,

@@ -72,13 +72,19 @@ def test_port_imports_without_jax():
             importlib.import_module(name)
         for sub in ("diff.replay", "diff.inverse", "diff.checkpoint",
                     "ops.traverse_cuda", "ops.group_cuda", "ops.v1_cuda",
-                    "experiment", "utils.profiling", "cli"):
+                    "experiment", "utils.profiling", "cli", "streaming",
+                    "native", "utils.logging", "utils.acoustics",
+                    "utils.plotting", "utils.webview"):
             assert pkg.__name__ + "." + sub in names, sub
         bad = [m for m, mod in sys.modules.items() if mod is not None and (
                m == "audiorenderingv2_tpu"
                or m.startswith("audiorenderingv2_tpu.")
                or m.startswith("jax") or m.startswith("optax"))]
         assert not bad, bad
+        # importing builds nothing: no kernel library, no native library
+        from audiorenderingv2_tpu_torch import native
+        assert native._lib is None
+        assert "matplotlib" not in sys.modules
         print("ok")
     """)
     env = dict(os.environ, PYTHONPATH=str(REPO))

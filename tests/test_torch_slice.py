@@ -149,9 +149,16 @@ def test_cli_export_reads_back_in_jax(tmp_path, capsys):
     assert audio.n_channels == 2 and audio.sample_rate == SR
     assert audio.n_frames == 2 * SR + 300
     assert np.isclose(np.abs(audio.samples).max(), 1.0, atol=1e-4)
-    for mode in ("main", "walkthrough"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1"):
-            cli.main([str(cfg), mode])
+    # the two other modes run too: a WAV of the main mode's length that the
+    # JAX package reads back, and the walkthrough page
+    walk = tmp_path / "walk.wav"
+    assert cli.main([str(cfg), "main", str(walk), "--device", "cpu",
+                     "--duration", "1"]) == 0
+    audio = j_wav.read_wav(walk)
+    assert audio.n_channels == 2 and audio.n_frames == SR
+    assert np.isclose(np.abs(audio.samples).max(), 1.0, atol=1e-4)
+    assert cli.main([str(cfg), "walkthrough", str(tmp_path / "w.html")]) == 0
+    assert "const DATA" in (tmp_path / "w.html").read_text()
 
 
 def test_renderer_setters_and_dumps(tmp_path):

@@ -262,3 +262,72 @@ def test_trace_round_rejects_bad_rows_and_poses():
     before = rc.launches, rc.posed_launches
     rc.trace_round(state, rows, torch.zeros((2, 16)), params, 1, 128)
     assert (rc.launches, rc.posed_launches) == before  # the CPU: no kernel
+
+
+@pytest.mark.parametrize("backend", ["kernels", "autograd"])
+@pytest.mark.parametrize("jax_route", ["xla", "pallas_interpret"])
+@pytest.mark.parametrize("bounces", [16, 100])
+def test_trace_ir_with_stats_matches_jax(bounces, jax_route, backend):
+    """``with_stats`` against JAX ``trace_ir(with_stats=True)`` on the box,
+    1000 rays (the kernels route pads them to 1024): the same IR as
+    without it, and each ray's completed bounces with an equal sum and an
+    equal sorted vector (exact: these are counts). The rays are permuted by
+    the alive-first partition, so the vectors are compared sorted, zero
+    padded to one length (padding rays count 0)."""
+    sc, sct, rec = _setup("box")
+    params = ar.TraceParams(sample_rate=SR, ir_length=SR, base_power=3.62,
+                            max_bounces=bounces)
+    n, n_pad = 1000, 1024
+    d = _dirs(n, bounces)
+    j_opts = (ar.TracerOptions(block_size=1024, tri_chunk=128)
+              if jax_route == "xla" else
+              ar.TracerOptions(backend="pallas", pallas_interpret=True,
+                               pallas_version=2))
+    _, j_stats = ar.trace_ir(sc, jnp.asarray(d), jnp.zeros(3),
+                             jnp.asarray(rec), 25.0, params, j_opts,
+                             with_stats=True)
+    t_opts = t_tracer.TracerOptions(backend=backend)
+    args = (sct, torch.from_numpy(d), np.zeros(3), rec, 25.0,
+            _tparams(params), t_opts)
+    ir, stats = t_tracer.trace_ir(*args, with_stats=True)
+    assert torch.equal(ir, t_tracer.trace_ir(*args))
+    got = stats["bounces"]
+    assert got.dtype == torch.float32
+    assert got.shape == ((n_pad,) if backend == "kernels" else (n,))
+    ref = np.asarray(j_stats["bounces"])
+
+    def padded_sorted(x):
+        return np.sort(np.pad(x, (0, n_pad - x.shape[0])))
+
+    assert float(got.sum()) == float(ref.sum()) > n
+    np.testing.assert_array_equal(padded_sorted(got.numpy()),
+                                  padded_sorted(ref))
+    assert got.max() <= bounces
+
+
+def test_render_ir_native_rng_with_stats_counts_its_own_directions():
+    """The ``native_rng`` branch of ``render_ir`` returns the bounces too:
+    the same vector as ``trace_ir`` with stats on the directions K4
+    generated from the generator's seed (the CPU runs K4's plain
+    version)."""
+    _, sct, rec = _setup("box")
+    params = _tparams(ar.TraceParams(sample_rate=SR, ir_length=SR,
+                                     base_power=3.62, max_bounces=12))
+    opts = t_tracer.TracerOptions(native_rng=True)
+    n = 500
+    ir, stats = t_tracer.render_ir(sct, torch.Generator().manual_seed(3), n,
+                                   np.zeros(3), rec, 0.0, params, opts,
+                                   with_stats=True)
+    seed = torch.randint(0, 2**23, (), generator=torch.Generator()
+                         .manual_seed(3))
+    e0 = params.base_power / (n * constants.SPHERE_VOLUME)
+    scal = rc.scalars(torch.zeros(3), torch.from_numpy(rec), 0.0, e0, params)
+    scal[rc._S_PAD14] = seed.to(torch.float32)
+    d = rc.init_state_native(scal, 512, n)[rc._C_VX:rc._C_VZ + 1, :n].T
+    ir2, want = t_tracer.trace_ir(sct, d.contiguous(), np.zeros(3), rec, 0.0,
+                                  params, t_tracer.TracerOptions(),
+                                  with_stats=True)
+    assert torch.equal(ir, ir2)
+    assert torch.equal(stats["bounces"], want["bounces"])
+    assert stats["bounces"].shape == (512,)
+    assert float(stats["bounces"].sum()) > n
