@@ -652,7 +652,9 @@ def render_ir_pose_batch(sc: SceneArrays, seed: int, n_rays: int, emitters,
                          opts: TracerOptions = TracerOptions(),
                          pose_indices=None,
                          rows: torch.Tensor | None = None,
-                         boxes: torch.Tensor | None = None) -> torch.Tensor:
+                         boxes: torch.Tensor | None = None,
+                         n_total_rays_per_pose: int | None = None,
+                         rank: int | None = None) -> torch.Tensor:
     """Render P poses in one launch per round (the multi-pose fast path).
 
     ``emitters``, ``receivers`` [P, 3], ``receiver_yaws_deg`` [P]. Pose
@@ -663,8 +665,13 @@ def render_ir_pose_batch(sc: SceneArrays, seed: int, n_rays: int, emitters,
     ``opts.soft_binning``, ``backend="autograd"`` and ``version=1`` raise,
     and so does a clustered scene without ``opts.schedule`` (it batches
     through the schedule and K2, as in the JAX package); ``opts.layout``
-    and ``opts.precision`` pick K1 or K6 as in :func:`trace_ir`. Returns
-    [P, 2, ir_length] on the scene's device, or [P, 2, n_bands, ir_length]."""
+    and ``opts.precision`` pick K1 or K6 as in :func:`trace_ir`.
+    ``n_total_rays_per_pose``: the ray count that normalises each pose's
+    energy when this call traces a share of each pose's rays (default
+    ``n_rays``); ``rank``: the share's rank, whose directions come from
+    ``sampling.pose_generator(seed, pose_indices[i], device, rank)``.
+    Returns [P, 2, ir_length] on the scene's device, or [P, 2,
+    n_bands, ir_length]."""
     from ..ops import raytrace_cuda
     from . import sampling
 
@@ -683,14 +690,15 @@ def render_ir_pose_batch(sc: SceneArrays, seed: int, n_rays: int, emitters,
         pose_indices = range(emitters.shape[0])
     directions = torch.stack([
         sampling.sample_directions(
-            n_rays, sampling.pose_generator(seed, int(i), dev), dev)
+            n_rays, sampling.pose_generator(seed, int(i), dev, rank), dev)
         for i in pose_indices])
     rows, boxes = packed_scene(sc, params, rows, boxes, opts)
     ev_bin_f, ev_w, ev_ear = raytrace_cuda.trace_events_pose_batch(
         rows, directions.to(device=dev, dtype=torch.float32).contiguous(),
         emitters, _as_vec(receivers, dev).reshape(-1, 3),
         _as_vec(receiver_yaws_deg, dev).reshape(-1), params,
-        compact=opts.compact, round_budgets=opts.round_budgets, boxes=boxes,
+        n_total_rays_per_pose=n_total_rays_per_pose, compact=opts.compact,
+        round_budgets=opts.round_budgets, boxes=boxes,
         schedule=opts.schedule, layout=opts.layout,
         precision=opts.precision)
     return _histogram_from_events_posed(ev_bin_f, ev_w, ev_ear, params)

@@ -13,8 +13,9 @@ L listeners is one more batch axis:
     of the wave equation, the single-source normalisation).
 
 Listeners are independent: a listener does not shadow another listener's
-arrivals, as if the reference ran L separate times. The JAX package's
-``mesh`` argument (rays of a pair sharded over devices) is not ported yet.
+arrivals, as if the reference ran L separate times. With a ``mesh``
+(``parallel.make_ray_mesh``) every pair's rays are sharded over the ranks,
+one all-reduce a chunk of pairs.
 """
 from __future__ import annotations
 
@@ -26,6 +27,7 @@ from .core.params import TraceParams
 from .core.tracer import (SceneArrays, TracerOptions, packed_scene, render_ir,
                           render_ir_pose_batch)
 from .ops import convolve, filterbank
+from .parallel import sharding
 
 
 def render_ir_matrix(
@@ -40,14 +42,23 @@ def render_ir_matrix(
     pair_batch: int = 16,
     rows: torch.Tensor | None = None,
     boxes: torch.Tensor | None = None,
+    mesh=None,
 ) -> np.ndarray:
-    """Render IRs for every (source, listener) pair on the scene's device.
+    """Render IRs for every (source, listener) pair on the scene's device,
+    or with ``mesh`` on the rank's device.
 
     Args:
       seed: pair ``i = s * L + l`` draws its directions from
         ``sampling.pose_generator(seed, i, device)``, whichever path
         renders it, so a single ``render_ir`` of one pair with that
-        generator gives the pair's IR.
+        generator gives the pair's IR. With a mesh, rank ``r`` draws pair
+        ``i``'s ``n_rays // world`` directions from
+        ``sampling.pose_generator(seed, i, device, rank=r)``, seeded with
+        ``fold_seed(fold_seed(seed, i), r)``, traced at the energy of
+        ``n_rays``: pair ``i`` is ``parallel.render_ir_sharded`` of the
+        pair's seed ``sampling.fold_seed(seed, i)`` on the same mesh, and a
+        single-process replay traces the directions of every rank with
+        ``n_total_rays=n_rays``.
       emitters: [S, 3]; receivers: [L, 3]; receiver_yaws_deg: [L] or one
         yaw for every listener.
       n_rays: rays per pair render.
@@ -55,7 +66,11 @@ def render_ir_matrix(
         flight at exactly pair_batch * n_rays; 0 = all S * L pairs at once;
         1 = one single-pose render per pair.
       rows, boxes: the scene's packed rows and boxes
-        (``raytrace_cuda.pack_scene``), None packs them here once.
+        (``raytrace_cuda.pack_scene``) on the device it renders on, None
+        packs them here once.
+      mesh: a ``parallel.sharding.Mesh``; every rank renders every pair
+        and returns the same summed matrix. ``n_rays`` must divide by the
+        world size.
 
     The fused batch needs the version-2 kernels backend, hard binning, sampled
     directions (not ``opts.native_rng``), at most 8 bands and, on a
@@ -79,6 +94,10 @@ def render_ir_matrix(
     em_p = np.repeat(emitters, l, axis=0)
     rc_p = np.tile(receivers, (s, 1))
     yw_p = np.tile(yaws, s)
+    n_local, rank = n_rays, None
+    if mesh is not None:
+        n_local, rank = sharding.shard_size(n_rays, mesh), mesh.rank
+        sc = sharding.scene_on(sc, mesh.device)
     rows, boxes = packed_scene(sc, params, rows, boxes, opts)
 
     fused_ok = (opts.backend == "kernels" and opts.version == 2
@@ -86,26 +105,29 @@ def render_ir_matrix(
                 and (sc.cluster_boxes is None or opts.schedule)
                 and not opts.soft_binning and not opts.native_rng
                 and params.n_bands <= 8)
-    if fused_ok and pair_batch != 1:
-        # pair_batch is a bound on memory, not a hint: honour it exactly.
-        # The tail runs at its own size.
-        batch = n_pairs if pair_batch in (0, None) else min(pair_batch,
-                                                            n_pairs)
-        chunks = []
-        for start in range(0, n_pairs, batch):
-            idx = np.arange(start, min(start + batch, n_pairs))
-            irs = render_ir_pose_batch(sc, seed, n_rays, em_p[idx],
-                                       rc_p[idx], yw_p[idx], params, opts,
-                                       pose_indices=idx, rows=rows,
-                                       boxes=boxes)
-            chunks.append(irs.cpu().numpy())
-        flat = np.concatenate(chunks)
-    else:
-        flat = np.stack([
-            render_ir(sc, sampling.pose_generator(seed, i, sc.device),
-                      n_rays, em_p[i], rc_p[i], float(yw_p[i]), params, opts,
-                      rows=rows, boxes=boxes).cpu().numpy()
-            for i in range(n_pairs)])
+    fused = fused_ok and pair_batch != 1
+    # pair_batch is a bound on memory, not a hint: honour it exactly. The
+    # tail runs at its own size.
+    batch = n_pairs if pair_batch in (0, None) else min(pair_batch, n_pairs)
+    chunks = []
+    for start in range(0, n_pairs, batch):
+        idx = np.arange(start, min(start + batch, n_pairs))
+        if fused:
+            irs = render_ir_pose_batch(
+                sc, seed, n_local, em_p[idx], rc_p[idx], yw_p[idx], params,
+                opts, pose_indices=idx, rows=rows, boxes=boxes,
+                n_total_rays_per_pose=n_rays, rank=rank)
+        else:
+            irs = torch.stack([
+                render_ir(sc, sampling.pose_generator(seed, i, sc.device,
+                                                      rank),
+                          n_local, em_p[i], rc_p[i], float(yw_p[i]), params,
+                          opts, n_total_rays=n_rays, rows=rows, boxes=boxes)
+                for i in idx])
+        if mesh is not None:
+            irs = sharding.sum_across_ranks(irs, mesh)
+        chunks.append(irs.cpu().numpy())
+    flat = np.concatenate(chunks)
     # [S, L, 2(, n_bands), ir_length]: the per-pair IR after the pair axes.
     return flat.reshape((s, l) + flat.shape[1:])
 

@@ -23,6 +23,39 @@ from __future__ import annotations
 import torch
 
 
+def _ola_segments(samples: torch.Tensor, sample_rate: int,
+                  ir_length: int) -> torch.Tensor:
+    """Cut the signals [..., L] into their whole 1 s segments, each
+    zero-padded to ir_length: [..., S, ir_length]."""
+    n_seconds = samples.shape[-1] // sample_rate
+    segs = samples[..., :n_seconds * sample_rate].reshape(
+        *samples.shape[:-1], n_seconds, sample_rate)
+    return torch.nn.functional.pad(segs, (0, ir_length - sample_rate))
+
+
+def _overlap_add(y: torch.Tensor, sample_rate: int) -> torch.Tensor:
+    """Overlap-add of the segments' circular results ``y`` [..., S,
+    ir_length]: segment s starts at second s and spans ir_length /
+    sample_rate = k seconds. Returns the seconds [..., S + k - 1,
+    sample_rate]."""
+    *lead, n_seg, ir_length = y.shape
+    k = ir_length // sample_rate
+    yk = y.reshape(*lead, n_seg, k, sample_rate)
+    total = torch.zeros((*lead, n_seg + k - 1, sample_rate),
+                        dtype=torch.float32, device=y.device)
+    for m in range(k):
+        total[..., m:m + n_seg, :] += yk[..., :, m, :]
+    return total
+
+
+def _to_length(out: torch.Tensor, length: int) -> torch.Tensor:
+    """``out`` [..., n] cut, or zero-padded, to [..., length]: the
+    reference's output has the input's length."""
+    if out.shape[-1] >= length:
+        return out[..., :length]
+    return torch.nn.functional.pad(out, (0, length - out.shape[-1]))
+
+
 def convolve_file(samples: torch.Tensor, ir: torch.Tensor,
                   sample_rate: int) -> torch.Tensor:
     """Overlap-add convolution of ``samples`` [L] with one IR [ir_length];
@@ -53,29 +86,15 @@ def convolve_file_multi(samples: torch.Tensor, irs: torch.Tensor,
     n_ch, ir_length = irs.shape[1:]
     if ir_length % sample_rate != 0:
         raise ValueError("ir_length must be a multiple of sample_rate")
-    k = ir_length // sample_rate
-    n_seconds = length // sample_rate
-    if n_seconds == 0:  # no whole second: silence, as in the JAX package
+    if length // sample_rate == 0:  # no whole second: silence, as in JAX
         return torch.zeros((n_sig, n_ch, length), dtype=torch.float32,
                            device=irs.device)
-    segs = samples[:, :n_seconds * sample_rate].reshape(
-        n_sig, n_seconds, sample_rate)
-    segs = torch.nn.functional.pad(segs, (0, ir_length - sample_rate))
+    segs = _ola_segments(samples, sample_rate, ir_length)  # [G, S, irl]
     spec = torch.fft.rfft(segs, dim=-1)[:, None] \
         * torch.fft.rfft(irs, dim=-1)[:, :, None, :]
     y = torch.fft.irfft(spec, n=ir_length, dim=-1)  # [G, C, S, ir_length]
-    # Overlap-add: segment s starts at s*sample_rate and spans k seconds.
-    yk = y.reshape(n_sig, n_ch, n_seconds, k, sample_rate)
-    total = torch.zeros((n_sig, n_ch, n_seconds + k - 1, sample_rate),
-                        dtype=torch.float32, device=y.device)
-    for m in range(k):
-        total[:, :, m:m + n_seconds] += yk[:, :, :, m, :]
-    out = total.reshape(n_sig, n_ch, -1)
-    if out.shape[2] >= length:
-        out = out[:, :, :length]
-    else:
-        out = torch.nn.functional.pad(out, (0, length - out.shape[2]))
-    return out * 2.0
+    out = _overlap_add(y, sample_rate).reshape(n_sig, n_ch, -1)
+    return _to_length(out, length) * 2.0
 
 
 def convolve_live(block: torch.Tensor, ir_stereo: torch.Tensor,

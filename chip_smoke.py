@@ -190,7 +190,35 @@ Phases, in order; any failure raises and the script exits non-zero:
    for each re-render; one live block against the CPU on the same IR
    (relative L2 1e-5), and the same for the 4-band box through
    convolve_live_banded; last render_ir(with_stats=True) on the box and
-   the office at 1M rays: the bounce sum, rays/s.
+   the office at 1M rays: the bounce sum, rays/s;
+22. the multi-GPU path (``parallel/``), the card being one GPU: (a) a
+   world of one under NCCL (127.0.0.1, a free port), so that every
+   all-reduce and all-gather goes through NCCL: render_ir_sharded of
+   examples/demo_5_sharded.py's room (24 x 12 x 18 m box and icosphere, 332
+   triangles) at its 16,000,000 rays x 8 bounces, a 2 s IR at 16 kHz (K1
+   and the hard-binning entry counted), and the office at 1M rays x 32
+   (the schedule and K2, no K1), each IR and a render_ir of rank 0's
+   stream held to the float64 sum of the sharded run's deposits on
+   binned_check's bar, times of both and the peak device memory;
+   render_ir_matrix(mesh=) 2 x 2 at demo 5's 1M rays a pair (posed K1),
+   one pair and render_ir_sharded of its pair seed fold_seed(seed, pair)
+   on the same bar; convolve_file_sharded of 16 s with the 2 s IR within
+   1e-5 relative L2 of convolve_file_stereo; dryrun_multichip(1): a
+   finite loss, its gradient within 1e-4 of the unsharded step's. Every
+   kernel launch of these product calls is recorded (LaunchRecorder) and
+   held to its plain version on its own inputs: K1, the posed K1 and K2
+   bit for bit on the first 1,000,064 (K1) or 65,536 (K2) rays of each
+   launch, the schedule integer for integer, K3-bwd bit for bit, K3 and
+   the hard-binning entry on binned_check's bar; the phase fails unless
+   every launch was held. (b) Two gloo
+   ranks on the one card as subprocesses (two NCCL ranks on one GPU are
+   refused, "Duplicate GPU detected"; gloo's all-reduce takes CUDA
+   tensors; an exclusive compute mode fails first):
+   trace_directions_sharded of 1,000,064 shared directions on the box,
+   both ranks' IRs equal bit for bit and held with a single-process
+   trace_ir to the float64 sum of its deposits. (c) ``python -m
+   audiorenderingv2_tpu_torch.warmup`` as a subprocess: finite times for
+   its three configurations, printed.
 
 Then one JSON line of the kernels: name, route, source, the TPU kernel it
 replaces, launches on its main path (the export of phase 5, whose IR is
@@ -202,7 +230,9 @@ clustered route's kernels that of phase 7; K1, the hard-binning entry, the
 schedule and K2 also give the launches of phase 21's runs,
 "main_mode_launches" (the main mode) and "live_launches" (the live duplex
 runs: the box's for K1, the office's for the schedule and K2, both for the
-hard-binning entry); for the posed kernels and the
+hard-binning entry); K1, K3, the hard-binning entry, the schedule, K2, the
+posed K1 and K3-bwd also "sharded_launches", those of phase 22 (a)'s
+product calls; for the posed kernels and the
 posed histogram the matrices of phase 10 (for the posed histogram its fused hard-binning entry), for the
 4-band posed K1 that of phase 12; for K4 the render of phase 11; for K3-bwd the office fit of phase
 17; for K5 the recording without the schedule of phase 15), max abs error,
@@ -3619,6 +3649,574 @@ def phase_main_mode() -> dict:
     return result
 
 
+# ------------------------------------------------------------ phase 22
+
+DEMO5_ROOM = (24.0, 12.0, 18.0)
+DEMO5_RAYS = 16_000_000
+DEMO5_BOUNCES = 8
+DEMO5_RECEIVER = (8.0, 3.0, -5.0)
+DEMO5_YAW = 30.0
+DEMO5_EMITTERS = np.array([[0.0, 0.0, 0.0], [-6.0, 3.0, 5.0]], np.float32)
+DEMO5_LISTENERS = np.array([[8.0, 3.0, -5.0], [2.0, -4.0, 6.0]], np.float32)
+DEMO5_YAWS = np.array([30.0, -45.0], np.float32)
+DEMO5_PAIR_RAYS = DEMO5_RAYS // 16
+SHARDED_SEED = 0
+CONV_SECONDS = 16
+CONV_BAR = 1e-5         # relative L2, sharded against single-process
+DRY_GRAD_BAR = 1e-4     # relative, the sharded step's gradient
+GLOO_DIRS = 1_000_064
+RANK_TIMEOUT_S = 300
+# The rays of a recorded launch that LaunchRecorder keeps to replay on the
+# plain version: a K1 launch's first 1,000,064 (the export's ray count; the
+# plain version needs [64, N] intermediates a chunk of rows), the
+# schedule's and K2's first 65,536 (as office_trace_check).
+REPLAY_K1_RAYS = 1_000_064
+REPLAY_SCHED_RAYS = 65_536
+
+
+def _demo5():
+    """examples/demo_5_sharded.py's room (a 24 x 12 x 18 m box, absorption
+    0.2, and an icosphere of radius 2 at (6, -2, 4), 0.7) on the card, its
+    parameters (8 bounces, a 2 s IR at 16 kHz) and ``tuned.auto_options``:
+    (scene arrays, rows, params, opts)."""
+    from audiorenderingv2_tpu_torch import testing, tuned
+    from audiorenderingv2_tpu_torch.core import tracer
+    from audiorenderingv2_tpu_torch.core.params import TraceParams
+
+    v, t = testing.box_room(DEMO5_ROOM)
+    sv, st = testing.icosphere(radius=2.0, center=(6.0, -2.0, 4.0),
+                               subdivisions=2)
+    absorption = np.concatenate([np.full(len(t), 0.2, np.float32),
+                                 np.full(len(st), 0.7, np.float32)])
+    scene = testing.scene_from_arrays(np.vstack([v, sv]),
+                                      np.vstack([t, st + len(v)]), absorption)
+    params = TraceParams(sample_rate=SR, ir_length=IR_SECONDS * SR,
+                         base_power=3.62, max_bounces=DEMO5_BOUNCES)
+    opts, cluster_size = tuned.auto_options(scene.n_triangles, DEMO5_BOUNCES)
+    assert cluster_size is None  # 332 triangles: the rows route
+    sc = tracer.scene_to_arrays(scene, 128, device="cuda")
+    rows, _ = tracer.packed_scene(sc, params, None, None, opts)
+    return sc, rows, params, opts
+
+
+def _events_bar(irs: dict, ev, params, what: str, pose: int = 0) -> dict:
+    """Each IR [2, ir_length] of ``irs`` against the float64 sum of the
+    deposits of pose ``pose`` of the events ``ev`` (the hard-binning
+    entry's inputs, [P, E], as :class:`LaunchRecorder` kept them), on
+    binned_check's bar (1e-4 a bin, the atomics' order; f32's smallest
+    normal a subnormal deposit; no stray bin). Returns each IR's worst
+    relative error."""
+    rows, w64 = binned_deposits64(*(x[pose:pose + 1] for x in ev), params)
+    n_rows = 2 * params.ir_length
+    ref = torch.zeros((n_rows, 1), dtype=torch.float64,
+                      device=w64.device).index_add_(0, rows, w64)
+    n_sub = subnormal_counts(rows, w64, ref.shape)
+    return {name: _assert_deposit_bar(ir.reshape(n_rows, 1), ref, n_sub,
+                                      f"{what}, {name}")
+            for name, ir in irs.items()}
+
+
+def _ray_columns(n_poses: int, rays_per_pose: int, budget: int, device):
+    """The first rays of each pose of a launch, at most ``budget`` in all
+    (whole tiles of 128 when there are several poses): (the columns, a
+    slice or an index tensor; the rays a pose keeps)."""
+    if n_poses == 1:
+        m = min(rays_per_pose, budget)
+        return slice(0, m), m
+    m = min(rays_per_pose, budget // n_poses // 128 * 128)
+    cols = (torch.arange(n_poses, device=device)[:, None] * rays_per_pose
+            + torch.arange(m, device=device)[None, :]).reshape(-1)
+    return cols, m
+
+
+class LaunchRecorder:
+    """Inside ``with``, every launch through the wrappers of K1 (and
+    K1-pose), the schedule, K2, K3, K3-bwd and the hard-binning entry keeps
+    a copy of its inputs and of its result, so that :meth:`check` can hold
+    each kernel to its plain version on what the product's own launch was
+    given, after the product's run and outside its counts. Rays are
+    independent in K1, the schedule and K2, so a launch of those keeps the
+    first rays of each pose (REPLAY_K1_RAYS, REPLAY_SCHED_RAYS in all)."""
+
+    def __init__(self):
+        self.records = []   # (launch counter's name, inputs, result)
+
+    def __enter__(self):
+        from audiorenderingv2_tpu_torch.ops import histogram_cuda as hc
+        from audiorenderingv2_tpu_torch.ops import raytrace_cuda as rc
+        from audiorenderingv2_tpu_torch.ops import schedule_cuda as sc
+
+        self._patched = [(rc, "trace_round", self._k1),
+                         (sc, "tile_schedule", self._schedule),
+                         (sc, "trace_round_sched", self._k2),
+                         (hc, "histogram_sum_banded", self._k3),
+                         (hc, "histogram_bwd", self._k3_bwd),
+                         (hc, "histogram_binned", self._binned)]
+        self._orig = {}
+        for mod, name, wrap in self._patched:
+            self._orig[name] = getattr(mod, name)
+            setattr(mod, name, wrap)
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        for mod, name, _ in self._patched:
+            setattr(mod, name, self._orig[name])
+        return False
+
+    def _k1(self, state, tris, scal, params, budget, rays_per_pose=None):
+        from audiorenderingv2_tpu_torch.ops import raytrace_cuda as rc
+
+        p, rpp = rc.check_poses(state, scal, rays_per_pose)
+        cols, m = _ray_columns(p, rpp, REPLAY_K1_RAYS, state.device)
+        before = state[:, cols].clone()
+        out = self._orig["trace_round"](state, tris, scal, params, budget,
+                                        rays_per_pose)
+        name = "trace_round_posed" if scal.dim() == 2 else "trace_round"
+        self.records.append((name, (before, tris, scal, params, budget,
+                                    m if p > 1 else None),
+                             out[:, cols].clone()))
+        return out
+
+    def _schedule(self, state, boxes):
+        m = min(state.shape[1], REPLAY_SCHED_RAYS)
+        before = state[:, :m].clone()
+        out = self._orig["tile_schedule"](state, boxes)
+        self.records.append(("tile_schedule", (before, boxes),
+                             out[:m // 128].clone()))
+        return out
+
+    def _k2(self, state, rows, boxes, sched, scal, params,
+            rays_per_pose=None):
+        from audiorenderingv2_tpu_torch.ops import raytrace_cuda as rc
+
+        p, rpp = rc.check_poses(state, scal, rays_per_pose)
+        cols, m = _ray_columns(p, rpp, REPLAY_SCHED_RAYS, state.device)
+        tiles = (slice(0, m // 128) if p == 1
+                 else cols.view(-1, 128)[:, 0] // 128)
+        before, sched_part = state[:, cols].clone(), sched[tiles].clone()
+        out = self._orig["trace_round_sched"](state, rows, boxes, sched,
+                                              scal, params, rays_per_pose)
+        name = ("trace_round_sched_posed" if scal.dim() == 2
+                else "trace_round_sched")
+        self.records.append((name, (before, rows, boxes, sched_part, scal,
+                                    params, m if p > 1 else None),
+                             out[:, cols].clone()))
+        return out
+
+    def _k3(self, bins, weights, n_bins):
+        out = self._orig["histogram_sum_banded"](bins, weights, n_bins)
+        self.records.append(("histogram", (bins.clone(),
+                                           weights.detach().clone(), n_bins),
+                             out.clone()))
+        return out
+
+    def _k3_bwd(self, bins, g):
+        out = self._orig["histogram_bwd"](bins, g)
+        self.records.append(("histogram_bwd", (bins.clone(), g.clone()),
+                             out.clone()))
+        return out
+
+    def _binned(self, ev_bin_f, ev_w, ev_ear, *stage):
+        out = self._orig["histogram_binned"](ev_bin_f, ev_w, ev_ear, *stage)
+        self.records.append(("histogram_binned", (
+            ev_bin_f.clone(), ev_w.clone(), ev_ear.clone(), *stage),
+            out.clone()))
+        return out
+
+    def binned_events(self, k: int = -1):
+        """The events [P, E] of the ``k``-th hard-binning launch."""
+        return [r for r in self.records
+                if r[0] == "histogram_binned"][k][1][:3]
+
+    def check(self, what: str) -> dict:
+        """Every recorded launch against its plain version on its own
+        inputs: K1, K1-pose and K2 bit for bit in every column of the rays
+        kept, the schedule integer for integer, K3-bwd bit for bit; K3 and
+        the hard-binning entry each within binned_check's bar of the
+        float64 sum of their deposits (the atomics add in their own order),
+        and so is the plain version. Returns, per launch counter's name,
+        the launches held, the rays or events they covered and the largest
+        absolute difference from the plain version."""
+        from types import SimpleNamespace
+
+        from audiorenderingv2_tpu_torch.ops import histogram_cuda as hc
+        from audiorenderingv2_tpu_torch.ops import raytrace_cuda as rc
+        from audiorenderingv2_tpu_torch.ops import schedule_cuda as sc
+
+        held = {}
+        for k, (name, args, out) in enumerate(self.records):
+            where = f"{what}, {name} launch {k + 1}"
+            if name.startswith("trace_round_sched"):
+                plain = sc.trace_round_sched_plain(args[0].clone(), *args[1:])
+            elif name.startswith("trace_round"):
+                plain = rc.trace_round_plain(args[0].clone(), *args[1:])
+            elif name == "tile_schedule":
+                plain = sc.tile_schedule_plain(*args)
+            elif name == "histogram_bwd":
+                plain = hc.histogram_bwd_plain(*args)
+            elif name == "histogram":
+                bins, w, n_bins = args
+                plain = hc.histogram_plain(bins, w, n_bins)
+                keep = (bins >= 0) & (bins < n_bins)
+                rows, w64 = bins[keep].long(), w[keep].double()
+                ref = torch.zeros(out.shape, dtype=torch.float64,
+                                  device=out.device).index_add_(0, rows, w64)
+            else:  # the hard-binning entry
+                ev, stage = args[:3], args[3:]
+                plain = hc.histogram_binned_plain(*args)
+                rows, w64 = binned_deposits64(*ev, SimpleNamespace(
+                    ir_length=stage[0], is_mono=stage[1],
+                    cross_ear_delay=stage[2],
+                    hrtf_absorption_rate=stage[3]))
+                out = out.reshape(-1, out.shape[-1])
+                plain = plain.reshape(out.shape)
+                ref = torch.zeros(out.shape, dtype=torch.float64,
+                                  device=out.device).index_add_(0, rows, w64)
+            torch.cuda.synchronize()
+            if name in ("histogram", "histogram_binned"):
+                n_sub = subnormal_counts(rows, w64, ref.shape)
+                _assert_deposit_bar(out, ref, n_sub, where)
+                _assert_deposit_bar(plain, ref, n_sub, f"{where}, plain")
+                size = int(args[0].numel())
+            elif name in ("tile_schedule", "histogram_bwd"):
+                assert torch.equal(out, plain), f"{where}: differs from plain"
+                size = int(args[0].shape[1] if name == "tile_schedule"
+                           else args[0].numel())
+            else:
+                _assert_same_bits(out, plain, where)
+                size = int(out.shape[1])
+            row = held.setdefault(name, {"launches": 0, "size": 0,
+                                         "max_abs_err": 0.0})
+            row["launches"] += 1
+            row["size"] += size
+            row["max_abs_err"] = max(row["max_abs_err"], float(
+                (out.float() - plain.float()).abs().max()))
+        log(f"{what}: each launch held to its plain version on its own "
+            f"inputs (size: the rays kept, or the events): {held}")
+        return held
+
+
+def phase_sharded_nccl() -> dict:
+    """Phase 22 (a): the multi-GPU path as a world of one under NCCL, each
+    kernel that its product calls launch held to its plain version on the
+    launch's own inputs (:class:`LaunchRecorder`). Returns its numbers and
+    the launches of its product calls, kernel by kernel."""
+    import torch.distributed as dist
+
+    from audiorenderingv2_tpu_torch import dryrun, multi
+    from audiorenderingv2_tpu_torch.core import sampling, tracer
+    from audiorenderingv2_tpu_torch.core.tracer import TracerOptions
+    from audiorenderingv2_tpu_torch.ops import convolve
+    from audiorenderingv2_tpu_torch.parallel import (convolve_file_sharded,
+                                                     make_ray_mesh,
+                                                     make_segment_mesh,
+                                                     render_ir_sharded)
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    t0 = time.perf_counter()
+    dist.init_process_group(
+        "nccl", init_method=f"tcp://127.0.0.1:{dryrun.free_port()}",
+        world_size=1, rank=0)
+    total = dict.fromkeys(_read_launches(), 0)
+    held = {}
+
+    def driven(fn, what: str):
+        """``fn()`` once, its launches counted (the product's run) and
+        recorded, then each launch held to its plain version."""
+        before = _read_launches()
+        with LaunchRecorder() as rec:
+            out = fn()
+            torch.cuda.synchronize()
+        delta = {k: v - before[k] for k, v in _read_launches().items()}
+        for k, v in delta.items():
+            total[k] += v
+        for k, row in rec.check(what).items():
+            acc = held.setdefault(k, {"launches": 0, "size": 0,
+                                      "max_abs_err": 0.0})
+            acc["launches"] += row["launches"]
+            acc["size"] += row["size"]
+            acc["max_abs_err"] = max(acc["max_abs_err"], row["max_abs_err"])
+        return out, delta, rec
+
+    try:
+        mesh = make_ray_mesh()
+        assert dist.get_backend() == "nccl", dist.get_backend()
+        assert (mesh.rank, mesh.size, mesh.device) == (0, 1, dev), mesh
+        log(f"sharded, NCCL world of 1: process group up in "
+            f"{time.perf_counter() - t0:.2f} s; mesh {mesh}")
+
+        # Demo 5's room at its own size: 16M rays x 8 bounces. The peak
+        # memory of the timed runs, before any recording.
+        sc, rows, params, opts = _demo5()
+        em, rc_pos = EMITTER, DEMO5_RECEIVER
+        args = (sc, SHARDED_SEED, DEMO5_RAYS, em, rc_pos, DEMO5_YAW, params,
+                opts)
+        torch.cuda.reset_peak_memory_stats()
+        sharded_ms = median_ms(lambda: render_ir_sharded(
+            *args, mesh=mesh, rows=rows), 3)
+        peak = torch.cuda.max_memory_allocated() / 2**20
+        ir_sh, l16, rec = driven(lambda: render_ir_sharded(
+            *args, mesh=mesh, rows=rows), "demo 5, 16M rays")
+        assert l16["trace_round"] == len(opts.round_budgets), l16
+        assert l16["histogram_binned"] == 1, l16
+        assert l16["histogram"] == l16["trace_round_posed"] == 0, l16
+
+        def single_demo5():
+            return tracer.render_ir(
+                sc, sampling.pose_generator(SHARDED_SEED, 0, dev),
+                DEMO5_RAYS, em, rc_pos, DEMO5_YAW, params, opts,
+                n_total_rays=DEMO5_RAYS, rows=rows)
+        single = single_demo5()
+        single_ms = median_ms(single_demo5, 3)
+        errs = _events_bar({"sharded": ir_sh, "render_ir": single},
+                           rec.binned_events(), params, "demo 5, 16M rays")
+        nz = (ir_sh > 0).sum(dim=1).tolist()
+        assert min(nz) >= 200, nz
+        del rec, single
+        log(f"sharded render, demo 5's room ({sc.valid.shape[0]} triangle "
+            f"rows), {DEMO5_RAYS} rays x {DEMO5_BOUNCES} bounces in rounds "
+            f"{opts.round_budgets}, a {IR_SECONDS} s IR at {SR} Hz: "
+            f"launches {l16}; render_ir_sharded {sharded_ms:.3f} ms, "
+            f"render_ir of rank 0's stream {single_ms:.3f} ms (CUDA events, "
+            f"medians of 3); peak device memory {peak:.0f} MiB; against the "
+            f"float64 sum of the sharded run's deposits: {errs} (bar 1e-4); "
+            f"nonzero bins per ear {nz}, energy {ir_sh.sum(dim=1).tolist()}")
+        out = {"demo5": {"sharded_ms": sharded_ms, "render_ir_ms": single_ms,
+                         "peak_mib": peak}}
+
+        # The office: the schedule and K2 run, K1 does not.
+        _, scc, orows, oboxes = _office_clustered()
+        oparams = _office_params()
+        oopts = TracerOptions(schedule=True)
+        oargs = (scc, SHARDED_SEED, N_RAYS, EMITTER, OFFICE_RECEIVER, 0.0,
+                 oparams, oopts)
+        ir_o, lo, rec = driven(lambda: render_ir_sharded(
+            *oargs, mesh=mesh, rows=orows, boxes=oboxes), "office, 1M rays")
+        assert lo["tile_schedule"] == OFFICE_BOUNCES, lo
+        assert lo["trace_round_sched"] == OFFICE_BOUNCES, lo
+        assert lo["trace_round"] == 0 and lo["histogram_binned"] == 1, lo
+        office_ms = median_ms(lambda: render_ir_sharded(
+            *oargs, mesh=mesh, rows=orows, boxes=oboxes), 3)
+
+        def single_office():
+            return tracer.render_ir(
+                scc, sampling.pose_generator(SHARDED_SEED, 0, dev), N_RAYS,
+                EMITTER, OFFICE_RECEIVER, 0.0, oparams, oopts,
+                n_total_rays=N_RAYS, rows=orows, boxes=oboxes)
+        errs = _events_bar({"sharded": ir_o, "render_ir": single_office()},
+                           rec.binned_events(), oparams, "office, 1M rays")
+        office_single_ms = median_ms(single_office, 3)
+        del rec
+        log(f"sharded render, office ({N_RAYS} rays x {OFFICE_BOUNCES} "
+            f"bounces, clusters of 32): launches {lo}; render_ir_sharded "
+            f"{office_ms:.3f} ms, render_ir of rank 0's stream "
+            f"{office_single_ms:.3f} ms (medians of 3); against the float64 "
+            f"sum: {errs}")
+        out["office"] = {"sharded_ms": office_ms,
+                         "render_ir_ms": office_single_ms}
+
+        # The 2 x 2 matrix with mesh= at demo 5's pair_rays: posed K1.
+        margs = (sc, SHARDED_SEED, DEMO5_EMITTERS, DEMO5_LISTENERS,
+                 DEMO5_YAWS, DEMO5_PAIR_RAYS, params, opts)
+        irs, lm, rec = driven(lambda: multi.render_ir_matrix(
+            *margs, mesh=mesh, rows=rows), "2 x 2 matrix")
+        assert lm["trace_round_posed"] == len(opts.round_budgets), lm
+        assert lm["trace_round"] == 0 and lm["histogram_binned"] == 1, lm
+        assert irs.shape == (2, 2, 2, IR_SECONDS * SR)
+        assert np.isfinite(irs).all() and (irs > 0).sum(axis=-1).min() > 200
+        matrix_ms = wall_ms(lambda: multi.render_ir_matrix(
+            *margs, mesh=mesh, rows=rows), 3)
+        # pair 3 = (source 1, listener 1) against render_ir_sharded of its
+        # pair seed on the same mesh
+        alone = render_ir_sharded(
+            sc, sampling.fold_seed(SHARDED_SEED, 3), DEMO5_PAIR_RAYS,
+            DEMO5_EMITTERS[1], DEMO5_LISTENERS[1], float(DEMO5_YAWS[1]),
+            params, opts, mesh=mesh, rows=rows)
+        errs = _events_bar({"matrix pair (1, 1)": torch.from_numpy(
+            irs[1, 1]).to(dev), "render_ir_sharded of its pair seed": alone},
+            rec.binned_events(), params, "2 x 2 matrix", pose=3)
+        del rec
+        log(f"sharded matrix, 2 x 2 x {DEMO5_PAIR_RAYS} rays (mesh=): "
+            f"launches {lm}; {matrix_ms:.3f} ms (host clock, the copy to "
+            f"the host included, median of 3); pair (1, 1) and "
+            f"render_ir_sharded of its pair seed against the float64 sum "
+            f"of the matrix's deposits for it: {errs}")
+        out["matrix_ms"] = matrix_ms
+
+        # The segment-sharded convolution of 16 s with demo 5's IR.
+        sig = np.random.default_rng(3).standard_normal(
+            CONV_SECONDS * SR).astype(np.float32) * 0.3
+        seg = make_segment_mesh()
+        conv, lc, _ = driven(lambda: convolve_file_sharded(
+            sig, ir_sh, SR, mesh=seg), "sharded convolution")
+        assert not any(lc.values()), lc
+        want = convolve.convolve_file_stereo(torch.from_numpy(sig).to(dev),
+                                             ir_sh, SR)
+        rel = _rel_l2(conv.cpu().numpy(), want.cpu().numpy())
+        assert conv.shape == (2, CONV_SECONDS * SR) and rel < CONV_BAR, rel
+        conv_ms = median_ms(lambda: convolve_file_sharded(sig, ir_sh, SR,
+                                                          mesh=seg), 5)
+        single_conv_ms = median_ms(lambda: convolve.convolve_file_stereo(
+            torch.from_numpy(sig).to(dev), ir_sh, SR), 5)
+        log(f"sharded convolution, {CONV_SECONDS} s at {SR} Hz, a "
+            f"{IR_SECONDS} s IR (halo ring and all-gather under NCCL): "
+            f"{rel:.3e} relative L2 from convolve_file_stereo (bar "
+            f"{CONV_BAR}); {conv_ms:.3f} ms, single-process "
+            f"{single_conv_ms:.3f} ms (medians of 5)")
+        out["conv"] = {"sharded_ms": conv_ms, "single_ms": single_conv_ms,
+                       "rel_l2": rel}
+
+        # The dry run's three steps as a world of one.
+        t1 = time.perf_counter()
+        dry, ld, _ = driven(lambda: dryrun.dryrun_multichip(1),
+                            "dryrun_multichip(1)")
+        dry_s = time.perf_counter() - t1
+        loss, grad = dryrun.unsharded_train_gradient(1, dev)
+        g_rel = float(np.abs(dry["grad"] - grad).max()
+                      / np.abs(grad).max())
+        assert math.isfinite(dry["loss"]) and g_rel <= DRY_GRAD_BAR, (
+            dry, grad)
+        assert ld["histogram"] > 0 and ld["histogram_bwd"] > 0, ld
+        assert ld["tile_schedule"] > 0 and ld["trace_round_sched"] > 0, ld
+        log(f"dryrun_multichip(1): {dry_s:.2f} s, its launches held to "
+            f"their plain versions included; loss {dry['loss']:.6e} "
+            f"(unsharded {loss:.6e}), gradient {dry['grad'].tolist()} "
+            f"against the unsharded step's {grad.tolist()}: {g_rel:.3e} "
+            f"relative (bar {DRY_GRAD_BAR}); launches {ld}")
+    finally:
+        dist.destroy_process_group()
+    # Every launch of the product calls was held to its plain version.
+    for k, n in total.items():
+        assert held.get(k, {"launches": 0})["launches"] == n, (k, n, held)
+    out["launches"], out["held"] = total, held
+    log(f"phase 22 (a) launches: {total}; held to the plain versions: "
+        f"{held}")
+    return out
+
+
+def gloo_rank(rank: str, world: str, port: str, out_dir: str) -> None:
+    """One rank of phase 22 (b): trace_directions_sharded of the box's
+    GLOO_DIRS seeded directions, its IR saved as ``<out_dir>/<rank>.npy``."""
+    import torch.distributed as dist
+
+    from audiorenderingv2_tpu_torch import tuned
+    from audiorenderingv2_tpu_torch.core import tracer
+    from audiorenderingv2_tpu_torch.core.tracer import TracerOptions
+    from audiorenderingv2_tpu_torch.parallel import (init_distributed,
+                                                     make_ray_mesh,
+                                                     trace_directions_sharded)
+
+    init_distributed(f"127.0.0.1:{port}", int(world), int(rank),
+                     backend="gloo")
+    try:
+        mesh = make_ray_mesh()
+        assert mesh.device == torch.device("cuda", 0), mesh
+        sc = tracer.scene_to_arrays(_box_scene(), 128, device=mesh.device)
+        opts = TracerOptions(round_budgets=tuned.round_budgets_for(
+            MAX_BOUNCES))
+        ir = trace_directions_sharded(
+            sc, unit_dirs(GLOO_DIRS, 71), EMITTER, RECEIVER, 0.0,
+            _box_params(), opts, mesh=mesh)
+        np.save(Path(out_dir) / f"{rank}.npy", ir.cpu().numpy())
+    finally:
+        dist.destroy_process_group()
+
+
+GLOO_RANK = ("import sys; sys.path.insert(0, sys.argv[1]); import chip_smoke; "
+             "chip_smoke.gloo_rank(*sys.argv[2:])")
+
+
+def phase_sharded_gloo() -> None:
+    """Phase 22 (b): two gloo ranks on the one card. Two NCCL ranks on one
+    GPU are refused ("Duplicate GPU detected"); gloo's all-reduce takes
+    CUDA tensors."""
+    from audiorenderingv2_tpu_torch import dryrun, tuned
+    from audiorenderingv2_tpu_torch.core import tracer
+    from audiorenderingv2_tpu_torch.core.tracer import TracerOptions
+    from audiorenderingv2_tpu_torch.ops import raytrace_cuda as rc
+
+    mode = subprocess.run(
+        ["nvidia-smi", "--query-gpu=compute_mode", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60,
+        check=True).stdout.strip().splitlines()[0]
+    if "exclusive" in mode.lower():
+        raise RuntimeError(f"compute mode {mode!r}: two processes cannot "
+                           f"share the card, phase 22 (b) needs Default")
+    with tempfile.TemporaryDirectory() as tmp:
+        port = dryrun.free_port()
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen(
+            [sys.executable, "-c", GLOO_RANK, str(REPO), str(r), "2",
+             str(port), tmp], stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True) for r in range(2)]
+        logs = []
+        try:
+            for p in procs:
+                logs.append(p.communicate(timeout=RANK_TIMEOUT_S)[0])
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        for r, (p, out) in enumerate(zip(procs, logs)):
+            assert p.returncode == 0, f"gloo rank {r} failed:\n{out[-4000:]}"
+        wall = time.perf_counter() - t0
+        a, b = (np.load(Path(tmp) / f"{r}.npy") for r in range(2))
+    np.testing.assert_array_equal(a, b)
+    dev = torch.device("cuda")
+    sc = tracer.scene_to_arrays(_box_scene(), 128, device=dev)
+    params = _box_params()
+    opts = TracerOptions(round_budgets=tuned.round_budgets_for(MAX_BOUNCES))
+    dirs = torch.from_numpy(unit_dirs(GLOO_DIRS, 71)).to(dev)
+    single = tracer.trace_ir(sc, dirs, EMITTER, RECEIVER, 0.0, params, opts)
+    rows, _ = rc.pack_scene(sc)
+    ev = rc.trace_events(rows, dirs, torch.tensor(EMITTER, device=dev),
+                         torch.tensor(RECEIVER, device=dev), 0.0, params,
+                         round_budgets=opts.round_budgets)
+    ev = tuple(x[None] for x in ev)  # one pose
+    errs = _events_bar({"2 gloo ranks": torch.from_numpy(a).to(dev),
+                        "trace_ir": single}, ev, params,
+                       "box, 1,000,064 directions")
+    log(f"sharded, 2 gloo ranks on the one card (compute mode {mode}): "
+        f"{wall:.2f} s for both processes (start, import, trace); the ranks' "
+        f"IRs equal bit for bit; against the float64 sum of the "
+        f"single-process trace's deposits: {errs}")
+
+
+def phase_warmup() -> dict:
+    """Phase 22 (c): the warmup entry point as a user runs it."""
+    with tempfile.TemporaryDirectory() as tmp:
+        out = Path(tmp) / "warmup.json"
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "audiorenderingv2_tpu_torch.warmup",
+             "--out", str(out)], cwd=REPO, capture_output=True, text=True,
+            timeout=600)
+        wall = time.perf_counter() - t0
+        assert proc.returncode == 0, proc.stdout[-4000:] + proc.stderr[-4000:]
+        report = json.loads(out.read_text())
+    assert report["device"]["platform"] == "gpu", report
+    assert set(report["configs"]) == {"small_bench", "large_bench",
+                                      "renderer_default"}, report
+    for name, row in report["configs"].items():
+        for key in ("setup_s", "first_s", "warm_s"):
+            assert math.isfinite(row[key]) and row[key] > 0, (name, row)
+    log(f"warmup: {wall:.2f} s for the process; {json.dumps(report)}")
+    return report
+
+
+def phase_sharded() -> dict:
+    """Phase 22: the multi-GPU path (a) under NCCL as a world of one, (b)
+    as two gloo ranks on the card, (c) warmup. Returns (a)'s numbers."""
+    t0 = time.perf_counter()
+    out = phase_sharded_nccl()
+    phase_sharded_gloo()
+    phase_warmup()
+    log(f"phase 22: {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; the port's "
@@ -3653,17 +4251,20 @@ def main() -> int:
     k7 = phase_v1()
     manual = phase_experimentation()
     live = phase_main_mode()
+    sharded = phase_sharded()["launches"]
     kernels = [
         {"name": "trace_round", "route": "cuda",
          "source": "audiorenderingv2_tpu_torch/csrc/trace_round.cu",
          "replaces": "audiorenderingv2_tpu/ops/raytrace_pallas_v2.py:799",
          "launches": launches["trace_round"],
          "main_mode_launches": live["main"]["trace_round"],
-         "live_launches": live["live_box"]["launches"]["trace_round"], **k1},
+         "live_launches": live["live_box"]["launches"]["trace_round"],
+         "sharded_launches": sharded["trace_round"], **k1},
         {"name": "histogram", "route": "cuda",
          "source": "audiorenderingv2_tpu_torch/csrc/histogram.cu",
          "replaces": "audiorenderingv2_tpu/ops/histogram_pallas.py:59",
-         "launches": fit_launches["histogram"], **k3},
+         "launches": fit_launches["histogram"],
+         "sharded_launches": sharded["histogram"], **k3},
         {"name": "histogram_binned", "route": "cuda",
          "source": "audiorenderingv2_tpu_torch/csrc/histogram.cu",
          "replaces": "audiorenderingv2_tpu/ops/histogram_pallas.py:59",
@@ -3671,23 +4272,27 @@ def main() -> int:
          "main_mode_launches": live["main"]["histogram_binned"],
          "live_launches": (live["live_box"]["launches"]["histogram_binned"]
                            + live["live_office"]["launches"]
-                           ["histogram_binned"]), **binned},
+                           ["histogram_binned"]),
+         "sharded_launches": sharded["histogram_binned"], **binned},
         {"name": "trace_round_sched", "route": "cuda",
          "source": "audiorenderingv2_tpu_torch/csrc/trace_sched.cu",
          "replaces": "audiorenderingv2_tpu/ops/raytrace_pallas_v2.py:501",
          "launches": office["trace_round_sched"],
          "live_launches": live["live_office"]["launches"]["trace_round_sched"],
+         "sharded_launches": sharded["trace_round_sched"],
          **cluster["trace_round_sched"]},
         {"name": "tile_schedule", "route": "cuda",
          "source": "audiorenderingv2_tpu_torch/csrc/tile_schedule.cu",
          "replaces": "audiorenderingv2_tpu/ops/raytrace_pallas_v2.py:1103",
          "launches": office["tile_schedule"],
          "live_launches": live["live_office"]["launches"]["tile_schedule"],
+         "sharded_launches": sharded["tile_schedule"],
          **cluster["tile_schedule"]},
         {"name": "trace_round_posed", "route": "cuda",
          "source": "audiorenderingv2_tpu_torch/csrc/trace_round.cu",
          "replaces": "audiorenderingv2_tpu/ops/raytrace_pallas_v2.py:887",
          "launches": multi_launches["trace_round_posed"],
+         "sharded_launches": sharded["trace_round_posed"],
          **posed["trace_round_posed"]},
         {"name": "trace_round_posed_4band", "route": "cuda",
          "source": "audiorenderingv2_tpu_torch/csrc/trace_round.cu",
@@ -3710,7 +4315,8 @@ def main() -> int:
         {"name": "histogram_bwd", "route": "cuda",
          "source": "audiorenderingv2_tpu_torch/csrc/histogram.cu",
          "replaces": "audiorenderingv2_tpu/ops/histogram_pallas.py:124",
-         "launches": fit_launches["histogram_bwd"], **k3_bwd},
+         "launches": fit_launches["histogram_bwd"],
+         "sharded_launches": sharded["histogram_bwd"], **k3_bwd},
         {"name": "trace_traverse", "route": "cuda",
          "source": "audiorenderingv2_tpu_torch/csrc/trace_traverse.cu",
          "replaces": "audiorenderingv2_tpu/ops/raytrace_pallas_v2.py:547",

@@ -74,7 +74,8 @@ def test_port_imports_without_jax():
                     "ops.traverse_cuda", "ops.group_cuda", "ops.v1_cuda",
                     "experiment", "utils.profiling", "cli", "streaming",
                     "native", "utils.logging", "utils.acoustics",
-                    "utils.plotting", "utils.webview"):
+                    "utils.plotting", "utils.webview", "parallel.sharding",
+                    "parallel.ir_sharding", "dryrun", "warmup"):
             assert pkg.__name__ + "." + sub in names, sub
         bad = [m for m, mod in sys.modules.items() if mod is not None and (
                m == "audiorenderingv2_tpu"
@@ -92,6 +93,26 @@ def test_port_imports_without_jax():
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip() == "ok"
+
+
+def test_public_names_equal_the_jax_packages():
+    """The port's top-level ``__all__`` and ``parallel.__all__`` are the
+    JAX package's, each name from the port's own modules."""
+    import audiorenderingv2_tpu.parallel as j_parallel
+    import audiorenderingv2_tpu_torch as port
+    import audiorenderingv2_tpu_torch.parallel as t_parallel
+
+    assert port.__all__ == ar.__all__
+    assert t_parallel.__all__ == j_parallel.__all__
+    for mod in (port, t_parallel):
+        for name in mod.__all__:
+            obj = getattr(mod, name)
+            if isinstance(obj, str):  # the axis names, checked below
+                continue
+            owner = getattr(obj, "__module__", None) or obj.__name__
+            assert owner.startswith("audiorenderingv2_tpu_torch."), name
+    assert t_parallel.RAYS_AXIS == j_parallel.RAYS_AXIS
+    assert t_parallel.SEG_AXIS == j_parallel.SEG_AXIS
 
 
 @pytest.mark.parametrize("rel", COPIES)
