@@ -43,6 +43,19 @@ class _HistogramSum(torch.autograd.Function):
         return None, histogram_cuda.histogram_bwd(bins, g), None
 
 
+def histogram_sum(bins: torch.Tensor, weights: torch.Tensor,
+                  n_bins: int) -> torch.Tensor:
+    """Sum ``weights`` into ``n_bins`` buckets keyed by integer ``bins``.
+
+    ``bins`` and ``weights`` may have any (equal) shape; they are
+    flattened. Entries with bin < 0 or bin >= n_bins are dropped. Returns
+    f32 [n_bins]; gradients flow to ``weights``. The one-band case of
+    :func:`histogram_sum_banded`, through the same Function (K3 forward,
+    K3-bwd backward on the card), so there is one implementation."""
+    return histogram_sum_banded(bins.reshape(-1), weights.reshape(-1, 1),
+                                n_bins)[:, 0]
+
+
 def histogram_sum_banded(bins: torch.Tensor, weights: torch.Tensor,
                          n_bins: int) -> torch.Tensor:
     """Sum ``weights`` [E, n_bands] into ``n_bins`` buckets keyed by

@@ -1,10 +1,11 @@
 """Test helpers of the port: procedural rooms and the IR comparison bar.
 
-``box_room``, ``icosphere`` and ``scene_from_arrays`` build the same scenes
-as the JAX package's ``testing`` module, and ``office_scene`` the large
-scene of ``benchmarks/large_scene.py``; ``assert_ir_close`` is its
-comparison bar. They live here so that ``chip_smoke.py`` and the card-side
-checks need nothing of the JAX package.
+``box_room``, ``icosphere``, ``quad``, ``mesh_from_arrays`` and
+``scene_from_arrays`` build the same meshes and scenes as the JAX package's
+``testing`` module, and ``office_scene`` the large scene of
+``benchmarks/large_scene.py``; ``assert_ir_close`` is its comparison bar.
+They live here so that ``chip_smoke.py`` and the card-side checks need
+nothing of the JAX package.
 """
 from __future__ import annotations
 
@@ -42,6 +43,18 @@ def assert_ir_close(a, b, exact: bool = True, rtol: float = 1e-3,
     assert l1 < l1_budget, (
         f"relative L1 distance {l1:.3e} exceeds {l1_budget:.1e} "
         f"(more than a few deposits moved bins)")
+
+
+def quad(center, u_axis, v_axis):
+    """Two triangles spanning center +- u_axis +- v_axis.
+
+    Returns (vertices [4, 3], triangles [2, 3])."""
+    c = np.asarray(center, np.float32)
+    u = np.asarray(u_axis, np.float32)
+    v = np.asarray(v_axis, np.float32)
+    verts = np.stack([c - u - v, c + u - v, c + u + v, c - u + v])
+    tris = np.array([[0, 1, 2], [0, 2, 3]], np.int32)
+    return verts, tris
 
 
 def box_room(size=(10.0, 10.0, 10.0), center=(0.0, 0.0, 0.0)):
@@ -142,13 +155,26 @@ def office_scene(n_tris_target: int) -> Scene:
     return scene_from_arrays(v, t, np.full(len(t), 0.3, np.float32))
 
 
-def scene_from_arrays(vertices, triangles, absorption) -> Scene:
-    """A Scene with a uniform or per-triangle absorption."""
+def mesh_from_arrays(vertices, triangles, tri_material=None,
+                     material_names=None) -> MeshData:
+    """A MeshData of ``vertices`` [V, 3] and ``triangles`` [T, 3]; every
+    triangle of material -1 (the default absorption) unless
+    ``tri_material`` [T] says otherwise."""
     vertices = np.asarray(vertices, np.float32).reshape(-1, 3)
     triangles = np.asarray(triangles, np.int32).reshape(-1, 3)
-    mesh = MeshData(vertices=vertices, triangles=triangles,
-                    tri_material=np.full(triangles.shape[0], -1, np.int32),
-                    material_names=[])
+    if tri_material is None:
+        tri_material = np.full(triangles.shape[0], -1, np.int32)
+    return MeshData(
+        vertices=vertices,
+        triangles=triangles,
+        tri_material=np.asarray(tri_material, np.int32),
+        material_names=list(material_names or []),
+    )
+
+
+def scene_from_arrays(vertices, triangles, absorption) -> Scene:
+    """A Scene with a uniform or per-triangle absorption."""
+    mesh = mesh_from_arrays(vertices, triangles)
     absorption = np.asarray(absorption, np.float32)
     if absorption.ndim == 0:
         absorption = np.full(mesh.n_triangles, float(absorption), np.float32)

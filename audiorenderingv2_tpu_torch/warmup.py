@@ -58,11 +58,11 @@ def _params(max_bounces: int) -> TraceParams:
                        hrtf_absorption_rate=0.9)
 
 
-def _render_fn(scene, n_rays: int, receiver, params: TraceParams, device):
-    """A render of ``scene`` under ``tuned.auto_options``, clustered where
-    those options say, with its bounce counts (``with_stats``)."""
-    opts, cluster_size = tuned.auto_options(scene.n_triangles,
-                                            params.max_bounces)
+def _render_fn(scene, n_rays: int, receiver, params: TraceParams, device,
+               opts, cluster_size: int | None):
+    """A render of ``scene`` under ``opts``, sorted into clusters of
+    ``cluster_size`` first unless it is None, with its bounce counts
+    (``with_stats``)."""
     clusters = None
     if cluster_size is not None:
         scene, clusters = accel.prepare_scene(scene,
@@ -81,10 +81,14 @@ def shipped_configs(device: torch.device | str = "cuda"):
     ``device`` and returns its render, a callable of no argument.
 
     ``small_bench``: the 14 x 9 x 11 m box (absorption 0.3), 1M rays x 100
-    bounces; ``large_bench``: ``testing.office_scene(20000)``, 1M rays x 32
-    bounces (the clustered route); ``renderer_default``: ``AudioRenderer``
-    on the box at the reference's defaults (1M rays, 100 bounces, a 2 s IR
-    at 16 kHz)."""
+    bounces under ``tuned.bench_small_options()``; ``large_bench``:
+    ``testing.office_scene(20000)``, 1M rays x 32 bounces under
+    ``tuned.bench_large_options()`` in clusters of
+    ``tuned.bench_large_cluster_size()`` (the clustered route); the
+    ``AR2_BENCH_*`` overrides apply as in a benchmark run, and with none
+    set both are ``tuned.auto_options``' routes. ``renderer_default``:
+    ``AudioRenderer`` on the box at the reference's defaults (1M rays, 100
+    bounces, a 2 s IR at 16 kHz)."""
     device = torch.device(device)
 
     def box():
@@ -93,11 +97,14 @@ def shipped_configs(device: torch.device | str = "cuda"):
 
     def small():
         return _render_fn(box(), SMALL_RAYS, RECEIVER,
-                          _params(SMALL_BOUNCES), device)
+                          _params(SMALL_BOUNCES), device,
+                          tuned.bench_small_options(), None)
 
     def large():
         return _render_fn(testing.office_scene(LARGE_TRIS), LARGE_RAYS,
-                          OFFICE_RECEIVER, _params(LARGE_BOUNCES), device)
+                          OFFICE_RECEIVER, _params(LARGE_BOUNCES), device,
+                          tuned.bench_large_options(),
+                          tuned.bench_large_cluster_size())
 
     def renderer_default():
         r = AudioRenderer(box(), ir_seconds=2, sample_rate=16000,

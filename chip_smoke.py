@@ -128,10 +128,8 @@ Phases, in order; any failure raises and the script exits non-zero:
 17. a trainer that takes a few steps: diff.fit_scene_parameters(method=
    "replay") on the office at 1M rays, 5 Adam steps on the absorption
    logits from recorded paths, the launch counts read around it (schedule,
-   K2, K3, K3-bwd), a falling loss and finite gradients; then the fit of
-   examples/demo_4_inverse.py on the card (coarse_emitter_search, then 200
-   steps of the full method on 3 receivers): absorption within 0.08, the
-   emitter within 0.5 m.
+   K2, K3, K3-bwd), a falling loss and finite gradients (the inverse
+   demo's own fit runs in phase 23).
 
 18. K6, the group-layout kernel: its SASS (cuobjdump -sass: HMMA in every
    "high" kernel and the probe, in no "highest" one); the probe of its
@@ -193,16 +191,18 @@ Phases, in order; any failure raises and the script exits non-zero:
    the office at 1M rays: the bounce sum, rays/s;
 22. the multi-GPU path (``parallel/``), the card being one GPU: (a) a
    world of one under NCCL (127.0.0.1, a free port), so that every
-   all-reduce and all-gather goes through NCCL: render_ir_sharded of
-   examples/demo_5_sharded.py's room (24 x 12 x 18 m box and icosphere, 332
-   triangles) at its 16,000,000 rays x 8 bounces, a 2 s IR at 16 kHz (K1
-   and the hard-binning entry counted), and the office at 1M rays x 32
-   (the schedule and K2, no K1), each IR and a render_ir of rank 0's
-   stream held to the float64 sum of the sharded run's deposits on
-   binned_check's bar, times of both and the peak device memory;
-   render_ir_matrix(mesh=) 2 x 2 at demo 5's 1M rays a pair (posed K1),
-   one pair and render_ir_sharded of its pair seed fold_seed(seed, pair)
-   on the same bar; convolve_file_sharded of 16 s with the 2 s IR within
+   all-reduce and all-gather goes through NCCL: demo 5 as a user runs it
+   (``audiorenderingv2_tpu_torch.examples.demo_5_sharded.main``, its scene
+   from that module): render_ir_sharded of its room (24 x 12 x 18 m box
+   and icosphere, 332 triangles) at its 16,000,000 rays x 8 bounces, a 2 s
+   IR at 16 kHz (K1 and the hard-binning entry counted), then
+   render_ir_matrix(mesh=) 2 x 2 at its 1M rays a pair (posed K1); the
+   office at 1M rays x 32 (the schedule and K2, no K1); each IR and a
+   render_ir of rank 0's stream held to the float64 sum of the sharded
+   run's deposits on binned_check's bar, times of both (the render's first
+   call too) and the peak device memory; one pair of the matrix and
+   render_ir_sharded of its pair seed fold_seed(seed, pair) on the same
+   bar; convolve_file_sharded of 16 s with the 2 s IR within
    1e-5 relative L2 of convolve_file_stereo; dryrun_multichip(1): a
    finite loss, its gradient within 1e-4 of the unsharded step's. Every
    kernel launch of these product calls is recorded (LaunchRecorder) and
@@ -219,9 +219,39 @@ Phases, in order; any failure raises and the script exits non-zero:
    trace_ir to the float64 sum of its deposits. (c) ``python -m
    audiorenderingv2_tpu_torch.warmup`` as a subprocess: finite times for
    its three configurations, printed.
+23. the repo's seven demos (``audiorenderingv2_tpu_torch/examples/``), each
+   ``main()`` on the card at its own size as a user runs it, twice (first
+   and warm wall time; demo 4's 200-step fit once, its steps timed; demo
+   5's main is phase 22 (a)'s run), every kernel launch of the first run
+   counted (the counters set to 0 just before, read just after: a needed
+   kernel at 0 fails) and every kernel wrapper call checked to be given
+   CUDA tensors; demos 1 and 2 also under LaunchRecorder, each launch held
+   to its plain version (K1 bit for bit, the hard-binning entry on
+   binned_check's bar); each demo's own checks (demo 3's renders, the IRs
+   empty while the receiver is outside its room, its real-time factor;
+   demo 4's bars, absorption within 0.08 and the source within 0.5 m; demo
+   6's shapes and four finite WAVs; the live duplex's length through the
+   native engine); a render's time in CUDA events. Then demos 1, 2, 3, 5
+   and 6 against the float64 oracle (core/tracer_ref.py) on the first
+   4,096 of their own directions, on the demo's scene and pose (demo 3 its
+   first render with the receiver inside the room, demo 6 pair 0): demos 1
+   and 2 per bin at rtol 2e-3, atol 1e-8 with each ray's deposit checked
+   against the oracle's (a ray whose deposit moved, a near-tangent
+   receiver crossing decided the other way in float32, is reported and may
+   be at most 0.1% of the rays), demos 3, 5, 6 on assert_ir_close(exact=
+   False); the largest relative bin error and the relative L1 printed.
+   Last, four paths not run on the card before: one step of demo 4's fit
+   at 1M rays by the replay (K1 records) and by the full method, their
+   gradients within 1% (phase 16's gate); demo 6's matrix on the office
+   with demo 2's four bands (posed schedule and K2, 8M rays x 40 bounces)
+   through mix_sources, one pair against a single render_ir; a recording
+   and its replay at 100 bounces on the box against the forward render;
+   K5 on the 8-band layout against its plain version, bit for bit.
 
 Then one JSON line of the kernels: name, route, source, the TPU kernel it
-replaces, launches on its main path (the export of phase 5, whose IR is
+replaces, "demo_launches" (the launches of its counter in the first runs of
+the demos' mains, phase 23 and demo 5's in phase 22 (a)), launches on its
+main path (the export of phase 5, whose IR is
 the fused hard-binning entry's, and for K3's flat-bin entry the office fit
 of phase 17, which bins softly; for K6 and K7
 the experimentation runs of phase 20, for the posed K6 the matrix of phase
@@ -1723,12 +1753,10 @@ def phase_box_events() -> tuple[dict, dict]:
 
 
 def _dry_signals():
-    """Two 2 s dry signals: a click train and a tone burst."""
-    tt = np.arange(2 * SR) / SR
-    click = (np.sin(2 * np.pi * 6 * tt) > 0.995).astype(np.float32)
-    tone = (np.sin(2 * np.pi * 440 * tt)
-            * np.exp(-((tt - 0.5) ** 2) / 0.02)).astype(np.float32)
-    return [click, tone]
+    """Demo 6's two 2 s dry signals: a click train and a tone burst."""
+    from audiorenderingv2_tpu_torch.examples import demo_6_multipose
+
+    return demo_6_multipose.dry_signals()
 
 
 def box_matrix(n_bands: int):
@@ -2637,18 +2665,13 @@ def phase_gradient_step() -> None:
 def phase_trainer() -> dict:
     """A trainer that takes a few steps: ``fit_scene_parameters`` at full
     width on the office (5 Adam steps on the absorption logits at 1M rays,
-    from recorded paths), the launch counts read around it; then the fit of
-    examples/demo_4_inverse.py on the card. Returns the launches of the
-    office fit."""
-    from audiorenderingv2_tpu_torch import testing
+    from recorded paths), the launch counts read around it (the inverse
+    demo's own fit runs in phase 23). Returns the launches of the office
+    fit."""
     from audiorenderingv2_tpu_torch.core import tracer
-    from audiorenderingv2_tpu_torch.core.params import TraceParams
-    from audiorenderingv2_tpu_torch.diff import (coarse_emitter_search,
-                                                 emitter_grid,
-                                                 fit_scene_parameters,
+    from audiorenderingv2_tpu_torch.diff import (fit_scene_parameters,
                                                  record_paths_kernels,
-                                                 render_ir_replay,
-                                                 render_soft_ir)
+                                                 render_ir_replay)
 
     dev = torch.device("cuda")
     params = _grad_params()
@@ -2696,45 +2719,6 @@ def phase_trainer() -> dict:
     assert len(grads) == steps and all(grads)
     assert 0.3 < float(res.params["absorption"][-1]) < 0.5
 
-    # examples/demo_4_inverse.py on the card.
-    true_a, true_em = 0.35, np.array([0.8, -0.4, 0.6], np.float32)
-    box = testing.scene_from_arrays(*testing.box_room((12.0, 8.0, 10.0)),
-                                    true_a)
-    p = TraceParams(sample_rate=8000, ir_length=8000, base_power=3.62,
-                    max_bounces=5)
-    recs = np.array([[2.0, 1.0, -1.5], [-3.0, -1.0, 2.0], [1.0, 2.5, 3.0]],
-                    np.float32)
-    opts = tracer.TracerOptions(block_size=1024, tri_chunk=128)
-    kw = dict(n_rays=2048, opts=opts, seed=7, device="cuda")
-    t0 = time.perf_counter()
-    tgt = torch.stack([render_soft_ir(box, p, emitter=true_em,
-                                      receiver_pos=r, **kw) for r in recs])
-    grid = emitter_grid(box.bounds_min + 1.0, box.bounds_max - 1.0,
-                        spacing=2.0)
-    best, losses = coarse_emitter_search(box, tgt, p, candidates=grid,
-                                         receiver_pos=recs,
-                                         smooth_radius=32, **kw)
-    torch.cuda.synchronize()
-    search_s = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    fit = fit_scene_parameters(
-        box, tgt, p, steps=200, learning_rate=0.03, fit_absorption=True,
-        fit_emitter=True, smooth_radius=8, init_emitter=tuple(best),
-        receiver_pos=recs, **kw)
-    torch.cuda.synchronize()
-    fit_s = time.perf_counter() - t0
-    a_fit = float(fit.params["absorption"][-1])
-    em_err = float(np.linalg.norm(fit.params["emitter"] - true_em))
-    log(f"inverse demo on the card (box 12 x 8 x 10 m, 3 receivers, 2048 "
-        f"rays, 5 bounces): grid of {len(grid)} candidates -> {best} in "
-        f"{search_s:.2f} s; 200 steps of the full method in {fit_s:.2f} s: "
-        f"absorption {a_fit:.4f} (true {true_a}), emitter "
-        f"{fit.params['emitter'].round(3).tolist()} (true "
-        f"{true_em.tolist()}), off by {em_err:.3f} m; loss "
-        f"{fit.losses[0]:.3e} -> {fit.final_loss:.3e}")
-    assert abs(a_fit - true_a) < 0.08, a_fit
-    assert em_err < 0.5, em_err
-    assert np.isfinite(fit.losses).all()
     return fl
 
 
@@ -3651,15 +3635,6 @@ def phase_main_mode() -> dict:
 
 # ------------------------------------------------------------ phase 22
 
-DEMO5_ROOM = (24.0, 12.0, 18.0)
-DEMO5_RAYS = 16_000_000
-DEMO5_BOUNCES = 8
-DEMO5_RECEIVER = (8.0, 3.0, -5.0)
-DEMO5_YAW = 30.0
-DEMO5_EMITTERS = np.array([[0.0, 0.0, 0.0], [-6.0, 3.0, 5.0]], np.float32)
-DEMO5_LISTENERS = np.array([[8.0, 3.0, -5.0], [2.0, -4.0, 6.0]], np.float32)
-DEMO5_YAWS = np.array([30.0, -45.0], np.float32)
-DEMO5_PAIR_RAYS = DEMO5_RAYS // 16
 SHARDED_SEED = 0
 CONV_SECONDS = 16
 CONV_BAR = 1e-5         # relative L2, sharded against single-process
@@ -3672,31 +3647,6 @@ RANK_TIMEOUT_S = 300
 # schedule's and K2's first 65,536 (as office_trace_check).
 REPLAY_K1_RAYS = 1_000_064
 REPLAY_SCHED_RAYS = 65_536
-
-
-def _demo5():
-    """examples/demo_5_sharded.py's room (a 24 x 12 x 18 m box, absorption
-    0.2, and an icosphere of radius 2 at (6, -2, 4), 0.7) on the card, its
-    parameters (8 bounces, a 2 s IR at 16 kHz) and ``tuned.auto_options``:
-    (scene arrays, rows, params, opts)."""
-    from audiorenderingv2_tpu_torch import testing, tuned
-    from audiorenderingv2_tpu_torch.core import tracer
-    from audiorenderingv2_tpu_torch.core.params import TraceParams
-
-    v, t = testing.box_room(DEMO5_ROOM)
-    sv, st = testing.icosphere(radius=2.0, center=(6.0, -2.0, 4.0),
-                               subdivisions=2)
-    absorption = np.concatenate([np.full(len(t), 0.2, np.float32),
-                                 np.full(len(st), 0.7, np.float32)])
-    scene = testing.scene_from_arrays(np.vstack([v, sv]),
-                                      np.vstack([t, st + len(v)]), absorption)
-    params = TraceParams(sample_rate=SR, ir_length=IR_SECONDS * SR,
-                         base_power=3.62, max_bounces=DEMO5_BOUNCES)
-    opts, cluster_size = tuned.auto_options(scene.n_triangles, DEMO5_BOUNCES)
-    assert cluster_size is None  # 332 triangles: the rows route
-    sc = tracer.scene_to_arrays(scene, 128, device="cuda")
-    rows, _ = tracer.packed_scene(sc, params, None, None, opts)
-    return sc, rows, params, opts
 
 
 def _events_bar(irs: dict, ev, params, what: str, pose: int = 0) -> dict:
@@ -3906,6 +3856,7 @@ def phase_sharded_nccl() -> dict:
     from audiorenderingv2_tpu_torch import dryrun, multi
     from audiorenderingv2_tpu_torch.core import sampling, tracer
     from audiorenderingv2_tpu_torch.core.tracer import TracerOptions
+    from audiorenderingv2_tpu_torch.examples import demo_5_sharded as demo5
     from audiorenderingv2_tpu_torch.ops import convolve
     from audiorenderingv2_tpu_torch.parallel import (convolve_file_sharded,
                                                      make_ray_mesh,
@@ -3946,44 +3897,77 @@ def phase_sharded_nccl() -> dict:
         log(f"sharded, NCCL world of 1: process group up in "
             f"{time.perf_counter() - t0:.2f} s; mesh {mesh}")
 
-        # Demo 5's room at its own size: 16M rays x 8 bounces. The peak
-        # memory of the timed runs, before any recording.
-        sc, rows, params, opts = _demo5()
-        em, rc_pos = EMITTER, DEMO5_RECEIVER
-        args = (sc, SHARDED_SEED, DEMO5_RAYS, em, rc_pos, DEMO5_YAW, params,
-                opts)
+        # Demo 5 as a user runs it (examples/demo_5_sharded.py's main): its
+        # room at its own size, render_ir_sharded of 16M rays x 8 bounces,
+        # then the 2 x 2 matrix with mesh= at 1M rays a pair. First the
+        # render alone, timed; the peak memory of the timed runs, before
+        # any recording.
+        sc, rows, params, opts = demo5.setup(dev)
+        em, rc_pos, n5 = demo5.EMITTER, demo5.RECEIVER, demo5.total_rays(dev)
+        args = (sc, demo5.SEED, n5, em, rc_pos, demo5.YAW, params, opts)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        render_ir_sharded(*args, mesh=mesh, rows=rows)
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t1
         torch.cuda.reset_peak_memory_stats()
         sharded_ms = median_ms(lambda: render_ir_sharded(
             *args, mesh=mesh, rows=rows), 3)
         peak = torch.cuda.max_memory_allocated() / 2**20
-        ir_sh, l16, rec = driven(lambda: render_ir_sharded(
-            *args, mesh=mesh, rows=rows), "demo 5, 16M rays")
-        assert l16["trace_round"] == len(opts.round_budgets), l16
-        assert l16["histogram_binned"] == 1, l16
-        assert l16["histogram"] == l16["trace_round_posed"] == 0, l16
+        res5, l5, rec = driven(lambda: demo5.main(dev, mesh=mesh),
+                               "demo 5, demo_5_sharded.main")
+        n_rounds = len(opts.round_budgets)
+        assert l5["trace_round"] == l5["trace_round_posed"] == n_rounds, l5
+        assert l5["histogram_binned"] == 2 and l5["histogram"] == 0, l5
+        assert (res5["world"], res5["n_rays"]) == (1, n5), res5["n_rays"]
+        ir_sh, irs, pair_rays = res5["ir"], res5["irs"], res5["pair_rays"]
 
         def single_demo5():
             return tracer.render_ir(
-                sc, sampling.pose_generator(SHARDED_SEED, 0, dev),
-                DEMO5_RAYS, em, rc_pos, DEMO5_YAW, params, opts,
-                n_total_rays=DEMO5_RAYS, rows=rows)
+                sc, sampling.pose_generator(demo5.SEED, 0, dev), n5, em,
+                rc_pos, demo5.YAW, params, opts, n_total_rays=n5, rows=rows)
         single = single_demo5()
         single_ms = median_ms(single_demo5, 3)
         errs = _events_bar({"sharded": ir_sh, "render_ir": single},
-                           rec.binned_events(), params, "demo 5, 16M rays")
+                           rec.binned_events(0), params, "demo 5, 16M rays")
         nz = (ir_sh > 0).sum(dim=1).tolist()
         assert min(nz) >= 200, nz
-        del rec, single
+        del single
         log(f"sharded render, demo 5's room ({sc.valid.shape[0]} triangle "
-            f"rows), {DEMO5_RAYS} rays x {DEMO5_BOUNCES} bounces in rounds "
-            f"{opts.round_budgets}, a {IR_SECONDS} s IR at {SR} Hz: "
-            f"launches {l16}; render_ir_sharded {sharded_ms:.3f} ms, "
+            f"rows), {n5} rays x {params.max_bounces} bounces in rounds "
+            f"{opts.round_budgets}, a {IR_SECONDS} s IR at {SR} Hz: first "
+            f"call {first_s:.3f} s (host clock), in main {res5['wall_s']:.3f}"
+            f" s (recorded); render_ir_sharded {sharded_ms:.3f} ms, "
             f"render_ir of rank 0's stream {single_ms:.3f} ms (CUDA events, "
             f"medians of 3); peak device memory {peak:.0f} MiB; against the "
             f"float64 sum of the sharded run's deposits: {errs} (bar 1e-4); "
             f"nonzero bins per ear {nz}, energy {ir_sh.sum(dim=1).tolist()}")
+
+        # The 2 x 2 matrix of main: posed K1; pair 3 = (source 1, listener
+        # 1) against render_ir_sharded of its pair seed on the same mesh.
+        assert irs.shape == (2, 2, 2, IR_SECONDS * SR)
+        assert np.isfinite(irs).all() and (irs > 0).sum(axis=-1).min() > 200
+        margs = (sc, demo5.MATRIX_SEED, demo5.EMITTERS, demo5.LISTENERS,
+                 demo5.YAWS, pair_rays, params, opts)
+        matrix_ms = wall_ms(lambda: multi.render_ir_matrix(
+            *margs, mesh=mesh, rows=rows), 3)
+        alone = render_ir_sharded(
+            sc, sampling.fold_seed(demo5.MATRIX_SEED, 3), pair_rays,
+            demo5.EMITTERS[1], demo5.LISTENERS[1], float(demo5.YAWS[1]),
+            params, opts, mesh=mesh, rows=rows)
+        errs = _events_bar({"matrix pair (1, 1)": torch.from_numpy(
+            irs[1, 1]).to(dev), "render_ir_sharded of its pair seed": alone},
+            rec.binned_events(1), params, "2 x 2 matrix", pose=3)
+        del rec
+        log(f"sharded matrix, 2 x 2 x {pair_rays} rays (mesh=): launches of "
+            f"main (render and matrix) {l5}; {matrix_ms:.3f} ms (host "
+            f"clock, the copy to the host included, median of 3); pair "
+            f"(1, 1) and render_ir_sharded of its pair seed against the "
+            f"float64 sum of the matrix's deposits for it: {errs}")
         out = {"demo5": {"sharded_ms": sharded_ms, "render_ir_ms": single_ms,
-                         "peak_mib": peak}}
+                         "peak_mib": peak, "first_s": first_s,
+                         "wall_s": res5["wall_s"], "launches": l5},
+               "matrix_ms": matrix_ms}
 
         # The office: the schedule and K2 run, K1 does not.
         _, scc, orows, oboxes = _office_clustered()
@@ -4015,34 +3999,6 @@ def phase_sharded_nccl() -> dict:
             f"sum: {errs}")
         out["office"] = {"sharded_ms": office_ms,
                          "render_ir_ms": office_single_ms}
-
-        # The 2 x 2 matrix with mesh= at demo 5's pair_rays: posed K1.
-        margs = (sc, SHARDED_SEED, DEMO5_EMITTERS, DEMO5_LISTENERS,
-                 DEMO5_YAWS, DEMO5_PAIR_RAYS, params, opts)
-        irs, lm, rec = driven(lambda: multi.render_ir_matrix(
-            *margs, mesh=mesh, rows=rows), "2 x 2 matrix")
-        assert lm["trace_round_posed"] == len(opts.round_budgets), lm
-        assert lm["trace_round"] == 0 and lm["histogram_binned"] == 1, lm
-        assert irs.shape == (2, 2, 2, IR_SECONDS * SR)
-        assert np.isfinite(irs).all() and (irs > 0).sum(axis=-1).min() > 200
-        matrix_ms = wall_ms(lambda: multi.render_ir_matrix(
-            *margs, mesh=mesh, rows=rows), 3)
-        # pair 3 = (source 1, listener 1) against render_ir_sharded of its
-        # pair seed on the same mesh
-        alone = render_ir_sharded(
-            sc, sampling.fold_seed(SHARDED_SEED, 3), DEMO5_PAIR_RAYS,
-            DEMO5_EMITTERS[1], DEMO5_LISTENERS[1], float(DEMO5_YAWS[1]),
-            params, opts, mesh=mesh, rows=rows)
-        errs = _events_bar({"matrix pair (1, 1)": torch.from_numpy(
-            irs[1, 1]).to(dev), "render_ir_sharded of its pair seed": alone},
-            rec.binned_events(), params, "2 x 2 matrix", pose=3)
-        del rec
-        log(f"sharded matrix, 2 x 2 x {DEMO5_PAIR_RAYS} rays (mesh=): "
-            f"launches {lm}; {matrix_ms:.3f} ms (host clock, the copy to "
-            f"the host included, median of 3); pair (1, 1) and "
-            f"render_ir_sharded of its pair seed against the float64 sum "
-            f"of the matrix's deposits for it: {errs}")
-        out["matrix_ms"] = matrix_ms
 
         # The segment-sharded convolution of 16 s with demo 5's IR.
         sig = np.random.default_rng(3).standard_normal(
@@ -4217,6 +4173,725 @@ def phase_sharded() -> dict:
     return out
 
 
+# ------------------------------------------------------------- phase 23
+
+ORACLE_RAYS = 4096
+ORACLE_RTOL, ORACLE_ATOL = 2e-3, 1e-8  # tests/test_pallas.py:62's bar
+WRAPPERS = (("raytrace_cuda", "trace_round"),
+            ("raytrace_cuda", "init_state_native"),
+            ("schedule_cuda", "tile_schedule"),
+            ("schedule_cuda", "trace_round_sched"),
+            ("traverse_cuda", "trace_traverse"),
+            ("histogram_cuda", "histogram_sum_banded"),
+            ("histogram_cuda", "histogram_bwd"),
+            ("histogram_cuda", "histogram_binned"))
+
+
+class CudaOnly:
+    """Inside ``with``, every call of a kernel wrapper is noted with the
+    device of its tensors: a CPU tensor would run the kernel's plain
+    version, not the kernel. :meth:`check` fails on any such call."""
+
+    def __enter__(self):
+        import importlib
+
+        self.calls, self.cpu = 0, []
+        self._orig = []
+        for mod_name, name in WRAPPERS:
+            mod = importlib.import_module(
+                f"audiorenderingv2_tpu_torch.ops.{mod_name}")
+            orig = getattr(mod, name)
+            self._orig.append((mod, name, orig))
+            setattr(mod, name, self._watch(name, orig))
+        return self
+
+    def _watch(self, name, orig):
+        def call(*args, **kw):
+            self.calls += 1
+            devs = {a.device.type for a in (*args, *kw.values())
+                    if isinstance(a, torch.Tensor)}
+            if devs != {"cuda"}:
+                self.cpu.append((name, sorted(devs)))
+            return orig(*args, **kw)
+        return call
+
+    def __exit__(self, *exc) -> bool:
+        for mod, name, orig in self._orig:
+            setattr(mod, name, orig)
+        return False
+
+    def check(self, what: str) -> None:
+        assert self.calls > 0, f"{what}: no kernel wrapper was called"
+        assert not self.cpu, f"{what}: wrappers given CPU tensors {self.cpu}"
+
+
+class RenderLog:
+    """Inside ``with``, every ``AudioRenderer.render`` is noted: (the
+    renderer, the receiver's position and yaw, the IR's energy)."""
+
+    def __enter__(self):
+        from audiorenderingv2_tpu_torch import renderer
+
+        self.renders = []
+        self._cls, self._orig = renderer.AudioRenderer, \
+            renderer.AudioRenderer.render
+        orig, renders = self._orig, self.renders
+
+        def render(r, *a, **kw):
+            ir = orig(r, *a, **kw)
+            renders.append((r, r.receiver_pos.copy(), r.receiver_yaw_deg,
+                            float(ir.sum())))
+            return ir
+        self._cls.render = render
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        self._cls.render = self._orig
+        return False
+
+
+MOVED_SHARE = 1e-3  # rays whose deposit may differ from the oracle's
+
+
+def _deposit_entries(ear: int, b: int, w: np.ndarray, params) -> dict:
+    """A ray's deposit as the hard-binning rule writes it: {(ear, band,
+    bin): weight} for the same ear at bin ``b`` and, unless mono, the other
+    ear at ``b + delay`` (``b`` past the IR's end) at (1 - hrtf)."""
+    out = {(ear, k, b): float(w[k]) for k in range(len(w))}
+    if not params.is_mono:
+        cb = (b + params.cross_ear_delay
+              if b + params.cross_ear_delay < params.ir_length else b)
+        out.update({(1 - ear, k, cb): float(w[k])
+                    * (1.0 - params.hrtf_absorption_rate)
+                    for k in range(len(w))})
+    return out
+
+
+def per_ray_oracle(what: str, scene, sc, d: torch.Tensor, emitter,
+                   receiver, yaw: float, params, opts, rows, card: np.ndarray):
+    """The per-bin oracle bar with each ray's deposit accounted for. K1
+    works ray by ray, so a trace without the partition (``compact=False``)
+    gives each ray's event in its own slot; the oracle traces each ray
+    alone. A ray whose deposit differs (another bin or ear, or a weight off
+    the bar) took another path: in the demos this is a near-tangent crossing
+    of the receiver sphere, its chord t2 - t1 = 2 sqrt(b^2 - c) cancelling
+    in float32, which float64 decides the other way. Such rays are
+    reported one by one and may be at most MOVED_SHARE of the rays; every
+    bin of the IRs without them is held at ORACLE_RTOL / ORACLE_ATOL.
+    Returns (the oracle's IR, the rays that moved)."""
+    from audiorenderingv2_tpu_torch.core import tracer, tracer_ref
+    from audiorenderingv2_tpu_torch.ops import raytrace_cuda as rc
+
+    n, dev = d.shape[0], d.device
+    packed, boxes = tracer.packed_scene(sc, params, rows, None, opts)
+    assert boxes is None and opts.layout == "rows" and opts.version == 2
+    em_d, rec_d = (torch.as_tensor(np.asarray(x, np.float32), device=dev)
+                   for x in (emitter, receiver))
+    ev = rc.trace_events(packed, d, em_d, rec_d, float(yaw), params,
+                         compact=False, round_budgets=opts.round_budgets)
+    # The same IR as the demo's trace: the partition only reorders rays.
+    card_ev = tracer._histogram_from_events(*ev, params, False).cpu().numpy()
+    np.testing.assert_allclose(card_ev, card, rtol=1e-4, atol=1e-12)
+    bins = torch.round(ev[0][:n]).long().cpu().numpy()
+    w = ev[1][:n].double().cpu().numpy()
+    ears = ev[2][:n].cpu().numpy()
+    d_np = d.cpu().numpy()
+    ref = np.zeros((2, params.n_bands, params.ir_length))
+    kept = np.zeros_like(ref)
+    moved = []
+    for i in range(n):
+        ir_i = tracer_ref.trace_ir_reference(
+            scene, d_np[i:i + 1], emitter, receiver, yaw, params,
+            n_total_rays=n).reshape(ref.shape)
+        ref += ir_i
+        nz = np.nonzero(ir_i)
+        want = {k: ir_i[k] for k in zip(*nz)}
+        active = (w[i] != 0).any() and 0 <= bins[i] < params.ir_length
+        got = (_deposit_entries(int(ears[i]), int(bins[i]), w[i], params)
+               if active else {})
+        got = {k: v for k, v in got.items() if v != 0}
+        same = set(got) == set(want) and all(
+            abs(got[k] - want[k]) <= ORACLE_ATOL + ORACLE_RTOL * abs(want[k])
+            for k in want)
+        if same:
+            kept += ir_i
+            continue
+        moved.append(i)
+
+        def band0(dep):
+            return sorted((int(k[0]), int(k[2]), float(v))
+                          for k, v in dep.items() if k[1] == 0)
+        log(f"{what}: ray {i} (direction {d_np[i].tolist()}) moved: the "
+            f"oracle deposits {band0(want)}, the card {band0(got)} (ear, "
+            f"bin, band-0 weight)")
+    assert len(moved) <= max(1, int(MOVED_SHARE * n)), (what, moved)
+    w_kept = ev[1].clone()
+    w_kept[torch.tensor(moved, dtype=torch.long, device=dev)] = 0.0
+    card_kept = tracer._histogram_from_events(ev[0], w_kept, ev[2], params,
+                                              False).cpu().numpy()
+    card_kept = card_kept.reshape(ref.shape).astype(np.float64)
+    bad = ~np.isclose(card_kept, kept, rtol=ORACLE_RTOL, atol=ORACLE_ATOL)
+    assert not bad.any(), (what, np.argwhere(bad)[:8].tolist())
+    return ref.reshape(card.shape), moved
+
+
+def oracle_check(what: str, scene, sc, dirs: torch.Tensor, emitter,
+                 receiver, yaw: float, params, opts, per_bin: bool,
+                 rows=None, boxes=None) -> dict:
+    """The first ORACLE_RAYS of ``dirs`` through the kernels on the card
+    (``trace_ir`` under the demo's options) and through the float64 oracle
+    (``core.tracer_ref.trace_ir_reference``) on the host, on the same scene
+    and pose. ``per_bin``: held per bin at ORACLE_RTOL / ORACLE_ATOL, each
+    ray's deposit accounted for (:func:`per_ray_oracle`); else on
+    ``assert_ir_close(exact=False)``. Returns the largest relative bin error
+    and the relative L1 of the whole IRs, and the rays that moved."""
+    from audiorenderingv2_tpu_torch import testing
+    from audiorenderingv2_tpu_torch.core import tracer, tracer_ref
+
+    d = dirs[:ORACLE_RAYS].contiguous()
+    card = tracer.trace_ir(sc, d, emitter, receiver, yaw, params, opts,
+                           rows=rows, boxes=boxes).cpu().numpy()
+    t0 = time.perf_counter()
+    if per_bin:
+        ref, moved = per_ray_oracle(what, scene, sc, d, emitter, receiver,
+                                    yaw, params, opts, rows, card)
+    else:
+        ref = tracer_ref.trace_ir_reference(scene, d, emitter, receiver, yaw,
+                                            params)
+        moved = None
+    host_s = time.perf_counter() - t0
+    card64 = card.astype(np.float64)
+    occ = ref > 0
+    assert occ.sum() > 0, f"{what}: the oracle's IR is empty"
+    max_rel = float((np.abs(card64 - ref)[occ] / ref[occ]).max())
+    l1 = float(np.abs(card64 - ref).sum() / np.abs(ref).sum())
+    stray = int(((card != 0) & ~occ).sum())
+    line = (f"{what}: {ORACLE_RAYS} of its own directions, the card's IR "
+            f"against the float64 oracle ({host_s:.1f} s on the host): "
+            f"{int(occ.sum())} occupied bins, largest relative bin error "
+            f"{max_rel:.3e}, relative L1 {l1:.3e}, {stray} bins the oracle "
+            f"leaves empty")
+    if per_bin:
+        log(f"{line}; each ray's deposit against the oracle's: "
+            f"{len(moved)} moved (bar {MOVED_SHARE:.1%} of the rays), every "
+            f"bin of the rest within rtol {ORACLE_RTOL}, atol {ORACLE_ATOL}")
+    else:
+        testing.assert_ir_close(card64, ref, exact=False)
+        log(f"{line}; passes assert_ir_close(exact=False)")
+    return {"max_rel": max_rel, "l1": l1, "bins": int(occ.sum()),
+            "oracle_s": host_s, "moved": moved}
+
+
+def run_demo(what: str, fn, warm: bool = True, record: bool = False):
+    """``fn()`` (a demo's ``main``) as a user runs it, its launches counted
+    (the counters set to 0 just before, read just after) and every wrapper
+    call checked to be given CUDA tensors; with ``record``, each launch is
+    also kept (LaunchRecorder) and held to its plain version afterwards,
+    outside the counts. With ``warm``, ``fn()`` runs once more, uncounted.
+    Returns (the first run's result, its launches, the held launches or
+    None, the first run's wall seconds, the second's or None)."""
+    import contextlib
+
+    with contextlib.ExitStack() as stack:
+        rec = stack.enter_context(LaunchRecorder()) if record else None
+        watch = stack.enter_context(CudaOnly())
+        _reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        launches = _read_launches()
+    watch.check(what)
+    held = rec.check(what) if record else None
+    if record:  # every counted launch of the recorded wrappers was held
+        for k in ("trace_round", "trace_round_posed", "histogram",
+                  "histogram_binned", "histogram_bwd", "tile_schedule",
+                  "trace_round_sched", "trace_round_sched_posed"):
+            assert held.get(k, {"launches": 0})["launches"] == launches[k], \
+                (what, k, launches, held)
+    warm_s = None
+    if warm:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        warm_s = time.perf_counter() - t0
+    counted = {k: v for k, v in launches.items() if v}
+    log(f"{what}: first run {first_s:.3f} s, warm run "
+        f"{'not repeated' if warm_s is None else f'{warm_s:.3f} s'} (host "
+        f"clock); launches of the first run {counted}")
+    return out, launches, held, first_s, warm_s
+
+
+def _expect(what: str, launches: dict, **want) -> None:
+    """Each named count equal to its wanted value (an int), or at least 1
+    (``True``), or 0 (``False``)."""
+    for k, v in want.items():
+        ok = (launches[k] > 0 if v is True else launches[k] == 0
+              if v is False else launches[k] == v)
+        assert ok, (what, k, v, launches)
+
+
+def demo_oracles_and_checks(tmp: Path) -> dict:
+    """Phase 23's demos 1-4 and 6 and the live duplex on the card, each
+    as a user runs it, then each against the float64 oracle. Returns each
+    demo's numbers and launches."""
+    from audiorenderingv2_tpu_torch.core import sampling, tracer, tracer_ref
+    from audiorenderingv2_tpu_torch.diff import render_soft_ir
+    from audiorenderingv2_tpu_torch.ops import raytrace_cuda as rc
+    from audiorenderingv2_tpu_torch.examples import (demo_1_sphere,
+                                                     demo_2_banded,
+                                                     demo_3_realtime,
+                                                     demo_4_inverse,
+                                                     demo_6_multipose,
+                                                     demo_live_duplex,
+                                                     seeded_directions)
+
+    dev = torch.device("cuda")
+    out = {}
+
+    # Demos 1 and 2: every launch recorded and held to its plain version.
+    for name, mod, args, n_bands in (
+            ("demo 1", demo_1_sphere, (tmp / "sphere.wav",), 1),
+            ("demo 2", demo_2_banded, (), 4)):
+        res, launches, held, first_s, warm_s = run_demo(
+            f"{name} ({mod.__name__.rsplit('.', 1)[1]}.main)",
+            lambda: mod.main(*args, device="cuda"), record=True)
+        _expect(name, launches, trace_round=True, histogram_binned=1,
+                histogram=False, trace_round_posed=False)
+        params = mod.trace_params()
+        sc = tracer.scene_to_arrays(mod.scene(), device=dev)
+        dirs = seeded_directions(mod.N_RAYS, mod.SEED, dev)
+        render_ms = median_ms(lambda: tracer.trace_ir(
+            sc, dirs, mod.EMITTER, mod.RECEIVER, mod.YAW, params, mod.OPTS),
+            5)
+        assert res["ir"].shape == ((2, SR) if n_bands == 1
+                                   else (2, n_bands, SR))
+        assert np.isfinite(res["ir"]).all() and res["ir"].sum() > 0
+        oracle = oracle_check(name, mod.scene(), sc, dirs, mod.EMITTER,
+                              mod.RECEIVER, mod.YAW, params, mod.OPTS,
+                              per_bin=True)
+        log(f"{name}: the trace of its {mod.N_RAYS} rays {render_ms:.3f} ms "
+            f"(CUDA events, median of 5)")
+        out[name] = {"launches": launches, "held": held, "first_s": first_s,
+                     "warm_s": warm_s, "render_ms": render_ms,
+                     "oracle": oracle}
+
+    # Demo 3: the walk; the oracle at its first render with the receiver
+    # inside the room (the walk starts outside it, ROADMAP Queue 3).
+    with RenderLog() as renders:
+        res, launches, _, first_s, warm_s = run_demo(
+            "demo 3 (demo_3_realtime.main)",
+            lambda: demo_3_realtime.main(tmp / "walk.wav", device="cuda"))
+    n_runs = res["renders"] + 1  # the warm-up cycle first
+    first_renders = renders.renders[:n_runs]
+    _expect("demo 3", launches, trace_round=True,
+            histogram_binned=n_runs, histogram=False)
+    assert res["n_rays"] == demo_3_realtime.n_rays(dev), res["n_rays"]
+    assert res["renders"] > 10, res["renders"]
+    assert res["out"].shape == (2, SR * demo_3_realtime.SECONDS)
+    assert np.isfinite(res["out"]).all() and math.isfinite(res["rtf"])
+    half = np.asarray(demo_3_realtime.ROOM) / 2
+    outside = [e for _, p, _, e in first_renders if p[1] - 1.0 >= half[1]]
+    inside = [e for _, p, _, e in first_renders if np.all(np.abs(p) < half)]
+    assert len(outside) >= 8 and inside and min(inside) > 0, (outside,
+                                                              inside)
+    # With the receiver outside the box only rays that leave it can reach
+    # it: a ray that strikes within BOUNCE_EPSILON of an edge is set off
+    # the wall past the other one. The first render (the warm-up cycle at
+    # the walk's start) is traced again ray by ray, without the partition:
+    # each ray that deposits is held to the oracle's trace of that ray.
+    r, pos, yaw = next((r, p, y) for r, p, y, _ in first_renders
+                       if np.all(np.abs(p) < half))
+    d3 = sampling.sample_directions(
+        r.n_rays, torch.Generator(device=dev).manual_seed(
+            demo_3_realtime.SEED), dev)
+    pos0 = first_renders[0][1]
+    ev = rc.trace_events(r.rows, d3, torch.zeros(3, device=dev),
+                         torch.from_numpy(pos0).to(dev), 0.0, r.params,
+                         compact=False, round_budgets=r.opts.round_budgets)
+    leaks = torch.nonzero(ev[1][:r.n_rays].abs().sum(dim=1)).flatten()
+    leaks = leaks.cpu().tolist()
+    assert len(leaks) <= 1e-4 * r.n_rays, len(leaks)
+    for i in leaks:
+        ref = tracer_ref.trace_ir_reference(
+            r.scene, d3[i:i + 1], np.zeros(3), pos0, 0.0, r.params,
+            n_total_rays=r.n_rays)
+        b = int(torch.round(ev[0][i]))
+        e = int(ev[2][i])
+        w = float(ev[1][i, 0])
+        assert abs(ref[e, b] - w) <= 2e-3 * w, (i, b, e, w, np.nonzero(ref))
+    in_ir = torch.round(ev[0][:r.n_rays]) < r.params.ir_length
+    leak_energy = float((ev[1][:r.n_rays].double().sum(dim=1) * in_ir).sum()
+                        * (2.0 - r.params.hrtf_absorption_rate))
+    assert abs(leak_energy - first_renders[0][3]) <= 1e-3 * max(
+        leak_energy, 1e-30), (leak_energy, first_renders[0][3])
+    assert max(outside) <= 1e-3 * float(np.median(inside)), outside
+    render_ms = median_ms(r.render, 5)
+    log(f"demo 3: {res['renders']} renders of {res['n_rays']} rays over "
+        f"{res['audio_s']:.0f} s of audio in {res['wall_s']:.3f} s wall, "
+        f"real-time factor {res['rtf']:.4f} (wall over audio); "
+        f"{len(outside)} renders with the receiver outside the room, IR "
+        f"energies {outside} against the median {np.median(inside):.4e} "
+        f"inside; at the walk's start {len(leaks)} of {r.n_rays} rays leave "
+        f"the box at an edge and reach the receiver, each deposit the "
+        f"oracle's within 2e-3; render {render_ms:.3f} ms (CUDA events, "
+        f"median of 5); the oracle at the first pose inside, "
+        f"{pos.tolist()}, yaw {yaw:.2f}")
+    oracle = oracle_check("demo 3", r.scene, r.sc, d3, r.emitter_pos, pos,
+                          yaw, r.params, r.opts, per_bin=False, rows=r.rows,
+                          boxes=r.boxes)
+    out["demo 3"] = {"launches": launches, "first_s": first_s,
+                     "warm_s": warm_s, "render_ms": render_ms,
+                     "renders": res["renders"], "rtf": res["rtf"],
+                     "leaks": len(leaks), "oracle": oracle}
+
+    # Demo 4 at its own size (200 steps), once: its steps are its repeats.
+    fit_s = []
+    fit = demo_4_inverse.fit_scene_parameters
+
+    def timed_fit(*a, **kw):
+        t0 = time.perf_counter()
+        result = fit(*a, **kw)
+        fit_s.append(time.perf_counter() - t0)
+        return result
+    demo_4_inverse.fit_scene_parameters = timed_fit
+    try:
+        res, launches, _, first_s, _ = run_demo(
+            "demo 4 (demo_4_inverse.main)",
+            lambda: demo_4_inverse.main(device="cuda"), warm=False)
+    finally:
+        demo_4_inverse.fit_scene_parameters = fit
+    _expect("demo 4", launches, histogram=True, histogram_bwd=True,
+            trace_round=False)
+    assert abs(res["absorption"] - demo_4_inverse.TRUE_ABSORPTION) < 0.08
+    assert res["emitter_err"] < 0.5 and np.isfinite(res["losses"]).all()
+    box, p4 = demo_4_inverse.scene(), demo_4_inverse.trace_params()
+    render_ms = median_ms(lambda: render_soft_ir(
+        box, p4, n_rays=demo_4_inverse.N_RAYS,
+        emitter=demo_4_inverse.TRUE_EMITTER,
+        receiver_pos=demo_4_inverse.RECEIVERS[0], opts=demo_4_inverse.OPTS,
+        seed=demo_4_inverse.SEED, device="cuda"), 5)
+    step_ms = fit_s[0] / demo_4_inverse.STEPS * 1e3
+    log(f"demo 4: the whole demo {first_s:.2f} s, its {demo_4_inverse.STEPS}"
+        f" steps {fit_s[0]:.2f} s ({step_ms:.1f} ms a step, host clock); "
+        f"grid best {res['best'].tolist()}; absorption "
+        f"{res['absorption']:.4f} (true {demo_4_inverse.TRUE_ABSORPTION}), "
+        f"emitter off by {res['emitter_err']:.3f} m (bars 0.08, 0.5 m); a "
+        f"soft render of {demo_4_inverse.N_RAYS} rays {render_ms:.3f} ms "
+        f"(CUDA events, median of 5)")
+    out["demo 4"] = {"launches": launches, "first_s": first_s,
+                     "step_ms": step_ms, "render_ms": render_ms,
+                     "absorption": res["absorption"],
+                     "emitter_err": res["emitter_err"]}
+
+    # Demo 6: the fused matrix and the mix; the oracle on pair 0.
+    res, launches, _, first_s, warm_s = run_demo(
+        "demo 6 (demo_6_multipose.main)",
+        lambda: demo_6_multipose.main(tmp / "multipose", device="cuda"))
+    _expect("demo 6", launches, trace_round_posed=2, histogram_binned=1,
+            trace_round=False, histogram=False)
+    assert res["irs"].shape == (2, 4, 2, 2 * SR) and res["n_rays"] == N_RAYS
+    assert np.isfinite(res["irs"]).all() and (res["irs"] > 0).any(axis=-1) \
+        .all()
+    assert res["out"].shape == (4, 2, 2 * SR) and np.isfinite(
+        res["out"]).all()
+    assert len(res["paths"]) == 4
+    for pth in res["paths"]:
+        from audiorenderingv2_tpu_torch.io import wav
+
+        samples = wav.read_wav(pth).samples
+        assert samples.shape == (2, 2 * SR) and np.isfinite(samples).all()
+    p6 = demo_6_multipose.trace_params()
+    sc6 = tracer.scene_to_arrays(demo_6_multipose.scene(), 128, device=dev)
+    from audiorenderingv2_tpu_torch import multi
+
+    render_ms = median_ms(lambda: multi.render_ir_matrix(
+        sc6, demo_6_multipose.SEED, demo_6_multipose.EMITTERS,
+        demo_6_multipose.LISTENERS, demo_6_multipose.YAWS, N_RAYS, p6,
+        demo_6_multipose.OPTS, pair_batch=demo_6_multipose.PAIR_BATCH), 3)
+    d6 = sampling.sample_directions(
+        N_RAYS, sampling.pose_generator(demo_6_multipose.SEED, 0, dev), dev)
+    log(f"demo 6: the 2 x 4 x {N_RAYS}-ray matrix {render_ms:.3f} ms (CUDA "
+        f"events, the copy to the host included, median of 3); 4 WAVs of "
+        f"2 s, finite")
+    oracle = oracle_check("demo 6, pair 0", demo_6_multipose.scene(), sc6, d6,
+                          demo_6_multipose.EMITTERS[0],
+                          demo_6_multipose.LISTENERS[0],
+                          float(demo_6_multipose.YAWS[0]), p6,
+                          demo_6_multipose.OPTS, per_bin=False)
+    out["demo 6"] = {"launches": launches, "first_s": first_s,
+                     "warm_s": warm_s, "render_ms": render_ms,
+                     "oracle": oracle}
+
+    # The live duplex through the native engine.
+    with RenderLog() as renders:
+        res, launches, _, first_s, warm_s = run_demo(
+            "live duplex (demo_live_duplex.main)",
+            lambda: demo_live_duplex.main(tmp / "live.wav", device="cuda"))
+    _expect("live duplex", launches, trace_round=True, histogram_binned=1)
+    n_frames = (SR * demo_live_duplex.SECONDS // demo_live_duplex.BLOCK
+                * demo_live_duplex.BLOCK)
+    assert res["frames"] == n_frames and res["native"], res["frames"]
+    assert res["frames_streamed"] == n_frames
+    assert np.isfinite(res["data"]).all() and np.abs(res["data"]).max() > 0
+    render_ms = median_ms(renders.renders[0][0].render, 5)
+    log(f"live duplex: {res['blocks']} blocks, {res['frames']} frames "
+        f"({res['seconds']:.3f} s) through the native engine, "
+        f"{res['underruns']} underruns; render {render_ms:.3f} ms (CUDA "
+        f"events, median of 5)")
+    out["live"] = {"launches": launches, "first_s": first_s,
+                   "warm_s": warm_s, "render_ms": render_ms}
+    return out
+
+
+def demo5_oracle() -> dict:
+    """Demo 5's oracle check: its main ran in phase 22 (a). The first
+    ORACLE_RAYS directions of rank 0's stream of render_ir_sharded."""
+    from audiorenderingv2_tpu_torch.core import sampling
+    from audiorenderingv2_tpu_torch.examples import demo_5_sharded as demo5
+
+    dev = torch.device("cuda")
+    sc, rows, params, opts = demo5.setup(dev)
+    d5 = sampling.sample_directions(
+        demo5.total_rays(dev), sampling.pose_generator(demo5.SEED, 0, dev),
+        dev)
+    return oracle_check("demo 5", demo5.scene(), sc, d5, demo5.EMITTER,
+                        demo5.RECEIVER, demo5.YAW, params, opts,
+                        per_bin=False, rows=rows)
+
+
+def fit_step_1m() -> dict:
+    """Demo 4's joint fit (absorption and source) at 1M rays: one step of
+    ``fit_scene_parameters(method="replay")`` (K1 records the paths, K3 and
+    K3-bwd bin them) and one of the full method on the same directions;
+    the two gradients held to phase 16's gate, within 1% of each other."""
+    from audiorenderingv2_tpu_torch.core import tracer
+    from audiorenderingv2_tpu_torch.diff import (fit_scene_parameters,
+                                                 render_soft_ir)
+    from audiorenderingv2_tpu_torch.examples import demo_4_inverse as d4
+
+    dev = torch.device("cuda")
+    box, params = d4.scene(), d4.trace_params()
+    d = torch.from_numpy(unit_dirs(N_RAYS, 4)).to(dev)
+    full = tracer.TracerOptions(block_size=65536, tri_chunk=128)
+    target = torch.stack([render_soft_ir(
+        box, params, n_rays=N_RAYS, emitter=d4.TRUE_EMITTER, receiver_pos=r,
+        opts=full, device="cuda", directions=d) for r in d4.RECEIVERS])
+    grads, times, launches = {}, {}, {}
+    for method in ("replay", "full"):
+        got = []
+
+        def keep(i, loss, theta):
+            got.append(torch.cat([theta["absorption_logits"].grad.flatten(),
+                                  theta["emitter"].grad.flatten()]).cpu())
+        _reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fit_scene_parameters(
+            box, target, params, steps=1, learning_rate=0.03,
+            fit_absorption=True, fit_emitter=True, smooth_radius=8,
+            init_emitter=(0.0, 0.0, 1.0), receiver_pos=d4.RECEIVERS,
+            opts=full, device="cuda", directions=d, method=method,
+            callback=keep)
+        torch.cuda.synchronize()
+        times[method] = time.perf_counter() - t0
+        launches[method] = _read_launches()
+        grads[method] = got[0].double()
+    _expect("fit step, replay", launches["replay"], trace_round=True,
+            histogram=True, histogram_bwd=True)
+    _expect("fit step, full", launches["full"], trace_round=False,
+            histogram=True, histogram_bwd=True)
+    launches = {m: {k: v for k, v in ls.items() if v}
+                for m, ls in launches.items()}
+    g_r, g_f = grads["replay"], grads["full"]
+    rel = float((g_r - g_f).norm() / g_f.norm())
+    assert torch.isfinite(g_r).all() and rel < 1e-2, (g_r, g_f)
+    log(f"demo 4's fit at {N_RAYS} rays (box, 3 receivers, 5 bounces, "
+        f"absorption and source): one replay step {times['replay']:.3f} s "
+        f"(launches {launches['replay']}), one full step "
+        f"{times['full']:.3f} s (launches {launches['full']}), first calls, "
+        f"host clock; gradient {g_r.tolist()} against the full method's "
+        f"{g_f.tolist()}: {rel:.3e} relative (bar 1e-2, phase 16's gate)")
+    return {"replay_s": times["replay"], "full_s": times["full"],
+            "rel": rel}
+
+
+def office_banded_matrix(tmp: Path) -> dict:
+    """Demo 6's 2 x 4 matrix on the office with demo 2's four bands, from
+    the render (the posed schedule and K2, pair_batch=8, 1M rays a pair,
+    40 bounces) through mix_sources (the filterbank); one pair held to a
+    single render_ir of that pair on assert_ir_close(exact=False)."""
+    from audiorenderingv2_tpu_torch import accel, multi, testing
+    from audiorenderingv2_tpu_torch.core import sampling, tracer
+    from audiorenderingv2_tpu_torch.examples import demo_2_banded as d2
+    from audiorenderingv2_tpu_torch.examples import demo_6_multipose as d6
+    from audiorenderingv2_tpu_torch.scene import build_scene
+
+    dev = torch.device("cuda")
+    v, t = testing.office_mesh(OFFICE_TRIS)
+    scene = build_scene(testing.mesh_from_arrays(v, t),
+                        np.tile(d2.BAND_ABSORPTION, (len(t), 1)))
+    sorted_scene, clusters = accel.prepare_scene(scene, cluster_size=32)
+    sc = tracer.scene_to_arrays(sorted_scene, 128, device=dev,
+                                clusters=clusters)
+    n_bands = len(d2.BAND_ABSORPTION)
+    params = dataclasses.replace(d6.trace_params(), n_bands=n_bands)
+    opts = tracer.TracerOptions(schedule=True)
+    _reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    irs = multi.render_ir_matrix(sc, 0, d6.EMITTERS, d6.LISTENERS, d6.YAWS,
+                                 N_RAYS, params, opts,
+                                 pair_batch=d6.PAIR_BATCH)
+    mix = multi.mix_sources(irs, d6.dry_signals(), SR, device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _read_launches()
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    _expect("office banded matrix", launches,
+            trace_round_sched_posed=params.max_bounces,
+            tile_schedule=params.max_bounces, histogram_binned=1,
+            trace_round=False, trace_round_sched=False)
+    launches = {k: v for k, v in launches.items() if v}
+    assert irs.shape == (2, 4, 2, n_bands, 2 * SR) and np.isfinite(irs).all()
+    assert mix.shape == (4, 2, 2 * SR) and np.isfinite(mix).all()
+    assert np.abs(mix).max(axis=(1, 2)).min() > 0
+    single = tracer.render_ir(
+        sc, sampling.pose_generator(0, 5, dev), N_RAYS, d6.EMITTERS[1],
+        d6.LISTENERS[1], float(d6.YAWS[1]), params, opts).cpu().numpy()
+    pair = irs[1, 1]
+    testing.assert_ir_close(pair.reshape(-1, 2 * SR),
+                            single.reshape(-1, 2 * SR), exact=False)
+    band_energy = irs.sum(axis=(0, 1, 2, 4))
+    log(f"office ({sorted_scene.n_triangles} triangles, clusters of 32), "
+        f"demo 2's {n_bands} bands, demo 6's 2 x 4 matrix x {N_RAYS} rays, "
+        f"{params.max_bounces} bounces, then the mix through the filterbank: "
+        f"{wall:.3f} s (first call, host clock); launches {launches}; peak "
+        f"device memory {peak:.0f} MiB; energy per band "
+        f"{band_energy.tolist()}; pair (1, 1) passes "
+        f"assert_ir_close(exact=False) against a single render_ir of it")
+    return {"wall_s": wall, "peak_mib": peak, "launches": launches}
+
+
+def replay_100() -> dict:
+    """A recording and its replay at 100 bounces: the box at 1M rays (K1
+    in one-bounce rounds), render_ir_replay of the recorded paths against
+    the forward render of the same directions (phase 15's bar)."""
+    from audiorenderingv2_tpu_torch import testing
+    from audiorenderingv2_tpu_torch.core import tracer
+    from audiorenderingv2_tpu_torch.diff import replay
+
+    dev = torch.device("cuda")
+    params = _box_params()
+    box = tracer.scene_to_arrays(_box_scene(), 128, device=dev)
+    d = torch.from_numpy(unit_dirs(N_RAYS, 6)).to(dev)
+    _reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ids, recv = replay.record_paths_kernels(box, d, EMITTER, RECEIVER, 0.0,
+                                            params)
+    torch.cuda.synchronize()
+    record_s = time.perf_counter() - t0
+    launches = _read_launches()
+    _expect("recording at 100 bounces", launches, trace_round=MAX_BOUNCES,
+            **{k: False for k in launches if k != "trace_round"})
+    launches = {k: v for k, v in launches.items() if v}
+    assert ids.shape == (N_RAYS, MAX_BOUNCES)
+    with torch.no_grad():
+        replay_ms = median_ms(lambda: replay.render_ir_replay(
+            box, ids, recv, d, EMITTER, RECEIVER, 0.0, params,
+            soft_binning=False), 3)
+        ir_rep = replay.render_ir_replay(box, ids, recv, d, EMITTER,
+                                         RECEIVER, 0.0, params,
+                                         soft_binning=False)
+    ir_fwd = tracer.trace_ir(box, d, EMITTER, RECEIVER, 0.0, params,
+                             tracer.TracerOptions(round_budgets=(8, 24, 68)))
+    testing.assert_ir_close(ir_rep.cpu().numpy(), ir_fwd.cpu().numpy(),
+                            exact=False)
+    deep = int((ids[:, MAX_BOUNCES - 1] >= 0).sum())
+    log(f"replay at {MAX_BOUNCES} bounces, box, {N_RAYS} rays: record "
+        f"{record_s:.3f} s (first call; launches {launches}), "
+        f"{int((recv >= 0).sum())} rays reach the receiver, {deep} still "
+        f"bouncing at bounce {MAX_BOUNCES}; render_ir_replay "
+        f"{replay_ms:.3f} ms (median of 3) passes assert_ir_close("
+        f"exact=False) against the forward render; energy "
+        f"{float(ir_rep.sum()):.6e} / {float(ir_fwd.sum()):.6e}")
+    return {"record_s": record_s, "replay_ms": replay_ms}
+
+
+def k5_bands8() -> dict:
+    """K5 on the 8-band layout (the office in clusters of 128, its
+    absorption in all 8 bands): against its plain version at 65,536 and
+    1,000,064 rays, from the start state and after one bounce and the
+    sort, every column and each tile's visits bit for bit; its time."""
+    from audiorenderingv2_tpu_torch.ops import raytrace_cuda as rc
+    from audiorenderingv2_tpu_torch.ops import traverse_cuda as tc
+
+    params = _office_params(8)
+    rows, boxes = _office_packed(128, 8)
+    result = {}
+    for n in (65536, N_RAYS):
+        st, scal = _office_start(n, 19, params)
+        for step in range(2):
+            visits = torch.zeros(st.shape[1] // 128, dtype=torch.int32,
+                                 device=st.device)
+            vp = torch.zeros_like(visits)
+            kern = tc.trace_traverse(st.clone(), rows, boxes, scal, params, 1,
+                                     visits=visits)
+            plain = tc.trace_traverse_plain(st.clone(), rows, boxes, scal,
+                                            params, 1, visits=vp)
+            torch.cuda.synchronize()
+            when = ("start state", "after one bounce and the sort")[step]
+            what = (f"K5, 8 bands ({rc.state_ncols(8)} state columns), "
+                    f"office in {boxes.shape[0]} clusters of 128, {n} rays, "
+                    f"{when}")
+            err = _assert_same_bits(kern, plain, what)
+            assert torch.equal(visits, vp), f"{what}: visits differ"
+            ms = median_ms(lambda s: tc.trace_traverse(
+                s, rows, boxes, scal, params, 1), 5,
+                setup=lambda: (st.clone(),))
+            log(f"{what}: bit-identical to the plain version in every column "
+                f"and visit count; {ms:.3f} ms (median of 5), visits per "
+                f"tile mean {float(visits.float().mean()):.2f}")
+            result[f"{n}_{step}"] = ms
+            del plain
+            st = rc._sort_state_by_keys(kern, rc._compaction_keys(kern))
+    return result
+
+
+def phase_demos(sharded: dict) -> dict:
+    """Phase 23: the repo's seven demos on the card (demo 5's main ran in
+    phase 22 (a), ``sharded``), each against the float64 oracle, and the
+    four paths ROADMAP listed as ported but not run on the card. Returns
+    each demo's launches and numbers."""
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        out = demo_oracles_and_checks(Path(tmp))
+        out["demo 5"] = {"launches": sharded["demo5"]["launches"],
+                         "first_s": sharded["demo5"]["first_s"],
+                         "warm_s": sharded["demo5"]["wall_s"],
+                         "render_ms": sharded["demo5"]["sharded_ms"],
+                         "oracle": demo5_oracle()}
+        log(f"demo 5 (its main in phase 22 (a)): first render_ir_sharded "
+            f"{out['demo 5']['first_s']:.3f} s, main's render "
+            f"{out['demo 5']['warm_s']:.3f} s (host clock, recorded), "
+            f"render {out['demo 5']['render_ms']:.3f} ms (CUDA events, "
+            f"median of 3)")
+        demos_s = time.perf_counter() - t0
+        out["fit_step_1m"] = fit_step_1m()
+        out["office_banded_matrix"] = office_banded_matrix(Path(tmp))
+    out["replay_100"] = replay_100()
+    out["k5_bands8"] = k5_bands8()
+    total = time.perf_counter() - t0
+    table = {k: {m: v[m] for m in ("first_s", "warm_s", "render_ms")
+                 if m in v} for k, v in out.items() if k.startswith(("demo",
+                                                                      "live"))}
+    log(f"phase 23: {total:.1f} s ({demos_s:.1f} s the demos and their "
+        f"oracle checks); per demo {json.dumps(table)}")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; the port's "
@@ -4251,9 +4926,19 @@ def main() -> int:
     k7 = phase_v1()
     manual = phase_experimentation()
     live = phase_main_mode()
-    sharded = phase_sharded()["launches"]
+    sharded_out = phase_sharded()
+    sharded = sharded_out["launches"]
+    demos = phase_demos(sharded_out)
+
+    def demo_launches(counter: str | None) -> int:
+        """The launches of ``counter`` in the first runs of the demos'
+        mains (phase 23; demo 5's in phase 22 (a))."""
+        return sum(d["launches"][counter] for k, d in demos.items()
+                   if counter and k.startswith(("demo", "live")))
+
     kernels = [
         {"name": "trace_round", "route": "cuda",
+         "demo_launches": demo_launches("trace_round"),
          "source": "audiorenderingv2_tpu_torch/csrc/trace_round.cu",
          "replaces": "audiorenderingv2_tpu/ops/raytrace_pallas_v2.py:799",
          "launches": launches["trace_round"],
@@ -4261,11 +4946,13 @@ def main() -> int:
          "live_launches": live["live_box"]["launches"]["trace_round"],
          "sharded_launches": sharded["trace_round"], **k1},
         {"name": "histogram", "route": "cuda",
+         "demo_launches": demo_launches("histogram"),
          "source": "audiorenderingv2_tpu_torch/csrc/histogram.cu",
          "replaces": "audiorenderingv2_tpu/ops/histogram_pallas.py:59",
          "launches": fit_launches["histogram"],
          "sharded_launches": sharded["histogram"], **k3},
         {"name": "histogram_binned", "route": "cuda",
+         "demo_launches": demo_launches("histogram_binned"),
          "source": "audiorenderingv2_tpu_torch/csrc/histogram.cu",
          "replaces": "audiorenderingv2_tpu/ops/histogram_pallas.py:59",
          "launches": launches["histogram_binned"],
@@ -4275,6 +4962,7 @@ def main() -> int:
                            ["histogram_binned"]),
          "sharded_launches": sharded["histogram_binned"], **binned},
         {"name": "trace_round_sched", "route": "cuda",
+         "demo_launches": demo_launches("trace_round_sched"),
          "source": "audiorenderingv2_tpu_torch/csrc/trace_sched.cu",
          "replaces": "audiorenderingv2_tpu/ops/raytrace_pallas_v2.py:501",
          "launches": office["trace_round_sched"],
@@ -4282,6 +4970,7 @@ def main() -> int:
          "sharded_launches": sharded["trace_round_sched"],
          **cluster["trace_round_sched"]},
         {"name": "tile_schedule", "route": "cuda",
+         "demo_launches": demo_launches("tile_schedule"),
          "source": "audiorenderingv2_tpu_torch/csrc/tile_schedule.cu",
          "replaces": "audiorenderingv2_tpu/ops/raytrace_pallas_v2.py:1103",
          "launches": office["tile_schedule"],
@@ -4289,48 +4978,58 @@ def main() -> int:
          "sharded_launches": sharded["tile_schedule"],
          **cluster["tile_schedule"]},
         {"name": "trace_round_posed", "route": "cuda",
+         "demo_launches": demo_launches("trace_round_posed"),
          "source": "audiorenderingv2_tpu_torch/csrc/trace_round.cu",
          "replaces": "audiorenderingv2_tpu/ops/raytrace_pallas_v2.py:887",
          "launches": multi_launches["trace_round_posed"],
          "sharded_launches": sharded["trace_round_posed"],
          **posed["trace_round_posed"]},
         {"name": "trace_round_posed_4band", "route": "cuda",
+         "demo_launches": demo_launches(None),
          "source": "audiorenderingv2_tpu_torch/csrc/trace_round.cu",
          "replaces": "audiorenderingv2_tpu/ops/raytrace_pallas_v2.py:887",
          "launches": multi_launches["trace_round_posed_4band"],
          **posed["trace_round_posed_4band"]},
         {"name": "histogram_posed", "route": "cuda",
+         "demo_launches": demo_launches(None),
          "source": "audiorenderingv2_tpu_torch/csrc/histogram.cu",
          "replaces": "audiorenderingv2_tpu/ops/histogram_pallas.py:59",
          "launches": multi_launches["histogram_posed"], **k3_posed},
         {"name": "trace_round_sched_posed", "route": "cuda",
+         "demo_launches": demo_launches("trace_round_sched_posed"),
          "source": "audiorenderingv2_tpu_torch/csrc/trace_sched.cu",
          "replaces": "audiorenderingv2_tpu/ops/raytrace_pallas_v2.py:887",
          "launches": multi_launches["trace_round_sched_posed"],
          **posed["trace_round_sched_posed"]},
         {"name": "init_state_native", "route": "cuda",
+         "demo_launches": demo_launches("init_state"),
          "source": "audiorenderingv2_tpu_torch/csrc/init_state.cu",
          "replaces": "audiorenderingv2_tpu/ops/raytrace_pallas_v2.py:284",
          "launches": k4_launches, **k4},
         {"name": "histogram_bwd", "route": "cuda",
+         "demo_launches": demo_launches("histogram_bwd"),
          "source": "audiorenderingv2_tpu_torch/csrc/histogram.cu",
          "replaces": "audiorenderingv2_tpu/ops/histogram_pallas.py:124",
          "launches": fit_launches["histogram_bwd"],
          "sharded_launches": sharded["histogram_bwd"], **k3_bwd},
         {"name": "trace_traverse", "route": "cuda",
+         "demo_launches": demo_launches("trace_traverse"),
          "source": "audiorenderingv2_tpu_torch/csrc/trace_traverse.cu",
          "replaces": "audiorenderingv2_tpu/ops/raytrace_pallas_v2.py:547",
          "launches": k5_launches["trace_traverse"], **k5},
         {"name": "trace_round_group", "route": "cuda",
+         "demo_launches": demo_launches("trace_round_group"),
          "source": "audiorenderingv2_tpu_torch/csrc/trace_group.cu",
          "replaces": "audiorenderingv2_tpu/ops/raytrace_pallas_v2.py:397",
          "launches": manual["group"]["trace_round_group"], **k6},
         {"name": "trace_round_group_posed", "route": "cuda",
+         "demo_launches": demo_launches("trace_round_group_posed"),
          "source": "audiorenderingv2_tpu_torch/csrc/trace_group.cu",
          "replaces": "audiorenderingv2_tpu/ops/raytrace_pallas_v2.py:887",
          "launches": k6_posed_launches["trace_round_group_posed"],
          **k6_posed},
         {"name": "trace_round_v1", "route": "cuda",
+         "demo_launches": demo_launches("trace_round_v1"),
          "source": "audiorenderingv2_tpu_torch/csrc/trace_round.cu",
          "replaces": "audiorenderingv2_tpu/ops/raytrace_pallas.py:452",
          "launches": manual["v1"]["trace_round_v1"], **k7},

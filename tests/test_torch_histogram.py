@@ -311,3 +311,64 @@ def test_histogram_binned_checks():
     out = histogram_cuda.histogram_binned(f, w, ear, *args)
     assert out.shape == (2, 2, 100, 1)
     assert histogram_cuda.binned_launches == before
+
+
+@pytest.mark.parametrize("shape", [(6000,), (40, 150), (3, 20, 100)])
+def test_histogram_sum_matches_jax(shape):
+    """``binning.histogram_sum`` (the one-band case of the banded Function)
+    against JAX's on the same bins of any shape, 30% of them out of range:
+    rtol 1e-5 of float64 as above; JAX's sort path to its own bound."""
+    n_bins = 1500
+    rng = np.random.default_rng(sum(shape))
+    bins = rng.integers(0, n_bins, size=shape)
+    out = rng.random(shape) < 0.3
+    bins[out] = np.where(rng.random(out.sum()) < 0.5,
+                         -rng.integers(1, 50, size=out.sum()),
+                         n_bins + rng.integers(0, 50, size=out.sum()))
+    bins = bins.astype(np.int32)
+    w = (rng.random(shape) * 1e-3).astype(np.float32)
+    got = t_binning.histogram_sum(torch.from_numpy(bins),
+                                  torch.from_numpy(w), n_bins)
+    ref = np.asarray(j_binning.histogram_sum(jnp.asarray(bins),
+                                             jnp.asarray(w), n_bins))
+    keep = (bins >= 0) & (bins < n_bins)
+    ref64 = np.bincount(bins[keep], weights=w[keep].astype(np.float64),
+                        minlength=n_bins)
+    assert got.shape == ref.shape == (n_bins,) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), ref64, rtol=1e-5, atol=1e-12)
+    np.testing.assert_allclose(got.numpy(), ref, rtol=1e-5,
+                               atol=_sort_path_atol(w[keep][:, None]))
+    assert out.mean() > 0.25
+
+
+def test_histogram_sum_gradient_against_finite_differences():
+    """d(sum of g * hist)/d(weights) through the Function's backward (the
+    gather g[bins], zero for a dropped event) against central differences
+    of ``histogram_sum`` itself, one weight at a time, as
+    torch.autograd.gradcheck takes them. The forward is float32 and linear
+    in the weights, so a wide step (0.05) is exact but for rounding: atol
+    2e-5 (the loss's float32 rounding, ~1e-6, over the 0.1 step)."""
+    n_bins = 40
+    rng = np.random.default_rng(9)
+    bins = torch.from_numpy(rng.integers(-5, n_bins + 5, size=(7, 9))
+                            .astype(np.int32))
+    w = torch.from_numpy(rng.random((7, 9)).astype(np.float32))
+    g = torch.from_numpy(rng.standard_normal(n_bins).astype(np.float32))
+
+    def loss(x):
+        return (t_binning.histogram_sum(bins, x, n_bins) * g).sum()
+
+    wg = w.clone().requires_grad_(True)
+    loss(wg).backward()
+    eps = 0.05
+    fd = np.zeros(w.shape)
+    with torch.no_grad():
+        for idx in np.ndindex(*w.shape):
+            up, dn = w.clone(), w.clone()
+            up[idx] += eps
+            dn[idx] -= eps
+            fd[idx] = (float(loss(up)) - float(loss(dn))) / (2 * eps)
+    np.testing.assert_allclose(wg.grad.numpy(), fd, rtol=0, atol=2e-5)
+    dropped = ((bins < 0) | (bins >= n_bins)).numpy()
+    assert dropped.any() and not wg.grad.numpy()[dropped].any()
+    assert wg.grad.abs().sum() > 0

@@ -75,7 +75,12 @@ def test_port_imports_without_jax():
                     "experiment", "utils.profiling", "cli", "streaming",
                     "native", "utils.logging", "utils.acoustics",
                     "utils.plotting", "utils.webview", "parallel.sharding",
-                    "parallel.ir_sharding", "dryrun", "warmup"):
+                    "parallel.ir_sharding", "dryrun", "warmup",
+                    "core.tracer_ref", "examples", "examples.demo_1_sphere",
+                    "examples.demo_2_banded", "examples.demo_3_realtime",
+                    "examples.demo_4_inverse", "examples.demo_5_sharded",
+                    "examples.demo_6_multipose",
+                    "examples.demo_live_duplex"):
             assert pkg.__name__ + "." + sub in names, sub
         bad = [m for m, mod in sys.modules.items() if mod is not None and (
                m == "audiorenderingv2_tpu"
@@ -372,6 +377,30 @@ def test_box_room_matches_reference():
     v, t = jt.box_room()
     _assert_scene_equal(jt.scene_from_arrays(v, t, 0.3),
                         tt.scene_from_arrays(v, t, 0.3))
+
+
+def test_mesh_from_arrays_and_quad_match_reference():
+    """``quad`` and ``mesh_from_arrays`` (default and given materials) give
+    the JAX package's arrays, array for array; ``scene_from_arrays`` builds
+    through ``mesh_from_arrays`` as there."""
+    for args in (([0.0, -500.0, 0.0], [1.0, 0.0, 0.0], [0.0, 0.0, 1.0]),
+                 ((10.0, 0.5, -2.0), (0.0, 50.0, 0.0), (0.0, 0.0, 50.0))):
+        for x, y in zip(jt.quad(*args), tt.quad(*args)):
+            assert x.dtype == y.dtype
+            np.testing.assert_array_equal(x, y)
+    v, t = jt.icosphere(radius=3.0, subdivisions=1)
+    for kw in ({}, {"tri_material": np.arange(len(t)) % 3,
+                    "material_names": ["a", "b", "c"]}):
+        a, b = jt.mesh_from_arrays(v, t, **kw), tt.mesh_from_arrays(v, t,
+                                                                    **kw)
+        for f in ("vertices", "triangles", "tri_material"):
+            x, y = getattr(a, f), getattr(b, f)
+            assert x.dtype == y.dtype, f
+            np.testing.assert_array_equal(x, y, err_msg=f)
+        assert a.material_names == b.material_names
+    qv, qt = tt.quad([10.0, 0.0, 0.0], [0.0, 50.0, 0.0], [0.0, 0.0, 50.0])
+    _assert_scene_equal(jt.scene_from_arrays(qv, qt, 0.3),
+                        tt.scene_from_arrays(qv, qt, 0.3))
 
 
 @pytest.mark.parametrize("subdivisions", [0, 2, 3])

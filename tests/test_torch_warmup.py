@@ -44,3 +44,42 @@ def test_unknown_config_raises(tmp_path):
     with pytest.raises(SystemExit, match="unknown configs"):
         warmup.main(["--configs", "nope", "--out", str(tmp_path / "w.json"),
                      "--device", "cpu"])
+
+
+def test_bench_configs_build_through_the_bench_builders(monkeypatch):
+    """``small_bench`` renders under ``tuned.bench_small_options()`` and
+    ``large_bench`` under ``tuned.bench_large_options()`` in clusters of
+    ``tuned.bench_large_cluster_size()``, so an AR2_BENCH_* override warms
+    what a benchmark with it builds; with none set, ``auto_options``'
+    routes."""
+    from audiorenderingv2_tpu_torch import tuned
+
+    seen = {}
+
+    def fake_render(sc, gen, n_rays, emitter, receiver, yaw, params, opts,
+                    **kw):
+        seen["opts"], seen["boxes"] = opts, sc.cluster_boxes
+        return None
+
+    monkeypatch.setattr(warmup, "render_ir", fake_render)
+    monkeypatch.setattr(warmup, "LARGE_TRIS", 700)
+    builds = dict(warmup.shipped_configs("cpu"))
+    for env, want_small, want_large, cs in (
+            ({}, tuned.auto_options(12, 100)[0],
+             tuned.auto_options(19852, 32)[0], tuned.CLUSTER_SIZE),
+            ({"AR2_BENCH_BUDGETS": "3,7,90", "AR2_BENCH_SCHEDULE": "0",
+              "AR2_BENCH_CLUSTER_SIZE": "64"},
+             tuned.TracerOptions(round_budgets=(3, 7, 90)),
+             tuned.TracerOptions(schedule=False), 64)):
+        for k in ("AR2_BENCH_BUDGETS", "AR2_BENCH_SCHEDULE",
+                  "AR2_BENCH_CLUSTER_SIZE"):
+            monkeypatch.delenv(k, raising=False)
+        for k, v in env.items():
+            monkeypatch.setenv(k, v)
+        builds["small_bench"]()()
+        assert seen["opts"] == want_small == tuned.bench_small_options()
+        assert seen["boxes"] is None
+        builds["large_bench"]()()
+        assert seen["opts"] == want_large == tuned.bench_large_options()
+        t_pad = 768  # the office of 652 triangles, padded to 128s
+        assert seen["boxes"].shape[0] == t_pad // cs
