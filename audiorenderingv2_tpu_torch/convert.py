@@ -5,7 +5,8 @@ package's ``SceneArrays`` (as a dict of numpy arrays, e.g.
 ``{k: np.asarray(v) for k, v in sc._asdict().items()}``), its
 ``TraceParams`` and its ``TracerOptions``; and a fit's parameters and Adam
 moments (``fit_state_from_jax``), so that a fit begun in one package goes on
-in the other. Nothing here imports JAX.
+in the other. The tensors land on the card unless ``device`` names
+another. Nothing here imports JAX.
 """
 from __future__ import annotations
 
@@ -19,7 +20,7 @@ from .core.tracer import SceneArrays, TracerOptions
 
 
 def scene_arrays_from_jax(np_arrays: dict,
-                          device: torch.device | str = "cpu") -> SceneArrays:
+                          device: torch.device | str = "cuda") -> SceneArrays:
     """The port's SceneArrays from the JAX package's, given as numpy arrays
     keyed by field name; ``cluster_boxes`` may be absent or None."""
     return SceneArrays(**{
@@ -74,7 +75,7 @@ def tracer_options_from_jax(opts) -> TracerOptions:
 
 
 def fit_state_from_jax(leaves_or_npz, theta_like: dict,
-                       device: torch.device | str = "cpu"):
+                       device: torch.device | str = "cuda"):
     """A JAX fit's state as the port's: ``(theta, opt_state)``.
 
     ``leaves_or_npz``: the flat leaves of the JAX package's ``(theta,

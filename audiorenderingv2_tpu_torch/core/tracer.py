@@ -142,10 +142,11 @@ class TracerOptions:
 
 def scene_to_arrays(scene, tri_chunk: int = 2048,
                     absorption: np.ndarray | None = None,
-                    device: torch.device | str = "cpu",
+                    device: torch.device | str = "cuda",
                     clusters=None) -> SceneArrays:
-    """Pack a host Scene into f32 tensors on ``device``, padded to a whole
-    number of triangle chunks. ``absorption`` may override the scene's
+    """Pack a host Scene into f32 tensors on ``device`` (the card unless
+    the caller asks for the CPU: the entry points that take these arrays
+    run where they lie), padded to a whole number of triangle chunks. ``absorption`` may override the scene's
     per-triangle absorption. ``clusters``: the ``accel.ClusterData`` of a
     scene from ``accel.prepare_scene``; it adds the cluster boxes."""
     t = scene.v0.shape[0]

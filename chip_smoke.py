@@ -247,6 +247,25 @@ Phases, in order; any failure raises and the script exits non-zero:
    through mix_sources, one pair against a single render_ir; a recording
    and its replay at 100 bounces on the box against the forward render;
    K5 on the 8-band layout against its plain version, bit for bit.
+24. tuned.py's constants measured, none changed: renders of 1,000,064 rays
+   through render_ir, every render of a group from the same seeded
+   directions, each variant's launches counted once (the counters set to 0
+   just before, read just after: the route it took) and its renders timed
+   with CUDA events, variants interleaved (median, min and max of 7; K1
+   over the office's 19,852 rows, ~2 s a render, of 3). The route
+   crossover: K1 over every row against the schedule and K2 in clusters of
+   32 on icosphere rooms of 320, 1,280 and 5,120 triangles (radius 3,
+   absorption 0.2, 32 bounces), demo 5's 332-triangle room (8 bounces) and
+   the office (32); cluster sizes 16, 32, 64 and 128 for the schedule and
+   K2 on the 5,120-triangle icosphere and the office, K5 at 32 and 128 on
+   the office; the box's round budgets (8, 24, 68), (4, 12, 84),
+   (12, 36, 52), (8, 92), (6, 12, 24, 58), each round's alive rays and
+   bounces made; native_rng on and off on the box and the office;
+   pair_batch 16, 1, 4, 8 on demo 6's 2 x 4 x 1M-ray matrix. Each IR held
+   to its scene's default variant (tuned.py's choice) on
+   assert_ir_close(exact=False), per pair for the matrix, and with
+   native_rng (another stream) per-ear energy within 5%; one JSON line a
+   group ("tuned_sweep") with the card's name and power limit.
 
 Then one JSON line of the kernels: name, route, source, the TPU kernel it
 replaces, "demo_launches" (the launches of its counter in the first runs of
@@ -485,12 +504,17 @@ def assert_columns_close(kern: torch.Tensor, plain: torch.Tensor,
                               atol=1e-5 * scale), f"{what}, column {c} differs"
 
 
-def phase_device() -> str:
-    name = torch.cuda.get_device_name(0)
-    smi = subprocess.run(
+def _smi_line() -> str:
+    """The card's name and power limit as nvidia-smi gives them."""
+    return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True).stdout.strip().splitlines()[0]
+
+
+def phase_device() -> str:
+    name = torch.cuda.get_device_name(0)
+    smi = _smi_line()
     log(f"device: {name} (torch {torch.__version__}, CUDA "
         f"{torch.version.cuda}, {torch.cuda.device_count()} device(s))")
     log(smi)
@@ -805,7 +829,8 @@ def phase_export() -> dict:
         args = (r.emitter_pos, r.receiver_pos, r.receiver_yaw_deg, r.params,
                 r.opts)
         ir_gpu = tracer.trace_ir(r.sc, torch.from_numpy(d).cuda(), *args)
-        ir_cpu = tracer.trace_ir(tracer.scene_to_arrays(ctx.scene),
+        ir_cpu = tracer.trace_ir(tracer.scene_to_arrays(ctx.scene,
+                                                        device="cpu"),
                                  torch.from_numpy(d), *args)
         testing.assert_ir_close(ir_gpu.cpu().numpy(), ir_cpu.numpy(),
                                 exact=False)
@@ -1170,11 +1195,12 @@ def phase_cluster_kernels(n_rays: int = N_RAYS) -> dict:
         f"{all_pairs:.4f} ms)")
 
     # Both kernels on three states of the render, at the recorder's and a
-    # small ray count, 1, 4 and 8 bands, clusters of 32 and 128; then a
-    # whole trace, round by round.
+    # small ray count, 1, 4 and 8 bands, clusters of 32, and at one band
+    # every other cluster size phase 24 times (16, 64, 128); then a whole
+    # trace, round by round.
     states = cluster_state_check(n_rays, 1, 32, timed=True)
     cluster_state_check(65536, 1, 32)
-    for n_bands, c in ((4, 32), (8, 32), (1, 128)):
+    for n_bands, c in ((4, 32), (8, 32), (1, 16), (1, 64), (1, 128)):
         for n in (65536, n_rays):
             cluster_state_check(n, n_bands, c)
     office_trace_check()
@@ -2008,7 +2034,8 @@ def phase_banded() -> dict:
         targs = (r.emitter_pos, r.receiver_pos, r.receiver_yaw_deg, r.params,
                  r.opts)
         ir_gpu = tracer.trace_ir(r.sc, torch.from_numpy(d).cuda(), *targs)
-        ir_cpu = tracer.trace_ir(tracer.scene_to_arrays(ctx.scene),
+        ir_cpu = tracer.trace_ir(tracer.scene_to_arrays(ctx.scene,
+                                                        device="cpu"),
                                  torch.from_numpy(d), *targs)
         nb = IR_SECONDS * SR
         testing.assert_ir_close(ir_gpu.cpu().numpy().reshape(-1, nb),
@@ -3381,7 +3408,8 @@ def _card_against_cpu(r, scene, receiver, yaw, what: str) -> dict:
             r.opts)
     ir_gpu, st_gpu = tracer.trace_ir(r.sc, torch.from_numpy(d).cuda(), *args,
                                      with_stats=True)
-    ir_cpu, st_cpu = tracer.trace_ir(tracer.scene_to_arrays(scene),
+    ir_cpu, st_cpu = tracer.trace_ir(tracer.scene_to_arrays(scene,
+                                                            device="cpu"),
                                      torch.from_numpy(d), *args,
                                      with_stats=True)
     testing.assert_ir_close(ir_gpu.cpu().numpy(), ir_cpu.numpy(),
@@ -4892,6 +4920,332 @@ def phase_demos(sharded: dict) -> dict:
     return out
 
 
+# ------------------------------------------------------------------------
+# Phase 24: tuned.py's constants measured on the card (changes none).
+
+SWEEP_REPS = 7               # timed renders a variant, variants interleaved
+SWEEP_OFFICE_ROWS_REPS = 3   # K1 over every office row takes ~2 s a render
+SWEEP_SEED = 3               # every render of a group draws these directions
+SWEEP_ICO_SUBDIVISIONS = (2, 3, 4)   # 320, 1,280, 5,120 triangles
+SWEEP_ICO_BOUNCES = 32
+SWEEP_ICO_EMITTER = (-1.0, 0.3, 0.2)
+SWEEP_ICO_RECEIVER = (1.0, -0.2, 0.4)  # its sphere wholly inside radius 3
+SWEEP_CLUSTER_SIZES = (32, 16, 64, 128)  # the default first
+SWEEP_BUDGETS = ((8, 24, 68), (4, 12, 84), (12, 36, 52), (8, 92),
+                 (6, 12, 24, 58))
+SWEEP_PAIR_BATCHES = (16, 1, 4, 8)       # multi.py's default first
+SWEEP_STREAM_BAR = 0.05  # per-ear energy, two direction streams (phase 7)
+
+
+@dataclasses.dataclass
+class _SweepCase:
+    """A scene and pose of the sweep, traced to ``params.max_bounces``."""
+    name: str
+    scene: object
+    params: object
+    emitter: tuple
+    receiver: tuple
+    yaw: float = 0.0
+
+
+def _sweep_cases() -> dict:
+    """The sweep's scenes: three icosphere rooms, demo 5's room, the box
+    and the office."""
+    from audiorenderingv2_tpu_torch import testing
+    from audiorenderingv2_tpu_torch.examples import demo_5_sharded as d5
+
+    ico = dataclasses.replace(_office_params(),
+                              max_bounces=SWEEP_ICO_BOUNCES)
+    cases = {}
+    for s in SWEEP_ICO_SUBDIVISIONS:
+        scene = testing.scene_from_arrays(
+            *testing.icosphere(3.0, subdivisions=s), 0.2)
+        name = f"icosphere_{scene.n_triangles}"
+        cases[name] = _SweepCase(name, scene, ico, SWEEP_ICO_EMITTER,
+                                 SWEEP_ICO_RECEIVER)
+    cases["demo5"] = _SweepCase("demo5", d5.scene(), d5.trace_params(),
+                                tuple(d5.EMITTER), tuple(d5.RECEIVER),
+                                d5.YAW)
+    cases["box"] = _SweepCase("box", _box_scene(), _box_params(), EMITTER,
+                              RECEIVER)
+    cases["office"] = _SweepCase("office", _office_clustered()[0],
+                                 _office_params(), EMITTER, OFFICE_RECEIVER)
+    return cases
+
+
+def _sweep_route(case: _SweepCase, cs: int | None = None,
+                 schedule: bool = True, **fields):
+    """A render of ``case`` at N_RAYS rays through ``render_ir`` on the
+    card, its generator seeded with SWEEP_SEED at every call: the rows
+    route (K1 over every row, ``tuned.small_scene_options``) when ``cs`` is
+    None, else the scene Morton-sorted into clusters of ``cs`` and traced
+    by the schedule and K2 (``tuned.clustered_scene_options``) or, without
+    ``schedule``, by K5. ``fields`` replace options (round_budgets,
+    native_rng). Returns (render, its options)."""
+    from audiorenderingv2_tpu_torch import accel, tuned
+    from audiorenderingv2_tpu_torch.core import tracer
+    from audiorenderingv2_tpu_torch.core.tracer import TracerOptions
+
+    if cs is None:
+        sc = tracer.scene_to_arrays(case.scene, 128, device="cuda")
+        opts = tuned.small_scene_options(case.params.max_bounces)
+    else:
+        sorted_scene, clusters = accel.prepare_scene(
+            case.scene, min_triangles=0, cluster_size=cs)
+        sc = tracer.scene_to_arrays(sorted_scene, 128, device="cuda",
+                                    clusters=clusters)
+        opts = (tuned.clustered_scene_options() if schedule
+                else TracerOptions())
+    opts = dataclasses.replace(opts, **fields)
+    rows, boxes = tracer.packed_scene(sc, case.params, None, None, opts)
+    gen = torch.Generator(device="cuda")
+
+    def render():
+        gen.manual_seed(SWEEP_SEED)
+        return tracer.render_ir(sc, gen, N_RAYS, case.emitter, case.receiver,
+                                case.yaw, case.params, opts, rows=rows,
+                                boxes=boxes)
+
+    return render, opts
+
+
+def _sweep_variant(case: str, variant: str, fn, want: dict,
+                   reps: int | None = None, default: bool = False) -> dict:
+    """A variant of a sweep group: ``fn()`` renders it, ``want`` are the
+    launch counts it must show (as ``_expect`` reads them), ``reps`` its
+    timed renders (default SWEEP_REPS), ``default`` marks the variant that
+    tuned.py's constants pick, which the scene's others are held to."""
+    return {"scene": case, "variant": variant, "fn": fn, "want": want,
+            "reps": SWEEP_REPS if reps is None else reps,
+            "default": default}
+
+
+def _ir_numbers(ir: np.ndarray, ref: np.ndarray) -> tuple[float, float]:
+    """Largest per-ear relative energy difference and the relative L1
+    distance of two IRs [..., 2, n] (every pair and ear of a matrix)."""
+    ea = ir.reshape(-1, 2, ir.shape[-1]).sum(axis=-1, dtype=np.float64)
+    eb = ref.reshape(-1, 2, ref.shape[-1]).sum(axis=-1, dtype=np.float64)
+    l1 = float(np.abs(ir - ref).sum(dtype=np.float64)
+               / np.abs(ref).sum(dtype=np.float64))
+    return float((np.abs(ea - eb) / eb).max()), l1
+
+
+def _sweep(group: str, variants: list, smi: str, bar: str = "same",
+           extra=None) -> list:
+    """Render every variant once (counted: the counters set to 0 just
+    before, read just after, each wanted count met), then time them, their
+    renders interleaved, with CUDA events: median, min and max of each
+    variant's ``reps``. Each IR is held to its scene's default variant on
+    the same directions by PERF.md section 2's bar (assert_ir_close(exact=
+    False): per-ear energy within 1e-3, relative L1 below 1e-2), or with
+    ``bar="stream"`` (other directions) per-ear energy within 5%. Prints
+    one JSON line for the group; returns the variants' numbers."""
+    from audiorenderingv2_tpu_torch import testing
+
+    t0 = time.perf_counter()
+    irs = {}
+    for v in variants:
+        _reset_launches()
+        ir = v["fn"]()
+        torch.cuda.synchronize()
+        launches = _read_launches()
+        _expect(f"{group} {v['scene']} {v['variant']}", launches,
+                **v["want"])
+        v["launches"] = {k: n for k, n in launches.items() if n}
+        irs[id(v)] = ir.cpu().numpy() if torch.is_tensor(ir) else ir
+        v["times"] = []
+    for r in range(max(v["reps"] for v in variants)):
+        for v in variants:
+            if r >= v["reps"]:
+                continue
+            torch.cuda.synchronize()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            v["fn"]()
+            end.record()
+            torch.cuda.synchronize()
+            v["times"].append(start.elapsed_time(end))
+    refs = {v["scene"]: irs[id(v)] for v in variants if v["default"]}
+    out = []
+    for v in variants:
+        ir, ref = irs[id(v)], refs[v["scene"]]
+        assert ir.shape == ref.shape and np.isfinite(ir).all(), v["variant"]
+        assert (ir > 0).sum() > 0, (group, v["scene"], v["variant"])
+        energy, l1 = _ir_numbers(ir, ref)
+        what = f"{group}: {v['scene']} {v['variant']}"
+        if bar == "stream":
+            assert energy < SWEEP_STREAM_BAR, (what, energy)
+        else:
+            for a, b in zip(ir.reshape(-1, 2, ir.shape[-1]),
+                            ref.reshape(-1, 2, ref.shape[-1])):
+                testing.assert_ir_close(a, b, exact=False)
+        t = np.array(v["times"])
+        row = {"scene": v["scene"], "variant": v["variant"],
+               "default": v["default"], "renders": len(t),
+               "median_ms": float(np.median(t)), "min_ms": float(t.min()),
+               "max_ms": float(t.max()), "energy_rel": energy,
+               "rel_l1": l1, "launches": v["launches"]}
+        if extra is not None:
+            row.update(extra(v))
+        out.append(row)
+    for row in out:
+        ref = next(r for r in out if r["default"]
+                   and r["scene"] == row["scene"])
+        row["vs_default"] = row["median_ms"] / ref["median_ms"]
+    log(json.dumps({"tuned_sweep": group, "device": smi, "rays": N_RAYS,
+                    "bar": bar, "seconds": time.perf_counter() - t0,
+                    "variants": out}))
+    return out
+
+
+def _round_work(fn, budgets: tuple) -> list:
+    """One uncounted render with K1's wrapper watched: for each round, the
+    rays alive at its start and the bounces they made in it. Fails unless
+    the watch saw one round for each of ``budgets``, in order."""
+    from audiorenderingv2_tpu_torch.ops import raytrace_cuda as rc
+
+    rounds = []
+    plain = rc.trace_round
+
+    def watched(state, tris, scal, params, budget, *args, **kw):
+        alive = int((state[rc._C_DONE] == 0).sum())
+        depth = state[rc._C_DEPTH].double().sum()
+        out = plain(state, tris, scal, params, budget, *args, **kw)
+        made = int(out[rc._C_DEPTH].double().sum() - depth)
+        rounds.append({"budget": budget, "alive": alive, "bounces": made,
+                       "lane_use": made / max(alive * budget, 1)})
+        return out
+
+    rc.trace_round = watched
+    try:
+        fn()
+        torch.cuda.synchronize()
+    finally:
+        rc.trace_round = plain
+    assert [r["budget"] for r in rounds] == list(budgets), (
+        "K1's wrapper was not watched round by round", rounds, budgets)
+    return rounds
+
+
+def phase_tuned_sweep() -> dict:
+    """Phase 24: tuned.py's constants (CLUSTER_THRESHOLD, CLUSTER_SIZE,
+    MANUAL_CLUSTER_SIZE, SMALL_BUDGET_FRACS) and the native_rng and
+    pair_batch defaults, measured at N_RAYS rays a render; no constant is
+    changed. Returns each group's rows."""
+    from audiorenderingv2_tpu_torch import multi, tuned
+    from audiorenderingv2_tpu_torch.core import tracer
+    from audiorenderingv2_tpu_torch.examples import demo_6_multipose as d6
+
+    t0 = time.perf_counter()
+    smi = _smi_line()
+    cases = _sweep_cases()
+    out = {}
+
+    def rows_want(case):
+        n = len(tuned.round_budgets_for(case.params.max_bounces))
+        return {"trace_round": n, "trace_round_sched": False,
+                "histogram_binned": 1}
+
+    def sched_want(case):
+        n = case.params.max_bounces
+        return {"tile_schedule": n, "trace_round_sched": n,
+                "trace_round": False, "histogram_binned": 1}
+
+    def k5_want(case):
+        return {"trace_traverse": case.params.max_bounces,
+                "trace_round_sched": False, "histogram_binned": 1}
+
+    # The route crossover: K1 over every row against schedule + K2 in
+    # clusters of 32, on each scene; the default is auto_options' route.
+    variants = []
+    for name in ("icosphere_320", "demo5", "icosphere_1280",
+                 "icosphere_5120", "office"):
+        case = cases[name]
+        rows_default = case.scene.n_triangles < tuned.CLUSTER_THRESHOLD
+        variants.append(_sweep_variant(
+            name, "rows (K1)", _sweep_route(case)[0], rows_want(case),
+            SWEEP_OFFICE_ROWS_REPS if name == "office" else None,
+            default=rows_default))
+        variants.append(_sweep_variant(
+            name, f"clusters of {tuned.CLUSTER_SIZE}, schedule + K2",
+            _sweep_route(case, tuned.CLUSTER_SIZE)[0], sched_want(case),
+            default=not rows_default))
+    out["crossover"] = _sweep(
+        "crossover", variants, smi,
+        extra=lambda v: {"triangles": cases[v["scene"]].scene.n_triangles,
+                         "bounces": cases[v["scene"]].params.max_bounces})
+
+    # Cluster size: schedule + K2 at 16 / 32 / 64 / 128, and K5 (the
+    # renderer with explicit options) at 32 and 128.
+    variants = []
+    for name in ("icosphere_5120", "office"):
+        case = cases[name]
+        for cs in SWEEP_CLUSTER_SIZES:
+            variants.append(_sweep_variant(
+                name, f"schedule + K2, clusters of {cs}",
+                _sweep_route(case, cs)[0], sched_want(case),
+                default=cs == tuned.CLUSTER_SIZE))
+    for cs in (tuned.CLUSTER_SIZE, tuned.MANUAL_CLUSTER_SIZE):
+        variants.append(_sweep_variant(
+            "office", f"K5, clusters of {cs}",
+            _sweep_route(cases["office"], cs, schedule=False)[0],
+            k5_want(cases["office"])))
+    out["cluster_size"] = _sweep("cluster_size", variants, smi)
+
+    # The rows route's budgets on the box at 100 bounces; each round's
+    # alive rays and the share of its lanes' bounces made.
+    box = cases["box"]
+    variants = []
+    for b in SWEEP_BUDGETS:
+        fn = _sweep_route(box, round_budgets=b)[0]
+        v = _sweep_variant("box", f"budgets {b}", fn,
+                           {"trace_round": len(b), "histogram_binned": 1},
+                           default=b == tuned.round_budgets_for(
+                               box.params.max_bounces))
+        v["rounds"] = _round_work(fn, b)
+        variants.append(v)
+    out["budgets"] = _sweep("budgets", variants, smi,
+                            extra=lambda v: {"rounds": v["rounds"]})
+
+    # native_rng on and off (K4 makes the directions: another stream).
+    variants = []
+    for name, cs in (("box", None), ("office", tuned.CLUSTER_SIZE)):
+        case = cases[name]
+        want = rows_want(case) if cs is None else sched_want(case)
+        for native in (False, True):
+            variants.append(_sweep_variant(
+                name, f"native_rng={native}",
+                _sweep_route(case, cs, native_rng=native)[0],
+                {**want, "init_state": 1 if native else False},
+                default=not native))
+    out["native_rng"] = _sweep("native_rng", variants, smi, bar="stream")
+
+    # pair_batch on demo 6's 2 x 4 x 1M-ray matrix (its options, rounds
+    # (8, 32)); render_ir_matrix returns on the host.
+    sc6 = tracer.scene_to_arrays(d6.scene(), 128, device="cuda")
+    p6 = d6.trace_params()
+    n6 = d6.n_rays("cuda")
+    pairs = len(d6.EMITTERS) * len(d6.LISTENERS)
+    variants = []
+    for pb in SWEEP_PAIR_BATCHES:
+        def matrix(pb=pb):
+            return multi.render_ir_matrix(sc6, d6.SEED, d6.EMITTERS,
+                                          d6.LISTENERS, d6.YAWS, n6, p6,
+                                          d6.OPTS, pair_batch=pb)
+        calls = -(-pairs // pb) * len(d6.OPTS.round_budgets)
+        want = ({"trace_round": pairs * len(d6.OPTS.round_budgets),
+                 "trace_round_posed": False} if pb == 1 else
+                {"trace_round_posed": calls, "trace_round": False})
+        variants.append(_sweep_variant(
+            "demo6_matrix", f"pair_batch={pb}", matrix,
+            {**want, "histogram_binned": True},
+            default=pb == SWEEP_PAIR_BATCHES[0]))
+    out["pair_batch"] = _sweep("pair_batch", variants, smi)
+    log(f"phase 24: {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; the port's "
@@ -4929,6 +5283,7 @@ def main() -> int:
     sharded_out = phase_sharded()
     sharded = sharded_out["launches"]
     demos = phase_demos(sharded_out)
+    phase_tuned_sweep()
 
     def demo_launches(counter: str | None) -> int:
         """The launches of ``counter`` in the first runs of the demos'

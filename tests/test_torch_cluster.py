@@ -40,7 +40,7 @@ def _clustered(scene, cs=32):
     """The JAX package's clustered scene arrays and the port's copy."""
     sorted_scene, clusters = j_accel.prepare_scene(scene, cluster_size=cs)
     sc = ar.scene_to_arrays(sorted_scene, 128, clusters=clusters)
-    return sc, convert.scene_arrays_from_jax(_np(sc))
+    return sc, convert.scene_arrays_from_jax(_np(sc), device="cpu")
 
 
 def _dirs(n, seed):
@@ -91,8 +91,8 @@ def test_scene_to_arrays_cluster_boxes_match(cs):
     sorted_scene, clusters = t_accel.prepare_scene(scene, cluster_size=cs)
     bj = np.asarray(ar.scene_to_arrays(sorted_scene, 128,
                                        clusters=clusters).cluster_boxes)
-    bt = t_tracer.scene_to_arrays(sorted_scene, 128,
-                                  clusters=clusters).cluster_boxes
+    bt = t_tracer.scene_to_arrays(sorted_scene, 128, clusters=clusters,
+                                  device="cpu").cluster_boxes
     np.testing.assert_array_equal(bj, bt.numpy())
     assert bt.shape == (1024 // cs, 8)
     empty = bt[:, 6] == 0

@@ -170,21 +170,23 @@ def test_demo_5_world_of_one():
     assert demo_5_sharded.scene().n_triangles == 332
 
 
-def test_demo_5_under_torchrun_on_two_gloo_ranks():
+def test_demo_5_under_torchrun_on_two_gloo_ranks(tmp_path):
     """``torchrun --nproc-per-node 2`` on the CPU: each rank joins the gloo
-    group from torchrun's environment and prints the same IR sum."""
-    import signal
+    group from torchrun's environment and prints the same IR sum.
 
-    from audiorenderingv2_tpu_torch import dryrun
+    Each rank's stdout goes to a file of its own (``--log-dir``, ``-r 1``):
+    two ranks printing into one pipe can splice their lines under load.
+    ``--standalone`` binds the rendezvous on a port the agent picks itself,
+    so no other process can take it between its choice and its use."""
+    import signal
 
     # Its own process group, so that a timeout also ends torchrun's workers.
     proc = subprocess.Popen(
-        [sys.executable, "-m", "torch.distributed.run", "--nproc-per-node",
-         "2", "--master-addr", "127.0.0.1", "--master-port",
-         str(dryrun.free_port()), "-m",
-         "audiorenderingv2_tpu_torch.examples.demo_5_sharded", "--device",
-         "cpu"], cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-        text=True, start_new_session=True,
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc-per-node", "2", "--log-dir", str(tmp_path), "-r", "1",
+         "-m", "audiorenderingv2_tpu_torch.examples.demo_5_sharded",
+         "--device", "cpu"], cwd=REPO, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True, start_new_session=True,
         env=dict(os.environ, PYTHONPATH=str(REPO), OMP_NUM_THREADS="1"))
     try:
         out, err = proc.communicate(timeout=120)
@@ -192,11 +194,20 @@ def test_demo_5_under_torchrun_on_two_gloo_ranks():
         if proc.poll() is None:
             os.killpg(proc.pid, signal.SIGKILL)
             proc.wait()
-    assert proc.returncode == 0, out[-3000:] + err[-3000:]
-    lines = [x for x in out.splitlines() if "sharded render" in x]
-    assert len(lines) == 2 and "over 2 devices" in lines[0]
-    assert lines[0].split("IR sum")[1] == lines[1].split("IR sum")[1]
-    assert out.count("mesh: 2 x cpu devices") == 2
+    logs = [sorted(tmp_path.glob(f"*/attempt_0/{rank}/stdout.log"))
+            for rank in (0, 1)]
+    ranks = [p[0].read_text() if len(p) == 1 else "" for p in logs]
+    shown = (f"rank 0:\n{ranks[0][-3000:]}\nrank 1:\n{ranks[1][-3000:]}\n"
+             f"stdout:\n{out[-2000:]}\nstderr:\n{err[-3000:]}")
+    assert proc.returncode == 0, shown
+    assert [len(p) for p in logs] == [1, 1], shown
+    sums = []
+    for text in ranks:
+        lines = [x for x in text.splitlines() if "sharded render" in x]
+        assert len(lines) == 1 and "over 2 devices" in lines[0], shown
+        sums.append(lines[0].split("IR sum")[1])
+        assert text.count("mesh: 2 x cpu devices") == 1, shown
+    assert sums[0] == sums[1], shown
 
 
 def test_demo_6_matches_jax_matrix(monkeypatch, tmp_path):

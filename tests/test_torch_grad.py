@@ -106,7 +106,7 @@ def _box_setup(n_rays=128, max_bounces=5):
     dirs = np.array(j_sampling.sample_directions(jax.random.PRNGKey(2),
                                                  n_rays))  # writable copy
     sc = ar.scene_to_arrays(scene, 128)
-    sct = convert.scene_arrays_from_jax(_np(sc))
+    sct = convert.scene_arrays_from_jax(_np(sc), device="cpu")
     return sc, sct, params, convert.trace_params_from_jax(params), dirs
 
 

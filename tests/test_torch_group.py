@@ -51,8 +51,8 @@ def _setup(name, n_bands=1, tri_chunk=128):
     v, t = fn()
     scene = jt.scene_from_arrays(v, t, _absorption(t.shape[0], n_bands))
     sc = ar.scene_to_arrays(scene, tri_chunk)
-    return sc, convert.scene_arrays_from_jax(_np(sc)), np.asarray(
-        rec, np.float32)
+    return sc, convert.scene_arrays_from_jax(
+        _np(sc), device="cpu"), np.asarray(rec, np.float32)
 
 
 def _dirs(n, seed):
@@ -90,7 +90,7 @@ def test_pack_tris_group_equals_jax(name, variant, n_bands):
     index by whole groups of 8 included."""
     sc, _, _ = _setup(name, n_bands)
     sc = _variant(sc, variant)
-    sct = convert.scene_arrays_from_jax(_np(sc))
+    sct = convert.scene_arrays_from_jax(_np(sc), device="cpu")
     ref_c, ref_a, ref_b = rp2.pack_tris_v2(sc, n_bands, layout="group")
     coeffs, attrs = rc.pack_tris_group(sct, n_bands)
     assert ref_b is None
@@ -736,7 +736,8 @@ def test_group_round_past_one_chunk_equals_k1():
     once; the chunked kernel on the card) through the plain "highest":
     K1's bits; and "high" on K1's path for nearly every ray."""
     v, t = tt.icosphere(radius=6.0, subdivisions=3)  # 1280 triangles
-    sct = t_tracer.scene_to_arrays(tt.scene_from_arrays(v, t, 0.3), 128)
+    sct = t_tracer.scene_to_arrays(tt.scene_from_arrays(v, t, 0.3), 128,
+                                   device="cpu")
     params = convert.trace_params_from_jax(ar.TraceParams(
         sample_rate=SR, ir_length=SR, base_power=3.62, max_bounces=20))
     n = 256

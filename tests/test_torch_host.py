@@ -238,7 +238,7 @@ def test_scene_to_arrays_matches(name, tri_chunk):
     v, t = SCENES[name]()
     scene = jt.scene_from_arrays(v, t, 0.3)
     a = _np(ar.scene_to_arrays(scene, tri_chunk))
-    b = t_tracer.scene_to_arrays(scene, tri_chunk)
+    b = t_tracer.scene_to_arrays(scene, tri_chunk, device="cpu")
     assert a["cluster_boxes"] is None and b.cluster_boxes is None
     for f in t_tracer.SceneArrays._fields[:-1]:
         x, y = a[f], getattr(b, f).numpy()
@@ -259,8 +259,8 @@ def test_pack_tris_rows_matches(name, n_bands):
     scene = jt.scene_from_arrays(v, t, absorb if n_bands > 1 else 0.3)
     sc = ar.scene_to_arrays(scene, 128)
     rows_j, _, _ = rp2.pack_tris_v2(sc, n_bands, layout="rows")
-    rows_t = rc.pack_tris_rows(convert.scene_arrays_from_jax(_np(sc)),
-                               n_bands)
+    rows_t = rc.pack_tris_rows(
+        convert.scene_arrays_from_jax(_np(sc), device="cpu"), n_bands)
     np.testing.assert_array_equal(np.asarray(rows_j), rows_t.numpy())
     if name == "degenerate":
         valid = np.asarray(sc.valid)
@@ -272,7 +272,8 @@ def test_convert_round_trip():
     v, t = jt.box_room((5.0, 4.0, 3.0))
     sc = ar.scene_to_arrays(jt.scene_from_arrays(v, t, 0.25), 128)
     arrays = _np(sc)
-    back = convert.scene_arrays_to_numpy(convert.scene_arrays_from_jax(arrays))
+    back = convert.scene_arrays_to_numpy(
+        convert.scene_arrays_from_jax(arrays, device="cpu"))
     assert set(back) == set(t_tracer.SceneArrays._fields)
     for k, x in back.items():
         np.testing.assert_array_equal(arrays[k], x)
@@ -286,8 +287,8 @@ def test_convert_round_trip():
         (params.distance_threshold, params.cross_ear_delay)
     assert back["cluster_boxes"] is None
     boxes = np.arange(16, dtype=np.float32).reshape(2, 8)
-    clustered = convert.scene_arrays_from_jax(dict(arrays,
-                                                   cluster_boxes=boxes))
+    clustered = convert.scene_arrays_from_jax(
+        dict(arrays, cluster_boxes=boxes), device="cpu")
     np.testing.assert_array_equal(clustered.cluster_boxes.numpy(), boxes)
     np.testing.assert_array_equal(
         convert.scene_arrays_to_numpy(clustered)["cluster_boxes"], boxes)

@@ -185,7 +185,8 @@ def test_native_rng_trace_equals_its_own_directions():
     K4 generated, bit for bit: the native branch changes where directions
     come from and nothing else. The JAX option maps onto the port's."""
     sc = t_tracer.scene_to_arrays(
-        tt.scene_from_arrays(*tt.box_room((9.0, 6.0, 7.0)), 0.3), 128)
+        tt.scene_from_arrays(*tt.box_room((9.0, 6.0, 7.0)), 0.3), 128,
+        device="cpu")
     rows, _ = rc.pack_scene(sc)
     params = TraceParams(sample_rate=8000, ir_length=8000, base_power=3.62,
                          max_bounces=8)

@@ -93,7 +93,7 @@ def test_material_helpers_match_jax():
     ids_j = np.asarray(j_inverse.material_ids_padded(scene, 128))
     np.testing.assert_array_equal(ids.numpy(), ids_j)
     assert ids.dtype == torch.int64 and int(ids[12:].min()) == 3
-    sc = t_tracer.scene_to_arrays(scene, 128)
+    sc = t_tracer.scene_to_arrays(scene, 128, device="cpu")
     table = torch.tensor([0.1, 0.2, 0.3, 0.9])
     out = t_inverse.with_material_absorption(sc, ids, table)
     np.testing.assert_array_equal(out.absorption.numpy(),
@@ -261,7 +261,7 @@ def test_adam_step_from_jax_state_equals_optax():
     _, _, leaves = _jax_fit_state(theta0, grads, 3, 0.05)
     theta4, state4, _ = _jax_fit_state(theta0, grads, 4, 0.05)
     theta, opt_state = convert.fit_state_from_jax(
-        [np.asarray(x) for x in leaves], theta0)
+        [np.asarray(x) for x in leaves], theta0, device="cpu")
     assert opt_state.count == 3 and sorted(theta) == sorted(theta0)
     opt = torch.optim.Adam(list(theta.values()), lr=0.05)
     t_ckpt.load_adam_state(opt, theta, opt_state)
@@ -282,7 +282,7 @@ def test_adam_step_from_jax_state_equals_optax():
         np.testing.assert_allclose(mine, np.asarray(theirs), rtol=1e-6,
                                    atol=2e-5 * 0.05)
     with pytest.raises(ValueError, match="leaves do not fit"):
-        convert.fit_state_from_jax([np.zeros(3)] * 5, theta0)
+        convert.fit_state_from_jax([np.zeros(3)] * 5, theta0, device="cpu")
 
 
 def test_checkpoints_cross_between_the_packages(tmp_path):

@@ -52,7 +52,8 @@ def _box(n_bands=1, max_bounces=5):
     popts = ar.TracerOptions(backend="pallas", pallas_version=2,
                              pallas_interpret=True,
                              pallas_round_budgets=(2, 4))
-    return sc, convert.scene_arrays_from_jax(_np(sc)), params, popts
+    return (sc, convert.scene_arrays_from_jax(_np(sc), device="cpu"), params,
+            popts)
 
 
 def _ico():
@@ -65,7 +66,8 @@ def _ico():
     popts = ar.TracerOptions(backend="pallas", pallas_version=2,
                              pallas_interpret=True, pallas_schedule=True,
                              pallas_key_layout="dir72", pallas_cell_bits=5)
-    return sc, convert.scene_arrays_from_jax(_np(sc)), params, popts
+    return (sc, convert.scene_arrays_from_jax(_np(sc), device="cpu"), params,
+            popts)
 
 
 def _poses(p):

@@ -151,7 +151,7 @@ def _route_run(route, seed):
         scene, clusters = accel.prepare_scene(scene,
                                               cluster_size=cluster_size)
         assert clusters is not None
-    sc = t_tracer.scene_to_arrays(scene, 128, clusters=clusters)
+    sc = t_tracer.scene_to_arrays(scene, 128, clusters=clusters, device="cpu")
     params = _params(TraceParams, max_bounces=bounces)
     d = _dirs(256, seed)
     ref = t_ref.trace_ir_reference(scene, d, EM, REC, YAW, params)
@@ -203,7 +203,7 @@ def test_near_tangent_chord_is_float32s_in_both_packages(route):
 
 def _run_both(scene, dirs, emitter, rec, yaw, params):
     ir_ref = t_ref.trace_ir_reference(scene, dirs, emitter, rec, yaw, params)
-    sc = t_tracer.scene_to_arrays(scene, 128)
+    sc = t_tracer.scene_to_arrays(scene, 128, device="cpu")
     ir_port = t_tracer.trace_ir(sc, torch.tensor(dirs, dtype=torch.float32),
                                 emitter, rec, yaw, params).numpy()
     return ir_ref, ir_port

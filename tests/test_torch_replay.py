@@ -54,8 +54,8 @@ def _setup(n_bands=1, absorption=0.3, n_rays=4096):
     sc = ar.scene_to_arrays(scene, 512)
     dirs = np.array(j_sampling.sample_directions(jax.random.PRNGKey(7),
                                                  n_rays))
-    return (sc, convert.scene_arrays_from_jax(_np(sc)), dirs, params,
-            convert.trace_params_from_jax(params))
+    return (sc, convert.scene_arrays_from_jax(_np(sc), device="cpu"), dirs,
+            params, convert.trace_params_from_jax(params))
 
 
 def _clustered_setup(cs):
@@ -68,8 +68,8 @@ def _clustered_setup(cs):
                             base_power=3.62, max_bounces=5)
     dirs = np.array(j_sampling.sample_directions(jax.random.PRNGKey(11),
                                                  256))
-    return (sc, convert.scene_arrays_from_jax(_np(sc)), dirs, params,
-            convert.trace_params_from_jax(params))
+    return (sc, convert.scene_arrays_from_jax(_np(sc), device="cpu"), dirs,
+            params, convert.trace_params_from_jax(params))
 
 
 def _same_paths(ids_a, recv_a, ids_b, recv_b, what):

@@ -80,7 +80,8 @@ def office():
     boxes [621, 8])."""
     sorted_scene, clusters = accel.prepare_scene(tt.office_scene(20000),
                                                  cluster_size=32)
-    arrays = tracer.scene_to_arrays(sorted_scene, 128, clusters=clusters)
+    arrays = tracer.scene_to_arrays(sorted_scene, 128, clusters=clusters,
+                                    device="cpu")
     return (arrays.cluster_boxes, *rc.pack_tris_clusters(arrays))
 
 
@@ -93,7 +94,7 @@ def ico_boxes():
                                  0.2)
     sorted_scene, clusters = accel.prepare_scene(scene, cluster_size=32)
     b = tracer.scene_to_arrays(sorted_scene, 128,
-                               clusters=clusters).cluster_boxes
+                               clusters=clusters, device="cpu").cluster_boxes
     b = torch.cat([b, torch.zeros((GROUP + 4, 8))])
     b[[3, 9, 17, 30]] = 0.0  # inside the first group
     return b

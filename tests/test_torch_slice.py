@@ -58,7 +58,7 @@ def test_same_directions_through_both_slices():
     sc = ar.scene_to_arrays(scene, 128)
     sct = convert.scene_arrays_from_jax(
         {k: None if x is None else np.asarray(x)
-         for k, x in sc._asdict().items()})
+         for k, x in sc._asdict().items()}, device="cpu")
     params = ar.TraceParams(sample_rate=SR, ir_length=SR, base_power=3.62,
                             max_bounces=30, hrtf_absorption_rate=0.9)
     d = np.random.default_rng(8).normal(size=(16384, 3))

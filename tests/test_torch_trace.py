@@ -32,7 +32,7 @@ def _setup(name, absorption=0.3):
     sc = ar.scene_to_arrays(scene, 128)
     arrays = {k: None if x is None else np.asarray(x)
               for k, x in sc._asdict().items()}
-    return sc, convert.scene_arrays_from_jax(arrays), np.asarray(
+    return sc, convert.scene_arrays_from_jax(arrays, device="cpu"), np.asarray(
         rec, np.float32)
 
 
@@ -133,7 +133,7 @@ def test_trace_ir_banded_matches_xla():
     sc = ar.scene_to_arrays(scene, 128)
     sct = convert.scene_arrays_from_jax(
         {k: None if x is None else np.asarray(x)
-         for k, x in sc._asdict().items()})
+         for k, x in sc._asdict().items()}, device="cpu")
     params = ar.TraceParams(sample_rate=SR, ir_length=SR, base_power=3.62,
                             max_bounces=12, n_bands=3)
     d = _dirs(4096, 7)

@@ -50,7 +50,7 @@ def _clustered(cs, n_bands=1, scene=None):
         scene = jt.scene_from_arrays(v, t, absorb if n_bands > 1 else 0.2)
     sorted_scene, clusters = j_accel.prepare_scene(scene, cluster_size=cs)
     sc = ar.scene_to_arrays(sorted_scene, 128, clusters=clusters)
-    return sc, convert.scene_arrays_from_jax(_np(sc))
+    return sc, convert.scene_arrays_from_jax(_np(sc), device="cpu")
 
 
 def _start(sc, sct, n, n_bands, max_bounces=20, yaw=25.0):
@@ -446,7 +446,7 @@ def test_sorted_visit_order_matches_traverse_on_office(cs, monkeypatch):
         sorted_scene, clusters = accel.prepare_scene(tt.office_scene(20000),
                                                      cluster_size=cs)
         rows, boxes = rc.pack_tris_clusters(t_tracer.scene_to_arrays(
-            sorted_scene, 128, clusters=clusters))
+            sorted_scene, 128, clusters=clusters, device="cpu"))
     alive = state[rc._C_DONE] == 0.0
     seqs = _assert_same_traversal(state, rows, boxes, alive, monkeypatch)
     n_visits = [len(s) for s in seqs]

@@ -94,7 +94,8 @@ def test_traced_rt60_tracks_absorption():
     rts = {}
     for a in (0.1, 0.5):
         v, t = tt.box_room((10.0, 8.0, 9.0))
-        sc = tracer.scene_to_arrays(tt.scene_from_arrays(v, t, a), 128)
+        sc = tracer.scene_to_arrays(tt.scene_from_arrays(v, t, a), 128,
+                                    device="cpu")
         ir = tracer.trace_ir(sc, d, np.zeros(3), [2.0, 0.0, 1.0], 0.0,
                              params).numpy()
         rts[a] = acoustics.rt60(ir.sum(axis=0), SR, "t20")

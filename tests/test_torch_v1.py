@@ -51,8 +51,8 @@ def _setup(name, absorption=0.3):
         for k, x in sc._asdict().items() if x is not None})
     if name.endswith("_mid"):
         sc = sc._replace(valid=sc.valid.at[:t.shape[0]:3].set(0.0))
-    return sc, convert.scene_arrays_from_jax(_np(sc)), np.asarray(
-        rec, np.float32)
+    return sc, convert.scene_arrays_from_jax(
+        _np(sc), device="cpu"), np.asarray(rec, np.float32)
 
 
 def _dirs(n, seed):
@@ -303,7 +303,7 @@ def test_v1_with_bands_runs_the_differentiable_tracer(monkeypatch):
     v, t = jt.box_room((9.0, 7.0, 8.0))
     absorb = np.tile(np.array([[0.1, 0.4, 0.7]], np.float32), (12, 1))
     sc = ar.scene_to_arrays(jt.scene_from_arrays(v, t, absorb), 128)
-    sct = convert.scene_arrays_from_jax(_np(sc))
+    sct = convert.scene_arrays_from_jax(_np(sc), device="cpu")
     params = ar.TraceParams(sample_rate=SR, ir_length=SR, base_power=3.62,
                             max_bounces=6, n_bands=3)
     tparams = convert.trace_params_from_jax(params)

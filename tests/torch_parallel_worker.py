@@ -65,7 +65,7 @@ def box_problem():
     scene = testing.scene_from_arrays(v, t, 0.3)
     params = TraceParams(sample_rate=16000, ir_length=16000,
                          base_power=3.62, max_bounces=6)
-    return scene, scene_to_arrays(scene, 128), params
+    return scene, scene_to_arrays(scene, 128, device="cpu"), params
 
 
 def grad_options():
