@@ -40,6 +40,7 @@ import torch
 
 from .. import constants
 from ..ops import histogram_cuda
+from ..utils import profiling
 from . import binning
 from .params import TraceParams
 
@@ -553,7 +554,8 @@ def _ir_from_events(events, params: TraceParams, opts: TracerOptions,
                     with_stats: bool):
     """The IR of ``events`` (ev_bin_f, ev_w, ev_ear[, depth]), and with
     ``with_stats`` also ``{"bounces": depth as f32}``."""
-    ir = _histogram_from_events(*events[:3], params, opts.soft_binning)
+    with profiling.span("ar2.bin"):
+        ir = _histogram_from_events(*events[:3], params, opts.soft_binning)
     if not with_stats:
         return ir
     return ir, {"bounces": events[3].to(torch.float32)}
@@ -634,7 +636,9 @@ def render_ir(sc: SceneArrays, generator: torch.Generator, n_rays: int,
     if opts.native_rng and opts.version == 2:
         _kernels_only(opts, "native_rng")
         rows, boxes = packed_scene(sc, params, rows, boxes, opts)
-        seed = torch.randint(0, 2**23, (), generator=generator, device=dev)
+        with profiling.span("ar2.trace.init"):
+            seed = torch.randint(0, 2**23, (), generator=generator,
+                                 device=dev)
         events = raytrace_cuda.trace_events(
             rows, None, _as_vec(emitter, dev), _as_vec(receiver_pos, dev),
             float(receiver_yaw_deg), params, n_total_rays=n_total_rays,
@@ -643,7 +647,8 @@ def render_ir(sc: SceneArrays, generator: torch.Generator, n_rays: int,
             schedule=opts.schedule, layout=opts.layout,
             precision=opts.precision, return_depth=with_stats)
         return _ir_from_events(events, params, opts, with_stats)
-    dirs = sampling.sample_directions(n_rays, generator, dev)
+    with profiling.span("ar2.trace.init"):
+        dirs = sampling.sample_directions(n_rays, generator, dev)
     return trace_ir(sc, dirs, emitter, receiver_pos, receiver_yaw_deg,
                     params, opts, n_total_rays, rows, boxes, with_stats)
 
@@ -689,10 +694,11 @@ def render_ir_pose_batch(sc: SceneArrays, seed: int, n_rays: int, emitters,
     emitters = _as_vec(emitters, dev).reshape(-1, 3)
     if pose_indices is None:
         pose_indices = range(emitters.shape[0])
-    directions = torch.stack([
-        sampling.sample_directions(
-            n_rays, sampling.pose_generator(seed, int(i), dev, rank), dev)
-        for i in pose_indices])
+    with profiling.span("ar2.trace.init"):
+        directions = torch.stack([
+            sampling.sample_directions(
+                n_rays, sampling.pose_generator(seed, int(i), dev, rank), dev)
+            for i in pose_indices])
     rows, boxes = packed_scene(sc, params, rows, boxes, opts)
     ev_bin_f, ev_w, ev_ear = raytrace_cuda.trace_events_pose_batch(
         rows, directions.to(device=dev, dtype=torch.float32).contiguous(),
@@ -702,4 +708,5 @@ def render_ir_pose_batch(sc: SceneArrays, seed: int, n_rays: int, emitters,
         round_budgets=opts.round_budgets, boxes=boxes,
         schedule=opts.schedule, layout=opts.layout,
         precision=opts.precision)
-    return _histogram_from_events_posed(ev_bin_f, ev_w, ev_ear, params)
+    with profiling.span("ar2.bin"):
+        return _histogram_from_events_posed(ev_bin_f, ev_w, ev_ear, params)

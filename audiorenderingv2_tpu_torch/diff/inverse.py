@@ -34,6 +34,7 @@ from ..core import sampling
 from ..core.params import TraceParams
 from ..core.tracer import SceneArrays, TracerOptions, scene_to_arrays, trace_ir
 from ..scene import Scene
+from ..utils import profiling
 from . import checkpoint as ckpt
 from . import replay as replay_mod
 
@@ -185,6 +186,12 @@ def fit_scene_parameters(
     scene of ``tuned.CLUSTER_THRESHOLD`` triangles and up is Morton-sorted
     into clusters first and recorded through the schedule and K2, as the
     renderer would trace it.
+
+    Each step is an ``ar2.fit.step`` span (``utils.profiling``) around
+    ``ar2.fit.record`` (when it records), ``ar2.fit.forward`` (the replay
+    or the trace, and the binning), ``ar2.fit.loss``, ``ar2.fit.backward``,
+    ``ar2.fit.adam`` and ``ar2.fit.loss_read`` (the loss's copy to the
+    host); the callback runs after it.
     """
     if method not in ("full", "replay"):
         raise ValueError(f"unknown method {method!r}")
@@ -269,15 +276,23 @@ def fit_scene_parameters(
 
     refresh = max(replay_refresh, 1)
     paths = None
+    span = profiling.span
     for i in range(start_step, steps):
-        if use_replay and (paths is None or i % refresh == 0):
-            paths = record(theta)
-        optimizer.zero_grad(set_to_none=True)
-        loss = ir_loss(predict(theta, paths), target_ir, loss_kind,
-                       smooth_radius)
-        loss.backward()
-        optimizer.step()
-        losses.append(float(loss.detach()))
+        with span("ar2.fit.step"):
+            if use_replay and (paths is None or i % refresh == 0):
+                with span("ar2.fit.record"):
+                    paths = record(theta)
+            optimizer.zero_grad(set_to_none=True)
+            with span("ar2.fit.forward"):
+                pred = predict(theta, paths)
+            with span("ar2.fit.loss"):
+                loss = ir_loss(pred, target_ir, loss_kind, smooth_radius)
+            with span("ar2.fit.backward"):
+                loss.backward()
+            with span("ar2.fit.adam"):
+                optimizer.step()
+            with span("ar2.fit.loss_read"):
+                losses.append(float(loss.detach()))
         if callback is not None:
             callback(i, losses[-1], theta)
         done = i + 1

@@ -147,7 +147,7 @@ def record_paths_kernels(sc: SceneArrays, dirs: torch.Tensor, emitter,
     state = rc._run_rounds(state, rows, boxes, scal, params, [1] * k_steps,
                            compact=True, schedule=opts.schedule,
                            harvest=harvest, layout=opts.layout,
-                           precision=opts.precision)
+                           precision=opts.precision, n_rays=n)
     recv = torch.empty((n_pad,), dtype=torch.int32, device=dev)
     recv[state[rc._C_RAYID].long()] = state[rc._C_RECVD].to(torch.int32)
     return tri_ids[:n], recv[:n]

@@ -28,6 +28,7 @@ from .core.tracer import (SceneArrays, TracerOptions, packed_scene, render_ir,
                           render_ir_pose_batch)
 from .ops import convolve, filterbank
 from .parallel import sharding
+from .utils import profiling
 
 
 def render_ir_matrix(
@@ -79,6 +80,10 @@ def render_ir_matrix(
 
     Returns float32 [S, L, 2, ir_length], or [S, L, 2, n_bands, ir_length]
     for a banded scene (params.n_bands > 1), on the host.
+
+    Spans (``utils.profiling``): ``ar2.matrix`` around the batches, each an
+    ``ar2.matrix.batch`` (the renders and the sum over ranks) and an
+    ``ar2.matrix.to_host`` (the IRs' copy).
     """
     if pair_batch is not None and pair_batch < 0:
         raise ValueError(f"pair_batch must be >= 0 (0 = all pairs at "
@@ -110,23 +115,28 @@ def render_ir_matrix(
     # tail runs at its own size.
     batch = n_pairs if pair_batch in (0, None) else min(pair_batch, n_pairs)
     chunks = []
-    for start in range(0, n_pairs, batch):
-        idx = np.arange(start, min(start + batch, n_pairs))
-        if fused:
-            irs = render_ir_pose_batch(
-                sc, seed, n_local, em_p[idx], rc_p[idx], yw_p[idx], params,
-                opts, pose_indices=idx, rows=rows, boxes=boxes,
-                n_total_rays_per_pose=n_rays, rank=rank)
-        else:
-            irs = torch.stack([
-                render_ir(sc, sampling.pose_generator(seed, i, sc.device,
-                                                      rank),
-                          n_local, em_p[i], rc_p[i], float(yw_p[i]), params,
-                          opts, n_total_rays=n_rays, rows=rows, boxes=boxes)
-                for i in idx])
-        if mesh is not None:
-            irs = sharding.sum_across_ranks(irs, mesh)
-        chunks.append(irs.cpu().numpy())
+    span = profiling.span
+    with span("ar2.matrix"):
+        for start in range(0, n_pairs, batch):
+            idx = np.arange(start, min(start + batch, n_pairs))
+            with span("ar2.matrix.batch"):
+                if fused:
+                    irs = render_ir_pose_batch(
+                        sc, seed, n_local, em_p[idx], rc_p[idx], yw_p[idx],
+                        params, opts, pose_indices=idx, rows=rows,
+                        boxes=boxes, n_total_rays_per_pose=n_rays, rank=rank)
+                else:
+                    irs = torch.stack([
+                        render_ir(sc, sampling.pose_generator(
+                                      seed, i, sc.device, rank),
+                                  n_local, em_p[i], rc_p[i], float(yw_p[i]),
+                                  params, opts, n_total_rays=n_rays,
+                                  rows=rows, boxes=boxes)
+                        for i in idx])
+                if mesh is not None:
+                    irs = sharding.sum_across_ranks(irs, mesh)
+            with span("ar2.matrix.to_host"):
+                chunks.append(irs.cpu().numpy())
     flat = np.concatenate(chunks)
     # [S, L, 2(, n_bands), ir_length]: the per-pair IR after the pair axes.
     return flat.reshape((s, l) + flat.shape[1:])

@@ -64,6 +64,7 @@ import torch
 
 from .. import constants
 from ..core.params import TraceParams
+from ..utils import profiling
 from . import _build
 
 if TYPE_CHECKING:
@@ -454,7 +455,8 @@ def _partition_alive_first(state: torch.Tensor, n_poses: int = 1,
     ray axis, rebased at each pose's first ray, counts the alive rays up to
     each ray of its pose (the dead ones follow from the ray's position);
     that gives each ray its slot, a scatter inverts the slots into a
-    permutation, and one ``index_select`` applies it."""
+    permutation, and one ``index_select`` applies it. The alive rays, the
+    next round's ``rays_alive``, are counted from the sum's last column."""
     n = state.shape[ray_dim]
     dev = state.device
     alive = (state.select(1 - ray_dim, _C_DONE) == 0.0).to(torch.int64)
@@ -467,6 +469,7 @@ def _partition_alive_first(state: torch.Tensor, n_poses: int = 1,
     first = torch.arange(n_poses, device=dev)[:, None] * alive.shape[1]
     perm = torch.empty(n, dtype=torch.int64, device=dev).scatter_(
         0, (dest + first).reshape(-1), torch.arange(n, device=dev))
+    profiling.count("rays_alive", lambda: ca[:, -1].sum())
     return state.index_select(ray_dim, perm)
 
 
@@ -497,12 +500,15 @@ def _compaction_keys(state: torch.Tensor, cell_bits: int = CELL_BITS,
     direction bins (octant x dominant axis x second axis), then the Morton
     code of the ray's cell in a 2^cell_bits grid over the bounding box of
     ALL ray positions of the ray's pose, done ones included (``n_poses``
-    equal segments of the ray axis, each with its own grid)."""
+    equal segments of the ray axis, each with its own grid). The rays not
+    done, the next round's ``rays_alive``, are counted from the done
+    flags."""
     res = 1 << cell_bits
     if 2 * 72 * res ** 3 > 1 << 31:
         raise ValueError(f"cell_bits={cell_bits} with dir72 keys overflows "
                          f"int32; use cell_bits <= 7")
     done = state[_C_DONE].to(torch.int32)
+    profiling.count("rays_alive", lambda: done.numel() - done.sum())
     p = state[_C_PX:_C_PZ + 1].view(3, n_poses, -1)
     v = state[_C_VX:_C_VZ + 1]
     pmin = p.amin(dim=2, keepdim=True)
@@ -807,43 +813,77 @@ def _budgets(params: TraceParams, round_budgets: tuple | None,
     return budgets
 
 
+def _n_alive(state: torch.Tensor, ray_dim: int = 1) -> torch.Tensor:
+    """The rays of ``state`` not done, a 0-dim tensor on its device."""
+    return (state.select(1 - ray_dim, _C_DONE) == 0.0).sum()
+
+
 def _run_rounds(state: torch.Tensor, tris, boxes: torch.Tensor | None,
                 scal: torch.Tensor, params: TraceParams, budgets: list[int],
                 compact: bool, n_poses: int = 1, *, schedule: bool,
                 harvest=None, layout: str = "rows",
-                precision: str = "highest") -> torch.Tensor:
+                precision: str = "highest", n_rays: int) -> torch.Tensor:
     """The loop of rounds over ``state`` [ncols, n_poses * n_pad] with the
     reorder between rounds kept inside each pose's segment. ``tris``: the
     triangle rows, or with ``layout="group"`` K6's (coeffs, attrs).
     ``harvest``, when given, is called with the round's index and the state
     after every round's kernel, before the reorder (the path recorder reads
-    RAYID and LTRI there)."""
+    RAYID and LTRI there).
+
+    Each round is an ``ar2.trace.round`` span around its phases' spans
+    (``ar2.trace.schedule``, ``ar2.trace.kernel``, then
+    ``ar2.trace.partition`` or ``ar2.trace.keys`` and ``ar2.trace.sort``).
+    Counted a round (``profiling.count``): ``rays_alive``, the rays not done
+    at its start (for the first ``n_rays``, the rays launched; the reorder
+    counts them for the next), and on the schedule route
+    ``sched_candidates``, the tiles' reachable clusters summed, with
+    ``n_tiles`` once."""
     # they build on this module
     from . import group_cuda, schedule_cuda, traverse_cuda
 
+    span, count = profiling.span, profiling.count
     rays_per_pose = state.shape[1] // n_poses
     for k, budget in enumerate(budgets):
         last = k + 1 == len(budgets)
-        if layout == "group":
-            state = group_cuda.trace_round_group(
-                state, *tris, scal, params, budget, rays_per_pose, precision)
-        elif boxes is None:
-            state = trace_round(state, tris, scal, params, budget,
-                                rays_per_pose)
-        elif schedule:
-            sched = schedule_cuda.tile_schedule(state, boxes)
-            state = schedule_cuda.trace_round_sched(
-                state, tris, boxes, sched, scal, params, rays_per_pose)
-        else:
-            state = traverse_cuda.trace_traverse(
-                state, tris, boxes, scal, params, budget, rays_per_pose)
-        if harvest is not None:
-            harvest(k, state)
-        if compact and not last:
-            state = (_partition_alive_first(state, n_poses) if boxes is None
-                     else _sort_state_by_keys(
-                         state, _compaction_keys(state, n_poses=n_poses),
-                         n_poses))
+        with span("ar2.trace.round"):
+            if k == 0:
+                count("rays_alive", lambda: n_rays)
+            elif not compact:
+                count("rays_alive", lambda: _n_alive(state))
+            if layout == "group":
+                with span("ar2.trace.kernel"):
+                    state = group_cuda.trace_round_group(
+                        state, *tris, scal, params, budget, rays_per_pose,
+                        precision)
+            elif boxes is None:
+                with span("ar2.trace.kernel"):
+                    state = trace_round(state, tris, scal, params, budget,
+                                        rays_per_pose)
+            elif schedule:
+                with span("ar2.trace.schedule"):
+                    sched = schedule_cuda.tile_schedule(state, boxes)
+                count("sched_candidates", lambda: sched[:, 0].sum())
+                count("n_tiles", lambda: sched.shape[0], once=True)
+                with span("ar2.trace.kernel"):
+                    state = schedule_cuda.trace_round_sched(
+                        state, tris, boxes, sched, scal, params,
+                        rays_per_pose)
+            else:
+                with span("ar2.trace.kernel"):
+                    state = traverse_cuda.trace_traverse(
+                        state, tris, boxes, scal, params, budget,
+                        rays_per_pose)
+            if harvest is not None:
+                harvest(k, state)
+            if compact and not last:
+                if boxes is None:
+                    with span("ar2.trace.partition"):
+                        state = _partition_alive_first(state, n_poses)
+                else:
+                    with span("ar2.trace.keys"):
+                        keys = _compaction_keys(state, n_poses=n_poses)
+                    with span("ar2.trace.sort"):
+                        state = _sort_state_by_keys(state, keys, n_poses)
     return state
 
 
@@ -860,14 +900,25 @@ def _trace_events_v1(tris: torch.Tensor, directions: torch.Tensor,
                      compact: bool, return_depth: bool):
     """The rounds of version 1: K7 over a row-major state [n_pad, 16] that
     stays row-major from the first round to the last, the alive-first
-    partition between rounds a gather of rows."""
+    partition between rounds a gather of rows; spans and counters as in
+    :func:`_run_rounds`."""
     from . import v1_cuda  # it builds on this module
 
-    state = init_state(directions, emitter, e0, n_pad).T.contiguous()
+    span, count = profiling.span, profiling.count
+    with span("ar2.trace.init"):
+        state = init_state(directions, emitter, e0, n_pad).T.contiguous()
     for k, budget in enumerate(budgets):
-        state = v1_cuda.trace_round_v1(state, tris, scal, params, budget)
-        if compact and k + 1 < len(budgets):
-            state = _partition_alive_first(state, ray_dim=0)
+        with span("ar2.trace.round"):
+            if k == 0:
+                count("rays_alive", lambda: directions.shape[0])
+            elif not compact:
+                count("rays_alive", lambda: _n_alive(state, ray_dim=0))
+            with span("ar2.trace.kernel"):
+                state = v1_cuda.trace_round_v1(state, tris, scal, params,
+                                               budget)
+            if compact and k + 1 < len(budgets):
+                with span("ar2.trace.partition"):
+                    state = _partition_alive_first(state, ray_dim=0)
     events = (state[:, _C_EVB].contiguous(),
               state[:, _C_EVW:_C_EVW + 1].contiguous(),
               state[:, _C_EVE].to(torch.int32))
@@ -936,19 +987,23 @@ def trace_events(tris, directions: torch.Tensor | None,
     budgets = _budgets(params, round_budgets, compact, boxes is not None,
                        schedule)
     e0 = params.base_power / (n_real * constants.SPHERE_VOLUME)
-    scal = scalars(emitter, receiver_pos, receiver_yaw_deg, e0, params)
+    profiling.count("n_rays", lambda: n, once=True)
     if version == 1:
+        scal = scalars(emitter, receiver_pos, receiver_yaw_deg, e0, params)
         return _trace_events_v1(tris, directions, emitter, scal, e0, n_pad,
                                 params, budgets, compact, return_depth)
-    if directions is None:
-        seeded = scal.clone()
-        seeded[_S_PAD14] = native_rng_seed.to(torch.float32)
-        state = init_state_native(seeded, n_pad, n, params.n_bands)
-    else:
-        state = init_state(directions, emitter, e0, n_pad, params.n_bands)
+    with profiling.span("ar2.trace.init"):
+        scal = scalars(emitter, receiver_pos, receiver_yaw_deg, e0, params)
+        if directions is None:
+            seeded = scal.clone()
+            seeded[_S_PAD14] = native_rng_seed.to(torch.float32)
+            state = init_state_native(seeded, n_pad, n, params.n_bands)
+        else:
+            state = init_state(directions, emitter, e0, n_pad,
+                               params.n_bands)
     state = _run_rounds(state, tris, boxes, scal, params, budgets, compact,
                         schedule=schedule, layout=layout,
-                        precision=precision)
+                        precision=precision, n_rays=n)
     events = (state[_C_EVB].contiguous(),
               _event_weights(state, params.n_bands).T.contiguous(),
               state[_C_EVE].to(torch.int32))
@@ -994,11 +1049,13 @@ def trace_events_pose_batch(tris, directions: torch.Tensor,
     budgets = _budgets(params, round_budgets, compact, boxes is not None,
                        schedule)
     e0 = params.base_power / (n_real * constants.SPHERE_VOLUME)
-    scal = scalars(emitters, receivers, receiver_yaws_deg, e0, params)
-    state = init_state(directions, emitters, e0, n_pad, params.n_bands)
+    profiling.count("n_rays", lambda: p * n, once=True)
+    with profiling.span("ar2.trace.init"):
+        scal = scalars(emitters, receivers, receiver_yaws_deg, e0, params)
+        state = init_state(directions, emitters, e0, n_pad, params.n_bands)
     state = _run_rounds(state, tris, boxes, scal, params, budgets, compact,
                         n_poses=p, schedule=schedule, layout=layout,
-                        precision=precision)
+                        precision=precision, n_rays=p * n)
     state = state.view(-1, p, n_pad)
     return (state[_C_EVB].contiguous(),
             _event_weights(state, params.n_bands).permute(1, 2, 0)

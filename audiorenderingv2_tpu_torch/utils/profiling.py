@@ -1,4 +1,4 @@
-"""Timing and profiling helpers.
+"""Timing and profiling helpers, and the program's own spans and counters.
 
 The counterpart of ``audiorenderingv2_tpu/utils/profiling.py`` with the same
 contracts on an explicit device. A CUDA call returns once its work is
@@ -7,13 +7,23 @@ synchronises the device and then reads a checksum of the result back to the
 host, so a time can only come from work that ran and whose result is there
 to be checked. ``timed_median`` times on CUDA events for a CUDA device (the
 host clock for the CPU) and refuses a median under a physical floor.
+
+Spans and counters are switched on by a running ``torch.profiler`` and by
+nothing else (``trace`` starts one). While it records on the calling
+thread, ``span(name)`` is a ``record_function`` range: a ``user_annotation``
+event of the profiler's Chrome trace, on the clock of the card's kernels,
+nested by time in the spans around it. ``count(name, fn)`` keeps the value
+``fn`` computes (a 0-dim tensor on the device, or a host number) in the
+collector ``collect()`` opened on the thread, which ``read`` brings to the
+host in one copy. With no profiler running a span is one shared object that
+does nothing and a counter never calls ``fn``, so nothing is launched.
 """
 from __future__ import annotations
 
 import contextlib
 import math
+import threading
 import time
-from dataclasses import dataclass, field
 
 import numpy as np
 import torch
@@ -93,44 +103,14 @@ def timed_median(fn, *args, n: int = 5, min_ms: float = 0.0,
     return median_ms, first_s, checksum
 
 
-@dataclass
-class Timer:
-    """Accumulating named wall-clock timer; call in a with-block. ``sync``:
-    a tensor (its device is waited for) or a device to wait for before the
-    clock is read."""
-
-    name: str
-    times: list = field(default_factory=list)
-
-    @contextlib.contextmanager
-    def measure(self, sync=None):
-        t0 = time.perf_counter()
-        yield
-        if sync is not None:
-            dev = sync.device if isinstance(sync, torch.Tensor) \
-                else torch.device(sync)
-            if dev.type == "cuda":
-                torch.cuda.synchronize(dev)
-        self.times.append(time.perf_counter() - t0)
-
-    @property
-    def last_ms(self) -> float:
-        return self.times[-1] * 1000.0 if self.times else 0.0
-
-    @property
-    def median_ms(self) -> float:
-        if not self.times:
-            return 0.0
-        s = sorted(self.times)
-        return s[len(s) // 2] * 1000.0
-
-
 @contextlib.contextmanager
 def trace(log_dir: str, device: torch.device | str = "cuda"):
     """A ``torch.profiler`` trace of the block (host activity, and the
     card's when ``device`` is CUDA), written as a Chrome trace into
     ``log_dir``; yields the profiler, whose ``key_averages()`` sums times
-    by kernel."""
+    by kernel. While it records, the program's spans (``ar2.*``) are on:
+    the trace holds them beside the operators and kernels they enclose, and
+    ``full_render_cycle`` records carry the render's counters."""
     import os
 
     from torch.profiler import ProfilerActivity, profile
@@ -144,5 +124,99 @@ def trace(log_dir: str, device: torch.device | str = "cuda"):
     prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
 
 
-def rays_per_second(n_rays: int, seconds: float) -> float:
-    return n_rays / seconds if seconds > 0 else 0.0
+
+# ------------------------------------------------------- spans and counters
+
+_profiling = torch.autograd._profiler_enabled  # per thread, ~0.1 us a call
+
+
+class _Off:
+    """The span and the collector of a thread no profiler records: entering
+    and leaving them does nothing, and the collector reads nothing."""
+
+    __slots__ = ()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        return False
+
+    def read(self) -> dict:
+        return {}
+
+
+_OFF = _Off()
+
+
+def span(name: str):
+    """A named range of the program, as a context manager. While a
+    ``torch.profiler`` records on this thread it is
+    ``torch.profiler.record_function(name)``; otherwise the shared no-op,
+    and nothing else is called."""
+    if not _profiling():
+        return _OFF
+    return torch.profiler.record_function(name)
+
+
+_local = threading.local()
+
+
+class Counters:
+    """The values counted on one thread while it is open (``with``), by
+    name: a list of the values of ``count(name, fn)`` in the order they were
+    counted, or the one value of ``count(name, fn, once=True)``."""
+
+    def __init__(self):
+        self.values: dict = {}
+        self._outer = None
+
+    def __enter__(self) -> "Counters":
+        self._outer = getattr(_local, "counters", None)
+        _local.counters = self
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        _local.counters = self._outer
+        return False
+
+    def read(self) -> dict:
+        """Every value as a Python int, name -> int or list of ints; the
+        tensors among them come to the host in one copy."""
+        tensors = [v for vals in self.values.values()
+                   for v in (vals if isinstance(vals, list) else [vals])
+                   if isinstance(v, torch.Tensor)]
+        host = iter(torch.stack([t.reshape(()).to(torch.int64)
+                                 for t in tensors]).tolist()
+                    if tensors else ())
+
+        def value(v):
+            return next(host) if isinstance(v, torch.Tensor) else int(v)
+
+        return {name: ([value(v) for v in vals] if isinstance(vals, list)
+                       else value(vals))
+                for name, vals in self.values.items()}
+
+
+def collect():
+    """A collector of this thread's counters, as a context manager that
+    yields it: a fresh :class:`Counters` while a ``torch.profiler`` records,
+    otherwise the shared no-op, whose ``read`` gives ``{}``."""
+    if not _profiling():
+        return _OFF
+    return Counters()
+
+
+def count(name: str, fn, *, once: bool = False) -> None:
+    """Keep ``fn()`` (a 0-dim integer tensor on the device, or a host
+    number) under ``name`` in the collector open on this thread, appended
+    to the name's list, or with ``once`` as its one value. With no profiler
+    recording or no collector open it does nothing and ``fn`` is not
+    called."""
+    counters = getattr(_local, "counters", None)
+    if counters is None or not _profiling():
+        return
+    if once:
+        counters.values[name] = fn()
+    else:
+        counters.values.setdefault(name, []).append(fn())

@@ -114,6 +114,12 @@ NO_COUNTERPART = {
     "renderer.py:_banded_conv_sum": (
         FOLDED, "ops/filterbank.py:convolve_file_banded"),
     "warmup.py:_timeit": (FOLDED, "warmup.py's own timing"),
+    "utils/profiling.py:Timer": (
+        FOLDED, "a host-clock timer nothing read; the port times its phases "
+        "with utils/profiling.py:span, on the profiler's clock"),
+    "utils/profiling.py:rays_per_second": (
+        FOLDED, "a division nothing read; the benchmark computes its rates "
+        "itself"),
 }
 
 # "file:line" of each pl.pallas_call( -> the CUDA sources that replace it,

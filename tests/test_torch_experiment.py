@@ -264,18 +264,25 @@ def test_device_fence_reads_the_first_leaf():
 
 
 def test_timer_rays_per_second_and_trace(tmp_path):
-    t = profiling.Timer("render")
-    assert t.last_ms == 0.0 and t.median_ms == 0.0
-    for _ in range(3):
-        with t.measure(sync=torch.ones(2)):
-            torch.ones(16).sum()
-    with t.measure(sync="cpu"):
-        pass
-    assert len(t.times) == 4 and t.last_ms >= 0
-    assert t.median_ms == sorted(t.times)[2] * 1000.0
-    assert profiling.rays_per_second(1000, 0.5) == 2000.0
-    assert profiling.rays_per_second(1000, 0.0) == 0.0
+    """``trace()``, the operator's switch of the port's spans (the timer and
+    the rays-a-second helper it once sat beside gave way to them): its
+    Chrome trace holds a render's ``ar2.`` spans beside the operators they
+    enclose, and no span is entered outside it."""
+    v, t = tt.box_room((4.0, 3.0, 3.0))
+    r = AudioRenderer(tt.scene_from_arrays(v, t, 0.3), ir_seconds=1,
+                      sample_rate=8000, n_rays=256, max_bounces=4,
+                      device="cpu")
+    assert not hasattr(profiling, "Timer")
+    assert not hasattr(profiling, "rays_per_second")
     with profiling.trace(str(tmp_path / "prof"), device="cpu") as prof:
-        torch.ones(64).sum()
-    assert (tmp_path / "prof" / "trace.json").stat().st_size > 0
+        r.render()
+    r.render()
+    path = tmp_path / "prof" / "trace.json"
+    assert path.stat().st_size > 0
     assert len(prof.key_averages()) > 0
+    names = [e["name"] for e in json.loads(path.read_text())["traceEvents"]
+             if e.get("cat") == "user_annotation"]
+    assert names.count("ar2.render") == 1
+    assert {"ar2.trace.init", "ar2.trace.round", "ar2.trace.kernel",
+            "ar2.bin", "ar2.ir_to_host"} <= set(names)
+    assert r.counters == {}  # the untraced render after it counts nothing
