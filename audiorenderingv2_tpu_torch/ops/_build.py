@@ -75,6 +75,8 @@ _SIGNATURES = {
     "ar2_group_probe": (_P, _LL, _I, _P, _I, _P, _P),
     # state, n, tris, n_tris, scal, budget, max_bounces, stream
     "ar2_trace_round_v1": (_P, _LL, _P, _I, _P, _I, _I, _P),
+    # state, n, ncols, n_poses, cell_bits, partials, n_blocks, keys, stream
+    "ar2_compaction_keys": (_P, _LL, _I, _I, _I, _P, _I, _P, _P),
 }
 
 

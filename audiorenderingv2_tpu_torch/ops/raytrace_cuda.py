@@ -33,9 +33,10 @@ with the packing of ``raytrace_pallas_v2.py``:
   (``ops/schedule_cuda.py``) or, with ``schedule=False``, K5
   (``ops/traverse_cuda.py``, which finds and orders the clusters inside
   the kernel and so also takes rounds of several bounces), then a stable
-  sort of the rays by dir72 coherence keys (``_compaction_keys``), so that
-  the 128 rays of a tile share directions and cells and reach few
-  clusters;
+  sort of the rays by dir72 coherence keys (``compaction_keys``: two
+  launches of ``csrc/compaction_keys.cu`` for a CUDA tensor, the plain
+  ``_compaction_keys`` for a CPU tensor), so that the 128 rays of a tile
+  share directions and cells and reach few clusters;
 * ``trace_events_pose_batch``: P poses in one launch per round (K1-pose,
   the TPU kernel's ``tiles_per_pose`` index map,
   ``raytrace_pallas_v2.py:887-904``, driven by
@@ -71,10 +72,12 @@ if TYPE_CHECKING:
     from ..core.tracer import SceneArrays
 
 # Kernel launches since import (or since a caller reset them to 0): K1 with
-# one scalar row, K1 with a row per pose (``scal`` [P, 16]), and K4.
+# one scalar row, K1 with a row per pose (``scal`` [P, 16]), and K4; and the
+# calls of the key kernel, two launches each (bounds, keys).
 launches = 0
 posed_launches = 0
 init_launches = 0
+compaction_keys_launches = 0
 
 _LANES = 128      # rays are padded to a multiple of this
 _TRI_BLOCK = 16   # triangle rows are trimmed to whole blocks of this
@@ -494,6 +497,16 @@ def _dominant_axis(av: torch.Tensor) -> torch.Tensor:
                        torch.where(av[1] >= av[2], 1, 2))
 
 
+def _key_res(cell_bits: int) -> int:
+    """Cells per axis of the key grid, 2^cell_bits; raises where the dir72
+    keys would overflow int32."""
+    res = 1 << cell_bits
+    if 2 * 72 * res ** 3 > 1 << 31:
+        raise ValueError(f"cell_bits={cell_bits} with dir72 keys overflows "
+                         f"int32; use cell_bits <= 7")
+    return res
+
+
 def _compaction_keys(state: torch.Tensor, cell_bits: int = CELL_BITS,
                      n_poses: int = 1) -> torch.Tensor:
     """int32 sort keys [N], direction-major: the done flag, then 72
@@ -503,10 +516,7 @@ def _compaction_keys(state: torch.Tensor, cell_bits: int = CELL_BITS,
     equal segments of the ray axis, each with its own grid). The rays not
     done, the next round's ``rays_alive``, are counted from the done
     flags."""
-    res = 1 << cell_bits
-    if 2 * 72 * res ** 3 > 1 << 31:
-        raise ValueError(f"cell_bits={cell_bits} with dir72 keys overflows "
-                         f"int32; use cell_bits <= 7")
+    res = _key_res(cell_bits)
     done = state[_C_DONE].to(torch.int32)
     profiling.count("rays_alive", lambda: done.numel() - done.sum())
     p = state[_C_PX:_C_PZ + 1].view(3, n_poses, -1)
@@ -525,6 +535,48 @@ def _compaction_keys(state: torch.Tensor, cell_bits: int = CELL_BITS,
     dirbin = (octant * 9 + a0 * 3 + a1).to(torch.int32)
     return (done * (72 * res ** 3) + dirbin * res ** 3
             + _morton_interleave(cell, cell_bits))
+
+
+_KEY_BOUNDS_RAYS = 2048  # rays a block of the key kernel's bounds pass
+_KEY_BOUNDS_BLOCKS = 128  # at most, per pose
+
+
+def compaction_keys(state: torch.Tensor, cell_bits: int = CELL_BITS,
+                    n_poses: int = 1) -> torch.Tensor:
+    """The dir72 sort keys of :func:`_compaction_keys`, int32 [N] on the
+    state's device, for a contiguous float32 ``state`` [ncols, N] whose ray
+    axis ``n_poses`` divides. A CUDA tensor goes to
+    ``csrc/compaction_keys.cu`` (a bounds pass, then a key pass: two
+    launches where the plain chain takes ~116), a CPU tensor to
+    :func:`_compaction_keys`. The rays not done, the next round's
+    ``rays_alive``, are counted from the done flags, as there."""
+    global compaction_keys_launches
+    if state.dtype != torch.float32 or state.dim() != 2 \
+            or state.shape[0] < 16 or not state.is_contiguous():
+        raise ValueError(f"state must be contiguous float32 [ncols >= 16, "
+                         f"N], got {state.dtype} {tuple(state.shape)}"
+                         f"{'' if state.is_contiguous() else ', strided'}")
+    n = state.shape[1]
+    if n_poses < 1 or n % n_poses:
+        raise ValueError(f"{n_poses} poses do not divide {n} rays")
+    _key_res(cell_bits)
+    if state.device.type == "cpu":
+        return _compaction_keys(state, cell_bits, n_poses)
+    if state.device.type != "cuda":
+        raise ValueError(f"no key kernel for device {state.device}")
+    profiling.count("rays_alive", lambda: _n_alive(state))
+    per_pose = n // n_poses
+    n_blocks = min(_KEY_BOUNDS_BLOCKS, -(-per_pose // _KEY_BOUNDS_RAYS))
+    partials = torch.empty((n_poses, 6, n_blocks), dtype=torch.float32,
+                           device=state.device)
+    keys = torch.empty((n,), dtype=torch.int32, device=state.device)
+    err = _build.library().ar2_compaction_keys(
+        state.data_ptr(), n, state.shape[0], n_poses, cell_bits,
+        partials.data_ptr(), n_blocks, keys.data_ptr(),
+        _build.stream(state.device))
+    compaction_keys_launches += 1
+    _build.check(err, "ar2_compaction_keys")
+    return keys
 
 
 def _sort_state_by_keys(state: torch.Tensor, keys: torch.Tensor,
@@ -881,7 +933,7 @@ def _run_rounds(state: torch.Tensor, tris, boxes: torch.Tensor | None,
                         state = _partition_alive_first(state, n_poses)
                 else:
                     with span("ar2.trace.keys"):
-                        keys = _compaction_keys(state, n_poses=n_poses)
+                        keys = compaction_keys(state, n_poses=n_poses)
                     with span("ar2.trace.sort"):
                         state = _sort_state_by_keys(state, keys, n_poses)
     return state

@@ -266,6 +266,16 @@ Phases, in order; any failure raises and the script exits non-zero:
    assert_ir_close(exact=False), per pair for the matrix, and with
    native_rng (another stream) per-ear energy within 5%; one JSON line a
    group ("tuned_sweep") with the card's name and power limit.
+25. the key kernel (csrc/compaction_keys.cu, the clustered route's dir72
+   sort keys in a bounds pass and a key pass) against the plain chain
+   (raytrace_cuda._compaction_keys) int32 for int32, and the states sorted
+   by each bit for bit, on office states at 100 bounces: 1,000,064 rays
+   (n_poses 1) and the office matrix's 4 x 250,112 (n_poses 4), each at
+   the start, after 1, 16 and 64 bounces (dead and padded rays), at
+   cell_bits 3, 5 and 7; its time a call and on the device (20 calls in
+   one CUDA graph), the plain chain's, and the bound (44 bytes a ray over
+   3.35 TB/s); its calls around one office render at 100 bounces (99
+   reorders, two launches each).
 
 Then one JSON line of the kernels: name, route, source, the TPU kernel it
 replaces, "demo_launches" (the launches of its counter in the first runs of
@@ -726,6 +736,7 @@ def _reset_launches() -> None:
     from audiorenderingv2_tpu_torch.ops import v1_cuda as v1
 
     rc.launches = rc.posed_launches = rc.init_launches = hc.launches = 0
+    rc.compaction_keys_launches = 0
     hc.binned_launches = 0
     sc.tile_schedule_launches = sc.trace_round_sched_launches = 0
     sc.trace_round_sched_posed_launches = 0
@@ -745,6 +756,7 @@ def _read_launches() -> dict:
     return {"trace_round": rc.launches,
             "trace_round_posed": rc.posed_launches,
             "init_state": rc.init_launches, "histogram": hc.launches,
+            "compaction_keys": rc.compaction_keys_launches,
             "histogram_binned": hc.binned_launches,
             "histogram_bwd": hc.bwd_launches,
             "tile_schedule": sc.tile_schedule_launches,
@@ -918,7 +930,7 @@ def _cluster_rounds(state, rows, boxes, scal, params, k: int):
         state = sc.trace_round_sched(state, rows, boxes,
                                      sc.tile_schedule(state, boxes), scal,
                                      params)
-        state = rc._sort_state_by_keys(state, rc._compaction_keys(state))
+        state = rc._sort_state_by_keys(state, rc.compaction_keys(state))
     return state
 
 
@@ -1009,7 +1021,7 @@ def office_trace_check(n: int = 65536) -> None:
             params)
         torch.cuda.synchronize()
         _assert_same_bits(kern, plain, f"office trace, round {k + 1}")
-        kern = rc._sort_state_by_keys(kern, rc._compaction_keys(kern))
+        kern = rc._sort_state_by_keys(kern, rc.compaction_keys(kern))
         plain = rc._sort_state_by_keys(plain, rc._compaction_keys(plain))
     alive = int((kern[rc._C_DONE] == 0).sum())
     events = int((kern[rc._C_EVW] != 0).sum())
@@ -1043,7 +1055,7 @@ def office_stage_breakdown(n: int = N_RAYS) -> None:
                                          params)
             ev[2].record()
             if k + 1 < OFFICE_BOUNCES:
-                keys = rc._compaction_keys(state)
+                keys = rc.compaction_keys(state)
                 ev[3].record()
                 state = rc._sort_state_by_keys(state, keys)
             else:
@@ -1120,7 +1132,7 @@ def phase_cluster_kernels(n_rays: int = N_RAYS) -> dict:
     sched_plain_ms = median_ms(lambda: sc.tile_schedule_plain(st1, boxes),
                                2)
     sort_ms = median_ms(
-        lambda: rc._sort_state_by_keys(st1, rc._compaction_keys(st1)), 10)
+        lambda: rc._sort_state_by_keys(st1, rc.compaction_keys(st1)), 10)
     log(f"schedule after one bounce and the sort, {st1.shape[1]} rays "
         f"({n_done} done), {sched_k.shape[0]} tiles: kernel rows equal the "
         f"plain rows; candidates per live tile mean "
@@ -1143,7 +1155,7 @@ def phase_cluster_kernels(n_rays: int = N_RAYS) -> dict:
         assert_columns_close(kern, plain, f"K2 round {k + 1}")
         k2_err = max(k2_err, float((kern - plain).abs().max()))
         n_eq = int((kern == plain).all(dim=0).sum())
-        perm_k = torch.sort(rc._compaction_keys(kern), stable=True).indices
+        perm_k = torch.sort(rc.compaction_keys(kern), stable=True).indices
         perm_p = torch.sort(rc._compaction_keys(plain), stable=True).indices
         same = torch.equal(perm_k, perm_p)
         # Both chains take the plain chain's order, so that the columns of
@@ -1248,6 +1260,7 @@ def phase_office_export() -> dict:
         assert launches["trace_round"] == 0, launches
         assert launches["tile_schedule"] == OFFICE_BOUNCES, launches
         assert launches["trace_round_sched"] == OFFICE_BOUNCES, launches
+        assert launches["compaction_keys"] == OFFICE_BOUNCES - 1, launches
         assert launches["histogram_binned"] > 0, launches
         assert r.boxes is not None
         audio = wav.read_wav(Path(tmp) / "office.wav")
@@ -1468,7 +1481,7 @@ def posed_sched_check(n_bands: int) -> dict:
             f"posed K2, pose {i} differs from a single-pose launch"
     counts = sched[:, 0].double()
     sort_ms = median_ms(lambda: rc._sort_state_by_keys(
-        st1, rc._compaction_keys(st1, n_poses=p), p), 5)
+        st1, rc.compaction_keys(st1, n_poses=p), p), 5)
     ms = median_ms(lambda s: sc.trace_round_sched(s, rows, boxes, sched,
                                                   scal, params, n_pad), 5,
                    setup=lambda: (st1.clone(),))
@@ -3709,12 +3722,14 @@ def _ray_columns(n_poses: int, rays_per_pose: int, budget: int, device):
 
 class LaunchRecorder:
     """Inside ``with``, every launch through the wrappers of K1 (and
-    K1-pose), the schedule, K2, K3, K3-bwd and the hard-binning entry keeps
-    a copy of its inputs and of its result, so that :meth:`check` can hold
-    each kernel to its plain version on what the product's own launch was
-    given, after the product's run and outside its counts. Rays are
-    independent in K1, the schedule and K2, so a launch of those keeps the
-    first rays of each pose (REPLAY_K1_RAYS, REPLAY_SCHED_RAYS in all)."""
+    K1-pose), the schedule, K2, K3, K3-bwd, the hard-binning entry and the
+    key kernel keeps a copy of its inputs and of its result, so that
+    :meth:`check` can hold each kernel to its plain version on what the
+    product's own launch was given, after the product's run and outside its
+    counts. Rays are independent in K1, the schedule and K2, so a launch of
+    those keeps the first rays of each pose (REPLAY_K1_RAYS,
+    REPLAY_SCHED_RAYS in all); the keys depend on every ray's position, so
+    a call of the key kernel keeps the seven columns they read, whole."""
 
     def __init__(self):
         self.records = []   # (launch counter's name, inputs, result)
@@ -3729,7 +3744,8 @@ class LaunchRecorder:
                          (sc, "trace_round_sched", self._k2),
                          (hc, "histogram_sum_banded", self._k3),
                          (hc, "histogram_bwd", self._k3_bwd),
-                         (hc, "histogram_binned", self._binned)]
+                         (hc, "histogram_binned", self._binned),
+                         (rc, "compaction_keys", self._keys)]
         self._orig = {}
         for mod, name, wrap in self._patched:
             self._orig[name] = getattr(mod, name)
@@ -3801,6 +3817,19 @@ class LaunchRecorder:
             out.clone()))
         return out
 
+    def _keys(self, state, cell_bits=None, n_poses=1):
+        from audiorenderingv2_tpu_torch.ops import raytrace_cuda as rc
+
+        cell_bits = rc.CELL_BITS if cell_bits is None else cell_bits
+        cols = torch.zeros((16, state.shape[1]), dtype=torch.float32,
+                           device=state.device)
+        read = [*range(rc._C_PX, rc._C_VZ + 1), rc._C_DONE]
+        cols[read] = state[read]
+        out = self._orig["compaction_keys"](state, cell_bits, n_poses)
+        self.records.append(("compaction_keys", (cols, cell_bits, n_poses),
+                             out.clone()))
+        return out
+
     def binned_events(self, k: int = -1):
         """The events [P, E] of the ``k``-th hard-binning launch."""
         return [r for r in self.records
@@ -3809,7 +3838,8 @@ class LaunchRecorder:
     def check(self, what: str) -> dict:
         """Every recorded launch against its plain version on its own
         inputs: K1, K1-pose and K2 bit for bit in every column of the rays
-        kept, the schedule integer for integer, K3-bwd bit for bit; K3 and
+        kept, the schedule and the keys integer for integer, K3-bwd bit for
+        bit; K3 and
         the hard-binning entry each within binned_check's bar of the
         float64 sum of their deposits (the atomics add in their own order),
         and so is the plain version. Returns, per launch counter's name,
@@ -3830,6 +3860,8 @@ class LaunchRecorder:
                 plain = rc.trace_round_plain(args[0].clone(), *args[1:])
             elif name == "tile_schedule":
                 plain = sc.tile_schedule_plain(*args)
+            elif name == "compaction_keys":
+                plain = rc._compaction_keys(*args)
             elif name == "histogram_bwd":
                 plain = hc.histogram_bwd_plain(*args)
             elif name == "histogram":
@@ -3856,10 +3888,11 @@ class LaunchRecorder:
                 _assert_deposit_bar(out, ref, n_sub, where)
                 _assert_deposit_bar(plain, ref, n_sub, f"{where}, plain")
                 size = int(args[0].numel())
-            elif name in ("tile_schedule", "histogram_bwd"):
+            elif name in ("tile_schedule", "histogram_bwd",
+                          "compaction_keys"):
                 assert torch.equal(out, plain), f"{where}: differs from plain"
-                size = int(args[0].shape[1] if name == "tile_schedule"
-                           else args[0].numel())
+                size = int(args[0].numel() if name == "histogram_bwd"
+                           else args[0].shape[1])
             else:
                 _assert_same_bits(out, plain, where)
                 size = int(out.shape[1])
@@ -4207,6 +4240,7 @@ ORACLE_RAYS = 4096
 ORACLE_RTOL, ORACLE_ATOL = 2e-3, 1e-8  # tests/test_pallas.py:62's bar
 WRAPPERS = (("raytrace_cuda", "trace_round"),
             ("raytrace_cuda", "init_state_native"),
+            ("raytrace_cuda", "compaction_keys"),
             ("schedule_cuda", "tile_schedule"),
             ("schedule_cuda", "trace_round_sched"),
             ("traverse_cuda", "trace_traverse"),
@@ -5246,6 +5280,118 @@ def phase_tuned_sweep() -> dict:
     return out
 
 
+KEY_BYTES_PER_RAY = 44  # the key kernel: 3 floats read by its bounds
+#                        pass, 7 read and an int32 written by its key pass
+
+
+def _posed_cluster_rounds(state, rows, boxes, scal, params, p: int, k: int):
+    """``k`` posed clustered rounds through the kernels: schedule, K2 with a
+    scalar row per pose, the per-pose sort."""
+    from audiorenderingv2_tpu_torch.ops import raytrace_cuda as rc
+    from audiorenderingv2_tpu_torch.ops import schedule_cuda as sc
+
+    for _ in range(k):
+        state = sc.trace_round_sched(state, rows, boxes,
+                                     sc.tile_schedule(state, boxes), scal,
+                                     params, state.shape[1] // p)
+        state = rc._sort_state_by_keys(
+            state, rc.compaction_keys(state, n_poses=p), p)
+    return state
+
+
+def _key_states(params) -> dict:
+    """Office states at ``params``' bounces, keyed (n_poses, name): the
+    start state and the states after 1, 16 and 64 bounces, at 1,000,064
+    rays (1,000,000 real) and at 4 x 250,112 (250,000 real a pose)."""
+    from audiorenderingv2_tpu_torch import constants
+    from audiorenderingv2_tpu_torch.ops import raytrace_cuda as rc
+
+    dev = torch.device("cuda")
+    _, _, rows, boxes = _office_clustered()
+    start, scal = _office_start(N_RAYS, 21, params)
+    p, n = 4, OFFICE_MATRIX_RAYS
+    em = torch.zeros((p, 3), device=dev)
+    e0 = params.base_power / (n * constants.SPHERE_VOLUME)
+    posed = rc.init_state(_pose_directions(2, p, n, dev), em, e0,
+                          -(-n // 128) * 128)
+    pscal = rc.scalars(em, torch.from_numpy(OFFICE_LISTENERS).to(dev),
+                       torch.from_numpy(MULTI_YAWS).to(dev), e0, params)
+    out = {}
+    for n_poses, st in ((1, start), (p, posed)):
+        done = 0
+        for k in (0, 1, 16, 64):
+            if n_poses == 1:  # K2 works in place: each state its copy
+                st = _cluster_rounds(st.clone(), rows, boxes, scal, params,
+                                     k - done)
+            else:
+                st = _posed_cluster_rounds(st.clone(), rows, boxes, pscal,
+                                           params, p, k - done)
+            done = k
+            out[n_poses, "start" if k == 0 else f"after{k}"] = st
+    return out
+
+
+def phase_keys() -> dict:
+    """Phase 25: the key kernel against the plain chain on office states;
+    returns its JSON entry's numbers."""
+    from audiorenderingv2_tpu_torch import context, testing
+    from audiorenderingv2_tpu_torch.ops import raytrace_cuda as rc
+
+    t0 = time.perf_counter()
+    params = dataclasses.replace(_office_params(), max_bounces=MAX_BOUNCES)
+    states = _key_states(params)
+    for (p, name), st in states.items():
+        n_done = int((st[rc._C_DONE] != 0).sum())
+        for cell_bits in (3, 5, 7):
+            what = (f"keys, office, {p} pose(s) x {st.shape[1] // p} rays, "
+                    f"{name}, cell_bits {cell_bits}")
+            got = rc.compaction_keys(st, cell_bits, p)
+            want = rc._compaction_keys(st, cell_bits, p)
+            n_diff = int((got != want).sum())
+            assert n_diff == 0, f"{what}: {n_diff} keys differ"
+            srt_k = rc._sort_state_by_keys(st, got, p)
+            srt_p = rc._sort_state_by_keys(st, want, p)
+            assert torch.equal(srt_k.view(torch.int32),
+                               srt_p.view(torch.int32)), f"{what}: sort"
+            log(f"{what}: equal to the plain keys ({len(torch.unique(got))} "
+                f"distinct; {n_done} rays done), sorted states bit-identical")
+    out = {}
+    for p, name in ((1, "after16"), (4, "after16")):
+        st = states[p, name]
+        ms = median_ms(lambda: rc.compaction_keys(st, n_poses=p), 20)
+        dev_ms = device_ms(lambda: rc.compaction_keys(st, n_poses=p))
+        plain_ms = median_ms(lambda: rc._compaction_keys(st, n_poses=p), 10)
+        reorder_ms = median_ms(lambda: rc._sort_state_by_keys(
+            st, rc.compaction_keys(st, n_poses=p), p), 10)
+        b = bound(KEY_BYTES_PER_RAY * st.shape[1], 0)
+        row = {"ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms, **b,
+               "library_ms": None, "keys_and_sort_ms": reorder_ms,
+               "rays": st.shape[1], "n_poses": p}
+        log(f"keys, office, {p} pose(s), {st.shape[1]} rays, {name}: a call "
+            f"{ms:.4f} ms, device {dev_ms:.4f} ms, plain chain "
+            f"{plain_ms:.3f} ms, bound {b['bound_ms']:.4f} ms (bytes, "
+            f"{dev_ms / b['bound_ms']:.1f}x); keys + sort + gather "
+            f"{reorder_ms:.3f} ms")
+        out["one_pose" if p == 1 else "four_poses"] = row
+    with tempfile.TemporaryDirectory() as tmp:
+        testing.write_obj(Path(tmp) / "office.obj",
+                          *testing.office_mesh(OFFICE_TRIS))
+        cfg = _write_inputs(Path(tmp), "office.obj", OFFICE_RECEIVER,
+                            MAX_BOUNCES)
+        ctx = context.load_context(cfg, device="cuda")
+        _reset_launches()
+        ctx.renderer.render()
+        torch.cuda.synchronize()
+        launches = _read_launches()
+    assert launches["compaction_keys"] == MAX_BOUNCES - 1, launches
+    assert launches["trace_round_sched"] == MAX_BOUNCES, launches
+    log(f"office render at {MAX_BOUNCES} bounces: key kernel called "
+        f"{launches['compaction_keys']} times (two launches each); phase "
+        f"{time.perf_counter() - t0:.1f} s")
+    return {**out.pop("one_pose"), "four_poses": out["four_poses"],
+            "launches": launches["compaction_keys"]}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; the port's "
@@ -5284,6 +5430,7 @@ def main() -> int:
     sharded = sharded_out["launches"]
     demos = phase_demos(sharded_out)
     phase_tuned_sweep()
+    keys = phase_keys()
 
     def demo_launches(counter: str | None) -> int:
         """The launches of ``counter`` in the first runs of the demos'
@@ -5388,6 +5535,11 @@ def main() -> int:
          "source": "audiorenderingv2_tpu_torch/csrc/trace_round.cu",
          "replaces": "audiorenderingv2_tpu/ops/raytrace_pallas.py:452",
          "launches": manual["v1"]["trace_round_v1"], **k7},
+        {"name": "compaction_keys", "route": "cuda",
+         "demo_launches": demo_launches("compaction_keys"),
+         "source": "audiorenderingv2_tpu_torch/csrc/compaction_keys.cu",
+         "fuses": "audiorenderingv2_tpu/ops/raytrace_pallas.py:270",
+         **keys},
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -148,6 +148,92 @@ def test_compaction_keys_and_sort_match(seed):
         rc._compaction_keys(stt, cell_bits=8)
 
 
+def _posed_spread_state(p, n, seed):
+    """A state [16, p * n] of ``p`` poses whose positions spread over boxes
+    of different sizes, with done rays."""
+    st = torch.from_numpy(_spread_state(p * n, seed).T.copy())
+    for i in range(p):
+        st[rc._C_PX:rc._C_PZ + 1, i * n:(i + 1) * n] *= 0.5 ** i
+    return st
+
+
+@pytest.mark.parametrize("cell_bits", [3, 5, 7])
+@pytest.mark.parametrize("n_poses", [1, 4])
+def test_compaction_keys_wrapper_equals_plain_on_cpu(n_poses, cell_bits):
+    """The key kernel's wrapper runs the plain version for a CPU tensor:
+    the same int32 keys, pose by pose."""
+    st = _posed_spread_state(n_poses, 256, 7)
+    got = rc.compaction_keys(st, cell_bits, n_poses)
+    want = rc._compaction_keys(st, cell_bits, n_poses)
+    assert got.dtype == torch.int32 and got.shape == (n_poses * 256,)
+    assert torch.equal(got, want)
+    assert len(torch.unique(got)) > 50
+
+
+@pytest.mark.parametrize("bad", ["cell_bits_8", "n_poses", "float64",
+                                 "strided"])
+def test_compaction_keys_wrapper_rejects(bad):
+    st = _posed_spread_state(1, 256, 8)
+    kwargs = {}
+    if bad == "cell_bits_8":
+        kwargs, match = {"cell_bits": 8}, "overflows int32"
+    elif bad == "n_poses":
+        kwargs, match = {"n_poses": 3}, "do not divide"
+    elif bad == "float64":
+        st, match = st.double(), "float32"
+    else:
+        st, match = torch.cat([st, st], dim=1)[:, ::2], "strided"
+    assert bad == "cell_bits_8" or st.shape[1] == 256
+    with pytest.raises(ValueError, match=match):
+        rc.compaction_keys(st, **kwargs)
+
+
+def test_key_kernel_is_declared_and_launched():
+    """The C entry is defined in its source, declared in _build's
+    signatures, and launched by the wrapper."""
+    import inspect
+
+    from audiorenderingv2_tpu_torch.ops import _build
+
+    cu = (_build.CSRC / "compaction_keys.cu").read_text()
+    assert 'extern "C" int ar2_compaction_keys(' in cu
+    assert len(_build._SIGNATURES["ar2_compaction_keys"]) == 9
+    assert ".ar2_compaction_keys(" in inspect.getsource(rc.compaction_keys)
+
+
+@pytest.mark.parametrize("n_poses", [1, 2])
+def test_run_rounds_reorders_through_the_key_wrapper(monkeypatch, n_poses):
+    """Every reorder of the clustered route goes through the wrapper (with
+    the pose count), and the plain keys only through it."""
+    _, sct = _clustered(_ico_scene())
+    rows, boxes = rc.pack_scene(sct)
+    params = convert.trace_params_from_jax(ar.TraceParams(
+        sample_rate=SR, ir_length=SR, max_bounces=4))
+    wrapped, plain = [], []
+    wrapper, plain_keys = rc.compaction_keys, rc._compaction_keys
+
+    def counting_wrapper(state, cell_bits=rc.CELL_BITS, n_poses=1):
+        wrapped.append(n_poses)
+        return wrapper(state, cell_bits, n_poses)
+
+    def counting_plain(state, cell_bits=rc.CELL_BITS, n_poses=1):
+        plain.append(n_poses)
+        return plain_keys(state, cell_bits, n_poses)
+
+    monkeypatch.setattr(rc, "compaction_keys", counting_wrapper)
+    monkeypatch.setattr(rc, "_compaction_keys", counting_plain)
+    d = torch.from_numpy(_dirs(n_poses * 128, 0)).view(n_poses, 128, 3)
+    rec = torch.from_numpy(REC)
+    if n_poses == 1:
+        rc.trace_events(rows, d[0], torch.zeros(3), rec, 0.0, params,
+                        boxes=boxes, schedule=True)
+    else:
+        rc.trace_events_pose_batch(
+            rows, d, torch.zeros(n_poses, 3), rec.expand(n_poses, 3),
+            torch.zeros(n_poses), params, boxes=boxes, schedule=True)
+    assert wrapped == plain == [n_poses] * 3
+
+
 # ------------------------------------------------------------------ (e)
 
 @pytest.mark.parametrize("which", ["start", "spread"])
@@ -431,9 +517,9 @@ def test_build_dir_follows_shared_header(tmp_path, monkeypatch):
         shutil.copy(src, tmp_path / src.name)
     monkeypatch.setattr(_build, "CSRC", tmp_path)
     assert {p.name for p in _build.sources()} == {
-        "histogram.cu", "init_state.cu", "tile_schedule.cu",
-        "trace_group.cu", "trace_round.cu", "trace_sched.cu",
-        "trace_traverse.cu"}
+        "compaction_keys.cu", "histogram.cu", "init_state.cu",
+        "tile_schedule.cu", "trace_group.cu", "trace_round.cu",
+        "trace_sched.cu", "trace_traverse.cu"}
     before = _build.build_dir()
     header = tmp_path / "trace_common.cuh"
     header.write_text(header.read_text() + "\n")
