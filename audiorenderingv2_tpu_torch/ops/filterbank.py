@@ -10,12 +10,18 @@ axis is a batch axis of one FFT where the JAX package maps over it.
 
 ``band_gains`` is the JAX package's numpy function, copied (that module
 imports JAX); ``tests/test_torch_host.py`` pins the copy.
+
+While a profiler records, a banded convolution names its two phases:
+``ar2.convolve.split`` (the band gains built on the host, their upload and
+the split) and ``ar2.convolve.bands`` (the per-band convolutions and their
+sum). One band takes neither.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from ..utils import profiling
 from . import convolve
 
 # Default 4-band octave-style split [Hz] (interior crossover frequencies).
@@ -72,10 +78,12 @@ def convolve_file_banded(samples: torch.Tensor, ir_banded: torch.Tensor,
                                              sample_rate)
     samples = torch.as_tensor(samples, dtype=torch.float32,
                               device=ir_banded.device)
-    bands = split_bands(samples, sample_rate, edges)        # [B, L]
-    out = convolve.convolve_file_multi(
-        bands, ir_banded.transpose(0, 1), sample_rate)      # [B, C, L]
-    return out.sum(dim=0)
+    with profiling.span("ar2.convolve.split"):
+        bands = split_bands(samples, sample_rate, edges)    # [B, L]
+    with profiling.span("ar2.convolve.bands"):
+        out = convolve.convolve_file_multi(
+            bands, ir_banded.transpose(0, 1), sample_rate)  # [B, C, L]
+        return out.sum(dim=0)
 
 
 def convolve_live_banded(block: torch.Tensor, ir_banded: torch.Tensor,
@@ -87,8 +95,10 @@ def convolve_live_banded(block: torch.Tensor, ir_banded: torch.Tensor,
         return convolve.convolve_live(block, ir_banded[:, 0])
     block = torch.as_tensor(block, dtype=torch.float32,
                             device=ir_banded.device)
-    bands = split_bands(block, sample_rate, edges)          # [B, n]
-    spec = torch.fft.rfft(bands, dim=-1)[None] \
-        * torch.fft.rfft(ir_banded.to(torch.float32), dim=-1)
-    out = torch.fft.irfft(spec, n=block.shape[0], dim=-1) * 2.0
-    return out.sum(dim=1)
+    with profiling.span("ar2.convolve.split"):
+        bands = split_bands(block, sample_rate, edges)      # [B, n]
+    with profiling.span("ar2.convolve.bands"):
+        spec = torch.fft.rfft(bands, dim=-1)[None] \
+            * torch.fft.rfft(ir_banded.to(torch.float32), dim=-1)
+        out = torch.fft.irfft(spec, n=block.shape[0], dim=-1) * 2.0
+        return out.sum(dim=1)

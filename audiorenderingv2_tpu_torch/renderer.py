@@ -167,8 +167,9 @@ class AudioRenderer:
         stays on the device (``ir_device``) for the convolutions. While a
         ``torch.profiler`` records, the trace's counters of the render
         (``rays_alive`` and, on the schedule route, ``sched_candidates`` a
-        round; ``n_rays``, ``n_tiles``) are read after the IR's copy and
-        kept in ``counters``."""
+        round; ``n_rays``, ``n_tiles``; for a banded IR ``n_bands`` and
+        ``band_energy``, each band's energy summed over both ears and every
+        bin) are read after the IR's copy and kept in ``counters``."""
         if generator is None:
             generator = self.generator
         with profiling.span("ar2.render"), profiling.collect() as counters:
@@ -180,6 +181,10 @@ class AudioRenderer:
                 # addIRs fold: both ears carry the sum (kernels.cu:519-536).
                 ir = ir.sum(dim=0, keepdim=True).expand_as(ir).contiguous()
             self._ir_dev = ir
+            if ir.dim() == 3:  # banded: the bands and each one's energy
+                profiling.count("n_bands", lambda: ir.shape[1], once=True)
+                profiling.count_each("band_energy",
+                                     lambda: ir.sum(dim=(0, 2)))
             with profiling.span("ar2.ir_to_host"):
                 self._ir = ir.cpu().numpy()
             self.counters = counters.read()

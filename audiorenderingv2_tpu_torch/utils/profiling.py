@@ -15,8 +15,10 @@ event of the profiler's Chrome trace, on the clock of the card's kernels,
 nested by time in the spans around it. ``count(name, fn)`` keeps the value
 ``fn`` computes (a 0-dim tensor on the device, or a host number) in the
 collector ``collect()`` opened on the thread, which ``read`` brings to the
-host in one copy. With no profiler running a span is one shared object that
-does nothing and a counter never calls ``fn``, so nothing is launched.
+host, the integer values in one copy and the floating-point ones in
+another; ``count_each`` keeps each value of a 1-dim tensor. With no
+profiler running a span is one shared object that does nothing and a
+counter never calls ``fn``, so nothing is launched.
 """
 from __future__ import annotations
 
@@ -181,17 +183,26 @@ class Counters:
         return False
 
     def read(self) -> dict:
-        """Every value as a Python int, name -> int or list of ints; the
-        tensors among them come to the host in one copy."""
+        """Every value as a Python number, name -> number or list of
+        numbers: a float for a floating-point tensor, else an int; the
+        integer tensors among them come to the host in one copy, the
+        floating-point ones in another."""
         tensors = [v for vals in self.values.values()
                    for v in (vals if isinstance(vals, list) else [vals])
                    if isinstance(v, torch.Tensor)]
-        host = iter(torch.stack([t.reshape(()).to(torch.int64)
-                                 for t in tensors]).tolist()
-                    if tensors else ())
+
+        def to_host(floating: bool, dtype):
+            kept = [t.reshape(()).to(dtype) for t in tensors
+                    if t.is_floating_point() == floating]
+            return iter(torch.stack(kept).tolist() if kept else ())
+
+        ints = to_host(False, torch.int64)
+        floats = to_host(True, torch.float64)
 
         def value(v):
-            return next(host) if isinstance(v, torch.Tensor) else int(v)
+            if not isinstance(v, torch.Tensor):
+                return int(v)
+            return next(floats) if v.is_floating_point() else next(ints)
 
         return {name: ([value(v) for v in vals] if isinstance(vals, list)
                        else value(vals))
@@ -220,3 +231,13 @@ def count(name: str, fn, *, once: bool = False) -> None:
         counters.values[name] = fn()
     else:
         counters.values.setdefault(name, []).append(fn())
+
+
+def count_each(name: str, fn) -> None:
+    """Keep each value of ``fn()``, a 1-dim tensor on the device, appended
+    to ``name``'s list in order, as ``count`` keeps one. Where ``count``
+    does nothing this does nothing and ``fn`` is not called."""
+    counters = getattr(_local, "counters", None)
+    if counters is None or not _profiling():
+        return
+    counters.values.setdefault(name, []).extend(fn().unbind(0))
