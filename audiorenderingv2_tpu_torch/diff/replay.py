@@ -12,8 +12,10 @@ products of (1 - absorption), the receiver-sphere crossing. So:
    forward tracer once and keeps only the triangle bounced off at each step
    and the step at which the receiver was reached: int32 [N, K] and [N].
 2. ``replay_events`` walks the recorded paths again: per bounce one gather
-   and one plane intersection, no search, out-of-place PyTorch ops that
-   autograd differentiates.
+   and one plane intersection, no search. Out-of-place PyTorch ops that
+   autograd differentiates where a pose or a triangle row needs a
+   gradient; one kernel pair (forward, and a backward into the absorption
+   table) where only absorption can.
 3. ``render_ir_replay`` bins the replayed events into the IR (soft or hard);
    any loss on it back-propagates through K3-bwd and the replay.
 
@@ -22,15 +24,16 @@ to change it (the caller's choice; ``diff/inverse.py`` does so every
 ``replay_refresh`` steps).
 
 MAINTENANCE INVARIANT: the bounce physics (alive predicate, receiver before
-surface, reflect / absorb / offset) exists in THREE forms where the JAX
-package has four: the autograd tracer's ``core/tracer.py:_bounce_step``
-(full search; ``record_paths`` runs that very step and keeps its topology,
-where the JAX package writes the step out again), ``replay_events``' step
-(gather, no search), and the kernels' tail
-(``csrc/trace_common.cuh:finish_bounce`` with its plain version
-``ops/raytrace_cuda.py:_bounce``). A change to the physics lands in all
-three; the equality tests of ``tests/test_torch_replay.py`` are
-the tripwire.
+surface, reflect / absorb / offset) exists in FOUR forms, as in the JAX
+package: the autograd tracer's ``core/tracer.py:_bounce_step`` (full
+search; ``record_paths`` runs that very step and keeps its topology, where
+the JAX package writes the step out again), the replay's step (gather, no
+search: ``ops/replay_cuda.py:chain_events``, and its kernel
+``csrc/replay.cu:advance``, whose plain version is that chain), and the
+trace kernels' tail (``csrc/trace_common.cuh:finish_bounce`` with its plain
+version ``ops/raytrace_cuda.py:_bounce``). A change to the physics lands in
+all four; the equality tests of ``tests/test_torch_replay.py`` are the
+tripwire.
 """
 from __future__ import annotations
 
@@ -41,9 +44,10 @@ import torch
 from .. import constants
 from ..core.params import TraceParams
 from ..core.tracer import (SceneArrays, TracerOptions, _as_vec, _bounce_step,
-                           _dot3, _histogram_from_events, _rows,
-                           _sphere_entry, _start_state, band_absorption,
-                           packed_scene)
+                           _histogram_from_events, _start_state,
+                           band_absorption, packed_scene)
+from ..ops import replay_cuda
+from ..utils import profiling
 
 
 @torch.no_grad()
@@ -153,6 +157,10 @@ def record_paths_kernels(sc: SceneArrays, dirs: torch.Tensor, emitter,
     return tri_ids[:n], recv[:n]
 
 
+def _needs_grad(x) -> bool:
+    return isinstance(x, torch.Tensor) and x.requires_grad
+
+
 def replay_events(sc: SceneArrays, tri_ids: torch.Tensor,
                   recv_step: torch.Tensor, dirs: torch.Tensor, emitter,
                   rec_center, receiver_yaw_deg, params: TraceParams,
@@ -160,61 +168,43 @@ def replay_events(sc: SceneArrays, tri_ids: torch.Tensor,
     """Walk recorded paths again, differentiably; returns the event slots
     (ev_bin_f [N], ev_w [N, n_bands], ev_ear int32 [N]) as the tracers do.
 
-    Per step: one gather of the known triangle's plane, normal and
-    absorption and one plane intersection, no search. The cost is O(N * K),
-    and gradients flow to absorption, emitter, receiver pose and the
-    triangle rows (``plane_n``, ``plane_d``, ``normal``). The energy
-    threshold ends no path here: the recorded topology is the forward run
-    that is being linearised. Every step is out of place: autograd keeps
-    what it saved.
+    Two paths, chosen from what the inputs require. Where a pose
+    (``dirs``, emitter, receiver centre, yaw) or a triangle row
+    (``plane_n``, ``plane_d``, ``normal``) requires a gradient, the eager
+    chain (``ops/replay_cuda.chain_events``, span ``ar2.replay.chain``):
+    per step one gather of the known triangle's rows and one plane
+    intersection, no search, O(N * K) out-of-place ops that autograd
+    differentiates in every input. Otherwise only the absorption table can
+    carry a gradient, and the replay is one kernel pair
+    (``ops/replay_cuda.replay_absorption``, span ``ar2.replay.kernel``):
+    the forward walks each depositing ray's path in registers, the
+    backward reduces the table's gradient. The same events either way. The
+    energy threshold ends no path here: the recorded topology is the
+    forward run that is being linearised.
     """
     dev = sc.device
     n, k_steps = tri_ids.shape
     n_total = n_total_rays if n_total_rays is not None else n
     e0 = params.base_power / (n_total * constants.SPHERE_VOLUME)
-    emitter, rec_center = _as_vec(emitter, dev), _as_vec(rec_center, dev)
-    yaw_rad = torch.deg2rad(_as_vec(receiver_yaw_deg, dev))
-    sin_y, cos_y = torch.sin(yaw_rad), torch.cos(yaw_rad)
-    dirn = dirs.to(device=dev, dtype=torch.float32)
-    absorb = band_absorption(sc, params.n_bands)
     bin_rate = params.sample_rate / constants.SPEED_OF_SOUND
-
-    pos = emitter[None, :].expand(n, 3)
-    dist = torch.zeros(n, device=dev)
-    energy = torch.full((n, params.n_bands), e0, device=dev)
-    ev_bin = torch.zeros(n, device=dev)
-    ev_w = torch.zeros((n, params.n_bands), device=dev)
-    ev_ear = torch.zeros(n, dtype=torch.int32, device=dev)
-    for k in range(k_steps):
-        # The receiver deposit comes before this step's surface advance. On
-        # a recorded path the sphere is hit wherever recv_step says so; the
-        # other rays are guarded all the same.
-        t_sph, chord = _sphere_entry(pos, dirn, rec_center)
-        t_safe = torch.where(torch.isfinite(t_sph), t_sph, 0.0)
-        d_local = pos + t_safe[:, None] * dirn - rec_center[None, :]
-        local_z = -sin_y * d_local[:, 0] + cos_y * d_local[:, 2]
-        ok = (recv_step == k) & torch.isfinite(t_sph)
-        ev_bin = torch.where(ok, (dist + t_safe) * bin_rate, ev_bin)
-        ev_w = torch.where(ok[:, None], energy * chord[:, None], ev_w)
-        ev_ear = torch.where(ok, (local_z >= 0.0).to(torch.int32), ev_ear)
-
-        tri = tri_ids[:, k]
-        surface = tri >= 0
-        ti = torch.clamp(tri, min=0).long()
-        pn, nrm = _rows(sc.plane_n, ti), _rows(sc.normal, ti)
-        nd = _dot3(pn, dirn)
-        no = _dot3(pn, pos) + _rows(sc.plane_d, ti)
-        t = -no / torch.where(torch.abs(nd) > 1e-12, nd, 1.0)
-        refl = dirn - 2.0 * _dot3(dirn, nrm)[:, None] * nrm
-        hit_p = pos + t[:, None] * dirn
-        sm = surface[:, None]
-        pos = torch.where(sm, hit_p + constants.BOUNCE_EPSILON * refl, pos)
-        dirn = torch.where(sm, refl, dirn)
-        dist = torch.where(surface, dist + t, dist)
-        energy = torch.where(sm, energy * (1.0 - _rows(absorb, ti)), energy)
-    # recv_step is always below K: a ray at depth max_bounces may not
-    # continue and deposits nothing, so the loop covers every deposit.
-    return ev_bin, ev_w, ev_ear
+    fixed = not any(map(_needs_grad, (dirs, emitter, rec_center,
+                                      receiver_yaw_deg, sc.plane_n,
+                                      sc.plane_d, sc.normal)))
+    with profiling.span("ar2.replay.kernel" if fixed else
+                        "ar2.replay.chain"):
+        emitter, rec_center = _as_vec(emitter, dev), _as_vec(rec_center, dev)
+        yaw_rad = torch.deg2rad(_as_vec(receiver_yaw_deg, dev))
+        sin_y, cos_y = torch.sin(yaw_rad), torch.cos(yaw_rad)
+        dirn = dirs.to(device=dev, dtype=torch.float32)
+        absorb = band_absorption(sc, params.n_bands)
+        if fixed:
+            scal = torch.cat([emitter, rec_center, sin_y[None], cos_y[None]])
+            return replay_cuda.replay_absorption(
+                absorb, tri_ids, recv_step, dirn, scal, sc.plane_n,
+                sc.plane_d, sc.normal, e0, bin_rate)
+        return replay_cuda.chain_events(
+            sc.plane_n, sc.plane_d, sc.normal, absorb, tri_ids, recv_step,
+            dirn, emitter, rec_center, sin_y, cos_y, e0, bin_rate)[:3]
 
 
 def render_ir_replay(sc: SceneArrays, tri_ids, recv_step, dirs, emitter,

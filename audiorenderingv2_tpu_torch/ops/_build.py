@@ -39,6 +39,7 @@ NVCC_FLAGS = (*ARCH, "-O3", "-std=c++17", "-Xcompiler", "-fPIC",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _LL = ctypes.c_longlong
+_F = ctypes.c_float
 # C signatures of csrc/*.cu; every function returns a cudaError_t.
 _SIGNATURES = {
     # state, n, ncols, tris, n_tris, scal, n_poses, rays_per_pose, n_bands,
@@ -77,6 +78,14 @@ _SIGNATURES = {
     "ar2_trace_round_v1": (_P, _LL, _P, _I, _P, _I, _I, _P),
     # state, n, ncols, n_poses, cell_bits, partials, n_blocks, keys, stream
     "ar2_compaction_keys": (_P, _LL, _I, _I, _I, _P, _I, _P, _P),
+    # tri_ids, n, k_steps, recv_step, dirs, scal, plane_n, plane_d, normal,
+    # absorb, n_tris, n_bands, e0, bin_rate, eps, t_min, r2, ev_bin, ev_w,
+    # ev_ear, chord, stream
+    "ar2_replay": (_P, _LL, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _F,
+                   _F, _F, _F, _P, _P, _P, _P, _P),
+    # tri_ids, n, k_steps, recv_step, chord, g, absorb, n_tris, n_bands, e0,
+    # grad, stream
+    "ar2_replay_bwd": (_P, _LL, _I, _P, _P, _P, _P, _I, _I, _F, _P, _P),
 }
 
 

@@ -128,8 +128,9 @@ Phases, in order; any failure raises and the script exits non-zero:
 17. a trainer that takes a few steps: diff.fit_scene_parameters(method=
    "replay") on the office at 1M rays, 5 Adam steps on the absorption
    logits from recorded paths, the launch counts read around it (schedule,
-   K2, K3, K3-bwd), a falling loss and finite gradients (the inverse
-   demo's own fit runs in phase 23).
+   K2, K3, K3-bwd, the replay's forward and backward kernels once a step),
+   a falling loss and finite gradients (the inverse demo's own fit runs in
+   phase 23).
 
 18. K6, the group-layout kernel: its SASS (cuobjdump -sass: HMMA in every
    "high" kernel and the probe, in no "highest" one); the probe of its
@@ -276,6 +277,19 @@ Phases, in order; any failure raises and the script exits non-zero:
    one CUDA graph), the plain chain's, and the bound (44 bytes a ray over
    3.35 TB/s); its calls around one office render at 100 bounces (99
    reorders, two launches each).
+26. the replay's kernel pair (csrc/replay.cu: the forward walks each
+   depositing ray's recorded path, the backward reduces the absorption
+   table's gradient) on recorded office paths, 1,000,064 rays x 100
+   bounces, at 1, 4 and 8 bands: replay_events with only the table
+   requiring a gradient (the pair, one launch each) against the same call
+   with an emitter that requires one (the eager chain): ev_bin and ev_ear
+   equal, ev_w within 1e-6 relative; the table's gradient of a weighted
+   sum of ev_w from both against the float64 plain backward on the card,
+   within REPLAY_GRAD_RTOL of each entry plus REPLAY_GRAD_ATOL of the
+   largest (float32 atomics add in their own order); the device time of
+   the forward and of the backward (20 calls in one CUDA graph) beside
+   their bounds (bytes at 3.35 TB/s), the pair through autograd a call and
+   the chain's forward + backward on the absorption alone.
 
 Then one JSON line of the kernels: name, route, source, the TPU kernel it
 replaces, "demo_launches" (the launches of its counter in the first runs of
@@ -733,9 +747,11 @@ def _reset_launches() -> None:
     from audiorenderingv2_tpu_torch.ops import schedule_cuda as sc
     from audiorenderingv2_tpu_torch.ops import group_cuda as gc
     from audiorenderingv2_tpu_torch.ops import traverse_cuda as tc
+    from audiorenderingv2_tpu_torch.ops import replay_cuda as rp
     from audiorenderingv2_tpu_torch.ops import v1_cuda as v1
 
     rc.launches = rc.posed_launches = rc.init_launches = hc.launches = 0
+    rp.launches = rp.bwd_launches = 0
     rc.compaction_keys_launches = 0
     hc.binned_launches = 0
     sc.tile_schedule_launches = sc.trace_round_sched_launches = 0
@@ -751,9 +767,11 @@ def _read_launches() -> dict:
     from audiorenderingv2_tpu_torch.ops import schedule_cuda as sc
     from audiorenderingv2_tpu_torch.ops import group_cuda as gc
     from audiorenderingv2_tpu_torch.ops import traverse_cuda as tc
+    from audiorenderingv2_tpu_torch.ops import replay_cuda as rp
     from audiorenderingv2_tpu_torch.ops import v1_cuda as v1
 
     return {"trace_round": rc.launches,
+            "replay": rp.launches, "replay_bwd": rp.bwd_launches,
             "trace_round_posed": rc.posed_launches,
             "init_state": rc.init_launches, "histogram": hc.launches,
             "compaction_keys": rc.compaction_keys_launches,
@@ -2753,6 +2771,7 @@ def phase_trainer() -> dict:
         f"memory {peak:.0f} MiB")
     assert fl["tile_schedule"] == fl["trace_round_sched"] == OFFICE_BOUNCES
     assert fl["histogram"] == fl["histogram_bwd"] == steps, fl
+    assert fl["replay"] == fl["replay_bwd"] == steps, fl
     assert fl["trace_round"] == fl["trace_traverse"] == 0, fl
     assert len(res.losses) == steps and np.isfinite(res.losses).all()
     assert np.all(np.diff(res.losses) < 0), res.losses
@@ -4246,7 +4265,9 @@ WRAPPERS = (("raytrace_cuda", "trace_round"),
             ("traverse_cuda", "trace_traverse"),
             ("histogram_cuda", "histogram_sum_banded"),
             ("histogram_cuda", "histogram_bwd"),
-            ("histogram_cuda", "histogram_binned"))
+            ("histogram_cuda", "histogram_binned"),
+            ("replay_cuda", "replay"),
+            ("replay_cuda", "replay_bwd"))
 
 
 class CudaOnly:
@@ -5392,6 +5413,161 @@ def phase_keys() -> dict:
             "launches": launches["compaction_keys"]}
 
 
+REPLAY_RAYS = 1_000_064  # the fit's 1M rays, padded as the recorder pads
+REPLAY_BANDS = (1, 4, 8)
+# The kernel pair's gradient against the chain's autograd: both add float32
+# values into each table entry in an order the atomics choose (the chain's
+# index_add_ ray by ray, the kernel by warp, block and grid), a shell row
+# taking some 10^6 terms, so the two sums part by rounding that grows with
+# the terms: an entry may differ by GRAD_RTOL of its float64 value plus
+# GRAD_ATOL of the table's largest.
+REPLAY_GRAD_RTOL = 1e-3
+REPLAY_GRAD_ATOL = 1e-6
+
+
+def _replay_bound(ids, recv, n_bands: int, n_tris: int) -> dict:
+    """Bytes of the pair at 3.35 TB/s: the depositing rays' rows of tri_ids
+    up to recv_step, the directions and recv_step, the events and chord
+    written (forward); the rows, recv_step, chord and g read and the table
+    written (backward)."""
+    n = ids.shape[0]
+    dep = recv[recv > 0]
+    rows = 4 * int(dep.double().sum())
+    fwd = rows + n * (12 + 4) + n * (4 + 4 * n_bands + 4 + 4)
+    bwd = rows + n * (4 + 4 + 4 * n_bands) + 4 * n_tris * n_bands
+    return {"fwd": bound(fwd, 0), "bwd": bound(bwd, 0),
+            "depositing": int(dep.numel()),
+            "mean_recv_step": float(dep.double().mean())}
+
+
+def phase_replay() -> dict:
+    """Phase 26: the replay's kernel pair against the eager chain on
+    recorded office paths at 1, 4 and 8 bands; returns its JSON entry's
+    numbers."""
+    from audiorenderingv2_tpu_torch import constants
+    from audiorenderingv2_tpu_torch.core import tracer
+    from audiorenderingv2_tpu_torch.diff import replay
+    from audiorenderingv2_tpu_torch.ops import replay_cuda as rpc
+
+    t0 = time.perf_counter()
+    dev = torch.device("cuda")
+    params = _grad_params(MAX_BOUNCES)
+    _, scc, rows, boxes = _office_clustered()
+    d = torch.from_numpy(unit_dirs(REPLAY_RAYS, 26)).to(dev)
+    ids, recv = replay.record_paths_kernels(
+        scc, d, EMITTER, OFFICE_RECEIVER, 0.0, params,
+        tracer.TracerOptions(schedule=True), rows=rows, boxes=boxes)
+    torch.cuda.synchronize()
+    log(f"replay: office paths recorded, {REPLAY_RAYS} rays x {MAX_BOUNCES} "
+        f"bounces, {int((recv >= 0).sum())} reach the receiver, "
+        f"{int((recv == 0).sum())} at step 0, last at step "
+        f"{int(recv.max())}")
+    e0 = params.base_power / (REPLAY_RAYS * constants.SPHERE_VOLUME)
+    bin_rate = params.sample_rate / constants.SPEED_OF_SOUND
+    emitter = torch.tensor(EMITTER, device=dev)
+    receiver = torch.tensor(OFFICE_RECEIVER, device=dev)
+    yaw = torch.deg2rad(torch.tensor(0.0, device=dev))
+    sin_y, cos_y = torch.sin(yaw), torch.cos(yaw)
+    scal = torch.cat([emitter, receiver, sin_y[None], cos_y[None]])
+    gen = torch.Generator(device=dev)
+    out = {}
+    for nb in REPLAY_BANDS:
+        # Each band its own absorption, 0.5 to 1.5 times the scene's.
+        a0 = (scc.absorption[:, None]
+              * torch.linspace(0.5, 1.5, nb, device=dev)).contiguous()
+        p_nb = dataclasses.replace(params, n_bands=nb)
+        gen.manual_seed(nb)
+        w = torch.rand((REPLAY_RAYS, nb), device=dev, generator=gen) + 0.5
+        what = f"replay, office, {REPLAY_RAYS} rays x {MAX_BOUNCES}, {nb} band(s)"
+
+        def run(fixed: bool):
+            a = a0.clone().requires_grad_(True)
+            em = emitter.clone().requires_grad_(not fixed)
+            ev = replay.replay_events(scc._replace(absorption=a), ids, recv,
+                                      d, em, receiver, 0.0, p_nb)
+            (ev[1] * w).sum().backward()
+            return ev, a.grad
+
+        _reset_launches()
+        ev_k, g_k = run(True)
+        torch.cuda.synchronize()
+        launches = _read_launches()
+        assert launches["replay"] == launches["replay_bwd"] == 1, launches
+        ev_c, g_c = run(False)
+        torch.cuda.synchronize()
+        assert _read_launches()["replay"] == 1, "the chain launched the kernel"
+        assert torch.equal(ev_k[0], ev_c[0]), f"{what}: ev_bin differs"
+        assert torch.equal(ev_k[2], ev_c[2]), f"{what}: ev_ear differs"
+        w_rel = float(((ev_k[1] - ev_c[1]).detach().abs()
+                       / ev_c[1].abs().clamp(min=1e-30)).max())
+        w_bits = bool(torch.equal(ev_k[1].detach(), ev_c[1].detach()))
+        assert w_rel <= 1e-6, f"{what}: ev_w {w_rel:.3e} relative"
+        # The same gradient in float64 from the plain backward on the card.
+        ch = rpc.replay(ids, recv, d, scal, scc.plane_n, scc.plane_d,
+                        scc.normal, a0, e0, bin_rate)[3]
+        g_64 = rpc.replay_bwd_plain(ids, recv, ch.double(), w.double(),
+                                    a0.double(), e0)
+        top = float(g_64.abs().max())
+
+        def gap(g):
+            return float(((g.double() - g_64).abs()
+                          / (g_64.abs() + top * 1e-30)).max()), \
+                float((g.double() - g_64).abs().max() / top)
+
+        (k_rel, k_abs), (c_rel, c_abs) = gap(g_k), gap(g_c)
+        tol = REPLAY_GRAD_RTOL * g_64.abs() + REPLAY_GRAD_ATOL * top
+        assert bool(((g_k.double() - g_c.double()).abs() <= tol).all()), (
+            f"{what}: kernel and chain gradients part beyond the bar")
+        assert bool(((g_k.double() - g_64).abs() <= tol).all()), (
+            f"{what}: kernel gradient off float64 beyond the bar")
+        args = (ids, recv, d, scal, scc.plane_n, scc.plane_d, scc.normal, a0,
+                e0, bin_rate)
+        fwd_ms = device_ms(lambda: rpc.replay(*args))
+        bwd_ms = device_ms(lambda: rpc.replay_bwd(ids, recv, ch, w, a0, e0))
+
+        def pair():
+            a = a0.clone().requires_grad_(True)
+            ev = rpc.replay_absorption(a, ids, recv, d, scal, scc.plane_n,
+                                       scc.plane_d, scc.normal, e0, bin_rate)
+            (ev[1] * w).sum().backward()
+
+        def chain():
+            a = a0.clone().requires_grad_(True)
+            ev = rpc.chain_events(scc.plane_n, scc.plane_d, scc.normal, a,
+                                  ids, recv, d, emitter, receiver, sin_y,
+                                  cos_y, e0, bin_rate)
+            (ev[1] * w).sum().backward()
+
+        pair_ms = median_ms(pair, 5)
+        chain_ms = median_ms(chain, 3)
+        b = _replay_bound(ids, recv, nb, a0.shape[0])
+        n_tris = a0.shape[0]
+        path = ("shared" if n_tris * nb * 4 <= torch.cuda.get_device_properties(
+            dev).shared_memory_per_block_optin else "global")
+        row = {"fwd_device_ms": fwd_ms, "bwd_device_ms": bwd_ms,
+               "fwd_bound_ms": b["fwd"]["bound_ms"],
+               "bwd_bound_ms": b["bwd"]["bound_ms"], "bound_by": "bytes",
+               "pair_ms": pair_ms, "chain_ms": chain_ms,
+               "ev_w_bit_equal": w_bits, "ev_w_max_rel": w_rel,
+               "grad_kernel_vs_f64": [k_rel, k_abs],
+               "grad_chain_vs_f64": [c_rel, c_abs],
+               "bwd_reduction": path, "depositing": b["depositing"],
+               "mean_recv_step": b["mean_recv_step"]}
+        log(f"{what}: ev_bin and ev_ear equal to the chain's, ev_w "
+            f"{'bit for bit' if w_bits else f'within {w_rel:.2e}'}; the "
+            f"table's gradient against float64: kernel {k_rel:.2e} relative "
+            f"at worst ({k_abs:.2e} of the largest), chain {c_rel:.2e} "
+            f"({c_abs:.2e}); device time forward {fwd_ms:.4f} ms (bound "
+            f"{b['fwd']['bound_ms']:.4f}), backward {bwd_ms:.4f} ms (bound "
+            f"{b['bwd']['bound_ms']:.4f}, {path} reduction); forward + "
+            f"backward through autograd {pair_ms:.3f} ms, the chain's "
+            f"{chain_ms:.1f} ms; {b['depositing']} rays deposit after "
+            f"{b['mean_recv_step']:.1f} steps on average")
+        out[f"bands{nb}"] = row
+    log(f"replay phase {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; the port's "
@@ -5431,6 +5607,7 @@ def main() -> int:
     demos = phase_demos(sharded_out)
     phase_tuned_sweep()
     keys = phase_keys()
+    replay_k = phase_replay()
 
     def demo_launches(counter: str | None) -> int:
         """The launches of ``counter`` in the first runs of the demos'
@@ -5540,6 +5717,13 @@ def main() -> int:
          "source": "audiorenderingv2_tpu_torch/csrc/compaction_keys.cu",
          "fuses": "audiorenderingv2_tpu/ops/raytrace_pallas.py:270",
          **keys},
+        {"name": "replay", "route": "cuda",
+         "demo_launches": demo_launches("replay"),
+         "source": "audiorenderingv2_tpu_torch/csrc/replay.cu",
+         "fuses": "audiorenderingv2_tpu/diff/replay.py:223",
+         "launches": fit_launches["replay"],
+         "bwd_launches": fit_launches["replay_bwd"],
+         **replay_k.pop("bands1"), **replay_k},
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -22,6 +22,7 @@ from audiorenderingv2_tpu_torch.core import tracer as t_tracer
 from audiorenderingv2_tpu_torch.diff import inverse as t_inverse
 from audiorenderingv2_tpu_torch.diff import replay as t_replay
 from audiorenderingv2_tpu_torch.ops import raytrace_cuda as rc
+from audiorenderingv2_tpu_torch.ops import replay_cuda as rp
 from audiorenderingv2_tpu_torch.ops import traverse_cuda as tc
 
 torch.set_num_threads(1)
@@ -338,3 +339,185 @@ def test_recorder_sets_rayid_and_recvd():
     assert ids.shape == (200, 6) and recv.shape == (200,)
     assert int(recv.min()) == -1 and int(recv.max()) >= 0
     assert int(ids.min()) == -1 and int(ids.max()) >= 12  # sphere rows
+
+
+# ------------------------------------------- the absorption-only kernel pair
+
+def _kernel_case(n_bands, dtype):
+    """The box room's recorded paths with a per-band absorption table in
+    ``dtype``, one often visited wall at absorption 1 in every band. The
+    paths hold rays that never reach the receiver, deposits at step 0 and
+    triangles visited twice before the deposit."""
+    _, sct, dirs, _, tparams = _setup(n_bands=n_bands, n_rays=2048)
+    d = torch.from_numpy(dirs)
+    ids, recv = t_replay.record_paths_kernels(sct, d, EMITTER, REC, 30.0,
+                                              tparams)
+    before = [row[:r].tolist() for row, r in zip(ids, recv) if r > 0]
+    assert (recv < 0).any() and (recv == 0).any()
+    assert any(len({t for t in p if t >= 0}) < sum(t >= 0 for t in p)
+               for p in before)
+    wall = int(torch.mode(ids[recv > 1, 0]).values)
+    scales = torch.linspace(0.5, 1.5, n_bands)
+    absorb = (sct.absorption[:, None] * scales).clamp(max=1.0)
+    absorb[wall] = 1.0
+    sc = sct._replace(**{f: getattr(sct, f).to(dtype) for f in
+                         ("plane_n", "plane_d", "normal")},
+                      absorption=absorb.to(dtype))
+    return sc, ids, recv, d, tparams, wall
+
+
+def _chain(sc, ids, recv, d, tparams, absorb):
+    e0 = tparams.base_power / (ids.shape[0] * 4.18879020478)
+    yaw = torch.deg2rad(torch.tensor(30.0))
+    return rp.chain_events(sc.plane_n, sc.plane_d, sc.normal, absorb, ids,
+                           recv, d, torch.from_numpy(EMITTER),
+                           torch.from_numpy(REC), torch.sin(yaw),
+                           torch.cos(yaw), e0,
+                           tparams.sample_rate / 343.0)[:3]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n_bands", [1, 8])
+def test_replay_plain_equals_chain(n_bands, dtype):
+    """The kernel pair's plain version against the eager chain's autograd:
+    the events bit for bit, the table's gradient to rounding (float64 to
+    1e-12, float32 to 1e-5 of each entry plus 1e-6 of the largest); the
+    wall at absorption 1 gets the chain's gradient, not a division by 0."""
+    sc, ids, recv, d, tparams, wall = _kernel_case(n_bands, dtype)
+    w = torch.rand((ids.shape[0], n_bands), dtype=dtype,
+                   generator=torch.Generator().manual_seed(n_bands)) + 0.5
+    grads, events = [], []
+    for fn in ("kernel", "chain"):
+        a = sc.absorption.clone().requires_grad_(True)
+        if fn == "kernel":
+            ev = t_replay.replay_events(sc._replace(absorption=a), ids, recv,
+                                        d, EMITTER, REC, 30.0, tparams)
+        else:
+            ev = _chain(sc, ids, recv, d, tparams, a)
+        (ev[1] * w).sum().backward()
+        events.append(ev)
+        grads.append(a.grad)
+    for got, want in zip(*events):
+        assert got.dtype == want.dtype and torch.equal(got, want)
+    assert (events[0][1][recv == 0] > 0).all()
+    rtol, atol = (1e-12, 1e-14) if dtype == torch.float64 else (1e-5, 1e-6)
+    top = float(grads[1].abs().max())
+    torch.testing.assert_close(grads[0], grads[1], rtol=rtol,
+                               atol=atol * top)
+    assert (grads[1][wall] != 0).all() and torch.isfinite(grads[0]).all()
+
+
+@pytest.mark.parametrize("leaf", [None, "absorption", "emitter", "receiver",
+                                  "yaw", "dirs", "plane_n", "plane_d",
+                                  "normal"])
+def test_replay_dispatch_follows_what_requires_grad(monkeypatch, leaf):
+    """The kernel pair (span ``ar2.replay.kernel``) only where nothing but
+    the absorption table requires a gradient, the chain (span
+    ``ar2.replay.chain``) wherever a pose or a triangle row does; the same
+    events either way."""
+    _, sct, dirs, _, tparams = _setup(n_rays=256)
+    d = torch.from_numpy(dirs)
+    ids, recv = t_replay.record_paths_kernels(sct, d, EMITTER, REC, 30.0,
+                                              tparams)
+    args = {"emitter": torch.from_numpy(EMITTER),
+            "receiver": torch.from_numpy(REC), "yaw": torch.tensor(30.0),
+            "dirs": d}
+    sc = sct
+    if leaf in args:
+        args[leaf] = args[leaf].clone().requires_grad_(True)
+    elif leaf is not None:
+        sc = sct._replace(**{leaf: getattr(sct, leaf).clone()
+                             .requires_grad_(True)})
+    calls = []
+    for name in ("chain_events", "replay_absorption"):
+        def spy(*a, _fn=getattr(rp, name), _name=name, **k):
+            calls.append(_name)
+            return _fn(*a, **k)
+        monkeypatch.setattr(rp, name, spy)
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        ev = t_replay.replay_events(sc, ids, recv, args["dirs"],
+                                    args["emitter"], args["receiver"],
+                                    args["yaw"], tparams)
+    kernel = leaf in (None, "absorption")
+    # (On the CPU the pair's plain version runs the chain's ops inside.)
+    assert calls[0] == ("replay_absorption" if kernel else "chain_events")
+    assert "replay_absorption" not in calls[1:] and (kernel or calls == [
+        "chain_events"])
+    spans = {e.name for e in prof.events() if e.name.startswith("ar2.")}
+    assert spans == {"ar2.replay.kernel" if kernel else "ar2.replay.chain"}
+    want = t_replay.replay_events(sct, ids, recv, d, EMITTER, REC, 30.0,
+                                  tparams)
+    for got, ref in zip(ev, want):
+        assert torch.equal(got.detach(), ref)
+
+
+def test_render_ir_replay_log_loss_plain_equals_chain():
+    """Soft binning and the log loss at test size: the same loss and the
+    same absorption gradient through the pair's plain version as through
+    the chain (an emitter that requires a gradient takes the chain)."""
+    _, sct, dirs, _, tparams = _setup()
+    d = torch.from_numpy(dirs)
+    ids, recv = t_replay.record_paths_kernels(sct, d, EMITTER, REC, 30.0,
+                                              tparams)
+    tri_mat = (sct.valid > 0).long()
+    with torch.no_grad():
+        target = t_replay.render_ir_replay(
+            sct._replace(absorption=torch.tensor([0.0, 0.4])[tri_mat]), ids,
+            recv, d, EMITTER, REC, 30.0, tparams)
+    out = []
+    for em in (torch.from_numpy(EMITTER),
+               torch.from_numpy(EMITTER).requires_grad_(True)):
+        a = torch.tensor([0.0, 0.3], requires_grad=True)
+        ir = t_replay.render_ir_replay(sct._replace(absorption=a[tri_mat]),
+                                       ids, recv, d, em, REC, 30.0, tparams)
+        loss = t_inverse.ir_loss(ir, target, "log")
+        loss.backward()
+        out.append((loss.detach(), a.grad))
+    assert torch.equal(out[0][0], out[1][0]) and float(out[0][0]) > 0
+    assert out[0][1][1] != 0
+    torch.testing.assert_close(out[0][1], out[1][1], rtol=1e-5, atol=0)
+
+
+def test_replay_kernels_are_declared_and_launched():
+    """Both C entries are defined in their source, declared in _build's
+    signatures and launched by their wrappers."""
+    import inspect
+
+    from audiorenderingv2_tpu_torch.ops import _build
+
+    cu = (_build.CSRC / "replay.cu").read_text()
+    for entry, fn, n_args in (("ar2_replay", rp.replay, 22),
+                              ("ar2_replay_bwd", rp.replay_bwd, 12)):
+        assert f'extern "C" int {entry}(' in cu
+        assert len(_build._SIGNATURES[entry]) == n_args
+        assert f".{entry}(" in inspect.getsource(fn)
+
+
+@pytest.mark.parametrize("bad", ["ids_int64", "recv_shape", "absorb_rows",
+                                 "meta", "bwd_shape"])
+def test_replay_wrappers_reject(bad):
+    _, sct, dirs, _, _ = _setup(n_rays=64)
+    ids = torch.zeros((64, 6), dtype=torch.int32)
+    recv = torch.zeros(64, dtype=torch.int32)
+    args = dict(tri_ids=ids, recv_step=recv, dirs=torch.from_numpy(dirs),
+                scal=torch.zeros(8), plane_n=sct.plane_n,
+                plane_d=sct.plane_d, normal=sct.normal,
+                absorb=sct.absorption[:, None], e0=1.0, bin_rate=1.0)
+    if bad == "bwd_shape":
+        with pytest.raises(ValueError, match="g \\[N, n_bands\\]"):
+            rp.replay_bwd(ids, recv, torch.zeros(64), torch.zeros((64, 2)),
+                          sct.absorption[:, None], 1.0)
+        return
+    if bad == "ids_int64":
+        args["tri_ids"] = ids.long()
+    elif bad == "recv_shape":
+        args["recv_step"] = recv[:10]
+    elif bad == "absorb_rows":
+        args["absorb"] = args["absorb"][:-1]
+    else:
+        args = {k: v.to("meta") if isinstance(v, torch.Tensor) else v
+                for k, v in args.items()}
+    err = TypeError if bad == "ids_int64" else ValueError
+    with pytest.raises(err):
+        rp.replay(**args)
