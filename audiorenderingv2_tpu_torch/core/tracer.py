@@ -1,29 +1,17 @@
 """The path tracer: scene arrays, the trace entry points and the histogram.
 
-The counterpart of ``audiorenderingv2_tpu/core/tracer.py``. ``trace_ir`` has
-two backends (``TracerOptions.backend``):
-
-* ``"kernels"`` (the JAX package's ``"pallas"``), forward only: it packs the
-  triangle rows, runs the bounce rounds of ``ops/raytrace_cuda.py`` and sums
-  the events into the binaural IR through ``core/binning.py`` (K3). A scene
-  without cluster boxes takes the rows route (K1 over every triangle,
-  several bounces per round); a scene with them, Morton-sorted by
-  ``accel.prepare_scene``, the clustered route, one bounce per round and a
-  coherent sort of the rays after it: with ``opts.schedule`` the per-tile
-  schedule, then K2 over each tile's candidate clusters; without it K5, the
-  front-to-back traversal inside the kernel (``ops/traverse_cuda.py``).
-* ``"autograd"`` (its ``"xla"``): the bounce loop as out-of-place PyTorch
-  ops over blocks of rays (``_bounce_step``), differentiable in absorption,
-  emitter, receiver and the geometry rows. It is the ``"full"`` method of
-  ``diff/inverse.py`` and the oracle of ``diff/replay.py``. Both backends
-  end in the same histogram, whose backward is K3-bwd.
-
-``render_ir_pose_batch``
-renders P poses in one launch per round (``trace_events_pose_batch``) and
-one posed histogram; ``render_ir`` with ``opts.native_rng`` generates its
-directions inside K4 instead of sampling them. The tensors' device picks
-the kernels: a CUDA tensor launches them, a CPU tensor runs their plain
-versions.
+The counterpart of ``audiorenderingv2_tpu/core/tracer.py``. Every entry
+(``trace_ir``, ``render_ir``, ``render_ir_pose_batch``, ``packed_scene``,
+and outside this module the matrix and the path recorder) takes its kernels
+from :func:`trace_route`, whose docstring holds the route table. The
+kernels run forward only (``ops/raytrace_cuda.py:trace_state`` drives
+them); the ``"autograd"`` backend (the JAX package's ``"xla"``) is the
+bounce loop as out-of-place PyTorch ops over blocks of rays
+(``_bounce_step``), differentiable in absorption, emitter, receiver and the
+geometry rows: the ``"full"`` method of ``diff/inverse.py`` and the oracle
+of ``diff/replay.py``. Both end in the same histogram, whose backward is
+K3-bwd. The tensors' device picks the kernels: a CUDA tensor launches
+them, a CPU tensor runs their plain versions.
 
 Geometry stays elementwise: no dot product here is a matmul or an einsum,
 which on the card could run in TF32 and lose the bits that decide whether a
@@ -39,7 +27,8 @@ import numpy as np
 import torch
 
 from .. import constants
-from ..ops import histogram_cuda
+from ..ops import histogram_cuda, raytrace_cuda
+from ..ops.raytrace_cuda import Route
 from ..utils import profiling
 from . import binning
 from .params import TraceParams
@@ -82,11 +71,6 @@ class TracerOptions:
     ``pallas_native_rng``), so no [N, 3] array is made; the stream differs
     from ``sample_directions``', so the two renders agree statistically.
 
-    ``schedule``: a clustered scene's rounds run the per-tile schedule and
-    K2 (its ``pallas_schedule``; ``tuned.auto_options`` sets it); False runs
-    K5, the traversal inside the kernel, which also takes rounds of several
-    bounces.
-
     ``backend``: ``"kernels"`` (the hand-written kernels, forward only; its
     ``"pallas"``) or ``"autograd"`` (out-of-place PyTorch ops that autograd
     can differentiate; its ``"xla"``). The rest are the autograd backend's:
@@ -96,19 +80,18 @@ class TracerOptions:
     ``remat`` recomputes each block in the backward pass instead of keeping
     its activations (``torch.utils.checkpoint``, non-reentrant).
 
-    Three options pick the kernel of an unclustered trace (the JAX
-    package's ``pallas_layout``, ``pallas_version``, ``pallas_precision``).
-    ``layout``: ``"rows"`` runs K1 over the triangle rows; ``"group"`` runs
-    K6 (``ops/group_cuda.py``), which forms the six plane and barycentric
+    ``schedule`` (its ``pallas_schedule``; ``tuned.auto_options`` sets it),
+    ``layout``, ``version`` and ``precision`` (its ``pallas_layout``,
+    ``pallas_version``, ``pallas_precision``) pick the kernels with
+    ``backend``, as :func:`trace_route` tabulates: ``schedule`` the per-tile
+    schedule and K2 on a clustered scene, else K5; ``layout="group"`` K6
+    (``ops/group_cuda.py``), which forms the six plane and barycentric
     quantities of eight triangles at a time as a [48, 8] x [8] product per
-    ray, and refuses a clustered scene. ``precision`` is that product's:
-    ``"highest"`` is exact f32, ``"high"`` (the JAX package's ``"high"``
-    and its alias ``"split3"``) splits both operands into bf16 high and low parts and sums three products, about
-    2^-17 relative; the other kernels ignore it. ``version``: 2, or 1 for
-    K7 (``ops/v1_cuda.py``), the rays-in-rows kernel: one band, the whole
-    padded triangle list, no clusters, no pose batch, sampled directions
-    only; with more than one band ``trace_ir`` runs the differentiable
-    tracer instead, as the JAX package does.
+    ray; ``version=1`` K7 (``ops/v1_cuda.py``), the rays-in-rows kernel.
+    ``precision`` is K6's product's: ``"highest"`` is exact f32, ``"high"``
+    (the JAX package's ``"high"`` and its alias ``"split3"``) splits both
+    operands into bf16 high and low parts and sums three products, about
+    2^-17 relative; the other kernels ignore it.
 
     The JAX package's other options that only tuned its TPU kernels have no
     field here; ``convert.tracer_options_from_jax`` drops them.
@@ -506,54 +489,123 @@ def _as_vec(x, device) -> torch.Tensor:
     return torch.as_tensor(x, dtype=torch.float32, device=device)
 
 
-def runs_kernels(opts: TracerOptions, params: TraceParams) -> bool:
-    """Whether a trace under ``opts`` runs the forward kernels: the kernels
-    backend, except version 1 with more than one band, which K7 does not
-    carry and the differentiable tracer renders instead (the JAX package's
-    gate, ``pallas_ok``)."""
-    return opts.backend == "kernels" and not (opts.version == 1
-                                              and params.n_bands > 1)
+def trace_route(opts: TracerOptions, n_bands: int, clustered: bool,
+                entry: str = "trace") -> Route | None:
+    """The kernels a trace under ``opts`` runs, for a scene of ``n_bands``
+    bands that carries cluster boxes or not: the one place that reads the
+    options' ``backend``, ``version``, ``layout`` and ``schedule``. None is
+    the differentiable tracer (``backend="autograd"``); otherwise the
+    ``raytrace_cuda.Route``:
+
+    ======================  ==========================  ===================
+    options, scene          round kernel                reorder
+    ======================  ==========================  ===================
+    ``version=1``, 1 band   K7 over every triangle,     partition
+                            row-major state, no cull
+    ``version=1``, bands    None: K7 carries one band   (the JAX package's
+                                                        gate, ``pallas_ok``)
+    ``layout="group"``      K6, its product at          partition
+                            ``precision``; refuses a
+                            clustered scene
+    unclustered             K1 over the rows            partition
+    clustered, schedule     the schedule, then K2;      sort (dir72 keys)
+                            one bounce a round
+    clustered               K5, the traversal in the    sort
+                            kernel; any round budgets
+    ======================  ==========================  ===================
+
+    ``compact=False`` leaves out the reorder (one round of ``max_bounces``
+    unless ``round_budgets`` say otherwise). ``entry`` names the caller
+    and its refusals, each raising the text its entry always raised:
+    ``"trace"`` (``trace_ir``, ``packed_scene``, the matrix);
+    ``"render"`` (``render_ir``: ``native_rng`` on version 2 asks for K4,
+    which the route's ``k4`` offers on every kernel but K7, and refuses the
+    autograd backend); ``"pose_batch"`` (refuses the autograd backend, soft
+    binning and version 1; ``trace_events_pose_batch`` refuses K5); ``"record"`` (the
+    path recorder: version 2's kernels whatever ``backend`` and
+    ``version`` say, always reordered). Pure Python on the options: no
+    device work, resolved once a trace, never a round."""
+    version, backend = ((2, "kernels") if entry == "record"
+                        else (opts.version, opts.backend))
+    if entry == "pose_batch":
+        if backend != "kernels":
+            raise ValueError(f"render_ir_pose_batch runs the forward-only "
+                             f"kernels; it has no backend={backend!r} form")
+        if opts.soft_binning:
+            raise ValueError("render_ir_pose_batch is a forward-rendering "
+                             "path (hard binning); use render_ir per pose "
+                             "for soft_binning gradients")
+        if version != 2:
+            raise ValueError("render_ir_pose_batch requires the kernels "
+                             "backend with version=2; render per pose via "
+                             "render_ir for other backends")
+    if backend != "kernels":
+        if entry == "render" and opts.native_rng and version == 2:
+            raise ValueError(f"native_rng runs the forward-only kernels; it "
+                             f"has no backend={backend!r} form")
+        return None
+    compact = opts.compact or entry == "record"
+    if version == 1:
+        return (None if n_bands > 1 else
+                Route("k7", "partition" if compact else None))
+    if opts.layout == "group":
+        if clustered:
+            raise ValueError("group layout cannot carry cluster boxes")
+        kernel = "k6"
+    elif not clustered:
+        kernel = "k1"
+    else:
+        kernel = "sched" if opts.schedule else "k5"
+    reorder = ("sort" if clustered else "partition") if compact else None
+    return Route(kernel, reorder, opts.precision)
+
+
+def pack_for_route(sc: SceneArrays, params: TraceParams, rows, boxes,
+                   route: Route | None):
+    """The scene's packed triangles and boxes for ``route``
+    (``raytrace_cuda.pack_scene``): the caller's, checked, or a fresh pack.
+    K7 never culls: its boxes are None whatever the scene carries."""
+    if route is None:
+        return rows, boxes  # the differentiable tracer reads the scene
+    if rows is None:
+        return raytrace_cuda.pack_scene(sc, params.n_bands, route)
+    grouped = route.kernel == "k6"
+    if isinstance(rows, tuple) != grouped:
+        raise ValueError(f"the packed triangles are not those of layout="
+                         f"{'group' if grouped else 'rows'!r}, version="
+                         f"{1 if route.kernel == 'k7' else 2}: pack them "
+                         f"with raytrace_cuda.pack_scene under the same "
+                         f"options")
+    return rows, None if route.kernel == "k7" else boxes
 
 
 def packed_scene(sc: SceneArrays, params: TraceParams, rows, boxes,
                  opts: TracerOptions = TracerOptions()):
-    """The scene's packed triangles and boxes under ``opts.layout`` and
-    ``opts.version`` (``raytrace_cuda.pack_scene``): the caller's, checked,
-    or a fresh pack. Version 1 never culls: its boxes are None whatever the
-    scene carries."""
-    from ..ops import raytrace_cuda
-
-    if not runs_kernels(opts, params):
-        return rows, boxes  # the differentiable tracer reads the scene
-    if rows is None:
-        return raytrace_cuda.pack_scene(sc, params.n_bands, opts.layout,
-                                        opts.version)
-    grouped = opts.version == 2 and opts.layout == "group"
-    if isinstance(rows, tuple) != grouped:
-        raise ValueError(f"the packed triangles are not those of layout="
-                         f"{opts.layout!r}, version={opts.version}: pack them "
-                         f"with raytrace_cuda.pack_scene under the same "
-                         f"options")
-    if opts.version == 1:
-        return rows, None  # K7's wrapper checks its [17, T] table
-    if (boxes is None) != (sc.cluster_boxes is None):
-        raise ValueError("a clustered scene needs its packed boxes, and an "
-                         "unclustered one none")
-    return rows, boxes
+    """:func:`pack_for_route` for the route of ``opts`` on ``sc``."""
+    return pack_for_route(sc, params, rows, boxes, trace_route(
+        opts, params.n_bands, sc.cluster_boxes is not None))
 
 
-def _kernels_only(opts: TracerOptions, what: str) -> None:
-    """Refuse an entry that exists only on the forward kernels rather than
-    run them under options that ask for the differentiable backend."""
-    if opts.backend != "kernels":
-        raise ValueError(f"{what} runs the forward-only kernels; it has no "
-                         f"backend={opts.backend!r} form")
-
-
-def _ir_from_events(events, params: TraceParams, opts: TracerOptions,
-                    with_stats: bool):
-    """The IR of ``events`` (ev_bin_f, ev_w, ev_ear[, depth]), and with
-    ``with_stats`` also ``{"bounces": depth as f32}``."""
+def _trace(sc: SceneArrays, route: Route | None, directions, emitter,
+           receiver_pos, receiver_yaw_deg, params: TraceParams,
+           opts: TracerOptions, n_total_rays, rows, boxes, with_stats: bool,
+           n_rays: int | None = None, seed: torch.Tensor | None = None):
+    """The IR of one trace on ``route``: ``directions`` [N, 3] on the
+    scene's device, or None for K4's ``n_rays`` from ``seed``."""
+    dev = sc.device
+    emitter, receiver_pos = _as_vec(emitter, dev), _as_vec(receiver_pos, dev)
+    if route is None:
+        events = _trace_events_autograd(sc, directions, emitter, receiver_pos,
+                                        receiver_yaw_deg, params, opts,
+                                        n_total_rays)
+    else:
+        rows, boxes = pack_for_route(sc, params, rows, boxes, route)
+        events = raytrace_cuda.trace_events(
+            rows, None if directions is None else directions.contiguous(),
+            emitter, receiver_pos, float(receiver_yaw_deg), params,
+            n_total_rays, route=route, boxes=boxes,
+            round_budgets=opts.round_budgets, n_rays=n_rays,
+            native_rng_seed=seed, return_depth=with_stats)
     with profiling.span("ar2.bin"):
         ir = _histogram_from_events(*events[:3], params, opts.soft_binning)
     if not with_stats:
@@ -570,46 +622,28 @@ def trace_ir(sc: SceneArrays, directions: torch.Tensor, emitter,
              with_stats: bool = False):
     """Trace ``directions`` [N, 3] and return the stereo IR histogram on
     the scene's device: f32 [2, ir_length], or [2, n_bands, ir_length]
-    when ``params.n_bands > 1``. Mono folding is the renderer's job.
+    when ``params.n_bands > 1``. Mono folding is the renderer's job. The
+    kernels are those of :func:`trace_route`.
 
     ``rows``, ``boxes``: the scene's packed triangles and cluster boxes
-    from ``raytrace_cuda.pack_scene(sc, params.n_bands, opts.layout,
-    opts.version)``, packed once per scene by a caller that renders it many
-    times; None packs them here. The clustered route runs when the scene
-    has cluster boxes. ``opts.layout``, ``opts.version`` and
-    ``opts.precision`` pick the kernel of an unclustered scene (K1, K6 or
-    K7); ``version=1`` with more than one band runs the differentiable
-    tracer, since K7 carries one band (the JAX package's gate).
+    (:func:`packed_scene` under the same options), packed once per scene
+    by a caller that renders it many times; None packs them here.
 
     With ``opts.backend == "autograd"`` the trace is differentiable:
     ``emitter``, ``receiver_pos`` and the scene's tensors may require
     gradients (with ``opts.soft_binning`` the arrival time has one too);
-    ``rows`` and ``boxes`` are not used. An unknown backend is refused when
-    the options are made.
+    ``rows`` and ``boxes`` are not used.
 
     ``with_stats`` returns ``(ir, {"bounces": f32})`` instead: each ray's
     completed bounces, the useful-work count. The kernels give it for the
     padded state, [N rounded up to 128], in the order the state ends in
-    (the alive-first partition and the coherent sort permute the rays;
-    padding rays count 0); the autograd backend for the N rays in order."""
-    from ..ops import raytrace_cuda
-
-    dev = sc.device
-    directions = directions.to(device=dev, dtype=torch.float32)
-    if not runs_kernels(opts, params):
-        events = _trace_events_autograd(
-            sc, directions, _as_vec(emitter, dev), _as_vec(receiver_pos, dev),
-            receiver_yaw_deg, params, opts, n_total_rays)
-        return _ir_from_events(events, params, opts, with_stats)
-    rows, boxes = packed_scene(sc, params, rows, boxes, opts)
-    events = raytrace_cuda.trace_events(
-        rows, directions.contiguous(),
-        _as_vec(emitter, dev), _as_vec(receiver_pos, dev),
-        float(receiver_yaw_deg), params, n_total_rays=n_total_rays,
-        compact=opts.compact, round_budgets=opts.round_budgets, boxes=boxes,
-        schedule=opts.schedule, layout=opts.layout, version=opts.version,
-        precision=opts.precision, return_depth=with_stats)
-    return _ir_from_events(events, params, opts, with_stats)
+    (the reorder permutes the rays; padding rays count 0); the autograd
+    backend for the N rays in order."""
+    directions = directions.to(device=sc.device, dtype=torch.float32)
+    route = trace_route(opts, params.n_bands, sc.cluster_boxes is not None)
+    return _trace(sc, route, directions, emitter, receiver_pos,
+                  receiver_yaw_deg, params, opts, n_total_rays, rows, boxes,
+                  with_stats)
 
 
 def render_ir(sc: SceneArrays, generator: torch.Generator, n_rays: int,
@@ -623,34 +657,25 @@ def render_ir(sc: SceneArrays, generator: torch.Generator, n_rays: int,
     device and trace them (``rows``, ``boxes``, ``with_stats`` as in
     :func:`trace_ir`).
 
-    With ``opts.native_rng`` the generator gives only a seed (an integer
-    below 2^23, which survives its f32 scalar slot exactly) and K4
-    generates the directions while it initialises the state; that is the
-    kernels backend's, and raises with ``backend="autograd"``. Version 1
-    has no such kernel and samples its directions, as in the JAX
-    package."""
-    from ..ops import raytrace_cuda
+    With ``opts.native_rng`` on a route with K4 the generator gives only a
+    seed (an integer below 2^23, which survives its f32 scalar slot
+    exactly) and K4 generates the directions while it initialises the
+    state; K7 samples them, as in the JAX package."""
     from . import sampling
 
     dev = sc.device
-    if opts.native_rng and opts.version == 2:
-        _kernels_only(opts, "native_rng")
-        rows, boxes = packed_scene(sc, params, rows, boxes, opts)
-        with profiling.span("ar2.trace.init"):
+    route = trace_route(opts, params.n_bands, sc.cluster_boxes is not None,
+                        "render")
+    seed = dirs = None
+    with profiling.span("ar2.trace.init"):
+        if opts.native_rng and route is not None and route.k4:
             seed = torch.randint(0, 2**23, (), generator=generator,
                                  device=dev)
-        events = raytrace_cuda.trace_events(
-            rows, None, _as_vec(emitter, dev), _as_vec(receiver_pos, dev),
-            float(receiver_yaw_deg), params, n_total_rays=n_total_rays,
-            compact=opts.compact, round_budgets=opts.round_budgets,
-            boxes=boxes, n_rays=n_rays, native_rng_seed=seed,
-            schedule=opts.schedule, layout=opts.layout,
-            precision=opts.precision, return_depth=with_stats)
-        return _ir_from_events(events, params, opts, with_stats)
-    with profiling.span("ar2.trace.init"):
-        dirs = sampling.sample_directions(n_rays, generator, dev)
-    return trace_ir(sc, dirs, emitter, receiver_pos, receiver_yaw_deg,
-                    params, opts, n_total_rays, rows, boxes, with_stats)
+        else:
+            dirs = sampling.sample_directions(n_rays, generator, dev)
+    return _trace(sc, route, dirs, emitter, receiver_pos, receiver_yaw_deg,
+                  params, opts, n_total_rays, rows, boxes, with_stats,
+                  n_rays=n_rays, seed=seed)
 
 
 def render_ir_pose_batch(sc: SceneArrays, seed: int, n_rays: int, emitters,
@@ -661,35 +686,23 @@ def render_ir_pose_batch(sc: SceneArrays, seed: int, n_rays: int, emitters,
                          boxes: torch.Tensor | None = None,
                          n_total_rays_per_pose: int | None = None,
                          rank: int | None = None) -> torch.Tensor:
-    """Render P poses in one launch per round (the multi-pose fast path).
+    """Render P poses in one launch per round (the multi-pose fast path),
+    on a route of :func:`trace_route` with a posed form, hard binning only.
 
     ``emitters``, ``receivers`` [P, 3], ``receiver_yaws_deg`` [P]. Pose
     ``i`` draws its ``n_rays`` directions from
     ``sampling.pose_generator(seed, pose_indices[i], device)`` (default
     ``i``), the stream a single :func:`render_ir` of that pose sees from the
-    same generator. Hard binning and the version-2 kernels only:
-    ``opts.soft_binning``, ``backend="autograd"`` and ``version=1`` raise,
-    and so does a clustered scene without ``opts.schedule`` (it batches
-    through the schedule and K2, as in the JAX package); ``opts.layout``
-    and ``opts.precision`` pick K1 or K6 as in :func:`trace_ir`.
-    ``n_total_rays_per_pose``: the ray count that normalises each pose's
-    energy when this call traces a share of each pose's rays (default
-    ``n_rays``); ``rank``: the share's rank, whose directions come from
-    ``sampling.pose_generator(seed, pose_indices[i], device, rank)``.
-    Returns [P, 2, ir_length] on the scene's device, or [P, 2,
-    n_bands, ir_length]."""
-    from ..ops import raytrace_cuda
+    same generator. ``n_total_rays_per_pose``: the ray count that
+    normalises each pose's energy when this call traces a share of each
+    pose's rays (default ``n_rays``); ``rank``: the share's rank, whose
+    directions come from ``sampling.pose_generator(seed, pose_indices[i],
+    device, rank)``. Returns [P, 2, ir_length] on the scene's device, or
+    [P, 2, n_bands, ir_length]."""
     from . import sampling
 
-    _kernels_only(opts, "render_ir_pose_batch")
-    if opts.soft_binning:
-        raise ValueError("render_ir_pose_batch is a forward-rendering path "
-                         "(hard binning); use render_ir per pose for "
-                         "soft_binning gradients")
-    if opts.version != 2:
-        raise ValueError("render_ir_pose_batch requires the kernels backend "
-                         "with version=2; render per pose via render_ir for "
-                         "other backends")
+    route = trace_route(opts, params.n_bands, sc.cluster_boxes is not None,
+                        "pose_batch")
     dev = sc.device
     emitters = _as_vec(emitters, dev).reshape(-1, 3)
     if pose_indices is None:
@@ -699,14 +712,12 @@ def render_ir_pose_batch(sc: SceneArrays, seed: int, n_rays: int, emitters,
             sampling.sample_directions(
                 n_rays, sampling.pose_generator(seed, int(i), dev, rank), dev)
             for i in pose_indices])
-    rows, boxes = packed_scene(sc, params, rows, boxes, opts)
+    rows, boxes = pack_for_route(sc, params, rows, boxes, route)
     ev_bin_f, ev_w, ev_ear = raytrace_cuda.trace_events_pose_batch(
         rows, directions.to(device=dev, dtype=torch.float32).contiguous(),
         emitters, _as_vec(receivers, dev).reshape(-1, 3),
         _as_vec(receiver_yaws_deg, dev).reshape(-1), params,
-        n_total_rays_per_pose=n_total_rays_per_pose, compact=opts.compact,
-        round_budgets=opts.round_budgets, boxes=boxes,
-        schedule=opts.schedule, layout=opts.layout,
-        precision=opts.precision)
+        n_total_rays_per_pose, route=route, boxes=boxes,
+        round_budgets=opts.round_budgets)
     with profiling.span("ar2.bin"):
         return _histogram_from_events_posed(ev_bin_f, ev_w, ev_ear, params)

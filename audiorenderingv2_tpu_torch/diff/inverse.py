@@ -29,7 +29,7 @@ from typing import Callable
 import numpy as np
 import torch
 
-from .. import accel, tuned
+from .. import tuned
 from ..core import sampling
 from ..core.params import TraceParams
 from ..core.tracer import SceneArrays, TracerOptions, scene_to_arrays, trace_ir
@@ -201,11 +201,7 @@ def fit_scene_parameters(
     clusters = None
     rec_opts = TracerOptions()
     if use_replay:
-        rec_opts, cluster_size = tuned.auto_options(scene.n_triangles,
-                                                    params.max_bounces)
-        if cluster_size is not None:
-            scene, clusters = accel.prepare_scene(scene,
-                                                  cluster_size=cluster_size)
+        rec_opts, scene, clusters = tuned.prepare(scene, params.max_bounces)
     sc = scene_to_arrays(scene, opts.tri_chunk, device=dev, clusters=clusters)
     mat_ids = material_ids_padded(scene, sc.absorption.shape[0]).to(dev)
     n_mats = len(scene.material_names)

@@ -37,15 +37,13 @@ tripwire.
 """
 from __future__ import annotations
 
-import dataclasses
-
 import torch
 
 from .. import constants
 from ..core.params import TraceParams
 from ..core.tracer import (SceneArrays, TracerOptions, _as_vec, _bounce_step,
                            _histogram_from_events, _start_state,
-                           band_absorption, packed_scene)
+                           band_absorption, pack_for_route, trace_route)
 from ..ops import replay_cuda
 from ..utils import profiling
 
@@ -102,17 +100,15 @@ def record_paths_kernels(sc: SceneArrays, dirs: torch.Tensor, emitter,
     """:func:`record_paths` through the trace kernels: the fast recorder,
     the counterpart of the JAX package's ``record_paths_pallas``.
 
-    The ray state carries three recording columns: RAYID, the launch index
-    (so the topology survives the reorder between rounds), LTRI, 1 + the
-    triangle bounced off in the current round, and RECVD, the depth at which
-    the receiver was entered. This function runs one kernel round per bounce:
-    K1 on an unclustered scene (K6 with ``opts.layout="group"``, its
-    product at ``opts.precision``); on a clustered one the schedule kernel
-    and K2 with ``opts.schedule``, else K5. Version 1 records no topology,
-    so ``opts.version`` is not read: the recorder is version 2's. After each round it reads (RAYID,
-    LTRI) and scatters the triangle ids into launch order; then the rays are
-    reordered as in a render (alive-first partition, or the dir72 sort).
-    ``rows``, ``boxes``: the packed scene, as in ``core.tracer.trace_ir``.
+    One bounce a round on the recorder's route of
+    ``core.tracer.trace_route``, through ``raytrace_cuda.trace_state``. The
+    ray state carries three recording columns: RAYID, the launch index (so
+    the topology survives the reorder between rounds), LTRI, 1 + the
+    triangle bounced off in the current round, and RECVD, the depth at
+    which the receiver was entered. After each round the harvest reads
+    (RAYID, LTRI) and scatters the triangle ids into launch order, and
+    after the last one RECVD. ``rows``, ``boxes``: the packed scene, as in
+    ``core.tracer.trace_ir``.
 
     Returns the same (tri_ids int32 [N, K], recv_step int32 [N]) as
     :func:`record_paths`. Ids index the scene's own (sorted) triangles. The
@@ -126,34 +122,28 @@ def record_paths_kernels(sc: SceneArrays, dirs: torch.Tensor, emitter,
 
     dev = sc.device
     n, k_steps = dirs.shape[0], params.max_bounces
-    n_pad = -(-n // 128) * 128
+    n_pad = -(-n // rc._LANES) * rc._LANES
     if n_pad > 2 ** 24:
         raise ValueError(f"{n_pad} rays: the launch index rides in an f32 "
                          f"state column, exact only up to 2^24; record in "
                          f"chunks with n_total_rays")
-    rows, boxes = packed_scene(
-        sc, params, rows, boxes,
-        dataclasses.replace(opts, version=2, backend="kernels"))
-    emitter, rec_center = _as_vec(emitter, dev), _as_vec(rec_center, dev)
-    e0 = params.base_power / ((n_total_rays if n_total_rays is not None
-                               else n) * constants.SPHERE_VOLUME)
-    scal = rc.scalars(emitter, rec_center, float(receiver_yaw_deg), e0,
-                      params)
-    state = rc.init_state(dirs.to(device=dev, dtype=torch.float32), emitter,
-                          e0, n_pad, params.n_bands)
-    state[rc._C_RAYID] = torch.arange(n_pad, device=dev).to(torch.float32)
-    state[rc._C_RECVD] = -1.0
+    route = trace_route(opts, params.n_bands, sc.cluster_boxes is not None,
+                        "record")
+    rows, boxes = pack_for_route(sc, params, rows, boxes, route)
     tri_ids = torch.empty((n_pad, k_steps), dtype=torch.int32, device=dev)
+    recv = torch.empty((n_pad,), dtype=torch.int32, device=dev)
 
     def harvest(k: int, st: torch.Tensor) -> None:
-        tri_ids[st[rc._C_RAYID].long(), k] = st[rc._C_LTRI].to(torch.int32) - 1
+        ids = st[rc._C_RAYID].long()
+        tri_ids[ids, k] = st[rc._C_LTRI].to(torch.int32) - 1
+        if k + 1 == k_steps:  # the last round's state is the final one
+            recv[ids] = st[rc._C_RECVD].to(torch.int32)
 
-    state = rc._run_rounds(state, rows, boxes, scal, params, [1] * k_steps,
-                           compact=True, schedule=opts.schedule,
-                           harvest=harvest, layout=opts.layout,
-                           precision=opts.precision, n_rays=n)
-    recv = torch.empty((n_pad,), dtype=torch.int32, device=dev)
-    recv[state[rc._C_RAYID].long()] = state[rc._C_RECVD].to(torch.int32)
+    rc.trace_state(rows, dirs.to(device=dev, dtype=torch.float32),
+                   _as_vec(emitter, dev), _as_vec(rec_center, dev),
+                   float(receiver_yaw_deg), params, route=route, boxes=boxes,
+                   n_total_rays=n_total_rays, round_budgets=(1,) * k_steps,
+                   harvest=harvest, record=True)
     return tri_ids[:n], recv[:n]
 
 

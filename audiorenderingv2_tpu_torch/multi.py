@@ -24,8 +24,8 @@ import torch
 
 from .core import sampling
 from .core.params import TraceParams
-from .core.tracer import (SceneArrays, TracerOptions, packed_scene, render_ir,
-                          render_ir_pose_batch)
+from .core.tracer import (SceneArrays, TracerOptions, pack_for_route,
+                          render_ir, render_ir_pose_batch, trace_route)
 from .ops import convolve, filterbank
 from .parallel import sharding
 from .utils import profiling
@@ -73,10 +73,9 @@ def render_ir_matrix(
         and returns the same summed matrix. ``n_rays`` must divide by the
         world size.
 
-    The fused batch needs the version-2 kernels backend, hard binning, sampled
-    directions (not ``opts.native_rng``), at most 8 bands and, on a
-    clustered scene, ``opts.schedule``; otherwise every pair is one
-    ``render_ir``.
+    The fused batch needs a route with a posed form
+    (``core.tracer.trace_route``), hard binning and sampled directions (not
+    ``opts.native_rng``); otherwise every pair is one ``render_ir``.
 
     Returns float32 [S, L, 2, ir_length], or [S, L, 2, n_bands, ir_length]
     for a banded scene (params.n_bands > 1), on the host.
@@ -103,14 +102,10 @@ def render_ir_matrix(
     if mesh is not None:
         n_local, rank = sharding.shard_size(n_rays, mesh), mesh.rank
         sc = sharding.scene_on(sc, mesh.device)
-    rows, boxes = packed_scene(sc, params, rows, boxes, opts)
-
-    fused_ok = (opts.backend == "kernels" and opts.version == 2
-                # a clustered scene batches through the schedule and K2
-                and (sc.cluster_boxes is None or opts.schedule)
-                and not opts.soft_binning and not opts.native_rng
-                and params.n_bands <= 8)
-    fused = fused_ok and pair_batch != 1
+    route = trace_route(opts, params.n_bands, sc.cluster_boxes is not None)
+    rows, boxes = pack_for_route(sc, params, rows, boxes, route)
+    fused = (pair_batch != 1 and route is not None and route.pose_batch
+             and not opts.soft_binning and not opts.native_rng)
     # pair_batch is a bound on memory, not a hint: honour it exactly. The
     # tail runs at its own size.
     batch = n_pairs if pair_batch in (0, None) else min(pair_batch, n_pairs)

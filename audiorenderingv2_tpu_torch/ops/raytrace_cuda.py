@@ -10,7 +10,8 @@ with the packing of ``raytrace_pallas_v2.py``:
   coefficient groups and attributes K6 reads (its ``layout="group"``,
   trimmed to whole groups of 8); ``pack_tris_v1``: the untrimmed [17, T]
   table K7 reads (``raytrace_pallas.py:pack_tris``); ``pack_scene`` picks
-  one by layout and version;
+  one for a ``Route``, the kernels that ``core.tracer.trace_route``
+  resolves from the options (its docstring holds the table);
 * ``init_state``: the ray state, as ``[ncols, N]`` columns (structure of
   arrays: ray ``i`` of column ``c`` is ``state[c, i]``), with the column
   indices of the JAX package;
@@ -24,19 +25,14 @@ with the packing of ``raytrace_pallas_v2.py``:
   What bounds it on the card is FP32 throughput in the intersection loop and
   warp divergence, which the partition between rounds limits; triangle
   rows sit in shared memory. More in the source's header;
-* ``trace_events``: the loop of rounds. Unclustered: per-round bounce
-  budgets and an alive-first partition of the ray state between rounds;
-  the kernel is K1, or K6 with ``layout="group"`` (``ops/group_cuda.py``),
-  or K7 with ``version=1`` (``ops/v1_cuda.py``), whose state is row-major
-  [N, 16] from the first round to the last.
-  Clustered: one bounce per round, the per-tile schedule and K2
-  (``ops/schedule_cuda.py``) or, with ``schedule=False``, K5
-  (``ops/traverse_cuda.py``, which finds and orders the clusters inside
-  the kernel and so also takes rounds of several bounces), then a stable
-  sort of the rays by dir72 coherence keys (``compaction_keys``: two
-  launches of ``csrc/compaction_keys.cu`` for a CUDA tensor, the plain
-  ``_compaction_keys`` for a CPU tensor), so that the 128 rays of a tile
-  share directions and cells and reach few clusters;
+* ``trace_state``: every trace's rounds: one set-up of the rays
+  and one loop of rounds (``_run_rounds``), each round the
+  route's kernel and its reorder: an alive-first partition of the state,
+  or on a clustered route a stable sort of the rays by dir72 coherence
+  keys (``compaction_keys``: two launches of ``csrc/compaction_keys.cu``
+  for a CUDA tensor, the plain ``_compaction_keys`` for a CPU tensor), so
+  that the 128 rays of a tile share directions and cells and reach few
+  clusters. ``trace_events`` returns its event slots;
 * ``trace_events_pose_batch``: P poses in one launch per round (K1-pose,
   the TPU kernel's ``tiles_per_pose`` index map,
   ``raytrace_pallas_v2.py:887-904``, driven by
@@ -59,7 +55,7 @@ still sum to at least ``max_bounces``, or deep paths would be cut short.
 from __future__ import annotations
 
 import math
-from typing import TYPE_CHECKING
+from typing import TYPE_CHECKING, NamedTuple
 
 import torch
 
@@ -282,16 +278,58 @@ def pack_tris_v1(sc: SceneArrays) -> torch.Tensor:
     return tris.contiguous()
 
 
-def pack_scene(sc: SceneArrays, n_bands: int = 1, layout: str = "rows",
-               version: int = 2):
-    """(tris, boxes) for :func:`trace_events` under the same ``layout`` and
-    ``version``: K7's [17, T] table for version 1 (it never culls: boxes
-    None); the (coeffs, attrs) pair of K6 for the group layout, which a
-    clustered scene refuses; else the clustered packing when the scene has
-    cluster boxes, or K1's rows and None."""
-    if version == 1:
+class Route(NamedTuple):
+    """The kernels of a trace, as ``core.tracer.trace_route`` resolves them
+    from the options (its docstring holds the table). ``kernel``: the
+    round's kernel, ``"k1"``, ``"k6"``, ``"k7"``, ``"sched"`` (the per-tile
+    schedule, then K2) or ``"k5"``; ``reorder``: what follows it between
+    rounds, ``"partition"`` (alive-first), ``"sort"`` (the dir72 keys) or
+    None; ``precision``: K6's product. The properties say what the route
+    can do."""
+
+    kernel: str = "k1"
+    reorder: str | None = "partition"
+    precision: str = "highest"
+
+    @property
+    def clustered(self) -> bool:
+        """Culls by the cluster boxes of a Morton-sorted scene."""
+        return self.kernel in ("sched", "k5")
+
+    @property
+    def pose_batch(self) -> bool:
+        """Has a posed form: P poses in one launch a round."""
+        return self.kernel in ("k1", "k6", "sched")
+
+    @property
+    def k4(self) -> bool:
+        """Can start from K4's state, its directions made in the kernel."""
+        return self.kernel != "k7"
+
+    @property
+    def ray_dim(self) -> int:
+        """The state's ray axis: 0 for K7's row-major [N, 16], else 1."""
+        return 0 if self.kernel == "k7" else 1
+
+    @property
+    def one_bounce(self) -> bool:
+        """Takes one bounce a round: the schedule is computed from the
+        positions before the bounce."""
+        return self.kernel == "sched"
+
+
+ROWS = Route()  # K1 over the triangle rows, the alive-first partition
+
+
+def pack_scene(sc: SceneArrays, n_bands: int = 1, route: Route | None = None):
+    """(tris, boxes) for a trace of ``route``: K7's [17, T] table (it never
+    culls: boxes None); K6's (coeffs, attrs), which a clustered scene
+    refuses; else the rows, with the boxes when the scene has cluster
+    boxes. None packs for K1 or, on a clustered scene, K2 and K5."""
+    kernel = None if route is None else route.kernel
+    if kernel == "k7":
         return pack_tris_v1(sc), None
-    if layout == "group":
+    if kernel == "k6":
         return pack_tris_group(sc, n_bands), None
     if sc.cluster_boxes is not None:
         return pack_tris_clusters(sc, n_bands)
@@ -840,8 +878,7 @@ def trace_round(state: torch.Tensor, tris: torch.Tensor, scal: torch.Tensor,
 # ------------------------------------------------------- the loop of rounds
 
 def _budgets(params: TraceParams, round_budgets: tuple | None,
-             compact: bool, clustered: bool,
-             schedule: bool) -> list[int]:
+             route: Route) -> list[int]:
     """The per-round bounce budgets of a trace, checked. Only the schedule
     route is held to one bounce per round: K5 finds its clusters inside
     each bounce."""
@@ -852,13 +889,13 @@ def _budgets(params: TraceParams, round_budgets: tuple | None,
                 f"{sum(round_budgets)} < max_bounces {params.max_bounces}; "
                 f"deep paths would be truncated")
         budgets = list(round_budgets)
-    elif not compact:
+    elif route.reorder is None:
         budgets = [params.max_bounces]
-    elif clustered:
+    elif route.clustered:
         budgets = [1] * params.max_bounces
     else:
         budgets = _round_schedule(params.max_bounces)
-    if clustered and schedule and any(b != 1 for b in budgets):
+    if route.one_bounce and any(b != 1 for b in budgets):
         raise ValueError(f"the clustered route takes one bounce per round, "
                          f"got budgets {budgets}: positions move after a "
                          f"bounce, staling the schedule")
@@ -872,15 +909,14 @@ def _n_alive(state: torch.Tensor, ray_dim: int = 1) -> torch.Tensor:
 
 def _run_rounds(state: torch.Tensor, tris, boxes: torch.Tensor | None,
                 scal: torch.Tensor, params: TraceParams, budgets: list[int],
-                compact: bool, n_poses: int = 1, *, schedule: bool,
-                harvest=None, layout: str = "rows",
-                precision: str = "highest", n_rays: int) -> torch.Tensor:
-    """The loop of rounds over ``state`` [ncols, n_poses * n_pad] with the
-    reorder between rounds kept inside each pose's segment. ``tris``: the
-    triangle rows, or with ``layout="group"`` K6's (coeffs, attrs).
-    ``harvest``, when given, is called with the round's index and the state
-    after every round's kernel, before the reorder (the path recorder reads
-    RAYID and LTRI there).
+                route: Route, n_poses: int, n_rays: int,
+                harvest=None) -> torch.Tensor:
+    """The loop of rounds over ``state`` (rays along ``route.ray_dim``,
+    ``n_poses`` equal segments) with the route's reorder between rounds
+    kept inside each pose's segment. ``tris``: the pack of
+    :func:`pack_scene` for the route. ``harvest``, when given, is called
+    with the round's index and the state after every round's kernel,
+    before the reorder.
 
     Each round is an ``ar2.trace.round`` span around its phases' spans
     (``ar2.trace.schedule``, ``ar2.trace.kernel``, then
@@ -891,90 +927,119 @@ def _run_rounds(state: torch.Tensor, tris, boxes: torch.Tensor | None,
     ``sched_candidates``, the tiles' reachable clusters summed, with
     ``n_tiles`` once."""
     # they build on this module
-    from . import group_cuda, schedule_cuda, traverse_cuda
+    from . import group_cuda, schedule_cuda, traverse_cuda, v1_cuda
 
     span, count = profiling.span, profiling.count
-    rays_per_pose = state.shape[1] // n_poses
+    kernel, ray_dim = route.kernel, route.ray_dim
+    rays_per_pose = state.shape[ray_dim] // n_poses
     for k, budget in enumerate(budgets):
-        last = k + 1 == len(budgets)
         with span("ar2.trace.round"):
             if k == 0:
                 count("rays_alive", lambda: n_rays)
-            elif not compact:
-                count("rays_alive", lambda: _n_alive(state))
-            if layout == "group":
-                with span("ar2.trace.kernel"):
-                    state = group_cuda.trace_round_group(
-                        state, *tris, scal, params, budget, rays_per_pose,
-                        precision)
-            elif boxes is None:
-                with span("ar2.trace.kernel"):
-                    state = trace_round(state, tris, scal, params, budget,
-                                        rays_per_pose)
-            elif schedule:
+            elif route.reorder is None:
+                count("rays_alive", lambda: _n_alive(state, ray_dim))
+            if kernel == "sched":
                 with span("ar2.trace.schedule"):
                     sched = schedule_cuda.tile_schedule(state, boxes)
                 count("sched_candidates", lambda: sched[:, 0].sum())
                 count("n_tiles", lambda: sched.shape[0], once=True)
-                with span("ar2.trace.kernel"):
+            with span("ar2.trace.kernel"):
+                if kernel == "k1":
+                    state = trace_round(state, tris, scal, params, budget,
+                                        rays_per_pose)
+                elif kernel == "k6":
+                    state = group_cuda.trace_round_group(
+                        state, *tris, scal, params, budget, rays_per_pose,
+                        route.precision)
+                elif kernel == "k7":
+                    state = v1_cuda.trace_round_v1(state, tris, scal, params,
+                                                   budget)
+                elif kernel == "sched":
                     state = schedule_cuda.trace_round_sched(
                         state, tris, boxes, sched, scal, params,
                         rays_per_pose)
-            else:
-                with span("ar2.trace.kernel"):
+                else:
                     state = traverse_cuda.trace_traverse(
                         state, tris, boxes, scal, params, budget,
                         rays_per_pose)
             if harvest is not None:
                 harvest(k, state)
-            if compact and not last:
-                if boxes is None:
-                    with span("ar2.trace.partition"):
-                        state = _partition_alive_first(state, n_poses)
-                else:
-                    with span("ar2.trace.keys"):
-                        keys = compaction_keys(state, n_poses=n_poses)
-                    with span("ar2.trace.sort"):
-                        state = _sort_state_by_keys(state, keys, n_poses)
+            if k + 1 == len(budgets):
+                break
+            if route.reorder == "partition":
+                with span("ar2.trace.partition"):
+                    state = _partition_alive_first(state, n_poses, ray_dim)
+            elif route.reorder == "sort":
+                with span("ar2.trace.keys"):
+                    keys = compaction_keys(state, n_poses=n_poses)
+                with span("ar2.trace.sort"):
+                    state = _sort_state_by_keys(state, keys, n_poses)
     return state
 
 
-def _no_boxes_in_groups(layout: str, boxes: torch.Tensor | None) -> None:
-    """``TracerOptions`` checks the three options' values and K6's wrapper
-    its precision; what only a trace can see is the pairing."""
-    if layout == "group" and boxes is not None:
-        raise ValueError("group layout cannot carry cluster boxes")
+def trace_state(tris, directions: torch.Tensor | None,
+                emitters: torch.Tensor, receivers: torch.Tensor, yaws,
+                params: TraceParams, *, route: Route = ROWS,
+                boxes: torch.Tensor | None = None,
+                n_total_rays: int | None = None,
+                round_budgets: tuple | None = None,
+                n_rays: int | None = None,
+                native_rng_seed: torch.Tensor | None = None,
+                harvest=None, record: bool = False) -> torch.Tensor:
+    """Every trace's rounds: set the rays up, run the rounds of
+    ``route`` and return the final state, [ncols, P * n_pad] (for K7 a
+    view of its row-major state).
 
-
-def _trace_events_v1(tris: torch.Tensor, directions: torch.Tensor,
-                     emitter: torch.Tensor, scal: torch.Tensor, e0: float,
-                     n_pad: int, params: TraceParams, budgets: list[int],
-                     compact: bool, return_depth: bool):
-    """The rounds of version 1: K7 over a row-major state [n_pad, 16] that
-    stays row-major from the first round to the last, the alive-first
-    partition between rounds a gather of rows; spans and counters as in
-    :func:`_run_rounds`."""
-    from . import v1_cuda  # it builds on this module
-
-    span, count = profiling.span, profiling.count
-    with span("ar2.trace.init"):
-        state = init_state(directions, emitter, e0, n_pad).T.contiguous()
-    for k, budget in enumerate(budgets):
-        with span("ar2.trace.round"):
-            if k == 0:
-                count("rays_alive", lambda: directions.shape[0])
-            elif not compact:
-                count("rays_alive", lambda: _n_alive(state, ray_dim=0))
-            with span("ar2.trace.kernel"):
-                state = v1_cuda.trace_round_v1(state, tris, scal, params,
-                                               budget)
-            if compact and k + 1 < len(budgets):
-                with span("ar2.trace.partition"):
-                    state = _partition_alive_first(state, ray_dim=0)
-    events = (state[:, _C_EVB].contiguous(),
-              state[:, _C_EVW:_C_EVW + 1].contiguous(),
-              state[:, _C_EVE].to(torch.int32))
-    return events + (state[:, _C_DEPTH].clone(),) if return_depth else events
+    ``directions`` [N, 3] with ``emitters``, ``receivers`` [3] and one yaw,
+    or [P, N, 3] with [P, 3], [P, 3] and [P] for P poses, pose-major; None
+    makes K4 generate ``n_rays`` directions from ``native_rng_seed``, a
+    0-dim integer tensor below 2^23 on the device. ``tris``, ``boxes``:
+    from :func:`pack_scene` for ``route``; boxes go with a clustered route
+    and only with one. ``n_total_rays``: the ray count that normalises the
+    per-ray energy when this call traces a share of a larger launch.
+    ``round_budgets``: explicit per-round budgets (they must sum to at
+    least ``max_bounces``; the schedule route takes only ones); by default
+    a geometric schedule, one bounce per round on a clustered route, or
+    one round without a reorder. For the path recorder, ``harvest`` (see
+    :func:`_run_rounds`), and ``record``, which starts the recording
+    columns: RAYID the launch index, RECVD -1."""
+    if directions is None and (not route.k4 or native_rng_seed is None
+                               or n_rays is None):
+        raise ValueError("directions=None needs version=2 + "
+                         "native_rng_seed + n_rays")
+    if (boxes is not None) != route.clustered:
+        raise ValueError("group layout cannot carry cluster boxes"
+                         if route.kernel == "k6" else
+                         "a clustered scene needs its packed boxes, and an "
+                         "unclustered one none")
+    budgets = _budgets(params, round_budgets, route)
+    # The set-up: whole 128-ray tiles, the per-ray energy, the scalar
+    # row(s), the initial state in the route's layout.
+    lead = () if directions is None else directions.shape[:-2]
+    n = int(n_rays) if directions is None else directions.shape[-2]
+    n_pad = -(-n // _LANES) * _LANES
+    e0 = params.base_power / ((n_total_rays if n_total_rays is not None
+                               else n) * constants.SPHERE_VOLUME)
+    n_poses = math.prod(lead)
+    profiling.count("n_rays", lambda: n_poses * n, once=True)
+    with profiling.span("ar2.trace.init"):
+        scal = scalars(emitters, receivers, yaws, e0, params)
+        if directions is None:
+            seeded = scal.clone()
+            seeded[_S_PAD14] = native_rng_seed.to(torch.float32)
+            state = init_state_native(seeded, n_pad, n, params.n_bands)
+        else:
+            state = init_state(directions, emitters, e0, n_pad,
+                               params.n_bands)
+        if record:
+            state[_C_RAYID] = torch.arange(
+                n_pad, device=state.device).to(torch.float32)
+            state[_C_RECVD] = -1.0
+        if route.ray_dim == 0:
+            state = state.T.contiguous()
+    state = _run_rounds(state, tris, boxes, scal, params, budgets, route,
+                        n_poses, n_poses * n, harvest=harvest)
+    return state.T if route.ray_dim == 0 else state
 
 
 def _event_weights(state: torch.Tensor, n_bands: int) -> torch.Tensor:
@@ -989,73 +1054,20 @@ def _event_weights(state: torch.Tensor, n_bands: int) -> torch.Tensor:
 def trace_events(tris, directions: torch.Tensor | None,
                  emitter: torch.Tensor, receiver_pos: torch.Tensor,
                  receiver_yaw_deg, params: TraceParams,
-                 n_total_rays: int | None = None, compact: bool = True,
-                 round_budgets: tuple | None = None,
-                 boxes: torch.Tensor | None = None,
-                 n_rays: int | None = None,
-                 native_rng_seed: torch.Tensor | None = None,
-                 schedule: bool = False, layout: str = "rows",
-                 version: int = 2, precision: str = "highest",
-                 return_depth: bool = False):
-    """Trace ``directions`` [N, 3] in bounce rounds.
-
-    ``tris``, ``boxes``: from :func:`pack_scene` under the same ``layout``
-    and ``version``; with ``boxes`` the clustered route runs. ``layout``,
-    ``version``, ``precision`` (``TracerOptions``' fields of those names)
-    pick the kernel of an unclustered trace: K1 over the rows; K6 over the
-    group layout's (coeffs, attrs), its product at ``precision``; or, with
-    ``version=1``, K7 over the [17, T] table, which keeps a row-major state,
-    ignores ``boxes`` and needs ``directions``. ``schedule`` (the JAX package's
-    ``schedule_mode``): a clustered round is the per-tile schedule and K2;
-    False makes it K5, the traversal inside the kernel
-    (``ops/traverse_cuda.py``), the default here as in
-    ``TracerOptions.schedule``. ``n_total_rays``: the ray count that
-    normalises the per-ray energy when this call traces a share of a
-    larger launch. ``round_budgets``: explicit per-round budgets (they
-    must sum to at least ``max_bounces``); by default a geometric
-    schedule, or one bounce per round on the clustered route. The
-    schedule route takes no other budget (its schedule is computed from
-    the positions before the bounce); K5 takes any.
-    ``compact``: reorder the state between rounds (alive-first partition,
-    or the coherent sort on the clustered route). With ``directions`` None,
-    K4 generates ``n_rays`` directions in its kernel from
-    ``native_rng_seed``, a 0-dim integer tensor below 2^23 on the device.
+                 n_total_rays: int | None = None, *,
+                 return_depth: bool = False, **kw):
+    """Trace ``directions`` [N, 3] (or K4's ``n_rays``) in bounce rounds:
+    :func:`trace_state`, whose keywords ``kw`` holds (``route``,
+    ``boxes``, ``round_budgets``, ``n_rays``, ``native_rng_seed``).
 
     Returns the event slots (ev_bin_f f32 [n_pad], ev_w f32 [n_pad,
     n_bands], ev_ear int32 [n_pad]); padding rays carry zero weight. With
     ``return_depth`` also the final state's depth row, f32 [n_pad]: each
     ray's completed bounces, in the order of the other slots.
     """
-    if directions is None and (version != 2 or native_rng_seed is None
-                               or n_rays is None):
-        raise ValueError("directions=None needs version=2 + "
-                         "native_rng_seed + n_rays")
-    if version == 1:
-        boxes = None
-    _no_boxes_in_groups(layout, boxes)
-    n = directions.shape[0] if directions is not None else int(n_rays)
-    n_real = n_total_rays if n_total_rays is not None else n
-    n_pad = -(-n // _LANES) * _LANES
-    budgets = _budgets(params, round_budgets, compact, boxes is not None,
-                       schedule)
-    e0 = params.base_power / (n_real * constants.SPHERE_VOLUME)
-    profiling.count("n_rays", lambda: n, once=True)
-    if version == 1:
-        scal = scalars(emitter, receiver_pos, receiver_yaw_deg, e0, params)
-        return _trace_events_v1(tris, directions, emitter, scal, e0, n_pad,
-                                params, budgets, compact, return_depth)
-    with profiling.span("ar2.trace.init"):
-        scal = scalars(emitter, receiver_pos, receiver_yaw_deg, e0, params)
-        if directions is None:
-            seeded = scal.clone()
-            seeded[_S_PAD14] = native_rng_seed.to(torch.float32)
-            state = init_state_native(seeded, n_pad, n, params.n_bands)
-        else:
-            state = init_state(directions, emitter, e0, n_pad,
-                               params.n_bands)
-    state = _run_rounds(state, tris, boxes, scal, params, budgets, compact,
-                        schedule=schedule, layout=layout,
-                        precision=precision, n_rays=n)
+    state = trace_state(tris, directions, emitter, receiver_pos,
+                        receiver_yaw_deg, params, n_total_rays=n_total_rays,
+                        **kw)
     events = (state[_C_EVB].contiguous(),
               _event_weights(state, params.n_bands).T.contiguous(),
               state[_C_EVE].to(torch.int32))
@@ -1066,49 +1078,30 @@ def trace_events_pose_batch(tris, directions: torch.Tensor,
                             emitters: torch.Tensor, receivers: torch.Tensor,
                             receiver_yaws_deg: torch.Tensor,
                             params: TraceParams,
-                            n_total_rays_per_pose: int | None = None,
-                            compact: bool = True,
-                            round_budgets: tuple | None = None,
-                            boxes: torch.Tensor | None = None,
-                            schedule: bool = False, layout: str = "rows",
-                            precision: str = "highest"):
+                            n_total_rays_per_pose: int | None = None, *,
+                            route: Route = ROWS, **kw):
     """Trace P poses in one kernel launch per round.
 
     ``directions`` [P, N, 3], ``emitters`` and ``receivers`` [P, 3],
-    ``receiver_yaws_deg`` [P]; ``tris``, ``boxes``, ``compact``,
-    ``round_budgets``, ``schedule``, ``layout`` and ``precision`` as in
-    :func:`trace_events`, with the same errors (version 1 has no posed
-    form); a clustered scene batches only through the schedule and
-    K2, so ``boxes`` without ``schedule`` raises, as in the JAX package. The
-    ray state is pose-major, [ncols, P * n_pad]: each 128-ray tile belongs
-    to one pose and the kernels read that pose's scalar row. Between rounds
-    the alive-first partition, or on the clustered route the coherent sort
-    (its cell grid spanning that pose's ray positions), runs within each
-    pose's segment. ``n_total_rays_per_pose`` normalises the per-ray energy
-    (default N). Pose ``p``'s events equal a :func:`trace_events` of its
-    directions bit for bit.
+    ``receiver_yaws_deg`` [P]; ``n_total_rays_per_pose`` normalises each
+    pose's energy (default N); ``route`` and the keywords ``kw`` holds
+    (``boxes``, ``round_budgets``) as in :func:`trace_state`. The ray state
+    is pose-major, [ncols, P * n_pad]: each 128-ray tile belongs to one
+    pose and the kernels read that pose's scalar row; the reorder runs
+    within each pose's segment. Pose ``p``'s events equal a
+    :func:`trace_events` of its directions bit for bit.
 
     Returns (ev_bin_f f32 [P, n_pad], ev_w f32 [P, n_pad, n_bands], ev_ear
     int32 [P, n_pad]).
     """
-    _no_boxes_in_groups(layout, boxes)
-    if boxes is not None and not schedule:
+    if not route.pose_batch:
         raise ValueError("pose-batched tracing on clustered scenes requires "
-                         "schedule=True")
-    p, n = directions.shape[0], directions.shape[1]
-    n_real = n_total_rays_per_pose if n_total_rays_per_pose is not None else n
-    n_pad = -(-n // _LANES) * _LANES
-    budgets = _budgets(params, round_budgets, compact, boxes is not None,
-                       schedule)
-    e0 = params.base_power / (n_real * constants.SPHERE_VOLUME)
-    profiling.count("n_rays", lambda: p * n, once=True)
-    with profiling.span("ar2.trace.init"):
-        scal = scalars(emitters, receivers, receiver_yaws_deg, e0, params)
-        state = init_state(directions, emitters, e0, n_pad, params.n_bands)
-    state = _run_rounds(state, tris, boxes, scal, params, budgets, compact,
-                        n_poses=p, schedule=schedule, layout=layout,
-                        precision=precision, n_rays=p * n)
-    state = state.view(-1, p, n_pad)
+                         "schedule=True" if route.clustered else
+                         f"the {route.kernel} route has no posed form")
+    state = trace_state(tris, directions, emitters, receivers,
+                        receiver_yaws_deg, params, route=route,
+                        n_total_rays=n_total_rays_per_pose, **kw)
+    state = state.view(state.shape[0], directions.shape[0], -1)
     return (state[_C_EVB].contiguous(),
             _event_weights(state, params.n_bands).permute(1, 2, 0)
             .contiguous(),

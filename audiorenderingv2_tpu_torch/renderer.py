@@ -23,7 +23,7 @@ import time
 import numpy as np
 import torch
 
-from . import accel, constants, tuned
+from . import constants, tuned
 from .core.params import TraceParams
 from .core.tracer import (TracerOptions, packed_scene, render_ir,
                           scene_to_arrays)
@@ -43,16 +43,9 @@ class AudioRenderer:
       n_rays: rays per render.
       base_power, energy_threshold, max_bounces, hrtf_absorption_rate,
       is_mono: pathtracer parameters (config.json).
-      opts: tracer options; None = ``tuned.auto_options`` for the scene,
-        which also Morton-sorts a scene of 512 triangles and up into
-        clusters of 32 (``accel.prepare_scene``) and traces it through the
-        schedule and K2. Explicit ``opts`` with the version-2 kernels
-        backend sort the scene into clusters of 128, as the JAX renderer
-        does for manual pallas-v2 options, and trace it through K5 unless
-        they set ``schedule``; a scene too small to cluster stays
-        unclustered, on K1 or, with ``layout="group"``, K6 (which refuses a
-        scene large enough to cluster: its layout carries no boxes).
-        ``version=1`` never clusters: K7 runs over every triangle.
+      opts: tracer options; None = ``tuned.auto_options`` for the scene.
+        ``tuned.prepare`` sorts the scene into its clusters for them, and
+        ``core.tracer.trace_route`` picks the kernels.
       seed: seed of the direction generator; renders draw from it in turn,
         so the sequence of IRs is reproducible.
       device: where the scene, the trace and the IR live. A CUDA device
@@ -81,17 +74,7 @@ class AudioRenderer:
         self.device = torch.device(device)
         self.n_rays = int(n_rays)
         self._auto_opts = opts is None
-        clusters = None
-        if opts is None:
-            opts, cluster_size = tuned.auto_options(scene.n_triangles,
-                                                    int(max_bounces))
-        elif opts.backend == "kernels" and opts.version == 2:
-            cluster_size = tuned.MANUAL_CLUSTER_SIZE
-        else:
-            cluster_size = None
-        if cluster_size is not None:
-            scene, clusters = accel.prepare_scene(scene,
-                                                  cluster_size=cluster_size)
+        opts, scene, clusters = tuned.prepare(scene, int(max_bounces), opts)
         self.opts = opts
         self.scene = scene
         self.sc = scene_to_arrays(scene, tri_chunk=128, device=self.device,

@@ -1,4 +1,5 @@
-"""Tracer options for a scene: one source of truth for the renderer.
+"""Tracer options for a scene: one source of truth for the renderer and
+the fit, which prepare their scene through :func:`prepare`.
 
 The counterpart of ``audiorenderingv2_tpu/tuned.py:auto_options``. It splits
 scenes as the JAX package does: below ``CLUSTER_THRESHOLD`` triangles the
@@ -24,6 +25,7 @@ from __future__ import annotations
 
 import os
 
+from . import accel
 from .core.tracer import TracerOptions
 
 CLUSTER_THRESHOLD = 512
@@ -69,6 +71,25 @@ def auto_options(n_triangles: int, max_bounces: int
     if int(n_triangles) >= CLUSTER_THRESHOLD:
         return clustered_scene_options(), CLUSTER_SIZE
     return small_scene_options(max_bounces), None
+
+
+def prepare(scene, max_bounces: int, opts: TracerOptions | None = None):
+    """``(opts, scene, clusters)`` for a renderer or a fit of ``scene``:
+    ``opts`` None takes :func:`auto_options`; explicit options of the
+    version-2 kernels cluster in ``MANUAL_CLUSTER_SIZE``, as the JAX
+    renderer does for manual pallas-v2 options; other options never
+    cluster. ``accel.prepare_scene`` Morton-sorts the scene and builds its
+    clusters, or leaves a scene under ``CLUSTER_THRESHOLD`` triangles as it
+    is (clusters None); pass both to ``core.tracer.scene_to_arrays``."""
+    if opts is None:
+        opts, cluster_size = auto_options(scene.n_triangles, max_bounces)
+    elif opts.backend == "kernels" and opts.version == 2:
+        cluster_size = MANUAL_CLUSTER_SIZE
+    else:
+        cluster_size = None
+    if cluster_size is None:
+        return opts, scene, None
+    return (opts, *accel.prepare_scene(scene, cluster_size=cluster_size))
 
 
 # ------------------------------------------------------------------------

@@ -1998,7 +1998,7 @@ def phase_multipose() -> tuple[dict, dict]:
         torch.zeros((4, 3), device=dev),
         torch.from_numpy(OFFICE_LISTENERS).to(dev),
         torch.from_numpy(MULTI_YAWS).to(dev), oparams, boxes=oboxes,
-        schedule=True)
+        route=rc.Route("sched", "sort"))
     binned_check(*oev, oparams, "office 1 x 4 matrix")
     return ({"trace_round_posed": launches["trace_round_posed"],
              "histogram_posed": launches["histogram_binned"],
@@ -2101,7 +2101,7 @@ def phase_banded() -> dict:
         torch.zeros((4, 3), device=dev),
         torch.from_numpy(OFFICE_LISTENERS).to(dev),
         torch.from_numpy(MULTI_YAWS).to(dev), _office_params(n_bands),
-        boxes=oboxes, schedule=True)
+        boxes=oboxes, route=rc.Route("sched", "sort"))
     binned_check(*oev, _office_params(n_bands),
                  f"office 1 x 4 matrix, {n_bands} bands")
     return {"trace_round_posed_4band": launches["trace_round_posed"]}
@@ -4367,11 +4367,13 @@ def per_ray_oracle(what: str, scene, sc, d: torch.Tensor, emitter,
 
     n, dev = d.shape[0], d.device
     packed, boxes = tracer.packed_scene(sc, params, rows, None, opts)
-    assert boxes is None and opts.layout == "rows" and opts.version == 2
+    route = tracer.trace_route(opts, params.n_bands, False)
+    assert boxes is None and route == rc.ROWS
     em_d, rec_d = (torch.as_tensor(np.asarray(x, np.float32), device=dev)
                    for x in (emitter, receiver))
     ev = rc.trace_events(packed, d, em_d, rec_d, float(yaw), params,
-                         compact=False, round_budgets=opts.round_budgets)
+                         route=route._replace(reorder=None),
+                         round_budgets=opts.round_budgets)
     # The same IR as the demo's trace: the partition only reorders rays.
     card_ev = tracer._histogram_from_events(*ev, params, False).cpu().numpy()
     np.testing.assert_allclose(card_ev, card, rtol=1e-4, atol=1e-12)
@@ -4592,7 +4594,8 @@ def demo_oracles_and_checks(tmp: Path) -> dict:
     pos0 = first_renders[0][1]
     ev = rc.trace_events(r.rows, d3, torch.zeros(3, device=dev),
                          torch.from_numpy(pos0).to(dev), 0.0, r.params,
-                         compact=False, round_budgets=r.opts.round_budgets)
+                         route=rc.Route("k1", None),
+                         round_budgets=r.opts.round_budgets)
     leaks = torch.nonzero(ev[1][:r.n_rays].abs().sum(dim=1)).flatten()
     leaks = leaks.cpu().tolist()
     assert len(leaks) <= 1e-4 * r.n_rays, len(leaks)

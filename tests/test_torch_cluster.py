@@ -24,6 +24,7 @@ torch.set_num_threads(1)
 SR = 16000
 REC = np.array([1.5, 0.5, -1.0], np.float32)
 EMITTER = np.array([0.5, -0.2, 0.1], np.float32)
+SCHED = rc.Route("sched", "sort")  # the schedule and K2, then the sort
 
 
 def _np(sc):
@@ -226,11 +227,11 @@ def test_run_rounds_reorders_through_the_key_wrapper(monkeypatch, n_poses):
     rec = torch.from_numpy(REC)
     if n_poses == 1:
         rc.trace_events(rows, d[0], torch.zeros(3), rec, 0.0, params,
-                        boxes=boxes, schedule=True)
+                        boxes=boxes, route=SCHED)
     else:
         rc.trace_events_pose_batch(
             rows, d, torch.zeros(n_poses, 3), rec.expand(n_poses, 3),
-            torch.zeros(n_poses), params, boxes=boxes, schedule=True)
+            torch.zeros(n_poses), params, boxes=boxes, route=SCHED)
     assert wrapped == plain == [n_poses] * 3
 
 
@@ -357,9 +358,10 @@ def test_clustered_route_takes_only_single_bounce_rounds():
             torch.from_numpy(REC), 0.0, params)
     with pytest.raises(ValueError, match="one bounce per round"):
         rc.trace_events(*args, boxes=boxes, round_budgets=(2, 2),
-                        schedule=True)
+                        route=SCHED)
     with pytest.raises(ValueError, match="one bounce per round"):
-        rc.trace_events(*args, boxes=boxes, compact=False, schedule=True)
+        rc.trace_events(*args, boxes=boxes, route=SCHED._replace(
+            reorder=None))
     with pytest.raises(ValueError, match="packed boxes"):
         t_tracer.trace_ir(sct, args[1], np.zeros(3), REC, 0.0, params,
                           rows=rows)

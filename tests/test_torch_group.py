@@ -103,7 +103,7 @@ def test_pack_tris_group_equals_jax(name, variant, n_bands):
     n_valid = {"plain": 12 if name == "box" else 320,
                "interior_invalid": 11, "untrimmed": 12}[variant]
     assert int((attrs[:, 3 + n_bands] > 0).sum()) == n_valid
-    (packed, none) = rc.pack_scene(sct, n_bands, layout="group")
+    (packed, none) = rc.pack_scene(sct, n_bands, rc.Route("k6"))
     assert none is None and torch.equal(packed[0], coeffs)
 
 
@@ -299,7 +299,7 @@ def test_trace_events_group_rounds_and_padding():
     args = (torch.from_numpy(d), torch.zeros(3), torch.from_numpy(rec), 10.0,
             tparams)
     got = rc.trace_events(rc.pack_tris_group(sct), *args,
-                          round_budgets=(2, 3, 3), layout="group")
+                          round_budgets=(2, 3, 3), route=rc.Route("k6"))
     rows = rc.trace_events(rc.pack_tris_rows(sct), *args,
                            round_budgets=(2, 3, 3))
     for g, r in zip(got, rows):
@@ -376,8 +376,8 @@ def test_group_options_are_checked():
     d = torch.from_numpy(_dirs(128, 0))
     with pytest.raises(ValueError, match="cannot carry cluster boxes"):
         rc.trace_events(rc.pack_tris_group(sct), d, torch.zeros(3),
-                        torch.from_numpy(rec), 0.0, params, layout="group",
-                        boxes=torch.zeros((1, 8)))
+                        torch.from_numpy(rec), 0.0, params,
+                        route=rc.Route("k6"), boxes=torch.zeros((1, 8)))
     # a caller's packed triangles must be those of the options' layout
     with pytest.raises(ValueError, match="not those of layout='group'"):
         t_tracer.trace_ir(sct, d, np.zeros(3), rec, 0.0, params,

@@ -101,9 +101,10 @@ def test_trace_events_pose_batch_matches_jax_and_single_pose(route):
     tparams = convert.trace_params_from_jax(params)
     rows, boxes = rc.pack_scene(sct)
     args = [torch.from_numpy(x) for x in (d, em, rcv, yaw)]
+    kernels = rc.Route("sched", "sort") if boxes is not None else rc.ROWS
     got = rc.trace_events_pose_batch(rows, *args, tparams,
                                      round_budgets=budgets, boxes=boxes,
-                                     schedule=route == "clustered")
+                                     route=kernels)
     assert got[0].shape == (p, 384) and got[1].shape == (p, 384, 1)
     assert got[2].dtype == torch.int32
     w_scale = float(np.abs(np.asarray(ref[1])).max())
@@ -116,7 +117,7 @@ def test_trace_events_pose_batch_matches_jax_and_single_pose(route):
     for i in range(p):
         one = rc.trace_events(rows, args[0][i], args[1][i], args[2][i],
                               float(yaw[i]), tparams, round_budgets=budgets,
-                              boxes=boxes, schedule=route == "clustered")
+                              boxes=boxes, route=kernels)
         for a, b in zip(got, one):
             assert torch.equal(a[i], b), f"pose {i} differs from its own trace"
 
@@ -189,14 +190,14 @@ def test_pose_batch_rejects_what_jax_rejects():
     with pytest.raises(ValueError, match="one bounce per round"):
         rc.trace_events_pose_batch(rows, d, em, rcv, yaw, tparams,
                                    round_budgets=(2, 3), boxes=boxes,
-                                   schedule=True)
+                                   route=rc.Route("sched", "sort"))
     with pytest.raises(ValueError, match="requires schedule=True"):
         rc.trace_events_pose_batch(rows, d, em, rcv, yaw, tparams,
-                                   boxes=boxes)
+                                   boxes=boxes, route=rc.Route("k5", "sort"))
     with pytest.raises(ValueError, match="deep paths would be truncated"):
         rc.trace_events_pose_batch(rows, d, em, rcv, yaw, tparams,
                                    round_budgets=(1, 1), boxes=boxes,
-                                   schedule=True)
+                                   route=rc.Route("sched", "sort"))
     with pytest.raises(ValueError, match="deep paths would be truncated"):
         rc.trace_events_pose_batch(rc.pack_tris_rows(box_t), d, em, rcv, yaw,
                                    tparams, round_budgets=(2, 2))

@@ -184,9 +184,9 @@ def test_clustered_round_spans(tmp_path):
 
 def _spy_rounds(monkeypatch):
     """Count the rays not done after each round's kernel, read from the
-    state, through the rounds' own hook; and the schedule's column 0."""
+    state, through ``trace_state``'s own hook; and the schedule's column 0."""
     after, sched_sums = [], []
-    real_rounds = rc._run_rounds
+    real_rounds = rc.trace_state
     real_sched = schedule_cuda.tile_schedule
 
     def rounds(*a, **k):
@@ -201,7 +201,7 @@ def _spy_rounds(monkeypatch):
             state, boxes)[:, 0].sum()))
         return out
 
-    monkeypatch.setattr(rc, "_run_rounds", rounds)
+    monkeypatch.setattr(rc, "trace_state", rounds)
     monkeypatch.setattr(schedule_cuda, "tile_schedule", sched)
     return after, sched_sums
 

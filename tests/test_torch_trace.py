@@ -157,12 +157,12 @@ def test_padding_rays_deposit_nothing():
     d = torch.from_numpy(_dirs(200, 4))  # pads to 256
     rows = rc.pack_tris_rows(sct)
     args = (rows, d, torch.zeros(3), torch.from_numpy(rec), 0.0, params)
-    ev_b, ev_w, ev_e = rc.trace_events(*args, compact=False)
+    ev_b, ev_w, ev_e = rc.trace_events(*args, route=rc.Route("k1", None))
     assert ev_w.shape == (256, 1)
     assert torch.all(ev_w[200:] == 0) and torch.all(ev_b[200:] == 0)
     assert torch.count_nonzero(ev_w[:200]) > 0
     # With compaction the slots are permuted, but the same events remain.
-    _, ev_w2, _ = rc.trace_events(*args, compact=True)
+    _, ev_w2, _ = rc.trace_events(*args, route=rc.Route("k1", "partition"))
     assert torch.equal(torch.sort(ev_w2[:, 0]).values,
                        torch.sort(ev_w[:, 0]).values)
     state = rc.init_state(d, torch.zeros(3), 1.0, 256)

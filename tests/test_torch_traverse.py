@@ -173,13 +173,13 @@ def test_trace_events_schedule_flag(budgets):
         sample_rate=SR, ir_length=SR, base_power=3.62, max_bounces=6))
     args = (rows, torch.from_numpy(_dirs(300, 4)), torch.from_numpy(EMITTER),
             torch.from_numpy(REC), 10.0, tparams)
-    ref = rc.trace_events(*args, boxes=boxes, schedule=True)
+    ref = rc.trace_events(*args, boxes=boxes, route=rc.Route("sched", "sort"))
     real = sc_cuda.tile_schedule
     try:
         sc_cuda.tile_schedule = None  # calling it would raise
         got = rc.trace_events(*args, boxes=boxes,
-                              round_budgets=budgets,
-                              compact=budgets != (6,))
+                              round_budgets=budgets, route=rc.Route(
+                                  "k5", "sort" if budgets != (6,) else None))
     finally:
         sc_cuda.tile_schedule = real
     if budgets is None:  # the same ray order at the end: slot for slot
@@ -222,7 +222,7 @@ def test_traverse_pose_batch_matches_single_poses():
     assert (state[rc._C_EVW] > 0).any()
     with pytest.raises(ValueError, match="requires schedule=True"):
         rc.trace_events_pose_batch(rows, d, em, rcv, yaw, tparams,
-                                   boxes=boxes)
+                                   boxes=boxes, route=rc.Route("k5", "sort"))
 
 
 def test_trace_ir_default_options_run_the_traversal(monkeypatch):

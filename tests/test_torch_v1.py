@@ -22,6 +22,7 @@ from audiorenderingv2_tpu_torch.renderer import AudioRenderer
 torch.set_num_threads(1)
 
 SR = 16000
+K7 = rc.Route("k7")  # the version-1 kernel, the row partition
 # name -> (mesh, receiver, triangle count the arrays are padded to)
 SCENES = {
     "box": (lambda: jt.box_room((12.0, 8.0, 10.0)), [2.0, 0.0, 1.0], 128),
@@ -78,7 +79,7 @@ def test_pack_tris_v1_equals_jax(name, n_cols):
     np.testing.assert_array_equal(got.numpy(), ref)
     assert torch.equal(got[15], sct.absorption)
     assert torch.equal(got[16], sct.valid)
-    packed, boxes = rc.pack_scene(sct, version=1)
+    packed, boxes = rc.pack_scene(sct, route=K7)
     assert boxes is None and torch.equal(packed, got)
 
 
@@ -163,7 +164,12 @@ def test_pack_tris_v1_errors():
     assert torch.equal(rc.pack_tris_v1(one), rc.pack_tris_v1(sct))
     # version 1 ignores cluster boxes: it never culls
     boxed = sct._replace(cluster_boxes=torch.zeros((1, 8)))
-    assert rc.pack_scene(boxed, version=1)[1] is None
+    assert rc.pack_scene(boxed, route=K7)[1] is None
+    params = convert.trace_params_from_jax(ar.TraceParams(sample_rate=SR,
+                                                          ir_length=SR))
+    assert t_tracer.packed_scene(boxed, params, rc.pack_tris_v1(sct),
+                                 torch.zeros((1, 8)),
+                                 t_tracer.TracerOptions(version=1))[1] is None
 
 
 # ------------------------------------------------------------- one round
@@ -286,7 +292,7 @@ def test_trace_events_v1_rounds_match_jax():
         10.0, params, rays_per_tile=128, interpret=True, version=1)
     got = rc.trace_events(rc.pack_tris_v1(sct), torch.from_numpy(d),
                           torch.zeros(3), torch.from_numpy(rec), 10.0,
-                          convert.trace_params_from_jax(params), version=1)
+                          convert.trace_params_from_jax(params), route=K7)
     assert got[1].shape == (1024, 1) and got[2].dtype == torch.int32
     for r, g in zip(ref, got):
         r = np.asarray(r)
@@ -319,9 +325,8 @@ def test_v1_with_bands_runs_the_differentiable_tracer(monkeypatch):
     ref = np.asarray(ar.trace_ir(sc, jnp.asarray(d), jnp.zeros(3),
                                  jnp.asarray(rec), 0.0, params, popts))
     topts = convert.tracer_options_from_jax(popts)
-    assert not t_tracer.runs_kernels(topts, tparams)
-    assert t_tracer.runs_kernels(topts, convert.trace_params_from_jax(
-        ar.TraceParams(sample_rate=SR, ir_length=SR)))
+    assert t_tracer.trace_route(topts, tparams.n_bands, False) is None
+    assert t_tracer.trace_route(topts, 1, False) == K7
     got = t_tracer.trace_ir(sct, torch.from_numpy(d), np.zeros(3), rec, 0.0,
                             tparams, topts)
     assert got.shape == ref.shape == (2, 3, SR)
@@ -349,7 +354,7 @@ def test_v1_refuses_what_jax_refuses():
     tris = rc.pack_tris_v1(sct)
     with pytest.raises(ValueError, match="directions=None needs version=2"):
         rc.trace_events(tris, None, torch.zeros(3), torch.from_numpy(rec),
-                        0.0, tparams, version=1, n_rays=128,
+                        0.0, tparams, route=K7, n_rays=128,
                         native_rng_seed=torch.tensor(3))
     with pytest.raises(ValueError, match="directions=None needs version=2"):
         rp.trace_events_pallas(rp.pack_tris(sc), None, jnp.zeros(3),
@@ -373,7 +378,7 @@ def test_v1_refuses_what_jax_refuses():
     with pytest.raises(ValueError, match="carries one band"):
         rc.trace_events(tris, torch.from_numpy(_dirs(128, 0)),
                         torch.zeros(3), torch.from_numpy(rec), 0.0, banded,
-                        version=1)
+                        route=K7)
     # native_rng with version 1 samples its directions, as in the JAX
     # package: the render runs and draws from the generator
     g = torch.Generator().manual_seed(1)
