@@ -34,40 +34,28 @@
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
+#include "trace_common.cuh"
+
 namespace {
 
 constexpr int kTile = 128;
 constexpr int kGroup = 32;        // clusters per superbox: one mask word
 constexpr int kBoxChunk = 1024;   // boxes per shared-memory chunk
 constexpr int kGroups = kBoxChunk / kGroup;
-constexpr float kEpsDir = 1e-20f;
 constexpr unsigned kFull = 0xffffffffu;
 enum { C_PX, C_PY, C_PZ, C_VX, C_VY, C_VZ, C_DONE = 9 };
-
-__device__ __forceinline__ float safe_inv(float v) {
-  return 1.0f / (fabsf(v) > kEpsDir ? v : (v >= 0.f ? kEpsDir : -kEpsDir));
-}
+using ar2::safe_inv;
 
 // One box in shared memory: (lo x, lo y, lo z, hi x), (hi y, hi z, flag, 0).
 struct Ray {
   bool live;
   float px, py, pz, ix, iy, iz;
 
-  // The plain version's slab test, in its order of operations.
+  // The plain version's slab test (trace_common.cuh: box_reached).
   __device__ __forceinline__ bool reaches(const float4* b) const {
-    const float4 a = b[0], c = b[1];
-    float t1 = (a.x - px) * ix;
-    float t2 = (a.w - px) * ix;
-    float tn = fminf(t1, t2), tf = fmaxf(t1, t2);
-    t1 = (a.y - py) * iy;
-    t2 = (c.x - py) * iy;
-    tn = fmaxf(tn, fminf(t1, t2));
-    tf = fminf(tf, fmaxf(t1, t2));
-    t1 = (a.z - pz) * iz;
-    t2 = (c.y - pz) * iz;
-    tn = fmaxf(tn, fminf(t1, t2));
-    tf = fminf(tf, fmaxf(t1, t2));
-    return live && tf >= fmaxf(tn, 0.f) && c.z > 0.f;
+    float entry;
+    return live &&
+           ar2::box_reached(b[0], b[1], px, py, pz, ix, iy, iz, entry);
   }
 };
 

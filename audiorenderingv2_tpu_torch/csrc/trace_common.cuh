@@ -3,8 +3,9 @@
 // triangle-row layouts, one ray's state in registers, the Moller-Trumbore
 // search over triangle rows (read as 17 scalars, or as float4 with rows
 // unrolled: K1, K2 and K5), the bounce tail, the hand-out of rays to the
-// lanes of a warp (K1, K7 and K6), and the bulk copies on mbarriers that K2
-// (a ring of them) and K5 stage cluster rows with.
+// lanes of a warp (K1, K7 and K6), the ray-box slab test of the schedule
+// (tile_schedule.cu) and K2's cull, and the bulk copies on mbarriers that
+// K2 (a ring of them) and K5 stage cluster rows with.
 //
 // The tail is the TPU kernel's (audiorenderingv2_tpu/ops/
 // raytrace_pallas_v2.py:_trace_round_kernel_v2, :692-747): the analytic
@@ -323,6 +324,38 @@ struct RayHandout {
     }
   }
 };
+
+// The clustered route's exact ray-box slab test, which the schedule
+// (tile_schedule.cu) and K2's per-warp cull both run, in the order of
+// operations of the plain version (ops/schedule_cuda.py:slab_pass):
+// 1 / v with |v| floored at 1e-20 (IEEE division), t = (lo - p) * inv,
+// entry = max(t_near, 0), reached when t_far >= entry and the box's flag
+// is set; `entry` is returned through its argument. A box is two float4:
+// (lo x, lo y, lo z, hi x), (hi y, hi z, flag, 0).
+constexpr float kEpsDir = 1e-20f;
+
+__device__ __forceinline__ float safe_inv(float v) {
+  return 1.0f / (fabsf(v) > kEpsDir ? v : (v >= 0.f ? kEpsDir : -kEpsDir));
+}
+
+__device__ __forceinline__ bool box_reached(float4 a, float4 c, float px,
+                                            float py, float pz, float ix,
+                                            float iy, float iz,
+                                            float& entry) {
+  float t1 = (a.x - px) * ix;
+  float t2 = (a.w - px) * ix;
+  float tn = fminf(t1, t2), tf = fmaxf(t1, t2);
+  t1 = (a.y - py) * iy;
+  t2 = (c.x - py) * iy;
+  tn = fmaxf(tn, fminf(t1, t2));
+  tf = fminf(tf, fmaxf(t1, t2));
+  t1 = (a.z - pz) * iz;
+  t2 = (c.y - pz) * iz;
+  tn = fmaxf(tn, fminf(t1, t2));
+  tf = fminf(tf, fmaxf(t1, t2));
+  entry = fmaxf(tn, 0.f);
+  return tf >= entry && c.z > 0.f;
+}
 
 // Bulk copies (K2's ring, K5): thread 0 copies a cluster's rows into a
 // shared-memory stage with one cp.async.bulk that completes on the stage's

@@ -56,10 +56,11 @@ _SIGNATURES = {
     "ar2_histogram_bwd": (_P, _P, _LL, _I, _I, _P, _P),
     # state, n, boxes, n_clusters, sched, width, stream
     "ar2_tile_schedule": (_P, _LL, _P, _I, _P, _I, _P),
-    # state, n, ncols, rows, cluster_size, sched, width, scal, n_poses,
-    # rays_per_pose, n_bands, layout_bands, max_bounces, stream
-    "ar2_trace_sched": (_P, _LL, _I, _P, _I, _P, _I, _P, _I, _LL, _I, _I, _I,
-                        _P),
+    # state, n, ncols, rows, cluster_size, boxes, sched, width, scal,
+    # n_poses, rays_per_pose, n_bands, layout_bands, max_bounces, visits,
+    # stream
+    "ar2_trace_sched": (_P, _LL, _I, _P, _I, _P, _P, _I, _P, _I, _LL, _I, _I,
+                        _I, _P, _P),
     # state, n_pad, ncols, n_real, scal, n_bands, layout_bands, stream
     "ar2_init_state": (_P, _LL, _I, _LL, _P, _I, _I, _P),
     # state, n, ncols, rows, cluster_size, boxes, n_clusters, scal, n_poses,

@@ -925,13 +925,19 @@ def _run_rounds(state: torch.Tensor, tris, boxes: torch.Tensor | None,
     at its start (for the first ``n_rays``, the rays launched; the reorder
     counts them for the next), and on the schedule route
     ``sched_candidates``, the tiles' reachable clusters summed, with
-    ``n_tiles`` once."""
+    ``n_tiles`` once, and ``sched_warp_visits``, the (warp, candidate)
+    pairs whose rows K2 tested: one tensor of a row a round is zeroed
+    before the rounds and summed after them, and only while counting."""
     # they build on this module
     from . import group_cuda, schedule_cuda, traverse_cuda, v1_cuda
 
     span, count = profiling.span, profiling.count
     kernel, ray_dim = route.kernel, route.ray_dim
     rays_per_pose = state.shape[ray_dim] // n_poses
+    visits = None
+    if kernel == "sched" and profiling.counting():
+        visits = torch.zeros((len(budgets), state.shape[1] // _LANES),
+                             dtype=torch.int32, device=state.device)
     for k, budget in enumerate(budgets):
         with span("ar2.trace.round"):
             if k == 0:
@@ -957,7 +963,7 @@ def _run_rounds(state: torch.Tensor, tris, boxes: torch.Tensor | None,
                 elif kernel == "sched":
                     state = schedule_cuda.trace_round_sched(
                         state, tris, boxes, sched, scal, params,
-                        rays_per_pose)
+                        rays_per_pose, None if visits is None else visits[k])
                 else:
                     state = traverse_cuda.trace_traverse(
                         state, tris, boxes, scal, params, budget,
@@ -974,6 +980,8 @@ def _run_rounds(state: torch.Tensor, tris, boxes: torch.Tensor | None,
                     keys = compaction_keys(state, n_poses=n_poses)
                 with span("ar2.trace.sort"):
                     state = _sort_state_by_keys(state, keys, n_poses)
+    if visits is not None:
+        profiling.count_each("sched_warp_visits", lambda: visits.sum(dim=1))
     return state
 
 

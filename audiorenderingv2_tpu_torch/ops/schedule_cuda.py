@@ -20,7 +20,11 @@ JAX package's ``to_tiles``). Each round of the clustered route runs:
   kernel ``raytrace_pallas_v2.py:_trace_round_kernel_v2`` (``use_sched``,
   launched by ``trace_round_v2``, :799): the candidate clusters' rows
   stream through a ring of shared-memory stages filled by bulk
-  asynchronous copies, and the FP32 intersection bounds it. With ``scal``
+  asynchronous copies, and the FP32 intersection bounds it. A warp of 32
+  rays tests a candidate's rows only when one of its live rays reaches the
+  candidate's box by the schedule's slab test, nearer than that ray's hit
+  so far: the tile's list is the union of what its four warps reach, and
+  a warp runs only its own part (``k2_search``). With ``scal``
   [P, 16] it is the posed form: tile ``i`` of a pose-major state reads the
   scalar row of pose ``i // tiles_per_pose``
   (``raytrace_pallas_v2.py:887-904``); the schedule is per tile and reads
@@ -48,6 +52,7 @@ trace_round_sched_launches = 0
 trace_round_sched_posed_launches = 0
 
 _TILE = 128
+_WARP = 32  # rays that share K2's per-warp cull of the tile's list
 _EPS_DIR = 1e-20  # direction components closer to 0 count as +-1e-20
 
 
@@ -169,48 +174,86 @@ def _members(sched: torch.Tensor, n_clusters: int) -> torch.Tensor:
     return member.scatter_(1, ids, True)[:, :n_clusters]
 
 
-def trace_round_sched_plain(state: torch.Tensor, rows: torch.Tensor,
-                            boxes: torch.Tensor, sched: torch.Tensor,
-                            scal: torch.Tensor, params: TraceParams,
-                            rays_per_pose: int | None = None
-                            ) -> torch.Tensor:
-    """Plain PyTorch version of K2: one bounce of every ray that is not
-    done, in place. Clusters are taken in ascending id order, each over the
-    rays whose tile lists it, with a strict running minimum (ties to the
-    lower row, as in the kernel); then K1's receiver test and bounce tail.
-    With ``scal`` [P, 16], ray ``i`` reads row ``i // rays_per_pose``."""
-    en_cols, evw_cols = rc.band_cols(params.n_bands)
-    state[rc._C_LTRI] = 0.0
-    idx = torch.nonzero(state[rc._C_DONE] == 0.0).squeeze(1)
-    if idx.numel() == 0:
-        return state
-    s = state[:, idx]
-    ray = [s[col] for col in range(rc._C_PX, rc._C_VZ + 1)]
+def k2_search(state: torch.Tensor, rows: torch.Tensor, boxes: torch.Tensor,
+              sched: torch.Tensor, scal: torch.Tensor, params: TraceParams,
+              rays_per_pose: int | None = None):
+    """K2's search of one bounce, with its per-warp cull: for the rays not
+    done (idx int64 [k], ascending), their nearest hits (t f32 [k], inf on
+    a miss; row int64 [k]), and int32 [N / 32], the clusters whose rows
+    each warp of 32 rays tested. Clusters are taken in ascending id order.
+    A warp tests a cluster its tile lists when some ray of the warp that
+    can take the bounce (not done, and within the distance, energy and
+    depth limits of its scalar row) reaches the cluster's box, by the
+    schedule's slab test, at an entry nearer than that ray's nearest hit
+    so far; then every ray of the warp tests the cluster's rows, with a
+    strict running minimum (ties to the lower row)."""
+    dev = state.device
     n_clusters = boxes.shape[0]
     cs = rows.shape[0] // n_clusters
-    member = _members(sched, n_clusters)
-    tile = idx // _TILE
+    tested = torch.zeros(state.shape[1] // _WARP, dtype=torch.int32,
+                         device=dev)
+    idx = torch.nonzero(state[rc._C_DONE] == 0.0).squeeze(1)
     best_t = torch.full((idx.numel(),), math.inf, dtype=torch.float32,
-                        device=state.device)
-    best_i = torch.zeros((idx.numel(),), dtype=torch.int64,
-                         device=state.device)
+                        device=dev)
+    best_i = torch.zeros((idx.numel(),), dtype=torch.int64, device=dev)
+    if idx.numel() == 0:
+        return idx, best_t, best_i, tested
+    s = state[:, idx]
+    alive = rc._can_continue(
+        s, rc.pose_rows(scal, idx, rays_per_pose).movedim(-1, 0),
+        rc.band_cols(params.n_bands)[0], params.max_bounces)
+    ray = s[rc._C_PX:rc._C_VZ + 1]
+    member = _members(sched, n_clusters)
+    tile, warp = idx // _TILE, idx // _WARP
     for c in range(n_clusters):
-        sel = torch.nonzero(member[tile, c]).squeeze(1)
+        cand = torch.nonzero(member[tile, c]).squeeze(1)  # its tiles' rays
+        if cand.numel() == 0:
+            continue
+        entry, ok = slab_pass(ray[:, None, cand], boxes[c:c + 1])
+        votes = ok[0, 0] & alive[cand] & (entry[0, 0] < best_t[cand])
+        visit = torch.zeros_like(tested, dtype=torch.bool)
+        visit[warp[cand[votes]]] = True
+        tested += visit
+        sel = cand[visit[warp[cand]]]
         if sel.numel() == 0:
             continue
-        t, i = rc._nearest_hit(*(x[sel] for x in ray),
-                               rows[c * cs:(c + 1) * cs])
+        t, i = rc._nearest_hit(*ray[:, sel], rows[c * cs:(c + 1) * cs])
         bt, bi = best_t[sel], best_i[sel]
         better = t < bt
         best_t[sel] = torch.where(better, t, bt)
         best_i[sel] = torch.where(better, i + c * cs, bi)
+    return idx, best_t, best_i, tested
+
+
+def trace_round_sched_plain(state: torch.Tensor, rows: torch.Tensor,
+                            boxes: torch.Tensor, sched: torch.Tensor,
+                            scal: torch.Tensor, params: TraceParams,
+                            rays_per_pose: int | None = None,
+                            visits: torch.Tensor | None = None
+                            ) -> torch.Tensor:
+    """Plain PyTorch version of K2: one bounce of every ray that is not
+    done, in place: :func:`k2_search`, then K1's receiver test and bounce
+    tail. With ``scal`` [P, 16], ray ``i`` reads row
+    ``i // rays_per_pose``. ``visits``, int32 [N / 128], has each tile's
+    (warp, cluster) tests added to it."""
+    en_cols, evw_cols = rc.band_cols(params.n_bands)
+    idx, best_t, best_i, tested = k2_search(state, rows, boxes, sched, scal,
+                                            params, rays_per_pose)
+    if visits is not None:
+        visits += tested.view(visits.shape[0], -1).sum(dim=1,
+                                                        dtype=torch.int32)
+    state[rc._C_LTRI] = 0.0
+    if idx.numel() == 0:
+        return state
+    s = state[:, idx]
     rc._bounce(s, rows, rc.pose_rows(scal, idx, rays_per_pose), en_cols,
                evw_cols, params.max_bounces, best=(best_t, best_i))
     state[:, idx] = s
     return state
 
 
-def _check_k2_inputs(state, rows, boxes, sched, scal, n_bands) -> None:
+def _check_k2_inputs(state, rows, boxes, sched, scal, n_bands,
+                     visits) -> None:
     rc._check_round(state, rows, scal, n_bands, 1)
     _check_schedule_inputs(state, boxes)
     n_clusters = boxes.shape[0]
@@ -224,33 +267,41 @@ def _check_k2_inputs(state, rows, boxes, sched, scal, n_bands) -> None:
         raise ValueError(f"sched must be int32 {list(want)}, got "
                          f"{sched.dtype} {list(sched.shape)}")
     _contiguous_on(state, sched=sched)
+    if visits is not None:
+        if visits.dtype != torch.int32 or tuple(visits.shape) != want[:1]:
+            raise ValueError(f"visits must be int32 [{want[0]}], got "
+                             f"{visits.dtype} {list(visits.shape)}")
+        _contiguous_on(state, visits=visits)
 
 
 def trace_round_sched(state: torch.Tensor, rows: torch.Tensor,
                       boxes: torch.Tensor, sched: torch.Tensor,
                       scal: torch.Tensor, params: TraceParams,
-                      rays_per_pose: int | None = None) -> torch.Tensor:
+                      rays_per_pose: int | None = None,
+                      visits: torch.Tensor | None = None) -> torch.Tensor:
     """K2: one bounce of ``state`` [ncols, N] over each tile's candidate
     clusters (``sched`` from :func:`tile_schedule`; ``rows``, ``boxes``
     from ``raytrace_cuda.pack_tris_clusters``), in place; returns
     ``state``. ``scal`` is one scalar row [16], or [P, 16] for a pose-major
-    state of P poses with ``rays_per_pose`` rays each. A CUDA tensor goes
-    to ``csrc/trace_sched.cu``, a CPU tensor to
-    :func:`trace_round_sched_plain`."""
+    state of P poses with ``rays_per_pose`` rays each. ``visits``, int32
+    [N / 128], has each tile's (warp, candidate) pairs whose rows the warp
+    tested added to it. A CUDA tensor goes to ``csrc/trace_sched.cu``, a
+    CPU tensor to :func:`trace_round_sched_plain`."""
     global trace_round_sched_launches, trace_round_sched_posed_launches
-    _check_k2_inputs(state, rows, boxes, sched, scal, params.n_bands)
+    _check_k2_inputs(state, rows, boxes, sched, scal, params.n_bands, visits)
     n_poses, rays_per_pose = rc.check_poses(state, scal, rays_per_pose)
     if state.device.type == "cpu":
         return trace_round_sched_plain(state, rows, boxes, sched, scal,
-                                       params, rays_per_pose)
+                                       params, rays_per_pose, visits)
     if state.device.type != "cuda":
         raise ValueError(f"no trace kernel for device {state.device}")
-    _check_aligned(rows=rows)
+    _check_aligned(rows=rows, boxes=boxes)
     err = _build.library().ar2_trace_sched(
         state.data_ptr(), state.shape[1], state.shape[0], rows.data_ptr(),
-        rows.shape[0] // boxes.shape[0], sched.data_ptr(), sched.shape[1],
-        scal.data_ptr(), n_poses, rays_per_pose, params.n_bands,
-        rc.layout_bands(params.n_bands), params.max_bounces,
+        rows.shape[0] // boxes.shape[0], boxes.data_ptr(), sched.data_ptr(),
+        sched.shape[1], scal.data_ptr(), n_poses, rays_per_pose,
+        params.n_bands, rc.layout_bands(params.n_bands), params.max_bounces,
+        None if visits is None else visits.data_ptr(),
         _build.stream(state.device))
     if scal.dim() == 2:
         trace_round_sched_posed_launches += 1

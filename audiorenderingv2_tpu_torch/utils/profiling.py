@@ -218,26 +218,32 @@ def collect():
     return Counters()
 
 
+def counting() -> bool:
+    """Whether ``count`` keeps values on this thread now: a profiler
+    records and a collector is open. Code that must set a counter's tensor
+    up before the work it counts asks this first, and sets nothing up when
+    it is False."""
+    return getattr(_local, "counters", None) is not None and _profiling()
+
+
 def count(name: str, fn, *, once: bool = False) -> None:
     """Keep ``fn()`` (a 0-dim integer tensor on the device, or a host
     number) under ``name`` in the collector open on this thread, appended
     to the name's list, or with ``once`` as its one value. With no profiler
     recording or no collector open it does nothing and ``fn`` is not
     called."""
-    counters = getattr(_local, "counters", None)
-    if counters is None or not _profiling():
+    if not counting():
         return
     if once:
-        counters.values[name] = fn()
+        _local.counters.values[name] = fn()
     else:
-        counters.values.setdefault(name, []).append(fn())
+        _local.counters.values.setdefault(name, []).append(fn())
 
 
 def count_each(name: str, fn) -> None:
     """Keep each value of ``fn()``, a 1-dim tensor on the device, appended
     to ``name``'s list in order, as ``count`` keeps one. Where ``count``
     does nothing this does nothing and ``fn`` is not called."""
-    counters = getattr(_local, "counters", None)
-    if counters is None or not _profiling():
+    if not counting():
         return
-    counters.values.setdefault(name, []).extend(fn().unbind(0))
+    _local.counters.values.setdefault(name, []).extend(fn().unbind(0))

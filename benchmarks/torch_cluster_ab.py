@@ -10,8 +10,13 @@ one bounce and the sort, after 16 bounces.
     python3 benchmarks/torch_cluster_ab.py --parent DIR [--rays N]
                                            [--out FILE]
 
-Both K2s are held bit for bit against K2's plain version, and both
-schedules' rows against the plain rows, on every state. (The K2 lever
+This checkout's K2 is held bit for bit against K2's plain version, and
+both schedules' rows against the plain rows, on every state; the rays on
+which the other checkout's K2 differs from the plain version are counted. Each state also
+gives K2's test count both ways: the tile union (every live ray of a tile
+tests every candidate) and under the per-warp cull (a warp's live rays
+test the candidates one of them reaches nearer than its hit so far), each
+with its bound. (The K2 lever
 variants that PERF.md section 6 cites live in the history of this script,
 at the commit that redesigned K2.)
 
@@ -50,6 +55,20 @@ def load_build_module(checkout: Path, name: str):
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
+
+
+def call_k2(lib, state, rows, cs: int, boxes, sched, scal,
+            max_bounces: int, stream) -> None:
+    """One single-pose, one-band launch of a library's K2 C entry, in the
+    form that library takes: since the per-warp cull it also takes the
+    boxes and a visits pointer (null here)."""
+    culled = len(lib.ar2_trace_sched.argtypes) == 16
+    err = lib.ar2_trace_sched(
+        state.data_ptr(), state.shape[1], state.shape[0], rows.data_ptr(),
+        cs, *((boxes.data_ptr(),) if culled else ()), sched.data_ptr(),
+        sched.shape[1], scal.data_ptr(), 1, state.shape[1], 1, 1,
+        max_bounces, *((None,) if culled else ()), stream)
+    assert err == 0, err
 
 
 def median_ms(fn, reps: int, setup=lambda: ()) -> float:
@@ -105,12 +124,8 @@ def main() -> int:
     cs = rows.shape[0] // boxes.shape[0]
 
     def k2(lib, state, sched, scal):
-        err = lib.ar2_trace_sched(
-            state.data_ptr(), state.shape[1], state.shape[0],
-            rows.data_ptr(), cs, sched.data_ptr(), sched.shape[1],
-            scal.data_ptr(), 1, state.shape[1], 1, 1, params.max_bounces,
-            stream)
-        assert err == 0, err
+        call_k2(lib, state, rows, cs, boxes, sched, scal, params.max_bounces,
+                stream)
         return state
 
     def schedule(lib, state):
@@ -149,12 +164,21 @@ def main() -> int:
                 f"{who} schedule rows differ on {name}"
         plain = sc.trace_round_sched_plain(st.clone(), rows, boxes,
                                            plain_rows, scal, params)
+        differ = {}
         for who, lib in libs.items():
             got = k2(lib, st.clone(), plain_rows, scal)
-            assert torch.equal(got, plain), f"{who} K2 differs on {name}"
+            differ[who] = int((got != plain).any(dim=0).sum())
+        # The other checkout's K2 may differ by design; this tree's may not.
+        assert differ["tree"] == 0, f"tree K2 differs on {name}: {differ}"
         live = (st[rc._C_DONE] == 0)
         counts = plain_rows[:, 0].double()
         tests = int((live.view(-1, 128).sum(1).double() * counts).sum()) * cs
+        # Under the per-warp cull a warp's live rays test only the
+        # candidates one of them reaches nearer than its hit so far.
+        tested = sc.k2_search(st, rows, boxes, plain_rows, scal,
+                              params)[3].double()
+        warp_tests = int((live.view(-1, 32).sum(1).double()
+                          * tested).sum()) * cs
         times: dict[str, list[float]] = {}
         order = list(libs.items())
         for pass_order in (order, order[::-1]):
@@ -169,6 +193,12 @@ def main() -> int:
             "candidates_per_live_tile": float(counts[counts > 0].mean()),
             "tests": tests,
             "k2_bound_ms": tests * TRI_TEST_OPS / FP32_OPS_PER_S * 1e3,
+            "rays_differing_from_plain": differ,
+            "warp_pairs": int(tested.sum()),
+            "union_pairs": 4 * int(counts.sum()),
+            "warp_tests": warp_tests,
+            "k2_warp_bound_ms": warp_tests * TRI_TEST_OPS / FP32_OPS_PER_S
+            * 1e3,
             "schedule_bytes_bound_ms": (7 * 4 * st.shape[1]
                                         + boxes.numel() * 4
                                         + plain_rows.numel() * 4)
@@ -178,7 +208,10 @@ def main() -> int:
             "ms": times}
         result["states"][name] = row
         print(f"{name}: {row['candidates_per_live_tile']:.2f} candidates per "
-              f"live tile, K2 bound {row['k2_bound_ms']:.4f} ms; " + "; ".join(
+              f"live tile, K2 bound {row['k2_bound_ms']:.4f} ms (warp-culled "
+              f"{row['k2_warp_bound_ms']:.4f}: {warp_tests} of {tests} "
+              f"tests); rays differing from the plain K2 {differ}; "
+              + "; ".join(
                   f"{k} {v[0]:.3f}/{v[1]:.3f}" for k, v in times.items()),
               flush=True)
     line = json.dumps(result)

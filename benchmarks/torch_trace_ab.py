@@ -145,7 +145,8 @@ REPO = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(REPO))
 sys.path.insert(0, str(Path(__file__).resolve().parent))
 
-from torch_cluster_ab import load_build_module, median_ms  # noqa: E402
+from torch_cluster_ab import (call_k2, load_build_module,  # noqa: E402
+                              median_ms)
 
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
@@ -1063,11 +1064,8 @@ def k2_phase(libs, n: int) -> dict:
         sched = sc.tile_schedule_plain(st, boxes)
 
         def call(lib, s):
-            err = lib.ar2_trace_sched(
-                s.data_ptr(), s.shape[1], s.shape[0], rows.data_ptr(), 32,
-                sched.data_ptr(), sched.shape[1], scal.data_ptr(), 1,
-                s.shape[1], 1, 1, params.max_bounces, stream)
-            assert err == 0, err
+            call_k2(lib, s, rows, 32, boxes, sched, scal, params.max_bounces,
+                    stream)
             return s
 
         plain = sc.trace_round_sched_plain(st.clone(), rows, boxes, sched,

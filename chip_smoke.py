@@ -42,8 +42,11 @@ Phases, in order; any failure raises and the script exits non-zero:
    office render (round 1 unsorted, after one bounce and the sort, after
    16 bounces) at 65,536 and 1,000,064 rays, at 1, 4 and 8 bands in
    clusters of 32 and at 1 band in clusters of 128: schedule rows equal to
-   the plain rows, K2 bit-identical to its plain version; their times at
-   the three states beside their bounds; and a whole 32-round office trace
+   the plain rows, K2 bit-identical to its plain version and its per-tile
+   warp visits (the (warp, candidate) pairs whose rows a warp tested, its
+   cull) equal to the plain version's; the warp-culled test count beside
+   the tile union's; their times at the three states beside their bounds
+   (K2's on both counts); and a whole 32-round office trace
    at 65,536 rays, the kernels' chain bit-identical to the plain chain
    after every round; one office trace at 1M rays x 32 rounds by stage
    (schedule, K2, keys, sort), CUDA events around each;
@@ -60,7 +63,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    segment against a single-pose K1 launch, at 1 band and at 4 bands (24
    state columns). K2: the office, 4 poses x 250,112 rays, one round after
    a bounce and the per-pose sort, bit for bit against the plain version
-   and against single-pose K2 launches, at 1 and 4 bands; times of both;
+   (its warp visits too) and against single-pose K2 launches, at 1, 4 and
+   8 bands; times of both;
 9. K4, the state-initialising kernel with in-kernel Philox directions, at
    1,000,064 rays (1,000,000 real) and 1 and 4 bands against its plain
    version: every exactly rounded column bit-equal (VZ carries the second
@@ -908,6 +912,23 @@ def k2_work(state: torch.Tensor, sched: torch.Tensor, cs: int) -> int:
     return int((alive.double() * sched[:, 0].double()).sum()) * cs
 
 
+def k2_warp_work(state: torch.Tensor, sched: torch.Tensor, rows, boxes,
+                 scal, params, rays_per_pose=None) -> tuple[int, int]:
+    """K2's work under its per-warp cull: (the (warp, candidate) pairs
+    whose rows a warp tests, by ``schedule_cuda.k2_search``, the kernel's
+    rule; the ray-triangle tests of those pairs, every ray of the warp
+    that is not done testing the cluster's rows), the counterpart of
+    :func:`k2_work`'s tile-union count."""
+    from audiorenderingv2_tpu_torch.ops import raytrace_cuda as rc
+    from audiorenderingv2_tpu_torch.ops import schedule_cuda as sc
+
+    tested = sc.k2_search(state, rows, boxes, sched, scal, params,
+                          rays_per_pose)[3].double()
+    alive = (state[rc._C_DONE] == 0).view(-1, 32).sum(dim=1).double()
+    cs = rows.shape[0] // boxes.shape[0]
+    return int(tested.sum()), int((alive * tested).sum()) * cs
+
+
 @functools.cache
 def _office_packed(cs: int, n_bands: int):
     """The office in clusters of ``cs`` on the card, packed for ``n_bands``
@@ -982,19 +1003,30 @@ def cluster_state_check(n: int, n_bands: int, cs: int,
         sp = sc.tile_schedule_plain(st, boxes)
         torch.cuda.synchronize()
         assert torch.equal(sk, sp), f"{what}: schedule rows differ"
+        kv, pv = (torch.zeros(sk.shape[0], dtype=torch.int32,
+                              device=st.device) for _ in range(2))
         kern = sc.trace_round_sched(st.clone(), rows, boxes, sk, scal,
-                                    params)
+                                    params, visits=kv)
         plain = sc.trace_round_sched_plain(st.clone(), rows, boxes, sk,
-                                           scal, params)
+                                           scal, params, visits=pv)
         torch.cuda.synchronize()
         _assert_same_bits(kern, plain, f"{what}: K2")
+        assert torch.equal(kv, pv), f"{what}: K2's warp visits differ"
         counts = sk[:, 0].double()
         live = counts > 0
+        union_tests = k2_work(st, sk, cs)
+        pairs, warp_tests = k2_warp_work(st, sk, rows, boxes, scal, params)
+        assert pairs == int(kv.sum())
         line = (f"{what}: schedule rows equal the plain rows, K2 "
-                f"bit-identical to its plain version; candidates per live "
+                f"bit-identical to its plain version, its warp visits equal "
+                f"the plain ones; candidates per live "
                 f"tile {float(counts[live].mean()):.2f} (max "
                 f"{int(counts.max())}, {int(live.sum())} of {sk.shape[0]} "
-                f"tiles live)")
+                f"tiles live); warps test {pairs} (warp, candidate) pairs "
+                f"of the tile union's {4 * int(counts.sum())} "
+                f"({100.0 * pairs / max(1, 4 * int(counts.sum())):.1f}%); "
+                f"ray-triangle tests {warp_tests} warp-culled, "
+                f"{union_tests} tile union")
         if timed:
             n_live = int((st[rc._C_DONE] == 0).sum())
             k2 = {"ms": median_ms(
@@ -1002,7 +1034,12 @@ def cluster_state_check(n: int, n_bands: int, cs: int,
                                                params), 5,
                 setup=lambda: (st.clone(),)),
                   **bound(2 * nbytes(st) + nbytes(sk, rows, scal),
-                          k2_work(st, sk, cs) * TRI_TEST_OPS)}
+                          union_tests * TRI_TEST_OPS),
+                  "warp_bound_ms": bound(
+                      2 * nbytes(st) + nbytes(sk, rows, scal),
+                      warp_tests * TRI_TEST_OPS)["bound_ms"],
+                  "tests": union_tests, "warp_tests": warp_tests,
+                  "warp_pairs": pairs}
             sched = {"ms": median_ms(lambda: sc.tile_schedule(st, boxes),
                                      10),
                      **bound(7 * 4 * st.shape[1] + nbytes(boxes, sk), 0),
@@ -1011,7 +1048,9 @@ def cluster_state_check(n: int, n_bands: int, cs: int,
                              "bound_ms"]}
             out[name] = {"trace_round_sched": k2, "tile_schedule": sched}
             line += (f"; K2 {k2['ms']:.3f} ms (bound {k2['bound_ms']:.4f}, "
-                     f"{k2['ms'] / k2['bound_ms']:.1f}x), schedule "
+                     f"{k2['ms'] / k2['bound_ms']:.1f}x; on the warp-culled "
+                     f"tests {k2['warp_bound_ms']:.4f}, "
+                     f"{k2['ms'] / k2['warp_bound_ms']:.1f}x), schedule "
                      f"{sched['ms']:.3f} ms (bytes bound "
                      f"{sched['bound_ms']:.4f}; all-pairs "
                      f"{sched['all_pairs_bound_ms']:.4f})")
@@ -1482,12 +1521,17 @@ def posed_sched_check(n_bands: int) -> dict:
                                n_pad)
     st1 = rc._sort_state_by_keys(st1, rc._compaction_keys(st1, n_poses=p), p)
     sched = sc.tile_schedule(st1, boxes)
+    kv, pv = (torch.zeros(sched.shape[0], dtype=torch.int32, device=dev)
+              for _ in range(2))
     kern = sc.trace_round_sched(st1.clone(), rows, boxes, sched, scal,
-                                params, n_pad)
+                                params, n_pad, kv)
     plain = sc.trace_round_sched_plain(st1.clone(), rows, boxes, sched, scal,
-                                       params, n_pad)
+                                       params, n_pad, pv)
     torch.cuda.synchronize()
     err = _assert_same_bits(kern, plain, f"posed K2, {n_bands} band(s)")
+    assert torch.equal(kv, pv), f"posed K2, {n_bands} band(s): warp visits"
+    pairs, warp_tests = k2_warp_work(st1, sched, rows, boxes, scal, params,
+                                     n_pad)
     tiles = n_pad // 128
     for i in range(p):
         seg = slice(i * n_pad, (i + 1) * n_pad)
@@ -1508,18 +1552,28 @@ def posed_sched_check(n_bands: int) -> dict:
                                              params, n_pad), 2,
         setup=lambda: (st1.clone(),))
     cs = rows.shape[0] // boxes.shape[0]
+    union_tests = k2_work(st1, sched, cs)
     k2_bound = bound(2 * nbytes(st1) + nbytes(sched, rows, scal),
-                     k2_work(st1, sched, cs) * TRI_TEST_OPS)
+                     union_tests * TRI_TEST_OPS)
+    warp_bound = bound(2 * nbytes(st1) + nbytes(sched, rows, scal),
+                       warp_tests * TRI_TEST_OPS)["bound_ms"]
     log(f"K1-pose, schedule, {n_bands} band(s), office, {p} poses x {n_pad} "
         f"rays ({n} real), one round after a bounce and the per-pose sort, "
         f"{kern.shape[0]} columns: K2 bit-identical to the plain version in "
-        f"every column, and every pose's segment to a single-pose launch; "
+        f"every column, its warp visits equal to the plain ones, and every "
+        f"pose's segment to a single-pose launch; "
         f"candidates per live tile mean "
-        f"{float(counts[counts > 0].mean()):.2f}; kernel {ms:.3f} ms, plain "
+        f"{float(counts[counts > 0].mean()):.2f}; warps test {pairs} "
+        f"(warp, candidate) pairs of the tile union's "
+        f"{4 * int(counts.sum())}; ray-triangle tests {warp_tests} "
+        f"warp-culled, {union_tests} tile union; kernel {ms:.3f} ms, plain "
         f"{plain_ms:.3f} ms, bound {k2_bound['bound_ms']:.4f} ms by "
-        f"{k2_bound['bound_by']}; per-pose keys + sort + gather "
+        f"{k2_bound['bound_by']} (on the warp-culled tests "
+        f"{warp_bound:.4f}); per-pose keys + sort + gather "
         f"{sort_ms:.3f} ms")
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **k2_bound,
+            "warp_bound_ms": warp_bound, "tests": union_tests,
+            "warp_tests": warp_tests, "warp_pairs": pairs,
             "library_ms": None}
 
 
@@ -1531,6 +1585,7 @@ def phase_pose_kernels() -> dict:
            "trace_round_posed_4band": posed_rows_check(4),
            "trace_round_sched_posed": posed_sched_check(1)}
     posed_sched_check(4)
+    posed_sched_check(8)
     return out
 
 
@@ -3799,7 +3854,7 @@ class LaunchRecorder:
         return out
 
     def _k2(self, state, rows, boxes, sched, scal, params,
-            rays_per_pose=None):
+            rays_per_pose=None, visits=None):
         from audiorenderingv2_tpu_torch.ops import raytrace_cuda as rc
 
         p, rpp = rc.check_poses(state, scal, rays_per_pose)
@@ -3808,7 +3863,8 @@ class LaunchRecorder:
                  else cols.view(-1, 128)[:, 0] // 128)
         before, sched_part = state[:, cols].clone(), sched[tiles].clone()
         out = self._orig["trace_round_sched"](state, rows, boxes, sched,
-                                              scal, params, rays_per_pose)
+                                              scal, params, rays_per_pose,
+                                              visits)
         name = ("trace_round_sched_posed" if scal.dim() == 2
                 else "trace_round_sched")
         self.records.append((name, (before, rows, boxes, sched_part, scal,

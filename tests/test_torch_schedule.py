@@ -240,3 +240,217 @@ def test_two_level_schedule_equals_plain_rows(which):
     if which == "tiles_done":
         assert not want[10:40].any() and not want[-3:].any()
         assert 0 < int(want[50, 0]) < int(counts.max())
+
+
+# ------------------------------------------------- K2's per-warp cull
+
+@functools.cache
+def _ico_packed(n_bands: int):
+    """The 1,280-triangle icosphere in clusters of 32, packed for
+    ``n_bands`` bands of absorptions that differ by triangle and band:
+    (rows, boxes [40, 8])."""
+    v, t = tt.icosphere(radius=6.0, subdivisions=3)
+    absorb = np.linspace(0.1, 0.5, t.shape[0] * n_bands).astype(
+        np.float32).reshape(t.shape[0], n_bands)
+    scene = tt.scene_from_arrays(v, t, absorb if n_bands > 1 else 0.2)
+    sorted_scene, clusters = accel.prepare_scene(scene, cluster_size=32)
+    return rc.pack_tris_clusters(tracer.scene_to_arrays(
+        sorted_scene, 128, clusters=clusters, device="cpu"), n_bands)
+
+
+@functools.cache
+def _office_packed(n_bands: int):
+    """The office in clusters of 32 packed for ``n_bands`` bands (its one
+    absorption in every band): (rows, boxes [621, 8])."""
+    if n_bands == 1:
+        return office()[1:]
+    sorted_scene, clusters = accel.prepare_scene(tt.office_scene(20000),
+                                                 cluster_size=32)
+    return rc.pack_tris_clusters(tracer.scene_to_arrays(
+        sorted_scene, 128, clusters=clusters, device="cpu"), n_bands)
+
+
+def _k2_start(n_poses: int, n: int, n_bands: int, emitters):
+    """A start state of ``n_poses`` poses x ``n`` rays (pose-major) and its
+    scalar rows: [16] for one pose, [P, 16] for several."""
+    params = TraceParams(sample_rate=16000, ir_length=32000, base_power=3.62,
+                         max_bounces=32, hrtf_absorption_rate=0.9,
+                         n_bands=n_bands)
+    d = np.random.default_rng(11 + n_poses).normal(size=(n_poses, n, 3))
+    d = torch.from_numpy((d / np.linalg.norm(d, axis=2, keepdims=True))
+                         .astype(np.float32))
+    em = torch.tensor(emitters[:n_poses], dtype=torch.float32)
+    rec = em + torch.tensor([1.5, 0.5, -1.0])
+    e0 = params.base_power / (n * constants.SPHERE_VOLUME)
+    state = rc.init_state(d, em, e0, n, n_bands).reshape(
+        rc.state_ncols(n_bands), -1)
+    yaws = torch.linspace(0.0, 90.0, n_poses)
+    scal = rc.scalars(em, rec, yaws, e0, params)
+    if n_poses == 1:
+        state, scal = state, scal[0].contiguous()
+    return state, scal, params
+
+
+def _tile_union(state, rows, boxes, sched, scal, params, rays_per_pose):
+    """K2's plain version as it was before the per-warp cull, in place:
+    every ray of a tile that is not done tests the rows of every cluster
+    its tile lists, in ascending id order with a strict running minimum,
+    then K1's receiver test and bounce tail."""
+    en_cols, evw_cols = rc.band_cols(params.n_bands)
+    state[rc._C_LTRI] = 0.0
+    idx = torch.nonzero(state[rc._C_DONE] == 0.0).squeeze(1)
+    s = state[:, idx]
+    ray = s[rc._C_PX:rc._C_VZ + 1]
+    c_all = boxes.shape[0]
+    cs = rows.shape[0] // c_all
+    member = sc._members(sched, c_all)
+    best_t = torch.full((idx.numel(),), float("inf"))
+    best_i = torch.zeros((idx.numel(),), dtype=torch.int64)
+    for c in range(c_all):
+        sel = torch.nonzero(member[idx // 128, c]).squeeze(1)
+        t, i = rc._nearest_hit(*ray[:, sel], rows[c * cs:(c + 1) * cs])
+        better = t < best_t[sel]
+        best_t[sel] = torch.where(better, t, best_t[sel])
+        best_i[sel] = torch.where(better, i + c * cs, best_i[sel])
+    rc._bounce(s, rows, rc.pose_rows(scal, idx, rays_per_pose), en_cols,
+               evw_cols, params.max_bounces, best=(best_t, best_i))
+    state[:, idx] = s
+    return state
+
+
+@pytest.mark.parametrize("n_poses", [1, 4])
+@pytest.mark.parametrize("n_bands", [1, 8])
+@pytest.mark.parametrize("which", ["office", "ico"])
+def test_warp_cull_equals_tile_union(which, n_bands, n_poses):
+    """The warp-culled plain K2 gives every column, bit for bit, what the
+    tile-union K2 gave, from the start state and after two bounces (each
+    bounce a schedule, the culled K2 and the per-pose dir72 sort); and it
+    culls: the warps test fewer (warp, candidate) pairs than four a
+    candidate, so the comparison is not vacuous."""
+    rows, boxes = (_office_packed if which == "office" else
+                   _ico_packed)(n_bands)
+    emitters = ([[0.0, 0.0, 0.0], [3.0, 1.0, -2.0], [-4.0, 2.0, 5.0],
+                 [8.0, -1.0, 6.0]] if which == "office" else
+                [[0.5, -0.2, 0.1], [2.0, 1.0, -1.0], [-1.5, 0.5, 2.0],
+                 [0.0, -3.0, 0.0]])
+    n = 1024 // n_poses
+    state, scal, params = _k2_start(n_poses, n, n_bands, emitters)
+    rpp = n if n_poses > 1 else None
+    culled = visited = 0
+    for step in range(3):
+        if step in (0, 2):  # the start state, then after two bounces
+            sched = sc.tile_schedule_plain(state, boxes)
+            visits = torch.zeros(state.shape[1] // 128, dtype=torch.int32)
+            got = sc.trace_round_sched_plain(state.clone(), rows, boxes,
+                                             sched, scal, params, rpp,
+                                             visits)
+            want = _tile_union(state.clone(), rows, boxes, sched, scal,
+                               params, rpp)
+            for c in range(state.shape[0]):
+                assert torch.equal(got[c], want[c]), (
+                    f"{which}, step {step}, column {c}: "
+                    f"{int((got[c] != want[c]).sum())} rays differ")
+            assert (want[rc._C_LTRI] > 0).any()
+            visited += int(visits.sum())
+            culled += 4 * int(sched[:, 0].sum()) - int(visits.sum())
+        sched = sc.tile_schedule_plain(state, boxes)
+        state = sc.trace_round_sched_plain(state, rows, boxes, sched, scal,
+                                           params, rpp)
+        state = rc._sort_state_by_keys(
+            state, rc._compaction_keys(state, n_poses=n_poses), n_poses)
+    assert visited > 0 and culled > 0
+
+
+def _walls(xs=(-5.0, 3.0, 5.0)):
+    """Walls of 16 triangles each at the planes x in ``xs`` (4 x 4 m, a
+    2 x 4 grid of quads), in clusters of 16 taken in the mesh's order:
+    (rows, boxes [len(xs), 8]), one cluster a wall."""
+    verts, tris = [], []
+    for x in xs:
+        base = len(verts)
+        for j in range(3):
+            for i in range(5):
+                verts.append((x, -2.0 + 2.0 * j, -2.0 + i))
+        for j in range(2):
+            for i in range(4):
+                a = base + j * 5 + i
+                tris += [(a, a + 1, a + 5), (a + 1, a + 6, a + 5)]
+    scene = tt.scene_from_arrays(np.array(verts, np.float32),
+                                 np.array(tris, np.int32), 0.3)
+    return rc.pack_tris_clusters(tracer.scene_to_arrays(
+        scene, 128, clusters=accel.build_clusters(scene, 16), device="cpu"))
+
+
+def test_warp_visits_hand_count():
+    """One tile at the origin among three walls, at x = -5, +3 and +5 (in
+    that cluster order): warp 0 faces +x but for one lane that faces -x,
+    warp 1 faces +x, warp 2 faces -x, warp 3 is done. The schedule lists
+    the three walls, so the tile union would test 4 x 3 pairs; the warps
+    test 2 + 1 + 1 + 0 = 4: the wall at +5 is reached only past the hit at
+    +3, and a warp facing one way reaches nothing behind it. Every live ray
+    hits the nearest wall it faces."""
+    rows, boxes = _walls()
+    assert boxes.shape[0] == 3
+    rng = np.random.default_rng(5)
+    v = np.zeros((128, 3), np.float32)
+    v[:, 1:] = rng.uniform(-0.1, 0.1, size=(128, 2))
+    v[:, 0] = np.where(np.arange(128) < 64, 1.0, -1.0)
+    v[7, 0] = -1.0
+    v /= np.linalg.norm(v, axis=1, keepdims=True)
+    state = rays_state(np.zeros((128, 3), np.float32), v)
+    state[rc._C_EN] = 1.0
+    state[rc._C_DONE, 96:] = 1.0
+    params = TraceParams(sample_rate=16000, ir_length=32000,
+                         max_bounces=32)
+    scal = rc.scalars(torch.zeros(3), torch.tensor([0.0, 50.0, 0.0]), 0.0,
+                      1.0, params)
+    sched = sc.tile_schedule(state, boxes)
+    assert sched[0, 0] == 3
+    visits = torch.zeros(1, dtype=torch.int32)
+    out = sc.trace_round_sched(state.clone(), rows, boxes, sched, scal,
+                               params, visits=visits)
+    assert int(visits) == 4 < 4 * int(sched[0, 0])
+    hit = out[rc._C_LTRI, :96].long() - 1        # the row each ray hit
+    wall_x = boxes[hit // (rows.shape[0] // 3), 0]
+    vx = state[rc._C_VX, :96]
+    assert torch.equal(wall_x, torch.where(vx > 0, 3.0, -5.0))
+    assert torch.allclose(out[rc._C_DIST, :96], wall_x / vx)
+    assert torch.equal(out[:, 96:], state[:, 96:])
+
+
+@pytest.mark.parametrize("which", ["office", "ico"])
+def test_warp_visits_at_most_four_a_candidate(which):
+    """Each tile's warps test at most four times its candidates, fewer
+    over all tiles; a tile with no live ray tests none."""
+    rows, boxes = (_office_packed if which == "office" else
+                   _ico_packed)(1)
+    state = (office_after_one_bounce(2048).clone() if which == "office"
+             else _k2_start(1, 1024, 1, [[0.5, -0.2, 0.1]])[0])
+    state[rc._C_DONE, 128:256] = 1.0  # a tile with no live ray
+    params = TraceParams(sample_rate=16000, ir_length=32000, base_power=3.62,
+                         max_bounces=32, hrtf_absorption_rate=0.9)
+    scal = rc.scalars(torch.zeros(3), torch.tensor([6.0, 1.0, -8.0]), 0.0,
+                      1e-6, params)
+    sched = sc.tile_schedule_plain(state, boxes)
+    visits = torch.zeros(state.shape[1] // 128, dtype=torch.int32)
+    sc.trace_round_sched(state.clone(), rows, boxes, sched, scal, params,
+                         visits=visits)
+    counts = sched[:, 0]
+    assert bool((visits <= 4 * counts).all())
+    assert visits[1] == counts[1] == 0
+    assert 0 < int(visits.sum()) < 4 * int(counts.sum())
+
+
+@pytest.mark.parametrize("bad", ["int64", "length", "strided", "2d"])
+def test_trace_round_sched_rejects_bad_visits(bad):
+    rows, boxes = _ico_packed(1)
+    state, scal, params = _k2_start(1, 256, 1, [[0.5, -0.2, 0.1]])
+    sched = sc.tile_schedule(state, boxes)
+    visits = {"int64": torch.zeros(2, dtype=torch.int64),
+              "length": torch.zeros(3, dtype=torch.int32),
+              "strided": torch.zeros(4, dtype=torch.int32)[::2],
+              "2d": torch.zeros((1, 2), dtype=torch.int32)}[bad]
+    match = "must be contiguous" if bad == "strided" else "visits must be"
+    with pytest.raises(ValueError, match=match):
+        sc.trace_round_sched(state, rows, boxes, sched, scal, params,
+                             visits=visits)

@@ -239,6 +239,44 @@ def test_counter_values(route, tmp_path, monkeypatch):
         assert rec[k] == v
 
 
+def _spy_k2_visits(monkeypatch) -> list:
+    """The ``visits`` each K2 call of the rounds is given (None, or the
+    tensor the kernel adds to, cloned after the call)."""
+    seen = []
+    real = schedule_cuda.trace_round_sched
+
+    def spy(*a, **k):
+        out = real(*a, **k)
+        v = a[7] if len(a) > 7 else k.get("visits")
+        seen.append(None if v is None else v.clone())
+        return out
+
+    monkeypatch.setattr(schedule_cuda, "trace_round_sched", spy)
+    return seen
+
+
+def test_warp_visits_only_while_counting(tmp_path, monkeypatch):
+    """Untraced, K2 is given no counter (the kernel then gets a null
+    pointer); traced, ``sched_warp_visits`` holds each round's (warp,
+    candidate) tests, the sum of what that round's K2 added, at most four
+    times the round's candidates, and fewer over the cycle than the tile
+    union's four a candidate."""
+    r = office_renderer()
+    seen = _spy_k2_visits(monkeypatch)
+    r.render()
+    assert len(seen) == 4 and all(v is None for v in seen)
+    assert "sched_warp_visits" not in r.counters
+    seen.clear()
+    traced(tmp_path, lambda: r.full_render_cycle(
+        r.receiver_pos, r.receiver_yaw_deg, torch.ones(SIGNAL)))
+    got = r.counters
+    visits, cand = got["sched_warp_visits"], got["sched_candidates"]
+    assert visits == [int(v.sum()) for v in seen]
+    assert len(visits) == len(cand) == 4
+    assert all(0 < v <= 4 * c for v, c in zip(visits, cand))
+    assert 0 < sum(visits) < 4 * sum(cand)
+
+
 def test_counters_read_in_one_copy():
     """Tensors and host numbers under one collector come back as ints, in
     the order counted; ``once`` keeps the last value."""
