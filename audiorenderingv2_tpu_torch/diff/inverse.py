@@ -35,6 +35,7 @@ from ..core.params import TraceParams
 from ..core.tracer import SceneArrays, TracerOptions, scene_to_arrays, trace_ir
 from ..scene import Scene
 from ..utils import profiling
+from ..utils.logging import get_logger
 from . import checkpoint as ckpt
 from . import replay as replay_mod
 
@@ -94,6 +95,22 @@ def ir_loss(pred: torch.Tensor, target: torch.Tensor, kind: str = "l2",
         f = lambda x: torch.log1p(x / scale * 100.0)  # noqa: E731
         return torch.mean((f(pred) - f(target)) ** 2)
     raise ValueError(kind)
+
+
+def _recording_counters(paths) -> dict:
+    """The counters of one recording while a profiler records, else {}:
+    ``replay_deposits``, the rays that deposit, and ``replay_steps``, the
+    recorded steps the replay walks (each depositing ray's up to its
+    ``recv_step``: every one left a surface), both summed over the
+    receivers' path sets. ``recv_step`` comes to the host in one copy, so
+    no kernel is launched."""
+    with profiling.collect() as counters:
+        if profiling.counting():
+            recv = np.concatenate([r.cpu().numpy() for _, r in paths])
+            dep = recv[recv >= 0].astype(np.int64)
+            profiling.count("replay_deposits", lambda: dep.size, once=True)
+            profiling.count("replay_steps", lambda: dep.sum(), once=True)
+    return counters.read()
 
 
 @dataclass
@@ -191,7 +208,12 @@ def fit_scene_parameters(
     ``ar2.fit.record`` (when it records), ``ar2.fit.forward`` (the replay
     or the trace, and the binning), ``ar2.fit.loss``, ``ar2.fit.backward``,
     ``ar2.fit.adam`` and ``ar2.fit.loss_read`` (the loss's copy to the
-    host); the callback runs after it.
+    host); the callback runs after it. While a profiler records, each
+    recording of the replay method also writes a ``fit_record`` event
+    (``utils.logging``) with its step and its counters:
+    ``replay_deposits`` (the rays that deposit) and ``replay_steps`` (the
+    recorded steps up to each depositing ray's ``recv_step``). Untraced,
+    nothing is counted and no event is written.
     """
     if method not in ("full", "replay"):
         raise ValueError(f"unknown method {method!r}")
@@ -278,6 +300,9 @@ def fit_scene_parameters(
             if use_replay and (paths is None or i % refresh == 0):
                 with span("ar2.fit.record"):
                     paths = record(theta)
+                counted = _recording_counters(paths)
+                if counted:
+                    get_logger().event("fit_record", step=i, **counted)
             optimizer.zero_grad(set_to_none=True)
             with span("ar2.fit.forward"):
                 pred = predict(theta, paths)
