@@ -40,6 +40,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _LL = ctypes.c_longlong
 _F = ctypes.c_float
+_D = ctypes.c_double
 # C signatures of csrc/*.cu; every function returns a cudaError_t.
 _SIGNATURES = {
     # state, n, ncols, tris, n_tris, scal, n_poses, rays_per_pose, n_bands,
@@ -87,6 +88,9 @@ _SIGNATURES = {
     # tri_ids, n, k_steps, recv_step, chord, g, absorb, n_tris, n_bands, e0,
     # grad, stream
     "ar2_replay_bwd": (_P, _LL, _I, _P, _P, _P, _P, _I, _I, _F, _P, _P),
+    # spec, n_freqs, sample_rate, edges (host doubles), n_edges, transition,
+    # out, stream
+    "ar2_band_split": (_P, _LL, _D, ctypes.POINTER(_D), _I, _D, _P, _P),
 }
 
 

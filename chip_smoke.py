@@ -99,7 +99,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    on the CPU; the banded office matrix's histogram (1 x 4 x 250,000 rays
    at 4 bands through the posed schedule and K2, then the stage); then a
    banded export as a user runs it (config.json ->
-   load_context -> export_audio, 1M rays, 100 bounces), its trace against
+   load_context -> export_audio, 1M rays, 100 bounces; one band-split
+   launch), its trace against
    the CPU plain path on 64k shared directions in every (ear, band) and
    its filterbank convolution against the CPU's; times;
 13. K3-bwd, the histogram's backward gather, against its plain version and
@@ -249,7 +250,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    at 1M rays by the replay (K1 records) and by the full method, their
    gradients within 1% (phase 16's gate); demo 6's matrix on the office
    with demo 2's four bands (posed schedule and K2, 8M rays x 40 bounces)
-   through mix_sources, one pair against a single render_ir; a recording
+   through mix_sources, one pair against a single render_ir, the mix's
+   band splits run again under LaunchRecorder and held to the plain
+   product; a recording
    and its replay at 100 bounces on the box against the forward render;
    K5 on the 8-band layout against its plain version, bit for bit.
 24. tuned.py's constants measured, none changed: renders of 1,000,064 rays
@@ -294,6 +297,27 @@ Phases, in order; any failure raises and the script exits non-zero:
    the forward and of the backward (20 calls in one CUDA graph) beside
    their bounds (bytes at 3.35 TB/s), the pair through autograd a call and
    the chain's forward + backward on the absorption alone.
+27. the band-split kernel (csrc/band_split.cu: each band's spectrum with
+   band_gains' gains computed on the card): a spectrum of ones through it
+   against band_gains, float32 bit for bit, at the octave office's edges
+   (120,001 and 48,001 bins at 48 kHz), the default 4 bands (40,001 bins
+   at 16 kHz) and (500, 2000) (12,001 bins at 8 kHz), any differing gain
+   reported with its place and held to one float32 ulp (the card's
+   float64 cos against the host's at a float32 rounding boundary);
+   on a seeded 5 s, 48 kHz signal at 8 bands, the kernel's band spectra
+   against the plain product (band_gains uploaded, the broadcast
+   product), each part bit for bit or, where a gain moved by its ulp,
+   within 4 x 2^-24 of the spectrum's part, and split_bands' bands against
+   the plain path's, bit for bit where the spectra are, summing to the
+   signal within 2e-6; its device time (20 calls in one CUDA graph) beside
+   its bound ((1 + B) x F x 8 bytes at 3.35 TB/s), the broadcast
+   product's with the gains already on the card and that of the same
+   gains built from float64 PyTorch operations on the card, the whole
+   split a call against the plain path's (the host's numpy included) and
+   the PyTorch operations' variant, at 120,001 and 48,001 bins; one launch
+   a banded file convolution and a banded live block. The kernels line's
+   launches are the banded export's in phase 12 (one, asserted there); the
+   demos' launches are held to the plain product under LaunchRecorder.
 
 Then one JSON line of the kernels: name, route, source, the TPU kernel it
 replaces, "demo_launches" (the launches of its counter in the first runs of
@@ -753,6 +777,7 @@ def _reset_launches() -> None:
     from audiorenderingv2_tpu_torch.ops import traverse_cuda as tc
     from audiorenderingv2_tpu_torch.ops import replay_cuda as rp
     from audiorenderingv2_tpu_torch.ops import v1_cuda as v1
+    from audiorenderingv2_tpu_torch.ops import filterbank as fb
 
     rc.launches = rc.posed_launches = rc.init_launches = hc.launches = 0
     rp.launches = rp.bwd_launches = 0
@@ -763,6 +788,7 @@ def _reset_launches() -> None:
     hc.bwd_launches = tc.trace_traverse_launches = 0
     gc.trace_round_group_launches = gc.trace_round_group_posed_launches = 0
     v1.trace_round_v1_launches = 0
+    fb.band_split_launches = 0
 
 
 def _read_launches() -> dict:
@@ -773,6 +799,7 @@ def _read_launches() -> dict:
     from audiorenderingv2_tpu_torch.ops import traverse_cuda as tc
     from audiorenderingv2_tpu_torch.ops import replay_cuda as rp
     from audiorenderingv2_tpu_torch.ops import v1_cuda as v1
+    from audiorenderingv2_tpu_torch.ops import filterbank as fb
 
     return {"trace_round": rc.launches,
             "replay": rp.launches, "replay_bwd": rp.bwd_launches,
@@ -787,7 +814,8 @@ def _read_launches() -> dict:
             "trace_traverse": tc.trace_traverse_launches,
             "trace_round_group": gc.trace_round_group_launches,
             "trace_round_group_posed": gc.trace_round_group_posed_launches,
-            "trace_round_v1": v1.trace_round_v1_launches}
+            "trace_round_v1": v1.trace_round_v1_launches,
+            "band_split": fb.band_split_launches}
 
 
 def _write_inputs(tmp: Path, scene_file: str = "room.obj",
@@ -2064,7 +2092,8 @@ def phase_multipose() -> tuple[dict, dict]:
 def phase_banded() -> dict:
     """A 4-band scene on the card: the demo's matrix and its mix through
     the filterbank, then a banded export through AudioRenderer. Returns the
-    launches of the posed kernels on the banded matrix."""
+    launches of the posed kernels on the banded matrix and of the band-split
+    kernel in the export."""
     from audiorenderingv2_tpu_torch import context, multi, testing
     from audiorenderingv2_tpu_torch.core import tracer
     from audiorenderingv2_tpu_torch.io import wav
@@ -2105,6 +2134,8 @@ def phase_banded() -> dict:
         assert xl["trace_round"] == len(r.opts.round_budgets), xl
         assert xl["histogram_binned"] == 1, xl
         assert xl["trace_round_posed"] == 0, xl
+        # The export's one banded convolution splits through the kernel.
+        assert xl["band_split"] == 1, xl
         audio = wav.read_wav(Path(tmp) / "banded.wav")
         assert audio.n_channels == 2 and audio.sample_rate == SR
         assert audio.n_frames == 5 * SR and np.isfinite(audio.samples).all()
@@ -2159,7 +2190,8 @@ def phase_banded() -> dict:
         boxes=oboxes, route=rc.Route("sched", "sort"))
     binned_check(*oev, _office_params(n_bands),
                  f"office 1 x 4 matrix, {n_bands} bands")
-    return {"trace_round_posed_4band": launches["trace_round_posed"]}
+    return {"trace_round_posed_4band": launches["trace_round_posed"],
+            "band_split_export": xl["band_split"]}
 
 
 def phase_native_rng() -> int:
@@ -3796,19 +3828,22 @@ def _ray_columns(n_poses: int, rays_per_pose: int, budget: int, device):
 
 class LaunchRecorder:
     """Inside ``with``, every launch through the wrappers of K1 (and
-    K1-pose), the schedule, K2, K3, K3-bwd, the hard-binning entry and the
-    key kernel keeps a copy of its inputs and of its result, so that
+    K1-pose), the schedule, K2, K3, K3-bwd, the hard-binning entry, the
+    key kernel and the band split keeps a copy of its inputs and of its
+    result, so that
     :meth:`check` can hold each kernel to its plain version on what the
     product's own launch was given, after the product's run and outside its
     counts. Rays are independent in K1, the schedule and K2, so a launch of
     those keeps the first rays of each pose (REPLAY_K1_RAYS,
     REPLAY_SCHED_RAYS in all); the keys depend on every ray's position, so
-    a call of the key kernel keeps the seven columns they read, whole."""
+    a call of the key kernel keeps the seven columns they read, whole, and
+    a band split its spectrum, whole."""
 
     def __init__(self):
         self.records = []   # (launch counter's name, inputs, result)
 
     def __enter__(self):
+        from audiorenderingv2_tpu_torch.ops import filterbank as fb
         from audiorenderingv2_tpu_torch.ops import histogram_cuda as hc
         from audiorenderingv2_tpu_torch.ops import raytrace_cuda as rc
         from audiorenderingv2_tpu_torch.ops import schedule_cuda as sc
@@ -3819,7 +3854,8 @@ class LaunchRecorder:
                          (hc, "histogram_sum_banded", self._k3),
                          (hc, "histogram_bwd", self._k3_bwd),
                          (hc, "histogram_binned", self._binned),
-                         (rc, "compaction_keys", self._keys)]
+                         (rc, "compaction_keys", self._keys),
+                         (fb, "band_spectra", self._band_split)]
         self._orig = {}
         for mod, name, wrap in self._patched:
             self._orig[name] = getattr(mod, name)
@@ -3905,6 +3941,15 @@ class LaunchRecorder:
                              out.clone()))
         return out
 
+    def _band_split(self, spec, sample_rate, edges=None):
+        from audiorenderingv2_tpu_torch.ops import filterbank as fb
+
+        edges = fb.DEFAULT_BAND_EDGES if edges is None else tuple(edges)
+        out = self._orig["band_spectra"](spec, sample_rate, edges)
+        self.records.append(("band_split", (spec.clone(), sample_rate,
+                                            edges), out.clone()))
+        return out
+
     def binned_events(self, k: int = -1):
         """The events [P, E] of the ``k``-th hard-binning launch."""
         return [r for r in self.records
@@ -3914,7 +3959,7 @@ class LaunchRecorder:
         """Every recorded launch against its plain version on its own
         inputs: K1, K1-pose and K2 bit for bit in every column of the rays
         kept, the schedule and the keys integer for integer, K3-bwd bit for
-        bit; K3 and
+        bit, the band split by :func:`_assert_band_spectra`; K3 and
         the hard-binning entry each within binned_check's bar of the
         float64 sum of their deposits (the atomics add in their own order),
         and so is the plain version. Returns, per launch counter's name,
@@ -3922,6 +3967,7 @@ class LaunchRecorder:
         absolute difference from the plain version."""
         from types import SimpleNamespace
 
+        from audiorenderingv2_tpu_torch.ops import filterbank as fb
         from audiorenderingv2_tpu_torch.ops import histogram_cuda as hc
         from audiorenderingv2_tpu_torch.ops import raytrace_cuda as rc
         from audiorenderingv2_tpu_torch.ops import schedule_cuda as sc
@@ -3939,6 +3985,8 @@ class LaunchRecorder:
                 plain = rc._compaction_keys(*args)
             elif name == "histogram_bwd":
                 plain = hc.histogram_bwd_plain(*args)
+            elif name == "band_split":
+                plain = _band_spectra_plain(*args)
             elif name == "histogram":
                 bins, w, n_bins = args
                 plain = hc.histogram_plain(bins, w, n_bins)
@@ -3963,6 +4011,9 @@ class LaunchRecorder:
                 _assert_deposit_bar(out, ref, n_sub, where)
                 _assert_deposit_bar(plain, ref, n_sub, f"{where}, plain")
                 size = int(args[0].numel())
+            elif name == "band_split":
+                _assert_band_spectra(out, plain, args[0], where)
+                size = int(args[0].numel())
             elif name in ("tile_schedule", "histogram_bwd",
                           "compaction_keys"):
                 assert torch.equal(out, plain), f"{where}: differs from plain"
@@ -3976,7 +4027,8 @@ class LaunchRecorder:
             row["launches"] += 1
             row["size"] += size
             row["max_abs_err"] = max(row["max_abs_err"], float(
-                (out.float() - plain.float()).abs().max()))
+                (out - plain).abs().max() if out.is_complex()
+                else (out.float() - plain.float()).abs().max()))
         log(f"{what}: each launch held to its plain version on its own "
             f"inputs (size: the rays kept, or the events): {held}")
         return held
@@ -4548,7 +4600,8 @@ def run_demo(what: str, fn, warm: bool = True, record: bool = False):
     if record:  # every counted launch of the recorded wrappers was held
         for k in ("trace_round", "trace_round_posed", "histogram",
                   "histogram_binned", "histogram_bwd", "tile_schedule",
-                  "trace_round_sched", "trace_round_sched_posed"):
+                  "trace_round_sched", "trace_round_sched_posed",
+                  "band_split"):
             assert held.get(k, {"launches": 0})["launches"] == launches[k], \
                 (what, k, launches, held)
     warm_s = None
@@ -4863,7 +4916,9 @@ def office_banded_matrix(tmp: Path) -> dict:
     """Demo 6's 2 x 4 matrix on the office with demo 2's four bands, from
     the render (the posed schedule and K2, pair_batch=8, 1M rays a pair,
     40 bounces) through mix_sources (the filterbank); one pair held to a
-    single render_ir of that pair on assert_ir_close(exact=False)."""
+    single render_ir of that pair on assert_ir_close(exact=False), and
+    the mix's band splits, run again under LaunchRecorder, to the plain
+    product."""
     from audiorenderingv2_tpu_torch import accel, multi, testing
     from audiorenderingv2_tpu_torch.core import sampling, tracer
     from audiorenderingv2_tpu_torch.examples import demo_2_banded as d2
@@ -4894,8 +4949,15 @@ def office_banded_matrix(tmp: Path) -> dict:
     _expect("office banded matrix", launches,
             trace_round_sched_posed=params.max_bounces,
             tile_schedule=params.max_bounces, histogram_binned=1,
-            trace_round=False, trace_round_sched=False)
+            trace_round=False, trace_round_sched=False, band_split=True)
     launches = {k: v for k, v in launches.items() if v}
+    # The mix once more, outside the counts and the time: each band split
+    # held to the plain product on its own spectrum.
+    with LaunchRecorder() as rec:
+        multi.mix_sources(irs, d6.dry_signals(), SR, device="cuda")
+        torch.cuda.synchronize()
+    held = rec.check("office banded mix")
+    assert held["band_split"]["launches"] == launches["band_split"], held
     assert irs.shape == (2, 4, 2, n_bands, 2 * SR) and np.isfinite(irs).all()
     assert mix.shape == (4, 2, 2 * SR) and np.isfinite(mix).all()
     assert np.abs(mix).max(axis=(1, 2)).min() > 0
@@ -5627,6 +5689,191 @@ def phase_replay() -> dict:
     return out
 
 
+# The octave office's crossovers (perfbench/configs/office_octave.json).
+OCTAVE_EDGES = (88.4, 176.8, 353.6, 707.1, 1414.2, 2828.4, 5656.9)
+OCTAVE_SR = 48000
+# (edges, sample rate, rfft bins) of the gains' check: the octave office's
+# 5 s signal and 2 s live block, the default 4 bands over the box's 5 s at
+# 16 kHz, two crossovers over 3 s at 8 kHz.
+BAND_SPLIT_CASES = ((OCTAVE_EDGES, OCTAVE_SR, 120_001),
+                    (OCTAVE_EDGES, OCTAVE_SR, 48_001),
+                    ((250.0, 1000.0, 4000.0), 16000, 40_001),
+                    ((500.0, 2000.0), 8000, 12_001))
+
+
+def _gain_differences(got: torch.Tensor, want: torch.Tensor, n: int,
+                      rate: int) -> list:
+    """Each gain where ``got`` and ``want`` (float32 [B, F] on the host)
+    differ in any bit: (band, bin, frequency, got, want, ulps apart)."""
+    gi, wi = got.view(torch.int32), want.view(torch.int32)
+    freqs = np.linspace(0, rate / 2, n)
+    return [(b, i, float(freqs[i]), float(got[b, i]), float(want[b, i]),
+             int(gi[b, i]) - int(wi[b, i]))
+            for b, i in (gi != wi).nonzero().tolist()]
+
+
+def _band_spectra_plain(spec: torch.Tensor, sample_rate: int,
+                        edges) -> torch.Tensor:
+    """The band spectra as the plain split forms them: ``band_gains`` in
+    numpy, uploaded, and the broadcast product."""
+    from audiorenderingv2_tpu_torch.ops import filterbank as fb
+
+    gains = torch.from_numpy(fb.band_gains(spec.shape[0], sample_rate,
+                                           edges)).to(spec.device)
+    return spec[None, :] * gains
+
+
+def _assert_band_spectra(got: torch.Tensor, want: torch.Tensor,
+                         spec: torch.Tensor, where: str) -> int:
+    """The kernel's band spectra ``got`` [B, F] against the plain ones
+    ``want`` on the spectrum ``spec`` [F]: each part equal in every bit, or,
+    where the card's float64 cos moved a gain g <= 1 by one float32 ulp
+    (at most 2^-24), within 4 x 2^-24 of the spectrum's part (the moved
+    gain and each side's rounding of the product). Returns the parts that
+    differ in any bit."""
+    g, w = torch.view_as_real(got), torch.view_as_real(want)
+    s = torch.view_as_real(spec)[None].abs()
+    same = g.view(torch.int32) == w.view(torch.int32)
+    near = (g - w).abs() <= 4 * 2.0 ** -24 * s
+    bad = int((~(same | near)).sum())
+    assert bad == 0, (f"{where}: {bad} parts of the band spectra lie more "
+                      f"than one gain ulp from the plain product")
+    return int((~same).sum())
+
+
+def band_spectra_torch_ops(spec: torch.Tensor, sample_rate: int,
+                           edges) -> torch.Tensor:
+    """The band spectra with ``band_gains``' definition built from float64
+    PyTorch operations on the spectrum's device (about seven a crossover),
+    then the broadcast product: the kernel-less variant the band-split
+    kernel is measured against."""
+    from audiorenderingv2_tpu_torch.ops import filterbank as fb
+
+    n, nyquist = spec.shape[0], sample_rate / 2
+    f = torch.arange(n, dtype=torch.float64, device=spec.device) \
+        * (nyquist / (n - 1))
+    f[-1:].fill_(nyquist)  # a scalar fill: no host copy, so it captures
+    lp = []
+    for f0 in edges:
+        lo, hi = f0 - f0 * fb.TRANSITION, f0 + f0 * fb.TRANSITION
+        ramp = ((f - lo) / max(hi - lo, 1e-9)).clamp_(0.0, 1.0)
+        lp.append(0.5 * (1.0 + torch.cos(math.pi * ramp)))
+    lp = torch.stack(lp)
+    gains = torch.cat([lp[:1], lp[1:] - lp[:-1], 1.0 - lp[-1:]])
+    return spec[None, :] * gains.float()
+
+
+def phase_band_split() -> dict:
+    """Phase 27: the band-split kernel against band_gains and the plain
+    split on the card, and against the same gains built from PyTorch
+    operations on the card; returns its JSON entry's numbers."""
+    from audiorenderingv2_tpu_torch.ops import filterbank as fb
+
+    t0 = time.perf_counter()
+    dev = torch.device("cuda")
+    gains_check = {}
+    for edges, rate, n in BAND_SPLIT_CASES:
+        what = f"band split, {len(edges) + 1} bands at {rate} Hz, {n} bins"
+        ones = torch.ones(n, dtype=torch.complex64, device=dev)
+        got = fb.band_spectra(ones, rate, edges)
+        torch.cuda.synchronize()
+        re, im = got.real.cpu(), got.imag.cpu()
+        want = torch.from_numpy(fb.band_gains(n, rate, edges))
+        assert torch.equal(im.view(torch.int32),
+                           torch.zeros_like(im).view(torch.int32)), what
+        diff = _gain_differences(re, want, n, rate)
+        assert all(abs(d[5]) == 1 for d in diff), (what, diff[:8])
+        ops = band_spectra_torch_ops(ones, rate, edges).real.cpu()
+        n_ops = int((ops.view(torch.int32) != want.view(torch.int32)).sum())
+        log(f"{what}: the kernel's gains on a spectrum of ones "
+            + ("equal band_gains' bit for bit" if not diff else
+               f"differ from band_gains' in {len(diff)} of {want.numel()} "
+               f"(band, bin, Hz, kernel, band_gains, ulps): {diff[:16]}")
+            + f"; the PyTorch operations' gains differ in {n_ops}")
+        gains_check[f"{len(edges) + 1}x{n}"] = len(diff)
+
+    x = torch.from_numpy(np.random.default_rng(27).uniform(
+        -1, 1, 5 * OCTAVE_SR).astype(np.float32)).to(dev)
+    spec = torch.fft.rfft(x)
+    spec_diff = _assert_band_spectra(
+        fb.band_spectra(spec, OCTAVE_SR, OCTAVE_EDGES),
+        _band_spectra_plain(spec, OCTAVE_SR, OCTAVE_EDGES), spec,
+        "band split, 8 bands, 5 s")
+    got = fb.split_bands(x, OCTAVE_SR, OCTAVE_EDGES)
+    want = fb._split_bands(x, OCTAVE_SR, OCTAVE_EDGES)
+    torch.cuda.synchronize()
+    n_diff = int((got.view(torch.int32) != want.view(torch.int32)).sum())
+    max_diff = float((got - want).abs().max())
+    sum_err = float((got.sum(dim=0) - x).abs().max())
+    plain_sum_err = float((want.sum(dim=0) - x).abs().max())
+    if spec_diff == 0:  # the same spectra through the same irfft
+        assert n_diff == 0, f"equal band spectra, {n_diff} samples differ"
+    assert sum_err <= 2e-6, sum_err
+    log(f"band split, 8 bands, 5 s at {OCTAVE_SR} Hz: the kernel's band "
+        f"spectra equal the plain product's in all but {spec_diff} parts "
+        f"(those within one gain ulp); its bands "
+        + ("equal the plain path's on the card bit for bit" if not n_diff
+           else f"differ from the plain path's in {n_diff} samples, at "
+           f"most {max_diff:.3e}")
+        + f"; the bands sum to the signal within {sum_err:.2e} (bar 2e-6; "
+        f"the plain path's {plain_sum_err:.2e})")
+
+    out = {}
+    for n_samples, key in ((5 * OCTAVE_SR, "signal_5s"),
+                           (2 * OCTAVE_SR, "block_2s")):
+        xs = x[:n_samples].contiguous()
+        spec = torch.fft.rfft(xs)
+        n = spec.shape[0]
+        gains = torch.from_numpy(fb.band_gains(n, OCTAVE_SR,
+                                               OCTAVE_EDGES)).to(dev)
+        dev_ms = device_ms(lambda: fb.band_spectra(spec, OCTAVE_SR,
+                                                   OCTAVE_EDGES))
+        product_ms = device_ms(lambda: spec[None, :] * gains)
+        ops_dev_ms = device_ms(lambda: band_spectra_torch_ops(
+            spec, OCTAVE_SR, OCTAVE_EDGES))
+        ms = median_ms(lambda: fb.split_bands(xs, OCTAVE_SR, OCTAVE_EDGES),
+                       20)
+        ops_ms = median_ms(lambda: torch.fft.irfft(band_spectra_torch_ops(
+            torch.fft.rfft(xs), OCTAVE_SR, OCTAVE_EDGES), n=n_samples,
+            dim=-1), 20)
+        plain_ms = median_ms(lambda: fb._split_bands(xs, OCTAVE_SR,
+                                                     OCTAVE_EDGES), 10)
+        ops_profile = profile_device(lambda: band_spectra_torch_ops(
+            spec, OCTAVE_SR, OCTAVE_EDGES), top=3)
+        b = bound((len(OCTAVE_EDGES) + 2) * n * 8, 0)
+        out[key] = {"device_ms": dev_ms, "product_device_ms": product_ms,
+                    "ms": ms, "plain_ms": plain_ms,
+                    "torch_ops_device_ms": ops_dev_ms,
+                    "torch_ops_ms": ops_ms, **b, "bins": n,
+                    "library_ms": None}
+        log(f"band split, 8 bands, {n} bins: kernel device {dev_ms:.4f} ms "
+            f"(bound {b['bound_ms']:.4f}, bytes, "
+            f"{dev_ms / b['bound_ms']:.1f}x), the broadcast product with "
+            f"the gains on the card {product_ms:.4f} ms, the gains from "
+            f"PyTorch operations and the product {ops_dev_ms:.4f} ms; the "
+            f"split a call {ms:.3f} ms, with the PyTorch operations' gains "
+            f"{ops_ms:.3f} ms, the plain path's (band_gains in numpy, the "
+            f"upload, the product) {plain_ms:.3f} ms; the PyTorch "
+            f"operations' gains and product under the profiler: "
+            f"{ops_profile}")
+
+    ir = torch.rand((2, 8, 2 * OCTAVE_SR), device=dev) ** 8 * 1e-3
+    _reset_launches()
+    wet = fb.convolve_file_banded(x, ir, OCTAVE_SR, OCTAVE_EDGES)
+    live = fb.convolve_live_banded(x[:2 * OCTAVE_SR], ir, OCTAVE_SR,
+                                   OCTAVE_EDGES)
+    torch.cuda.synchronize()
+    launches = _read_launches()["band_split"]
+    assert launches == 2, launches
+    assert bool(torch.isfinite(wet).all() and torch.isfinite(live).all())
+    log(f"banded file convolution and live block: {launches} band-split "
+        f"launches; phase {time.perf_counter() - t0:.1f} s")
+    return {**out.pop("signal_5s"), "block_2s": out["block_2s"],
+            "gains_differing": gains_check, "spectra_differing": spec_diff,
+            "bands_differing": n_diff, "sum_err": sum_err,
+            "file_live_launches": launches}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; the port's "
@@ -5667,6 +5914,7 @@ def main() -> int:
     phase_tuned_sweep()
     keys = phase_keys()
     replay_k = phase_replay()
+    band = phase_band_split()
 
     def demo_launches(counter: str | None) -> int:
         """The launches of ``counter`` in the first runs of the demos'
@@ -5783,6 +6031,11 @@ def main() -> int:
          "launches": fit_launches["replay"],
          "bwd_launches": fit_launches["replay_bwd"],
          **replay_k.pop("bands1"), **replay_k},
+        {"name": "band_split", "route": "cuda",
+         "demo_launches": demo_launches("band_split"),
+         "source": "audiorenderingv2_tpu_torch/csrc/band_split.cu",
+         "fuses": "audiorenderingv2_tpu/ops/filterbank.py:52",
+         "launches": multi_launches["band_split_export"], **band},
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

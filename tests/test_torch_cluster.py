@@ -519,9 +519,9 @@ def test_build_dir_follows_shared_header(tmp_path, monkeypatch):
         shutil.copy(src, tmp_path / src.name)
     monkeypatch.setattr(_build, "CSRC", tmp_path)
     assert {p.name for p in _build.sources()} == {
-        "compaction_keys.cu", "histogram.cu", "init_state.cu", "replay.cu",
-        "tile_schedule.cu", "trace_group.cu", "trace_round.cu",
-        "trace_sched.cu", "trace_traverse.cu"}
+        "band_split.cu", "compaction_keys.cu", "histogram.cu",
+        "init_state.cu", "replay.cu", "tile_schedule.cu", "trace_group.cu",
+        "trace_round.cu", "trace_sched.cu", "trace_traverse.cu"}
     before = _build.build_dir()
     header = tmp_path / "trace_common.cuh"
     header.write_text(header.read_text() + "\n")

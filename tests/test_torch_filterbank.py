@@ -189,3 +189,139 @@ def test_banded_renderer_takes_its_band_edges():
     np.testing.assert_array_equal(got, want)
     assert got.shape == (2, SR + 200) and np.abs(got).max() > 0
     assert r.band_edges == (400.0, 2500.0)
+
+
+# The octave office's crossovers (ISO 266 centres 63 Hz-8 kHz, edges at the
+# geometric midpoints), at 48 kHz.
+OCTAVE_EDGES = (88.4, 176.8, 353.6, 707.1, 1414.2, 2828.4, 5656.9)
+
+
+def _kernel_gains_model(n_freqs, sample_rate, edges, transition):
+    """csrc/band_split.cu's arithmetic over every bin at once: the bin's
+    frequency as i * step with the last bin the Nyquist rate itself, each
+    crossover's clipped raised cosine, the band recurrence, one float32
+    rounding."""
+    nyquist = sample_rate / 2
+    f = np.arange(n_freqs) * (nyquist / (n_freqs - 1))
+    f[-1] = nyquist
+    below = None
+    gains = []
+    for f0 in [*edges, None]:
+        lp = None
+        if f0 is not None:
+            lo, hi = f0 - f0 * transition, f0 + f0 * transition
+            ramp = np.clip((f - lo) / max(hi - lo, 1e-9), 0.0, 1.0)
+            lp = 0.5 * (1.0 + np.cos(np.pi * ramp))
+        gains.append(lp if below is None else
+                     (lp - below if lp is not None else 1.0 - below))
+        below = lp
+    return np.stack(gains).astype(np.float32)
+
+
+@pytest.mark.parametrize("n_freqs,rate,edges", [
+    (120_001, 48000, OCTAVE_EDGES), (48_001, 48000, OCTAVE_EDGES),
+    (40_001, 16000, t_fb.DEFAULT_BAND_EDGES), (12_001, 8000, (500.0, 2000.0)),
+    (2, 8000, (1000.0,))])
+def test_kernel_arithmetic_equals_band_gains(n_freqs, rate, edges):
+    """The kernel's order of float64 operations, modelled in numpy, gives
+    band_gains' float32 gains bit for bit at the shapes the port runs."""
+    want = t_fb.band_gains(n_freqs, rate, edges)
+    got = _kernel_gains_model(n_freqs, rate, edges, t_fb.TRANSITION)
+    assert got.shape == want.shape == (len(edges) + 1, n_freqs)
+    np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
+
+
+def test_promoted_product_keeps_the_broadcast_products_bits():
+    """complex64 * float32 promotes the gain to (g, 0): the kernel's
+    (re * g - im * 0, re * 0 + im * g) matches PyTorch's product in every
+    bit, signed zeros included, where (re * g, im * g) does not."""
+    rng = np.random.default_rng(7)
+    s = (rng.standard_normal(4000)
+         + 1j * rng.standard_normal(4000)).astype(np.complex64)
+    s[:40] = 0
+    s[40:80].real = -0.0
+    s[80:120].imag = -0.0
+    g = rng.standard_normal((3, 4000)).astype(np.float32)
+    g[:, ::7] = 0.0
+    g[:, ::11] = -0.0
+    want = torch.view_as_real(torch.from_numpy(s)[None]
+                              * torch.from_numpy(g)).numpy()
+    zero = np.float32(0.0)
+    model = np.stack([s.real * g - s.imag * zero,
+                      s.real * zero + s.imag * g], axis=-1)
+    np.testing.assert_array_equal(model.view(np.int32), want.view(np.int32))
+    naive = np.stack([s.real * g, s.imag * g], axis=-1)
+    assert (naive.view(np.int32) != want.view(np.int32)).any()
+
+
+@pytest.mark.parametrize("edges", [t_fb.DEFAULT_BAND_EDGES, (500.0, 2000.0),
+                                   OCTAVE_EDGES])
+def test_cpu_tensor_takes_the_plain_path(monkeypatch, edges):
+    """On a CPU tensor split_bands is band_gains times the spectrum, bit
+    for bit, and never reaches the kernel library."""
+    def no_library():
+        raise AssertionError("a CPU tensor reached the kernel library")
+
+    monkeypatch.setattr(t_fb._build, "library", no_library)
+    before = t_fb.band_split_launches
+    x = torch.from_numpy(np.random.default_rng(8).uniform(
+        -1, 1, 2 * SR + 31).astype(np.float32))
+    spec = torch.fft.rfft(x)
+    gains = torch.from_numpy(t_fb.band_gains(spec.shape[0], SR, edges))
+    want = torch.fft.irfft(spec[None, :] * gains, n=x.shape[0], dim=-1)
+    got = t_fb.split_bands(x, SR, edges)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    assert torch.equal(t_fb.split_bands(x.numpy(), SR, edges), got)
+    assert t_fb.band_split_launches == before
+
+
+@pytest.mark.parametrize("bad", ["edges_32", "edges_0", "float64", "two_d",
+                                 "meta", "spec_float", "spec_edges_32",
+                                 "spec_meta"])
+def test_band_split_wrappers_refuse_before_any_launch(monkeypatch, bad):
+    """What the kernel does not take raises a ValueError before a launch
+    or a build: more than 31 crossovers (or none), a signal that is not
+    [L], a spectrum that is not a complex64 [F], a device with no kernel.
+    A float64 signal is cast to float32, as the plain path casts it, and
+    goes on to the spectrum wrapper."""
+    def no_library():
+        raise AssertionError("the wrapper reached the kernel library")
+
+    monkeypatch.setattr(t_fb._build, "library", no_library)
+    before = t_fb.band_split_launches
+    x = torch.zeros(64, device="meta")
+    spec = torch.zeros(33, dtype=torch.complex64, device="meta")
+    many = tuple(100.0 * (k + 1) for k in range(32))
+    call, match = {
+        "edges_32": (lambda: t_fb.split_bands(x, SR, many), "1 to 31"),
+        "edges_0": (lambda: t_fb.split_bands(x, SR, ()), "got 0"),
+        "float64": (lambda: t_fb.split_bands(x.double(), SR),
+                    "no band-split kernel"),
+        "two_d": (lambda: t_fb.split_bands(x.view(2, 32), SR), r"\[L\]"),
+        "meta": (lambda: t_fb.split_bands(x, SR), "no band-split kernel"),
+        "spec_float": (lambda: t_fb.band_spectra(spec.real.contiguous(), SR),
+                       "complex64"),
+        "spec_edges_32": (lambda: t_fb.band_spectra(spec, SR, many),
+                          "1 to 31"),
+        "spec_meta": (lambda: t_fb.band_spectra(spec, SR),
+                      "no band-split kernel"),
+    }[bad]
+    with pytest.raises(ValueError, match=match):
+        call()
+    assert t_fb.band_split_launches == before
+
+
+def test_band_split_kernel_is_declared_and_launched():
+    """The C entry is defined in its source, declared in _build's
+    signatures with its 8 arguments, and launched by the wrapper."""
+    import inspect
+
+    from audiorenderingv2_tpu_torch.ops import _build
+
+    cu = (_build.CSRC / "band_split.cu").read_text()
+    assert 'extern "C" int ar2_band_split(' in cu
+    assert len(_build._SIGNATURES["ar2_band_split"]) == 8
+    assert ".ar2_band_split(" in inspect.getsource(t_fb.band_spectra)
+    assert t_fb.TRANSITION == inspect.signature(
+        t_fb.band_gains).parameters["transition"].default
+    assert "band_spectra(" in inspect.getsource(t_fb.split_bands)
