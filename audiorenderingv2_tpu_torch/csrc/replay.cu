@@ -57,6 +57,39 @@
 // order: the gradient agrees with the chain's to a few ulp of each sum,
 // not bit for bit.
 //
+// The pose variant (ar2_replay and ar2_replay_bwd given a tan pointer):
+// where the emitter requires a gradient as well, the same walk carries forward-mode
+// tangents against the emitter's three coordinates. On a recorded path
+// the directions do not depend on the emitter, so a move of the emitter
+// moves each ray's line parallel to itself: along the first direction v0
+// it shortens the path by as much (the arrival's tangent -v0), across it
+// it displaces the line by P = I - v0 v0^T a unit move. A plane hit
+// mirrors the line, so P <- (I - 2 n n^T) P, in registers (12 floats a
+// ray with v0). (The hit point also slides along the line, by
+// n^T P / (n.v); a slide along a line leaves the line and the arrival
+// where they are, so carrying it, as the chain's autograd does, would only
+// add terms that cancel later, which float32 would round away at a
+// grazing hit.) At the receiver, with oc = p - c, b = oc.v and
+// s = sqrt(b^2 - (oc.oc - r^2)), a displacement x across the line moves
+// t1 = -b - s by (oc.x) / s, t2 = -b + s by -(oc.x) / s and the chord 2 s
+// by -2 (oc.x) / s: the arrival's tangent is -v0 plus that of the branch
+// the forward took (s taken in double for the tangents, below). The
+// forward writes per ray tan [N, 6] = (d ev_bin / d e, d chord / d e),
+// zeros where it deposits nothing. The backward runs the absorption
+// backward above (unless the table needs no gradient) and reduces
+//
+//   grad_e = sum over depositing rays of
+//            g_bin * d ev_bin / d e
+//            + (sum_b g_w[b] ev_w[b]) / chord * d chord / d e
+//
+// (ev_w / chord is the ray's energy, which does not depend on the
+// emitter) per thread, over the warp by shuffles, over the block in shared
+// memory, and into the 3 outputs by one atomic a block and coordinate. The
+// absorption-only kernels are the same templates with the pose flag off,
+// under their own names, and so are the launchers. ops/replay_cuda.py's
+// chain_events(tangents=True), through replay_plain and replay_bwd_plain,
+// is the plain version.
+//
 // Band counts 1, 4 and 8 are the templates' capacities; a count between
 // runs on the next capacity with the unused bands idle. The wrapper
 // (ops/replay_cuda.py) allocates every output and checks shapes, types
@@ -94,11 +127,64 @@ struct Ray {
   float e[LB];
 };
 
+// The emitter's tangents of one ray (the pose variant): p[r][c], the
+// displacement of the ray's line across its direction along axis r per
+// unit move of the emitter along axis c, and d0, the first direction.
+struct Tangent {
+  float p[3][3];
+  float d0[3];
+};
+
+// A plane hit mirrors the line: P <- P - 2 n (n^T P), in the order of
+// ops/replay_cuda.py:_surface_tangent.
+__device__ __forceinline__ void surface_tangent(Tangent& g, float nx,
+                                                float ny, float nz) {
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    const float q2 =
+        2.0f * ((nx * g.p[0][c] + ny * g.p[1][c]) + nz * g.p[2][c]);
+    g.p[0][c] = g.p[0][c] - nx * q2;
+    g.p[1][c] = g.p[1][c] - ny * q2;
+    g.p[2][c] = g.p[2][c] - nz * q2;
+  }
+}
+
+// The receiver entry's tangents (ops/replay_cuda.py:_entry_tangent): out
+// = (d ev_bin / d e, d chord / d e) from the position, the direction, the
+// centre, oc = p - c, the forward's s (the fallback) and the branch taken.
+// The tangents scale as 1 / s, and near a grazing entry the forward's
+// b^2 - (oc.oc - r^2) (some 100 m^2 against an s^2 of 1e-4) keeps few of
+// float32's digits, so s is taken again in double from the same float32
+// position and direction, and rounded to float once.
+__device__ __forceinline__ void entry_tangent(const Tangent& g, float px,
+                                              float py, float pz, float vx,
+                                              float vy, float vz, float cx,
+                                              float cy, float cz, float ox,
+                                              float oy, float oz, float sq,
+                                              bool first, float bin_rate,
+                                              float r2, float* out) {
+  const double dx = (double)px - (double)cx, dy = (double)py - (double)cy,
+               dz = (double)pz - (double)cz;
+  const double bd = (dx * (double)vx + dy * (double)vy) + dz * (double)vz;
+  const double disc = bd * bd - (((dx * dx + dy * dy) + dz * dz) - (double)r2);
+  float sh = (float)sqrt(disc > 0.0 ? disc : 0.0);
+  sh = sh > 0.0f ? sh : sq;
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    const float w = (ox * g.p[0][c] + oy * g.p[1][c]) + oz * g.p[2][c];
+    const float ws = w / sh;
+    const float dt = first ? ws : -ws;
+    out[c] = (-g.d0[c] + dt) * bin_rate;
+    out[3 + c] = -(ws + ws);
+  }
+}
+
 // One surface step of the chain (ops/replay_cuda.py:chain_events), each
 // operation rounded on its own: the plane intersection, the reflection,
-// the offset along it, the distance and the energy.
-template <int LB>
-__device__ __forceinline__ void advance(Ray<LB>& r, int tri,
+// the offset along it, the distance and the energy; with ``kPose`` the
+// tangents ``tg`` are mirrored too.
+template <int LB, bool kPose>
+__device__ __forceinline__ void advance(Ray<LB>& r, Tangent& tg, int tri,
                                         const float* __restrict__ plane_n,
                                         const float* __restrict__ plane_d,
                                         const float* __restrict__ normal,
@@ -113,6 +199,7 @@ __device__ __forceinline__ void advance(Ray<LB>& r, int tri,
   const float t = (-no) / (fabsf(nd) > 1e-12f ? nd : 1.0f);
   const float nx = __ldg(normal + 3 * tri), ny = __ldg(normal + 3 * tri + 1),
               nz = __ldg(normal + 3 * tri + 2);
+  if constexpr (kPose) surface_tangent(tg, nx, ny, nz);
   const float s2 = 2.0f * ((r.vx * nx + r.vy * ny) + r.vz * nz);
   const float rx = r.vx - s2 * nx, ry = r.vy - s2 * ny, rz = r.vz - s2 * nz;
   r.px = (r.px + t * r.vx) + c.eps * rx;
@@ -128,17 +215,17 @@ __device__ __forceinline__ void advance(Ray<LB>& r, int tri,
     if (b < nb) r.e[b] = r.e[b] * (1.0f - __ldg(a + b));
 }
 
-template <int LB>
-__global__ void __launch_bounds__(kFwdThreads)
-replay_kernel(const int* __restrict__ ids, long long n, int k_steps,
-              bool vec4, const int* __restrict__ recv,
-              const float* __restrict__ dirs, const float* __restrict__ scal,
-              const float* __restrict__ plane_n,
-              const float* __restrict__ plane_d,
-              const float* __restrict__ normal,
-              const float* __restrict__ absorb, int nb, Consts c,
-              float* __restrict__ ev_bin, float* __restrict__ ev_w,
-              int* __restrict__ ev_ear, float* __restrict__ chord_out) {
+// One ray of the forward; with ``kPose`` also its tangents into tan_out.
+template <int LB, bool kPose>
+__device__ __forceinline__ void replay_ray(
+    const int* __restrict__ ids, long long n, int k_steps, bool vec4,
+    const int* __restrict__ recv, const float* __restrict__ dirs,
+    const float* __restrict__ scal, const float* __restrict__ plane_n,
+    const float* __restrict__ plane_d, const float* __restrict__ normal,
+    const float* __restrict__ absorb, int nb, const Consts& c,
+    float* __restrict__ ev_bin, float* __restrict__ ev_w,
+    int* __restrict__ ev_ear, float* __restrict__ chord_out,
+    float* __restrict__ tan_out) {
   const long long i = (long long)blockIdx.x * kFwdThreads + threadIdx.x;
   if (i >= n) return;
   const int rs = recv[i];
@@ -147,6 +234,8 @@ replay_kernel(const int* __restrict__ ids, long long n, int k_steps,
   float w[LB];
 #pragma unroll
   for (int b = 0; b < LB; ++b) w[b] = 0.0f;
+  float tan[6] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+  Tangent tg;
   if (rs >= 0 && rs < k_steps) {
     Ray<LB> r;
     r.px = __ldg(scal + S_EX);
@@ -156,6 +245,16 @@ replay_kernel(const int* __restrict__ ids, long long n, int k_steps,
     r.vy = dirs[3 * i + 1];
     r.vz = dirs[3 * i + 2];
     r.dist = 0.0f;
+    if constexpr (kPose) {
+      tg.d0[0] = r.vx;
+      tg.d0[1] = r.vy;
+      tg.d0[2] = r.vz;
+#pragma unroll
+      for (int a = 0; a < 3; ++a)
+#pragma unroll
+        for (int b = 0; b < 3; ++b)
+          tg.p[a][b] = (a == b ? 1.0f : 0.0f) - tg.d0[a] * tg.d0[b];
+    }
 #pragma unroll
     for (int b = 0; b < LB; ++b) r.e[b] = c.e0;
     const int* row = ids + i * k_steps;
@@ -166,12 +265,15 @@ replay_kernel(const int* __restrict__ ids, long long n, int k_steps,
 #pragma unroll
         for (int s = 0; s < 4; ++s)
           if (4 * k4 + s < rs && t[s] >= 0)
-            advance(r, t[s], plane_n, plane_d, normal, absorb, nb, c);
+            advance<LB, kPose>(r, tg, t[s], plane_n, plane_d, normal,
+                               absorb, nb, c);
       }
     } else {
       for (int k = 0; k < rs; ++k) {
         const int t = __ldg(row + k);
-        if (t >= 0) advance(r, t, plane_n, plane_d, normal, absorb, nb, c);
+        if (t >= 0)
+          advance<LB, kPose>(r, tg, t, plane_n, plane_d, normal, absorb, nb,
+                             c);
       }
     }
     // The receiver sphere's entry (core/tracer.py:_sphere_entry).
@@ -195,6 +297,10 @@ replay_kernel(const int* __restrict__ ids, long long n, int k_steps,
       ear = lz >= 0.0f;
 #pragma unroll
       for (int b = 0; b < LB; ++b) w[b] = r.e[b] * chord;
+      if constexpr (kPose)
+        entry_tangent(tg, r.px, r.py, r.pz, r.vx, r.vy, r.vz, cx, cy, cz,
+                      ox, oy, oz, sq, hit && t1 > c.t_min, c.bin_rate, c.r2,
+                      tan);
     }
   }
   ev_bin[i] = bin;
@@ -203,6 +309,44 @@ replay_kernel(const int* __restrict__ ids, long long n, int k_steps,
 #pragma unroll
   for (int b = 0; b < LB; ++b)
     if (b < nb) ev_w[i * nb + b] = w[b];
+  if constexpr (kPose) {
+#pragma unroll
+    for (int a = 0; a < 6; ++a) tan_out[6 * i + a] = tan[a];
+  }
+}
+
+template <int LB>
+__global__ void __launch_bounds__(kFwdThreads)
+replay_kernel(const int* __restrict__ ids, long long n, int k_steps,
+              bool vec4, const int* __restrict__ recv,
+              const float* __restrict__ dirs, const float* __restrict__ scal,
+              const float* __restrict__ plane_n,
+              const float* __restrict__ plane_d,
+              const float* __restrict__ normal,
+              const float* __restrict__ absorb, int nb, Consts c,
+              float* __restrict__ ev_bin, float* __restrict__ ev_w,
+              int* __restrict__ ev_ear, float* __restrict__ chord_out) {
+  replay_ray<LB, false>(ids, n, k_steps, vec4, recv, dirs, scal, plane_n,
+                        plane_d, normal, absorb, nb, c, ev_bin, ev_w, ev_ear,
+                        chord_out, nullptr);
+}
+
+template <int LB>
+__global__ void __launch_bounds__(kFwdThreads)
+replay_pose_kernel(const int* __restrict__ ids, long long n, int k_steps,
+                   bool vec4, const int* __restrict__ recv,
+                   const float* __restrict__ dirs,
+                   const float* __restrict__ scal,
+                   const float* __restrict__ plane_n,
+                   const float* __restrict__ plane_d,
+                   const float* __restrict__ normal,
+                   const float* __restrict__ absorb, int nb, Consts c,
+                   float* __restrict__ ev_bin, float* __restrict__ ev_w,
+                   int* __restrict__ ev_ear, float* __restrict__ chord_out,
+                   float* __restrict__ tan_out) {
+  replay_ray<LB, true>(ids, n, k_steps, vec4, recv, dirs, scal, plane_n,
+                       plane_d, normal, absorb, nb, c, ev_bin, ev_w, ev_ear,
+                       chord_out, tan_out);
 }
 
 // ------------------------------------------------------------- backward
@@ -387,20 +531,32 @@ __device__ void ray_gradient(const int* __restrict__ row, int rs, bool vec4,
   }
 }
 
-template <int LB, bool kShared>
-__global__ void __launch_bounds__(kBwdThreads)
-replay_bwd_kernel(const int* __restrict__ ids, long long n, int k_steps,
-                  bool vec4, const int* __restrict__ recv,
-                  const float* __restrict__ chord,
-                  const float* __restrict__ g,
-                  const float* __restrict__ absorb, int n_tris, int nb,
-                  bool rows4, float e0, float* __restrict__ grad) {
+// The pose backward's extra operands: d loss / d ev_bin [N], the forward's
+// ev_w [N, nb] and tan [N, 6], and the emitter's gradient [3].
+struct Pose {
+  const float* g_bin;
+  const float* ev_w;
+  const float* tan;
+  float* grad_e;
+};
+
+// The backward of a block; with ``kPose`` each thread also sums its rays'
+// emitter gradient, and ``grad`` null skips the table's gradient.
+template <int LB, bool kShared, bool kPose>
+__device__ __forceinline__ void replay_bwd_block(
+    const int* __restrict__ ids, long long n, int k_steps, bool vec4,
+    const int* __restrict__ recv, const float* __restrict__ chord,
+    const float* __restrict__ g, const float* __restrict__ absorb,
+    int n_tris, int nb, bool rows4, float e0, float* __restrict__ grad,
+    const Pose& pose) {
   extern __shared__ float acc[];
   const int entries = n_tris * nb;
   if (kShared) {
     for (int j = threadIdx.x; j < entries; j += kBwdThreads) acc[j] = 0.0f;
     __syncthreads();
   }
+  const bool table = !kPose || grad != nullptr;
+  float ge[3] = {0.0f, 0.0f, 0.0f};
   const int lane = threadIdx.x & 31;
   const long long warp =
       ((long long)blockIdx.x * kBwdThreads + threadIdx.x) >> 5;
@@ -409,6 +565,22 @@ replay_bwd_kernel(const int* __restrict__ ids, long long n, int k_steps,
     const long long i = base + lane;
     const int r_l = i < n ? recv[i] : -1;
     const float ch_l = i < n ? chord[i] : 0.0f;
+    if constexpr (kPose) {
+      if (r_l >= 0 && r_l < k_steps && ch_l != 0.0f) {
+        float ws = 0.0f;
+#pragma unroll
+        for (int b = 0; b < LB; ++b)
+          if (b < nb)
+            ws = ws + __ldg(g + i * nb + b) * __ldg(pose.ev_w + i * nb + b);
+        const float energy = ws / ch_l;
+        const float gb = __ldg(pose.g_bin + i);
+        const float* t = pose.tan + 6 * i;
+#pragma unroll
+        for (int a = 0; a < 3; ++a)
+          ge[a] = ge[a] + (gb * __ldg(t + a) + energy * __ldg(t + 3 + a));
+      }
+    }
+    if (!table) continue;
     unsigned todo =
         __ballot_sync(kFull, r_l > 0 && r_l < k_steps && ch_l != 0.0f);
     while (todo) {
@@ -432,28 +604,75 @@ replay_bwd_kernel(const int* __restrict__ ids, long long n, int k_steps,
       if (v != 0.0f) atomicAdd(grad + j, v);
     }
   }
+  if constexpr (kPose) {
+    __shared__ float block_ge[3];
+    if (threadIdx.x < 3) block_ge[threadIdx.x] = 0.0f;
+    __syncthreads();
+#pragma unroll
+    for (int a = 0; a < 3; ++a) {
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1)
+        ge[a] += __shfl_xor_sync(kFull, ge[a], off);
+      if (lane == 0) atomicAdd(block_ge + a, ge[a]);
+    }
+    __syncthreads();
+    if (threadIdx.x < 3) atomicAdd(pose.grad_e + threadIdx.x,
+                                   block_ge[threadIdx.x]);
+  }
 }
 
-template <int LB>
+template <int LB, bool kShared>
+__global__ void __launch_bounds__(kBwdThreads)
+replay_bwd_kernel(const int* __restrict__ ids, long long n, int k_steps,
+                  bool vec4, const int* __restrict__ recv,
+                  const float* __restrict__ chord,
+                  const float* __restrict__ g,
+                  const float* __restrict__ absorb, int n_tris, int nb,
+                  bool rows4, float e0, float* __restrict__ grad) {
+  replay_bwd_block<LB, kShared, false>(ids, n, k_steps, vec4, recv, chord, g,
+                                       absorb, n_tris, nb, rows4, e0, grad,
+                                       Pose{});
+}
+
+template <int LB, bool kShared>
+__global__ void __launch_bounds__(kBwdThreads)
+replay_pose_bwd_kernel(const int* __restrict__ ids, long long n, int k_steps,
+                       bool vec4, const int* __restrict__ recv,
+                       const float* __restrict__ chord,
+                       const float* __restrict__ g,
+                       const float* __restrict__ absorb, int n_tris, int nb,
+                       bool rows4, float e0, float* __restrict__ grad,
+                       Pose pose) {
+  replay_bwd_block<LB, kShared, true>(ids, n, k_steps, vec4, recv, chord, g,
+                                      absorb, n_tris, nb, rows4, e0, grad,
+                                      pose);
+}
+
+template <int LB, bool kPose>
 int launch_fwd(const int* ids, long long n, int k_steps, bool vec4,
                const int* recv, const float* dirs, const float* scal,
                const float* plane_n, const float* plane_d,
                const float* normal, const float* absorb, int nb,
                const Consts& c, float* ev_bin, float* ev_w, int* ev_ear,
-               float* chord, cudaStream_t s) {
-  const long long blocks = (n + kFwdThreads - 1) / kFwdThreads;
-  replay_kernel<LB><<<(unsigned)blocks, kFwdThreads, 0, s>>>(
-      ids, n, k_steps, vec4, recv, dirs, scal, plane_n, plane_d, normal,
-      absorb, nb, c, ev_bin, ev_w, ev_ear, chord);
+               float* chord, float* tan, cudaStream_t s) {
+  const unsigned blocks = (unsigned)((n + kFwdThreads - 1) / kFwdThreads);
+  if constexpr (kPose)
+    replay_pose_kernel<LB><<<blocks, kFwdThreads, 0, s>>>(
+        ids, n, k_steps, vec4, recv, dirs, scal, plane_n, plane_d, normal,
+        absorb, nb, c, ev_bin, ev_w, ev_ear, chord, tan);
+  else
+    replay_kernel<LB><<<blocks, kFwdThreads, 0, s>>>(
+        ids, n, k_steps, vec4, recv, dirs, scal, plane_n, plane_d, normal,
+        absorb, nb, c, ev_bin, ev_w, ev_ear, chord);
   return (int)cudaGetLastError();
 }
 
-template <int LB, bool kShared>
-int launch_bwd(const int* ids, long long n, int k_steps, bool vec4,
-               const int* recv, const float* chord, const float* g,
-               const float* absorb, int n_tris, int nb, bool rows4,
-               float e0, float* grad, size_t smem, int sms, cudaStream_t s) {
-  auto kernel = replay_bwd_kernel<LB, kShared>;
+// A backward kernel on as many blocks as stay resident, fewer where the
+// rays do not fill them (each shared-memory block zeroes and flushes the
+// whole table).
+template <typename Kernel, typename... Args>
+int launch_resident(Kernel kernel, long long n, size_t smem, int sms,
+                    cudaStream_t s, Args... args) {
   cudaError_t err = cudaSuccess;
   if (smem > 47 * 1024)
     err = cudaFuncSetAttribute(
@@ -463,14 +682,27 @@ int launch_bwd(const int* ids, long long n, int k_steps, bool vec4,
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
                                                         kBwdThreads, smem);
   if (err != cudaSuccess) return (int)err;
-  // As many blocks as stay resident, fewer where the rays do not fill them
-  // (each shared-memory block zeroes and flushes the whole table).
   const long long want = (n + kBwdThreads - 1) / kBwdThreads;
   const long long resident = (long long)sms * (per_sm > 0 ? per_sm : 1);
   kernel<<<(unsigned)(want < resident ? want : resident), kBwdThreads, smem,
-           s>>>(ids, n, k_steps, vec4, recv, chord, g, absorb, n_tris, nb,
-                rows4, e0, grad);
+           s>>>(args...);
   return (int)cudaGetLastError();
+}
+
+template <int LB, bool kShared, bool kPose>
+int launch_bwd(const int* ids, long long n, int k_steps, bool vec4,
+               const int* recv, const float* chord, const float* g,
+               const float* absorb, int n_tris, int nb, bool rows4,
+               float e0, float* grad, const Pose& pose, size_t smem, int sms,
+               cudaStream_t s) {
+  if constexpr (kPose)
+    return launch_resident(replay_pose_bwd_kernel<LB, kShared>, n, smem, sms,
+                           s, ids, n, k_steps, vec4, recv, chord, g, absorb,
+                           n_tris, nb, rows4, e0, grad, pose);
+  else
+    return launch_resident(replay_bwd_kernel<LB, kShared>, n, smem, sms, s,
+                           ids, n, k_steps, vec4, recv, chord, g, absorb,
+                           n_tris, nb, rows4, e0, grad);
 }
 
 bool aligned16(const void* p) {
@@ -479,6 +711,8 @@ bool aligned16(const void* p) {
 
 }  // namespace
 
+// ``tan`` null: the absorption kernel; else the pose kernel, which writes
+// each deposit's 6 tangents there.
 extern "C" int ar2_replay(const int* ids, long long n, int k_steps,
                           const int* recv, const float* dirs,
                           const float* scal, const float* plane_n,
@@ -486,37 +720,48 @@ extern "C" int ar2_replay(const int* ids, long long n, int k_steps,
                           const float* absorb, int n_tris, int n_bands,
                           float e0, float bin_rate, float eps, float t_min,
                           float r2, float* ev_bin, float* ev_w, int* ev_ear,
-                          float* chord, void* stream) {
+                          float* chord, float* tan, void* stream) {
   if (n < 0 || k_steps < 1 || n_tris < 1 || n_bands < 1 || n_bands > 8)
     return (int)cudaErrorInvalidValue;
   if (n == 0) return (int)cudaSuccess;
   const bool vec4 = k_steps % 4 == 0 && aligned16(ids);
   const Consts c{e0, bin_rate, eps, t_min, r2, n_tris};
   cudaStream_t s = (cudaStream_t)stream;
-  if (n_bands == 1)
-    return launch_fwd<1>(ids, n, k_steps, vec4, recv, dirs, scal, plane_n,
-                         plane_d, normal, absorb, n_bands, c, ev_bin, ev_w,
-                         ev_ear, chord, s);
-  if (n_bands <= 4)
-    return launch_fwd<4>(ids, n, k_steps, vec4, recv, dirs, scal, plane_n,
-                         plane_d, normal, absorb, n_bands, c, ev_bin, ev_w,
-                         ev_ear, chord, s);
-  return launch_fwd<8>(ids, n, k_steps, vec4, recv, dirs, scal, plane_n,
-                       plane_d, normal, absorb, n_bands, c, ev_bin, ev_w,
-                       ev_ear, chord, s);
+#define AR2_REPLAY(LB)                                                       \
+  (tan != nullptr                                                            \
+       ? launch_fwd<LB, true>(ids, n, k_steps, vec4, recv, dirs, scal,       \
+                              plane_n, plane_d, normal, absorb, n_bands, c,  \
+                              ev_bin, ev_w, ev_ear, chord, tan, s)           \
+       : launch_fwd<LB, false>(ids, n, k_steps, vec4, recv, dirs, scal,      \
+                               plane_n, plane_d, normal, absorb, n_bands, c, \
+                               ev_bin, ev_w, ev_ear, chord, nullptr, s))
+  if (n_bands == 1) return AR2_REPLAY(1);
+  if (n_bands <= 4) return AR2_REPLAY(4);
+  return AR2_REPLAY(8);
+#undef AR2_REPLAY
 }
 
+// ``tan`` null: the absorption kernel's backward into ``grad``; else the
+// pose kernel's, which also sums the emitter's gradient into ``grad_e``
+// [3] from ``g_bin``, ``ev_w`` and ``tan``, and skips the table where
+// ``grad`` is null.
 extern "C" int ar2_replay_bwd(const int* ids, long long n, int k_steps,
                               const int* recv, const float* chord,
                               const float* g, const float* absorb,
                               int n_tris, int n_bands, float e0,
-                              float* grad, void* stream) {
+                              float* grad, const float* g_bin,
+                              const float* ev_w, const float* tan,
+                              float* grad_e, void* stream) {
+  const bool pose = tan != nullptr;
   if (n < 0 || k_steps < 1 || k_steps > kChunk * kMaxChunks || n_tris < 1
-      || n_bands < 1 || n_bands > 8)
+      || n_bands < 1 || n_bands > 8 || (!pose && grad == nullptr))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   const size_t entries = (size_t)n_tris * n_bands;
-  cudaError_t err = cudaMemsetAsync(grad, 0, entries * sizeof(float), s);
+  cudaError_t err = cudaSuccess;
+  if (pose) err = cudaMemsetAsync(grad_e, 0, 3 * sizeof(float), s);
+  if (err == cudaSuccess && grad != nullptr)
+    err = cudaMemsetAsync(grad, 0, entries * sizeof(float), s);
   if (err != cudaSuccess || n == 0) return (int)err;
   int device = 0, sms = 0, smem_max = 0;
   err = cudaGetDevice(&device);
@@ -529,19 +774,27 @@ extern "C" int ar2_replay_bwd(const int* ids, long long n, int k_steps,
   if (err != cudaSuccess) return (int)err;
   const bool vec4 = k_steps % 4 == 0 && aligned16(ids);
   const size_t smem = entries * sizeof(float);
-  const bool shared = smem <= (size_t)smem_max;
+  // The pose kernel's block sums of the emitter's gradient take 3 floats of
+  // static shared memory beside the table.
+  const bool shared =
+      grad != nullptr
+      && smem + (pose ? 3 * sizeof(float) : 0) <= (size_t)smem_max;
   // A 4- or 8-band row in device memory takes float4 reductions when
   // aligned, any other row scalar atomics.
-  const bool rows4 = aligned16(grad) && (n_bands == 4 || n_bands == 8);
-#define AR2_REPLAY_BWD(LB)                                                   \
-  (shared ? launch_bwd<LB, true>(ids, n, k_steps, vec4, recv, chord, g,     \
-                                 absorb, n_tris, n_bands, rows4, e0, grad, \
-                                 smem, sms, s)                             \
-          : launch_bwd<LB, false>(ids, n, k_steps, vec4, recv, chord, g,    \
-                                  absorb, n_tris, n_bands, rows4, e0, grad, \
-                                  0, sms, s))
-  if (n_bands == 1) return AR2_REPLAY_BWD(1);
-  if (n_bands <= 4) return AR2_REPLAY_BWD(4);
-  return AR2_REPLAY_BWD(8);
+  const bool rows4 = grad != nullptr && aligned16(grad)
+                     && (n_bands == 4 || n_bands == 8);
+  const Pose p{g_bin, ev_w, tan, grad_e};
+#define AR2_REPLAY_BWD(LB, POSE)                                              \
+  (shared ? launch_bwd<LB, true, POSE>(ids, n, k_steps, vec4, recv, chord, g, \
+                                       absorb, n_tris, n_bands, rows4, e0,    \
+                                       grad, p, smem, sms, s)                 \
+          : launch_bwd<LB, false, POSE>(ids, n, k_steps, vec4, recv, chord,   \
+                                        g, absorb, n_tris, n_bands, rows4,    \
+                                        e0, grad, p, 0, sms, s))
+  if (n_bands == 1)
+    return pose ? AR2_REPLAY_BWD(1, true) : AR2_REPLAY_BWD(1, false);
+  if (n_bands <= 4)
+    return pose ? AR2_REPLAY_BWD(4, true) : AR2_REPLAY_BWD(4, false);
+  return pose ? AR2_REPLAY_BWD(8, true) : AR2_REPLAY_BWD(8, false);
 #undef AR2_REPLAY_BWD
 }

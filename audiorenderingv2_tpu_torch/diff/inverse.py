@@ -97,19 +97,24 @@ def ir_loss(pred: torch.Tensor, target: torch.Tensor, kind: str = "l2",
     raise ValueError(kind)
 
 
-def _recording_counters(paths) -> dict:
+def _recording_counters(paths, pose: bool) -> dict:
     """The counters of one recording while a profiler records, else {}:
     ``replay_deposits``, the rays that deposit, and ``replay_steps``, the
     recorded steps the replay walks (each depositing ray's up to its
     ``recv_step``: every one left a surface), both summed over the
-    receivers' path sets. ``recv_step`` comes to the host in one copy, so
-    no kernel is launched."""
+    receivers' path sets; ``replay_receivers``, the path sets recorded (one
+    a receiver); ``replay_pose``, 1 where the replay is the pose pair,
+    which carries the emitter's tangents, else 0. ``recv_step`` comes to
+    the host in one copy, so no kernel is launched."""
     with profiling.collect() as counters:
         if profiling.counting():
             recv = np.concatenate([r.cpu().numpy() for _, r in paths])
             dep = recv[recv >= 0].astype(np.int64)
             profiling.count("replay_deposits", lambda: dep.size, once=True)
             profiling.count("replay_steps", lambda: dep.sum(), once=True)
+            profiling.count("replay_receivers", lambda: len(paths),
+                            once=True)
+            profiling.count("replay_pose", lambda: int(pose), once=True)
     return counters.read()
 
 
@@ -211,9 +216,12 @@ def fit_scene_parameters(
     host); the callback runs after it. While a profiler records, each
     recording of the replay method also writes a ``fit_record`` event
     (``utils.logging``) with its step and its counters:
-    ``replay_deposits`` (the rays that deposit) and ``replay_steps`` (the
-    recorded steps up to each depositing ray's ``recv_step``). Untraced,
-    nothing is counted and no event is written.
+    ``replay_deposits`` (the rays that deposit), ``replay_steps`` (the
+    recorded steps up to each depositing ray's ``recv_step``), both over
+    every receiver, ``replay_receivers`` (the path sets recorded, one a
+    receiver) and ``replay_pose`` (1 where the emitter is fitted, so the
+    replay is the pose pair, which carries the emitter's tangents).
+    Untraced, nothing is counted and no event is written.
     """
     if method not in ("full", "replay"):
         raise ValueError(f"unknown method {method!r}")
@@ -300,7 +308,7 @@ def fit_scene_parameters(
             if use_replay and (paths is None or i % refresh == 0):
                 with span("ar2.fit.record"):
                     paths = record(theta)
-                counted = _recording_counters(paths)
+                counted = _recording_counters(paths, fit_emitter)
                 if counted:
                     get_logger().event("fit_record", step=i, **counted)
             optimizer.zero_grad(set_to_none=True)

@@ -13,9 +13,11 @@ products of (1 - absorption), the receiver-sphere crossing. So:
    and the step at which the receiver was reached: int32 [N, K] and [N].
 2. ``replay_events`` walks the recorded paths again: per bounce one gather
    and one plane intersection, no search. Out-of-place PyTorch ops that
-   autograd differentiates where a pose or a triangle row needs a
-   gradient; one kernel pair (forward, and a backward into the absorption
-   table) where only absorption can.
+   autograd differentiates where the receiver, the directions or a
+   triangle row needs a gradient; one kernel pair (forward, and a backward
+   into the absorption table) where only absorption can, and where the
+   emitter can too, the pose variant of that pair, which carries each
+   ray's forward-mode tangents against the emitter.
 3. ``render_ir_replay`` bins the replayed events into the IR (soft or hard);
    any loss on it back-propagates through K3-bwd and the replay.
 
@@ -31,8 +33,14 @@ the JAX package writes the step out again), the replay's step (gather, no
 search: ``ops/replay_cuda.py:chain_events``, and its kernel
 ``csrc/replay.cu:advance``, whose plain version is that chain), and the
 trace kernels' tail (``csrc/trace_common.cuh:finish_bounce`` with its plain
-version ``ops/raytrace_cuda.py:_bounce``). A change to the physics lands in
-all four; the equality tests of ``tests/test_torch_replay.py`` are the
+version ``ops/raytrace_cuda.py:_bounce``). The replay's step also carries
+the emitter's tangents, the derivative of that physics: the ray line
+mirrored at each plane and the receiver's entry (``chain_events
+(tangents=True)``'s ``_surface_tangent`` and ``_entry_tangent``, the
+kernel's ``surface_tangent`` and ``entry_tangent``), so a change to the
+reflection or the receiver's entry lands in those as well. A change to the
+physics lands in all four; the equality tests of
+``tests/test_torch_replay.py`` and ``tests/test_torch_fit_pose.py`` are the
 tripwire.
 """
 from __future__ import annotations
@@ -158,18 +166,20 @@ def replay_events(sc: SceneArrays, tri_ids: torch.Tensor,
     """Walk recorded paths again, differentiably; returns the event slots
     (ev_bin_f [N], ev_w [N, n_bands], ev_ear int32 [N]) as the tracers do.
 
-    Two paths, chosen from what the inputs require. Where a pose
-    (``dirs``, emitter, receiver centre, yaw) or a triangle row
-    (``plane_n``, ``plane_d``, ``normal``) requires a gradient, the eager
-    chain (``ops/replay_cuda.chain_events``, span ``ar2.replay.chain``):
-    per step one gather of the known triangle's rows and one plane
+    Three paths, chosen from what the inputs require. Where the receiver
+    (centre or yaw), the directions or a triangle row (``plane_n``,
+    ``plane_d``, ``normal``) requires a gradient, the eager chain
+    (``ops/replay_cuda.chain_events``, span ``ar2.replay.chain``): per
+    step one gather of the known triangle's rows and one plane
     intersection, no search, O(N * K) out-of-place ops that autograd
-    differentiates in every input. Otherwise only the absorption table can
-    carry a gradient, and the replay is one kernel pair
-    (``ops/replay_cuda.replay_absorption``, span ``ar2.replay.kernel``):
-    the forward walks each depositing ray's path in registers, the
-    backward reduces the table's gradient. The same events either way. The
-    energy threshold ends no path here: the recorded topology is the
+    differentiates in every input. Otherwise the replay is one kernel pair
+    under the span ``ar2.replay.kernel``: where the emitter requires a
+    gradient, the pose pair (``ops/replay_cuda.replay_pose_pair``), whose
+    forward carries each ray's tangents against the emitter in registers
+    and gives ``ev_bin`` a gradient, and whose backward reduces the
+    emitter's gradient beside the table's; else the absorption pair
+    (``ops/replay_cuda.replay_absorption``). The same events every way.
+    The energy threshold ends no path here: the recorded topology is the
     forward run that is being linearised.
     """
     dev = sc.device
@@ -177,9 +187,8 @@ def replay_events(sc: SceneArrays, tri_ids: torch.Tensor,
     n_total = n_total_rays if n_total_rays is not None else n
     e0 = params.base_power / (n_total * constants.SPHERE_VOLUME)
     bin_rate = params.sample_rate / constants.SPEED_OF_SOUND
-    fixed = not any(map(_needs_grad, (dirs, emitter, rec_center,
-                                      receiver_yaw_deg, sc.plane_n,
-                                      sc.plane_d, sc.normal)))
+    fixed = not any(map(_needs_grad, (dirs, rec_center, receiver_yaw_deg,
+                                      sc.plane_n, sc.plane_d, sc.normal)))
     with profiling.span("ar2.replay.kernel" if fixed else
                         "ar2.replay.chain"):
         emitter, rec_center = _as_vec(emitter, dev), _as_vec(rec_center, dev)
@@ -187,6 +196,11 @@ def replay_events(sc: SceneArrays, tri_ids: torch.Tensor,
         sin_y, cos_y = torch.sin(yaw_rad), torch.cos(yaw_rad)
         dirn = dirs.to(device=dev, dtype=torch.float32)
         absorb = band_absorption(sc, params.n_bands)
+        if fixed and emitter.requires_grad:
+            receiver = torch.cat([rec_center, sin_y[None], cos_y[None]])
+            return replay_cuda.replay_pose_pair(
+                absorb, emitter, tri_ids, recv_step, dirn, receiver,
+                sc.plane_n, sc.plane_d, sc.normal, e0, bin_rate)
         if fixed:
             scal = torch.cat([emitter, rec_center, sin_y[None], cos_y[None]])
             return replay_cuda.replay_absorption(

@@ -82,12 +82,14 @@ _SIGNATURES = {
     "ar2_compaction_keys": (_P, _LL, _I, _I, _I, _P, _I, _P, _P),
     # tri_ids, n, k_steps, recv_step, dirs, scal, plane_n, plane_d, normal,
     # absorb, n_tris, n_bands, e0, bin_rate, eps, t_min, r2, ev_bin, ev_w,
-    # ev_ear, chord, stream
+    # ev_ear, chord, tan (null: no tangents), stream
     "ar2_replay": (_P, _LL, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _F,
-                   _F, _F, _F, _P, _P, _P, _P, _P),
+                   _F, _F, _F, _P, _P, _P, _P, _P, _P),
     # tri_ids, n, k_steps, recv_step, chord, g, absorb, n_tris, n_bands, e0,
-    # grad, stream
-    "ar2_replay_bwd": (_P, _LL, _I, _P, _P, _P, _P, _I, _I, _F, _P, _P),
+    # grad (null with tan: no table gradient), g_bin, ev_w, tan (null: no
+    # emitter gradient), grad_e, stream
+    "ar2_replay_bwd": (_P, _LL, _I, _P, _P, _P, _P, _I, _I, _F, _P, _P, _P,
+                       _P, _P, _P),
     # spec, n_freqs, sample_rate, edges (host doubles), n_edges, transition,
     # out, stream
     "ar2_band_split": (_P, _LL, _D, ctypes.POINTER(_D), _I, _D, _P, _P),

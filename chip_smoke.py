@@ -289,7 +289,7 @@ Phases, in order; any failure raises and the script exits non-zero:
    table's gradient) on recorded office paths, 1,000,064 rays x 100
    bounces, at 1, 4 and 8 bands: replay_events with only the table
    requiring a gradient (the pair, one launch each) against the same call
-   with an emitter that requires one (the eager chain): ev_bin and ev_ear
+   with a receiver that requires one (the eager chain): ev_bin and ev_ear
    equal, ev_w within 1e-6 relative; the table's gradient of a weighted
    sum of ev_w from both against the float64 plain backward on the card,
    within REPLAY_GRAD_RTOL of each entry plus REPLAY_GRAD_ATOL of the
@@ -318,6 +318,26 @@ Phases, in order; any failure raises and the script exits non-zero:
    a banded file convolution and a banded live block. The kernels line's
    launches are the banded export's in phase 12 (one, asserted there); the
    demos' launches are held to the plain product under LaunchRecorder.
+28. the pose pair (csrc/replay.cu's ar2_replay / ar2_replay_bwd given tan:
+   the replay that carries each ray's tangents against the emitter) on
+   recorded office paths at 1,000,064 rays x 100 bounces for each of the
+   source localization's three receivers: its events and chord equal to
+   the absorption kernel's and to the plain version's (chain_events with
+   the tangents, on the card) bit for bit, its tangents within
+   POSE_TAN_BAR of the plain version's; the emitter's gradient of a
+   seeded loss on ev_bin and ev_w against a float64 sum of the kernel's
+   own tangents within POSE_GRAD_BAR (relative L2; with and without the
+   table's gradient), the chain's autograd gap beside it, and the table's
+   gradient within phase 26's bar; the device times of the forward and
+   the backward beside the absorption pair's and beside the least bytes'
+   bound (perfbench/replay_pose_bytes.py at 3.35 TB/s); the three
+   receivers through autograd (three launches of each, none of the
+   absorption pair) a call, and their summed device time against the
+   bound of one step's three path sets; and the pose pair's own entry
+   point, 3 steps of fit_scene_parameters(fit_emitter=True,
+   method="replay") over the three receivers, which launch the pose pair
+   once a receiver a step and neither the absorption pair nor the eager
+   chain (the kernels line's replay_pose launches).
 
 Then one JSON line of the kernels: name, route, source, the TPU kernel it
 replaces, "demo_launches" (the launches of its counter in the first runs of
@@ -781,6 +801,7 @@ def _reset_launches() -> None:
 
     rc.launches = rc.posed_launches = rc.init_launches = hc.launches = 0
     rp.launches = rp.bwd_launches = 0
+    rp.pose_launches = rp.pose_bwd_launches = 0
     rc.compaction_keys_launches = 0
     hc.binned_launches = 0
     sc.tile_schedule_launches = sc.trace_round_sched_launches = 0
@@ -803,6 +824,8 @@ def _read_launches() -> dict:
 
     return {"trace_round": rc.launches,
             "replay": rp.launches, "replay_bwd": rp.bwd_launches,
+            "replay_pose": rp.pose_launches,
+            "replay_pose_bwd": rp.pose_bwd_launches,
             "trace_round_posed": rc.posed_launches,
             "init_state": rc.init_launches, "histogram": hc.launches,
             "compaction_keys": rc.compaction_keys_launches,
@@ -5603,9 +5626,9 @@ def phase_replay() -> dict:
 
         def run(fixed: bool):
             a = a0.clone().requires_grad_(True)
-            em = emitter.clone().requires_grad_(not fixed)
+            rec = receiver.clone().requires_grad_(not fixed)
             ev = replay.replay_events(scc._replace(absorption=a), ids, recv,
-                                      d, em, receiver, 0.0, p_nb)
+                                      d, emitter, rec, 0.0, p_nb)
             (ev[1] * w).sum().backward()
             return ev, a.grad
 
@@ -5687,6 +5710,243 @@ def phase_replay() -> dict:
         out[f"bands{nb}"] = row
     log(f"replay phase {time.perf_counter() - t0:.1f} s")
     return out
+
+
+# The source localization's receivers (perfbench/configs/office_locate.json).
+LOCATE_RECEIVERS = (OFFICE_RECEIVER, (-6.0, 4.0, -5.0), (5.0, 4.0, 6.0))
+# The pose pair's emitter gradient against its plain version's on the card,
+# summed in float64 from the kernel's own tangents: the kernel adds some
+# 10^5 float32 terms a receiver by thread, warp, block and grid, so the two
+# sums part by rounding, as a relative L2 gap of the [3] gradient. The
+# tangents themselves against the plain version's (the same arithmetic in
+# the same order): TAN_BAR of each entry's magnitude plus of the column's
+# largest, since the card may contract nothing but PyTorch's own kernels
+# may order a reduction otherwise.
+POSE_GRAD_BAR = 1e-4
+POSE_TAN_BAR = 1e-5
+
+
+def _pose_events(ids, recv, d, scal, scc, a0, e0, bin_rate, what: str):
+    """The pose kernel's events against the plain version's on the card:
+    the events and chord equal to the absorption kernel's bit for bit, and
+    the tangents within the bar. Returns (the kernel's outputs, the
+    tangents' largest gap)."""
+    from audiorenderingv2_tpu_torch.ops import replay_cuda as rpc
+
+    args = (ids, recv, d, scal, scc.plane_n, scc.plane_d, scc.normal, a0,
+            e0, bin_rate)
+    got = rpc.replay(*args, pose=True)
+    plain = rpc.replay_plain(*args, tangents=True)
+    absorb = rpc.replay(*args)
+    for k, name in enumerate(("ev_bin", "ev_w", "ev_ear", "chord")):
+        assert torch.equal(got[k], absorb[k]), (
+            f"{what}: the pose kernel's {name} differs from the absorption "
+            f"kernel's")
+        assert torch.equal(got[k], plain[k]), (
+            f"{what}: the pose kernel's {name} differs from its plain "
+            f"version's")
+    dep = got[3] != 0
+    tk, tp = got[4][dep].double(), plain[4][dep].double()
+    top = tp.abs().amax(0)
+    gap = float(((tk - tp).abs() / (tp.abs() + top)).max())
+    assert gap <= POSE_TAN_BAR, f"{what}: tangents {gap:.2e} off the plain"
+    assert bool(torch.isfinite(tk).all()) and not bool(got[4][~dep].any())
+    return got, gap
+
+
+def _pose_fit(scene, scc, d, params, per) -> dict:
+    """The pose pair on its own entry point: 3 steps of
+    ``fit_scene_parameters(fit_emitter=True, method="replay")`` over the
+    source localization's three receivers at full width, to the replayed
+    IRs of the true emitter's recorded paths, from 0.64 m off it; asserts
+    that each step launches the pose pair once a receiver and neither the
+    absorption pair nor the eager chain. Returns the fit's launches."""
+    from audiorenderingv2_tpu_torch.diff import (fit_scene_parameters,
+                                                 render_ir_replay)
+    from audiorenderingv2_tpu_torch.ops import replay_cuda as rpc
+
+    with torch.no_grad():
+        target = torch.stack([
+            render_ir_replay(scc, ids, recv, d, EMITTER, rec, 0.0, params)
+            for _, ids, recv, rec, _ in per])
+    steps, chain = 3, []
+    chain_events = rpc.chain_events
+
+    def spy(*a, **k):
+        chain.append(1)
+        return chain_events(*a, **k)
+
+    start = np.asarray(EMITTER, np.float32) + np.float32([0.4, -0.3, 0.4])
+    _reset_launches()
+    rpc.chain_events = spy
+    try:
+        t0 = time.perf_counter()
+        res = fit_scene_parameters(
+            scene, target, params, steps=steps, learning_rate=0.03,
+            fit_emitter=True, init_emitter=start,
+            receiver_pos=np.asarray(LOCATE_RECEIVERS, np.float32),
+            init_absorption=0.5, smooth_radius=8, method="replay",
+            replay_refresh=25, device="cuda", directions=d)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        rpc.chain_events = chain_events
+    fl = _read_launches()
+    log(f"replay_pose, fit_scene_parameters(fit_emitter=True, "
+        f"method='replay') over the three receivers, {REPLAY_RAYS} rays: "
+        f"{steps} steps in {wall:.2f} s, losses "
+        f"{[float(f'{x:.6e}') for x in res.losses]}, emitter from "
+        f"{start.tolist()} to {res.params['emitter'].tolist()}; pose pair "
+        f"launches {fl['replay_pose']} forward, {fl['replay_pose_bwd']} "
+        f"backward; the absorption pair {fl['replay']}, "
+        f"{fl['replay_bwd']}; the chain {len(chain)} calls")
+    n = steps * len(LOCATE_RECEIVERS)
+    assert fl["replay_pose"] == fl["replay_pose_bwd"] == n, fl
+    assert fl["replay"] == fl["replay_bwd"] == 0 and not chain, (fl, chain)
+    assert len(res.losses) == steps and np.isfinite(res.losses).all()
+    return {"replay_pose": fl["replay_pose"],
+            "replay_pose_bwd": fl["replay_pose_bwd"], "steps": steps}
+
+
+def phase_replay_pose() -> dict:
+    """Phase 28: the pose pair (the replay that carries the emitter's
+    tangents) against its plain version on recorded office paths at
+    1,000,064 rays x 100 bounces, for one receiver and for the source
+    localization's three; returns its JSON entry's numbers."""
+    from audiorenderingv2_tpu_torch import constants
+    from audiorenderingv2_tpu_torch.core import tracer
+    from audiorenderingv2_tpu_torch.diff import replay
+    from audiorenderingv2_tpu_torch.ops import replay_cuda as rpc
+    from perfbench import replay_bytes, replay_pose_bytes
+
+    t0 = time.perf_counter()
+    dev = torch.device("cuda")
+    params = _grad_params(MAX_BOUNCES)
+    scene, scc, rows, boxes = _office_clustered()
+    d = torch.from_numpy(unit_dirs(REPLAY_RAYS, 28)).to(dev)
+    e0 = params.base_power / (REPLAY_RAYS * constants.SPHERE_VOLUME)
+    bin_rate = params.sample_rate / constants.SPEED_OF_SOUND
+    emitter = torch.tensor(EMITTER, device=dev)
+    a0 = scc.absorption[:, None].contiguous()
+    n_tris = a0.shape[0]
+    gen = torch.Generator(device=dev)
+    per, fwd_ms, bwd_ms, abs_ms = [], [], [], []
+    counts = {"deposits": 0, "steps": 0}
+    for r, rec in enumerate(LOCATE_RECEIVERS):
+        what = f"replay_pose, office, receiver {rec}"
+        ids, recv = replay.record_paths_kernels(
+            scc, d, EMITTER, rec, 0.0, params,
+            tracer.TracerOptions(schedule=True), rows=rows, boxes=boxes)
+        receiver = torch.tensor(rec, device=dev)
+        scal = torch.cat([emitter, receiver, torch.zeros(1, device=dev),
+                          torch.ones(1, device=dev)])
+        got, tan_gap = _pose_events(ids, recv, d, scal, scc, a0, e0,
+                                    bin_rate, what)
+        dep = recv[recv >= 0].long()
+        counts["deposits"] += int(dep.numel())
+        counts["steps"] += int(dep.sum())
+        gen.manual_seed(28 + r)
+        g_bin = torch.randn((REPLAY_RAYS,), device=dev, generator=gen)
+        g_w = torch.rand((REPLAY_RAYS, 1), device=dev, generator=gen) + 0.5
+        ev_w, chord, tan = got[1], got[3], got[4]
+        grad_a, grad_e = rpc.replay_bwd(ids, recv, chord, g_w, a0, e0,
+                                        pose=(g_bin, ev_w, tan))
+        ref_a, ref_e = rpc.replay_bwd_plain(
+            ids, recv, chord.double(), g_w.double(), a0.double(), e0,
+            pose=(g_bin.double(), ev_w.double(), tan.double()))
+        e_gap = float((grad_e.double() - ref_e).norm() / ref_e.norm())
+        assert e_gap <= POSE_GRAD_BAR, f"{what}: emitter gradient {e_gap:.2e}"
+        top = float(ref_a.abs().max())
+        a_gap = float((grad_a.double() - ref_a).abs().max() / top)
+        assert a_gap <= REPLAY_GRAD_ATOL + REPLAY_GRAD_RTOL, (
+            f"{what}: table gradient {a_gap:.2e} of the largest")
+        only_e = rpc.replay_bwd(ids, recv, chord, g_w, a0, e0,
+                                pose=(g_bin, ev_w, tan), table=False)
+        assert only_e[0] is None
+        e_only_gap = float((only_e[1].double() - ref_e).norm() / ref_e.norm())
+        assert e_only_gap <= POSE_GRAD_BAR, what
+        # The chain's autograd on the card: the same emitter gradient.
+        em = emitter.clone().requires_grad_(True)
+        ev_c = rpc.chain_events(scc.plane_n, scc.plane_d, scc.normal, a0, ids,
+                                recv, d, em, receiver, scal[6], scal[7], e0,
+                                bin_rate)
+        ((ev_c[0] * g_bin).sum() + (ev_c[1] * g_w).sum()).backward()
+        c_gap = float((em.grad.double() - ref_e).norm() / ref_e.norm())
+        args = (ids, recv, d, scal, scc.plane_n, scc.plane_d, scc.normal, a0,
+                e0, bin_rate)
+        f_ms = device_ms(lambda: rpc.replay(*args, pose=True))
+        b_ms = device_ms(lambda: rpc.replay_bwd(
+            ids, recv, chord, g_w, a0, e0, pose=(g_bin, ev_w, tan)))
+        ch = rpc.replay(*args)[3]
+        af_ms = device_ms(lambda: rpc.replay(*args))
+        ab_ms = device_ms(lambda: rpc.replay_bwd(ids, recv, ch, g_w, a0, e0))
+        fwd_ms.append(f_ms)
+        bwd_ms.append(b_ms)
+        abs_ms.append(af_ms + ab_ms)
+        bound = replay_pose_bytes.pair_bound_s(1, n_tris, int(dep.numel()),
+                                               int(dep.sum())) * 1e3
+        row = {"receiver": list(rec), "depositing": int(dep.numel()),
+               "mean_recv_step": float(dep.double().mean()),
+               "tan_max_gap": tan_gap, "grad_e_vs_f64": e_gap,
+               "grad_e_only_vs_f64": e_only_gap, "grad_e_chain_vs_f64": c_gap,
+               "grad_a_vs_f64": a_gap, "fwd_device_ms": f_ms,
+               "bwd_device_ms": b_ms, "absorption_pair_device_ms":
+               af_ms + ab_ms, "pair_bound_ms": bound,
+               "grad_e": grad_e.tolist()}
+        log(f"{what}: {row['depositing']} rays deposit after "
+            f"{row['mean_recv_step']:.1f} steps; events and chord equal to "
+            f"the absorption kernel's and the plain version's bit for bit, "
+            f"tangents within {tan_gap:.2e} (bar {POSE_TAN_BAR}); emitter "
+            f"gradient {grad_e.tolist()} against float64 {e_gap:.2e} (bar "
+            f"{POSE_GRAD_BAR}; without the table {e_only_gap:.2e}; the "
+            f"chain's autograd {c_gap:.2e}), table {a_gap:.2e}; device "
+            f"forward {f_ms:.4f} ms, backward {b_ms:.4f} ms (the absorption "
+            f"pair {af_ms + ab_ms:.4f}), bound {bound:.4f} ms "
+            f"(replay_pose_bytes, {(f_ms + b_ms) / bound:.1f}x)")
+        per.append((row, ids, recv, receiver, scal))
+    # The three receivers through autograd, as a fit step runs them.
+    w = torch.rand((REPLAY_RAYS,), device=dev, generator=gen)
+
+    def three():
+        a = a0.clone().requires_grad_(True)
+        em = emitter.clone().requires_grad_(True)
+        loss = 0.0
+        for _, ids, recv, _, scal in per:
+            ev = rpc.replay_pose_pair(a, em, ids, recv, d, scal[3:], scc.plane_n,
+                                      scc.plane_d, scc.normal, e0, bin_rate)
+            loss = loss + (ev[0] * w).sum() + (ev[1][:, 0] * w).sum()
+        loss.backward()
+        return em.grad
+
+    _reset_launches()
+    three()
+    torch.cuda.synchronize()
+    launches = _read_launches()
+    assert launches["replay_pose"] == launches["replay_pose_bwd"] == 3, \
+        launches
+    assert launches["replay"] == launches["replay_bwd"] == 0, launches
+    three_ms = median_ms(three, 5)
+    fit = _pose_fit(scene, scc, d, params, per)
+    bound3 = replay_pose_bytes.pair_bound_s(1, n_tris, counts["deposits"],
+                                            counts["steps"]) * 1e3
+    abs_bound3 = replay_bytes.pair_bound_s(1, n_tris, counts["deposits"],
+                                           counts["steps"]) * 1e3
+    dev_ms = sum(fwd_ms) + sum(bwd_ms)
+    log(f"replay_pose, three receivers: device {dev_ms:.4f} ms (forward "
+        f"{sum(fwd_ms):.4f}, backward {sum(bwd_ms):.4f}; the absorption "
+        f"pair {sum(abs_ms):.4f}), bound {bound3:.4f} ms (the absorption "
+        f"pair's {abs_bound3:.4f}), {100 * bound3 / dev_ms:.2f}% of it; "
+        f"through autograd {three_ms:.3f} ms; phase "
+        f"{time.perf_counter() - t0:.1f} s")
+    first = per[0][0]
+    return {"fit": fit, "fwd_device_ms": first["fwd_device_ms"],
+            "bwd_device_ms": first["bwd_device_ms"],
+            "bound_ms": first["pair_bound_ms"], "bound_by": "bytes",
+            "plain_ms": None, "library_ms": None,
+            "receivers": [p[0] for p in per],
+            "three": {"device_ms": dev_ms, "bound_ms": bound3,
+                      "roofline_pct": 100 * bound3 / dev_ms,
+                      "autograd_ms": three_ms, **counts}}
 
 
 # The octave office's crossovers (perfbench/configs/office_octave.json).
@@ -5915,6 +6175,7 @@ def main() -> int:
     keys = phase_keys()
     replay_k = phase_replay()
     band = phase_band_split()
+    replay_pose_k = phase_replay_pose()
 
     def demo_launches(counter: str | None) -> int:
         """The launches of ``counter`` in the first runs of the demos'
@@ -6031,6 +6292,13 @@ def main() -> int:
          "launches": fit_launches["replay"],
          "bwd_launches": fit_launches["replay_bwd"],
          **replay_k.pop("bands1"), **replay_k},
+        {"name": "replay_pose", "route": "cuda",
+         "demo_launches": demo_launches("replay_pose"),
+         "source": "audiorenderingv2_tpu_torch/csrc/replay.cu",
+         "fuses": "audiorenderingv2_tpu/diff/replay.py:223",
+         "launches": replay_pose_k["fit"]["replay_pose"],
+         "bwd_launches": replay_pose_k["fit"]["replay_pose_bwd"],
+         **replay_pose_k},
         {"name": "band_split", "route": "cuda",
          "demo_launches": demo_launches("band_split"),
          "source": "audiorenderingv2_tpu_torch/csrc/band_split.cu",

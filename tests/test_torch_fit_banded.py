@@ -318,7 +318,8 @@ def _fit_traced(tmp_path, traced: bool):
 def test_fit_record_counts_the_replays_work(tmp_path):
     """Traced, one ``fit_record`` a recording whose counters are the
     recorded paths': the depositing rays and their steps up to
-    ``recv_step``, and nothing else."""
+    ``recv_step``, one receiver's path set, no pose replay, and nothing
+    else."""
     recs = _fit_traced(tmp_path, traced=True)
     fit = [r for r in recs if r["event"] == "fit_record"]
     assert len(fit) == 1 and fit[0]["step"] == 0
@@ -334,7 +335,8 @@ def test_fit_record_counts_the_replays_work(tmp_path):
         sc, dirs.float(), (0.0, 0.0, 0.0), RECEIVER, YAW, params, opts)
     dep = recv[recv >= 0].long()
     assert set(fit[0]) - {"ts", "event", "step"} == {
-        "replay_deposits", "replay_steps"}
+        "replay_deposits", "replay_steps", "replay_receivers", "replay_pose"}
+    assert fit[0]["replay_receivers"] == 1 and fit[0]["replay_pose"] == 0
     assert fit[0]["replay_deposits"] == dep.numel() > 50
     assert fit[0]["replay_steps"] == int(dep.sum())
     # Every step before a deposit left a surface.

@@ -317,6 +317,57 @@ def test_replay_pose_and_geometry_grads():
                                atol=2e-2 * np.linalg.norm(g_j))
 
 
+@pytest.mark.parametrize("table", [False, True])
+def test_replay_pose_pair_emitter_grad_matches_jax(monkeypatch, table):
+    """The emitter alone (``table``: with the absorption table) requiring a
+    gradient takes the pose pair, whose emitter gradient (and table
+    gradient) equals ``jax.grad`` of JAX's replay on the same recorded
+    paths: the emitter at the bar of the chain's test above, the table at
+    the absorption test's rtol 1e-3."""
+    sc, sct, dirs, params, tparams = _setup()
+    d = torch.from_numpy(dirs)
+    tri_mat = (sct.valid > 0).long()
+    ids, recv = t_replay.record_paths_kernels(sct, d, EMITTER, REC, 0.0,
+                                              tparams)
+    a0 = np.array([0.0, 0.3], np.float32)
+    with torch.no_grad():
+        target = t_replay.render_ir_replay(sct, ids, recv, d, EMITTER + 0.05,
+                                           REC, 0.0, tparams)
+    calls = []
+    for name in ("chain_events", "replay_absorption", "replay_pose_pair"):
+        def spy(*a, _fn=getattr(rp, name), _name=name, **k):
+            calls.append(_name)
+            return _fn(*a, **k)
+        monkeypatch.setattr(rp, name, spy)
+    em = torch.tensor(EMITTER, requires_grad=True)
+    a = torch.tensor(a0, requires_grad=table)
+    ir = t_replay.render_ir_replay(sct._replace(absorption=a[tri_mat]), ids,
+                                   recv, d, em, REC, 0.0, tparams)
+    ((t_inverse.smooth_ir(ir, 3) - t_inverse.smooth_ir(target, 3)) ** 2
+     ).sum().mul(1e9).backward()
+    # (On the CPU the pair's plain version runs the chain's ops inside.)
+    assert calls[0] == "replay_pose_pair"
+
+    from audiorenderingv2_tpu.diff import inverse as j_inverse
+    ids_j, recv_j = jnp.asarray(ids.numpy()), jnp.asarray(recv.numpy())
+    j_mat = jnp.asarray(tri_mat.numpy())
+
+    def j_loss(e, aj):
+        ir = j_replay.render_ir_replay(sc._replace(absorption=aj[j_mat]),
+                                       ids_j, recv_j, jnp.asarray(dirs), e,
+                                       jnp.asarray(REC), 0.0, params)
+        return jnp.sum((j_inverse.smooth_ir(ir, 3) - j_inverse.smooth_ir(
+            jnp.asarray(target.numpy()), 3)) ** 2) * 1e9
+
+    g_e, g_a = (np.asarray(x) for x in jax.grad(j_loss, argnums=(0, 1))(
+        jnp.asarray(EMITTER), jnp.asarray(a0)))
+    np.testing.assert_allclose(em.grad.numpy(), g_e, rtol=0,
+                               atol=2e-2 * np.linalg.norm(g_e))
+    if table:
+        np.testing.assert_allclose(a.grad.numpy(), g_a, rtol=1e-3,
+                                   atol=1e-12)
+
+
 def test_replay_rejects_partial_band_tables():
     _, sct, dirs, _, tparams = _setup(n_rays=64)
     bad = sct._replace(absorption=sct.absorption[:, None].expand(-1, 3))
@@ -411,10 +462,11 @@ def test_replay_plain_equals_chain(n_bands, dtype):
                                   "yaw", "dirs", "plane_n", "plane_d",
                                   "normal"])
 def test_replay_dispatch_follows_what_requires_grad(monkeypatch, leaf):
-    """The kernel pair (span ``ar2.replay.kernel``) only where nothing but
-    the absorption table requires a gradient, the chain (span
-    ``ar2.replay.chain``) wherever a pose or a triangle row does; the same
-    events either way."""
+    """The absorption pair (span ``ar2.replay.kernel``) where nothing but
+    the absorption table requires a gradient, the pose pair (the same
+    span) where the emitter does too, the chain (span
+    ``ar2.replay.chain``) wherever the receiver, the yaw, the directions
+    or a triangle row does; the same events every way."""
     _, sct, dirs, _, tparams = _setup(n_rays=256)
     d = torch.from_numpy(dirs)
     ids, recv = t_replay.record_paths_kernels(sct, d, EMITTER, REC, 30.0,
@@ -429,7 +481,7 @@ def test_replay_dispatch_follows_what_requires_grad(monkeypatch, leaf):
         sc = sct._replace(**{leaf: getattr(sct, leaf).clone()
                              .requires_grad_(True)})
     calls = []
-    for name in ("chain_events", "replay_absorption"):
+    for name in ("chain_events", "replay_absorption", "replay_pose_pair"):
         def spy(*a, _fn=getattr(rp, name), _name=name, **k):
             calls.append(_name)
             return _fn(*a, **k)
@@ -439,11 +491,12 @@ def test_replay_dispatch_follows_what_requires_grad(monkeypatch, leaf):
         ev = t_replay.replay_events(sc, ids, recv, args["dirs"],
                                     args["emitter"], args["receiver"],
                                     args["yaw"], tparams)
-    kernel = leaf in (None, "absorption")
+    kernel = leaf in (None, "absorption", "emitter")
+    pair = "replay_pose_pair" if leaf == "emitter" else "replay_absorption"
     # (On the CPU the pair's plain version runs the chain's ops inside.)
-    assert calls[0] == ("replay_absorption" if kernel else "chain_events")
-    assert "replay_absorption" not in calls[1:] and (kernel or calls == [
-        "chain_events"])
+    assert calls[0] == (pair if kernel else "chain_events")
+    assert not {"replay_absorption", "replay_pose_pair"} & set(calls[1:]) \
+        and (kernel or calls == ["chain_events"])
     spans = {e.name for e in prof.events() if e.name.startswith("ar2.")}
     assert spans == {"ar2.replay.kernel" if kernel else "ar2.replay.chain"}
     want = t_replay.replay_events(sct, ids, recv, d, EMITTER, REC, 30.0,
@@ -454,8 +507,10 @@ def test_replay_dispatch_follows_what_requires_grad(monkeypatch, leaf):
 
 def test_render_ir_replay_log_loss_plain_equals_chain():
     """Soft binning and the log loss at test size: the same loss and the
-    same absorption gradient through the pair's plain version as through
-    the chain (an emitter that requires a gradient takes the chain)."""
+    same absorption gradient through the absorption pair's plain version
+    as through the chain (a receiver that requires a gradient takes the
+    chain) and through the pose pair's (an emitter that requires one takes
+    the pose pair)."""
     _, sct, dirs, _, tparams = _setup()
     d = torch.from_numpy(dirs)
     ids, recv = t_replay.record_paths_kernels(sct, d, EMITTER, REC, 30.0,
@@ -466,29 +521,33 @@ def test_render_ir_replay_log_loss_plain_equals_chain():
             sct._replace(absorption=torch.tensor([0.0, 0.4])[tri_mat]), ids,
             recv, d, EMITTER, REC, 30.0, tparams)
     out = []
-    for em in (torch.from_numpy(EMITTER),
-               torch.from_numpy(EMITTER).requires_grad_(True)):
+    for grad_of in (None, "receiver", "emitter"):
+        em = torch.from_numpy(EMITTER).requires_grad_(grad_of == "emitter")
+        rec = torch.from_numpy(REC).requires_grad_(grad_of == "receiver")
         a = torch.tensor([0.0, 0.3], requires_grad=True)
         ir = t_replay.render_ir_replay(sct._replace(absorption=a[tri_mat]),
-                                       ids, recv, d, em, REC, 30.0, tparams)
+                                       ids, recv, d, em, rec, 30.0, tparams)
         loss = t_inverse.ir_loss(ir, target, "log")
         loss.backward()
         out.append((loss.detach(), a.grad))
-    assert torch.equal(out[0][0], out[1][0]) and float(out[0][0]) > 0
-    assert out[0][1][1] != 0
-    torch.testing.assert_close(out[0][1], out[1][1], rtol=1e-5, atol=0)
+    assert float(out[0][0]) > 0 and out[0][1][1] != 0
+    for loss, grad in out[1:]:
+        assert torch.equal(out[0][0], loss)
+        torch.testing.assert_close(out[0][1], grad, rtol=1e-5, atol=0)
 
 
 def test_replay_kernels_are_declared_and_launched():
     """Both C entries are defined in their source, declared in _build's
-    signatures and launched by their wrappers."""
+    signatures and launched by their wrappers. Each also takes the pose
+    pair's buffers (``tan``; the backward's ``g_bin``, ``ev_w``, ``tan``
+    and ``grad_e``), null for the absorption pair."""
     import inspect
 
     from audiorenderingv2_tpu_torch.ops import _build
 
     cu = (_build.CSRC / "replay.cu").read_text()
-    for entry, fn, n_args in (("ar2_replay", rp.replay, 22),
-                              ("ar2_replay_bwd", rp.replay_bwd, 12)):
+    for entry, fn, n_args in (("ar2_replay", rp.replay, 23),
+                              ("ar2_replay_bwd", rp.replay_bwd, 16)):
         assert f'extern "C" int {entry}(' in cu
         assert len(_build._SIGNATURES[entry]) == n_args
         assert f".{entry}(" in inspect.getsource(fn)
